@@ -48,6 +48,12 @@ interpret_test = pytest.mark.skipif(
            "parity tests cover these kernels on silicon")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA "
+        "kernels); skipped without one")
+
+
 @pytest.fixture
 def artifact():
     """Env-gated visual artifact dump, restoring the reference tests'
