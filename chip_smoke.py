@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, each a hard failure (non-zero exit, no result line) when it fails:
+Phases, each a hard failure (non-zero exit, no result line) when it fails.
+The SPGP occupancy map's path:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. the build: nvcc compiles ``erl_gaussian_process_tpu_torch/csrc`` into one
@@ -20,6 +21,23 @@ Phases, each a hard failure (non-zero exit, no result line) when it fails:
    least one gram launch;
 6. the drift check: the collected datasets replayed through the port's
    plain float64 path, posterior drift on the fixed query grid <= 0.2.
+
+The 3D range-sensor GP's path:
+
+7. the bank kernels against their plain versions at the path's shapes
+   (bank fit: the lidar protocol's 736 x 100 members in float32 and
+   float64, a default-grouped 271x91 scan's 408 x 144 in float32; bank
+   Cholesky: 1000 x 104; the batched gram on the operands the routed
+   predict builds for the lidar and depth tests and for ``compute_occ``),
+   a non-SPD member NaN with its neighbours finite, kernel and plain times;
+8. the lidar protocol (271x91 scan of the reference room, 10 000 sphere
+   queries) through ``RangeSensorGaussianProcess3D.train``/``test`` at
+   float32: MSE <= 4.2e-4, ``compute_occ`` signs, one bank-fit launch per
+   train; then the depth protocol: MSE <= 2.2e-4;
+9. offline replay: ``train_scan_batch`` of 64 lidar scans (47 104 members)
+   in one bank-fit launch, equal bit for bit to per-scan ``train``;
+10. ``BatchGPBank`` at (1000, 104): one bank-Cholesky launch, results
+    against numpy float64, identity padding exact.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -45,6 +63,16 @@ GRAM_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 FITC_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 FITC_VAR = {torch.float64: 1e-4, torch.float32: 0.1}
 MIXTURE = ("matern32", 1.5, (1.0, 2.0, 0.5))
+# bank kernels vs plain (the JAX package's bank parity tolerances): L's
+# lower triangle and ||L^{-1} L - I|| absolute, alpha relative to max|alpha|
+BANK_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+BANK_CHOL_ALPHA_TOL = {torch.float32: 1e-3, torch.float64: 1e-10}
+LIDAR_MSE_GATE = 4.2e-4
+DEPTH_MSE_GATE = 2.2e-4
+SENSOR_REPS = 10
+REPLAY_SCANS = 64
+# compute_occ's points: each ray at these fractions of its measured range
+OCC_FRACTIONS = (0.6, 1.3)
 
 
 def log(*args):
@@ -307,6 +335,314 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
                              "quality": fracs}
 
 
+def bank_errors(L, L_inv, alpha, ref):
+    """(L lower-triangle max abs error, alpha max error relative to
+    max|alpha|, max|L_inv L_ref - I|) of a bank result against the plain
+    version's."""
+    L_ref, _, a_ref = ref
+    n = L.shape[-1]
+    eye = torch.eye(n, dtype=L.dtype, device=L.device)
+    return (float((torch.tril(L) - L_ref).abs().max()),
+            float((alpha - a_ref).abs().max() / a_ref.abs().max()),
+            float((L_inv @ L_ref - eye).abs().max()))
+
+
+def check_bank_kernels(dev, lidar, depth):
+    """Phase 7: the bank kernels and the batched gram against their plain
+    versions at the sensor-GP path's shapes. Returns {name: {max_abs_err,
+    ms, plain_ms}}."""
+    from erl_gaussian_process_tpu_torch.models import (
+        RangeSensorGaussianProcess3D,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        bank_cholesky_solve_cuda,
+        bank_cholesky_solve_plain,
+        bank_fit_cuda,
+        bank_fit_plain,
+        cross_gram_batched_cuda,
+        cross_gram_plain,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import lidar3d_setting
+
+    grouped12 = lidar3d_setting()
+    for k in ("row", "col"):
+        setattr(grouped12, f"{k}_group_size", 12)
+    cases = [("lidar protocol, groups 10/4", lidar3d_setting(), np.float32),
+             ("271x91 scan, groups 12/4", grouped12, np.float32),
+             ("lidar protocol, groups 10/4", lidar3d_setting(), np.float64)]
+    out = {}
+    for label, setting, np_dt in cases:
+        gp = RangeSensorGaussianProcess3D(setting, dtype=np_dt, device=dev)
+        x, y, v, m = gp._gather_scans(lidar[3][None])
+        dt, kern, scale = x.dtype, gp._kernel, gp._scale
+        got = bank_fit_cuda(kern, x, y, v, m, scale)
+        torch.cuda.synchronize()
+        ref = bank_fit_plain(kern, x, y, v, m, scale)
+        eL, ea, eI = bank_errors(*got, ref)
+        tol = BANK_TOL[dt]
+        ms = cuda_ms(lambda: bank_fit_cuda(kern, x, y, v, m, scale))
+        plain_ms = cuda_ms(lambda: bank_fit_plain(kern, x, y, v, m, scale))
+        log(f"bank_fit {label} {str(dt):14s} B={x.shape[0]} n={x.shape[1]} "
+            f"{kern}: L max_abs_err {eL:.3e}, alpha rel_err {ea:.3e}, "
+            f"|L_inv L - I| {eI:.3e} (tol {tol:g}); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+        check(max(eL, ea, eI) <= tol,
+              f"bank_fit {label} {dt}: errors {eL}, {ea}, {eI} > {tol}")
+        check(bool((torch.triu(got[0], 1) == 0).all()),
+              f"bank_fit {label} {dt}: L not lower triangular")
+        if "bank_fit" not in out:
+            out["bank_fit"] = {"max_abs_err": eL, "ms": ms,
+                               "plain_ms": plain_ms}
+            first = (kern, x, y, v, m, scale, got[0])
+
+    # a trained member of the lidar bank made indefinite: all NaN, and its
+    # neighbours bit for bit what they were
+    kern, x, y, v, m, scale, L_ok = first
+    b = int(torch.nonzero(m[:, 0])[3])
+    v_bad = v.clone()
+    v_bad[b, 0] = -50.0
+    L_bad, Li_bad, a_bad = bank_fit_cuda(kern, x, y, v_bad, m, scale)
+    rest = torch.arange(x.shape[0], device=dev) != b
+    check(bool(torch.isnan(L_bad[b]).all() and torch.isnan(Li_bad[b]).all()
+               and torch.isnan(a_bad[b]).all()),
+          "bank_fit: a non-SPD member is not NaN")
+    check(bool(torch.equal(L_bad[rest], L_ok[rest])),
+          "bank_fit: a non-SPD member changed its neighbours")
+    log(f"bank_fit: non-SPD member {b} all NaN, the other {int(rest.sum())} "
+        "members bit for bit unchanged")
+
+    # BatchGPBank.solve's shape (the JAX package's torch-sweep shape)
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(1000, 104, 8)).astype(np.float32)
+    K = torch.as_tensor(np.einsum("bnd,bmd->bnm", X, X) / 8
+                        + 2 * np.eye(104, dtype=np.float32), device=dev)
+    y = torch.as_tensor(rng.normal(size=(1000, 104, 1)).astype(np.float32),
+                        device=dev)
+    got = bank_cholesky_solve_cuda(K, y)
+    torch.cuda.synchronize()
+    eL, ea, eI = bank_errors(*got, bank_cholesky_solve_plain(K, y))
+    ms = cuda_ms(lambda: bank_cholesky_solve_cuda(K, y))
+    plain_ms = cuda_ms(lambda: bank_cholesky_solve_plain(K, y))
+    tol, atol = BANK_TOL[torch.float32], BANK_CHOL_ALPHA_TOL[torch.float32]
+    log(f"bank_chol torch.float32 B=1000 n=104: L max_abs_err {eL:.3e} "
+        f"(tol {tol:g}), alpha rel_err {ea:.3e} (tol {atol:g}), "
+        f"|L_inv L - I| {eI:.3e}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    check(eL <= tol and ea <= atol and eI <= tol,
+          f"bank_chol: errors {eL}, {ea}, {eI}")
+    out["bank_chol"] = {"max_abs_err": eL, "ms": ms, "plain_ms": plain_ms}
+
+    # the batched gram on the operands the routed predict gives it: the
+    # lidar and depth tests' buckets and compute_occ's, whose few queries
+    # per member leave most of each warp past the row's end
+    gp = RangeSensorGaussianProcess3D(lidar[0], dtype=np.float32, device=dev)
+    check(gp.train(*lidar[1:4]), "lidar train for the gram operands")
+    dgp = RangeSensorGaussianProcess3D(depth[0], dtype=np.float32, device=dev)
+    check(dgp.train(*depth[1:4]), "depth train for the gram operands")
+    ops = [("lidar test", gp, routed_gram_operands(
+                gp, gp.global_to_local_so3(lidar[4].astype(np.float32)))),
+           ("depth test", dgp, routed_gram_operands(
+                dgp, dgp.global_to_local_so3(depth[4].astype(np.float32))))]
+    for f in OCC_FRACTIONS:
+        p = occ_points(gp, lidar[3], f).astype(np.float32)
+        dist = np.linalg.norm(p, axis=-1)         # as compute_occ routes
+        ops.append((f"compute_occ x{f}", gp, routed_gram_operands(
+            gp, p / np.where(dist > 0, dist, 1.0)[:, None])))
+    gram_err32 = 0.0
+    for dt in (torch.float32, torch.float64):
+        for label, model, (x1, x2) in ops:
+            x1, x2 = x1.to(dt), x2.to(dt)
+            kern, scale = model._kernel, model._scale
+            k = cross_gram_batched_cuda(kern, x1, x2, scale)
+            torch.cuda.synchronize()
+            err = float((k - cross_gram_plain(kern, x1, x2, scale)
+                         ).abs().max())
+            log(f"gram_batched {label:18s} {kern} scale {scale:g} "
+                f"{str(dt):14s} shape {tuple(k.shape)} max_abs_err "
+                f"{err:.3e} (tol {GRAM_TOL[dt]:g})")
+            check(err <= GRAM_TOL[dt], f"gram_batched {label} {dt}: {err}")
+            if dt == torch.float32:
+                gram_err32 = max(gram_err32, err)
+    _, model, (x1, x2) = ops[0]
+    kern, scale = model._kernel, model._scale
+    out["gram_batched"] = {
+        "max_abs_err": gram_err32,
+        "ms": cuda_ms(lambda: cross_gram_batched_cuda(kern, x1, x2, scale)),
+        "plain_ms": cuda_ms(lambda: cross_gram_plain(kern, x1, x2, scale))}
+    log(f"gram_batched timed at the lidar test's bucket {tuple(x1.shape)} x "
+        f"{tuple(x2.shape)}")
+    return out
+
+
+def routed_gram_operands(gp, dirs_local):
+    """The batched gram's operands (x1, x2) as ``bank_predict_assigned``
+    builds them for these sensor-frame directions: the active members'
+    samples and their bucketed queries."""
+    from erl_gaussian_process_tpu_torch.models.batch_gp import group_queries
+
+    coords, idx = gp.route_directions(dirs_local)
+    _, slots, _, member_ids = group_queries(idx,
+                                            gp.bank.trained.cpu().numpy())
+    x = gp.bank.x
+    return (x[torch.as_tensor(member_ids, device=x.device)],
+            torch.as_tensor(coords[slots], dtype=x.dtype, device=x.device))
+
+
+def occ_points(gp, ranges, fraction):
+    """Every 53rd ray of the scan at ``fraction`` of its measured range, in
+    the sensor frame: the points of the ``compute_occ`` check."""
+    dirs = gp.sensor_frame.ray_directions_in_frame().reshape(-1, 3)[::53]
+    return dirs * (fraction * ranges.reshape(-1)[::53])[:, None]
+
+
+def timed(fn):
+    """(result, milliseconds) of ``fn()`` on the host clock, the card
+    synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, 1e3 * (time.perf_counter() - t0)
+
+
+def run_sensor_gp(dev, card, lidar, depth):
+    """Phases 8-10: the 3D range-sensor GP on the card. Returns (launch
+    counts per phase, timings)."""
+    from erl_gaussian_process_tpu_torch.models import (
+        BatchGPBank,
+        RangeSensorGaussianProcess3D,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import (
+        lidar3d_replay_workload,
+    )
+
+    counts, timings = {}, {}
+    setting, R, t, ranges, q, gt, _ = lidar
+    gp = RangeSensorGaussianProcess3D(setting, dtype=np.float32, device=dev)
+    gp.train(R, t, ranges)                     # warm-up, not counted
+    gp.test(q, False, True).get_mean()
+    reset_launch_counts()
+    train_ms = [timed(lambda: gp.train(R, t, ranges))[1]
+                for _ in range(SENSOR_REPS)]
+    test_ms = []
+    for _ in range(5):
+        (pred, valid), ms = timed(lambda: gp.test(q, False, True).get_mean())
+        test_ms.append(ms)
+    mse = float(np.mean((pred[valid] - gt[valid]) ** 2))
+    log(f"lidar protocol float32: {gp.bank.x.shape[0]} members of "
+        f"{gp.bank.x.shape[1]}, valid {valid.mean():.4f} of {len(q)} "
+        f"queries, MSE {mse:.6e} (gate <= {LIDAR_MSE_GATE:g})")
+    check(valid.any() and mse <= LIDAR_MSE_GATE, f"lidar MSE {mse}")
+    # occupancy along the scan's own rays, in the sensor frame: with the
+    # decreasing inverse-sqrt mapping, (mapped prediction - mapped
+    # distance) is negative in front of the surface, so the reference's
+    # occ formula reads +1 there and -1 behind it
+    v1, _, _, occ_near = gp.compute_occ(occ_points(gp, ranges,
+                                                   OCC_FRACTIONS[0]))
+    v2, _, _, occ_far = gp.compute_occ(occ_points(gp, ranges,
+                                                  OCC_FRACTIONS[1]))
+    log(f"compute_occ: {int(v1.sum())}/{len(v1)} near points valid, occ "
+        f"min {occ_near[v1].min():.6f}; {int(v2.sum())}/{len(v2)} far points "
+        f"valid, occ max {occ_far[v2].max():.6f}")
+    check(v1.any() and v2.any() and occ_near[v1].min() > 0.9
+          and occ_far[v2].max() < -0.9, "compute_occ near/far signs")
+    counts["lidar"] = launch_counts()
+    check(counts["lidar"]["bank_fit"] == SENSOR_REPS,
+          f"bank_fit launches {counts['lidar']['bank_fit']} != "
+          f"{SENSOR_REPS} trains")
+    check(counts["lidar"]["gram_batched"] >= 5,
+          "batched gram not launched by every test")
+    timings["train_ms"] = statistics.median(train_ms)
+    timings["test_ms_10000"] = statistics.median(test_ms)
+    log(f"lidar launch counts {counts['lidar']}; train "
+        f"{timings['train_ms']:.4f} ms (median of {SENSOR_REPS}), test of "
+        f"{len(q)} queries {timings['test_ms_10000']:.4f} ms (median of 5) "
+        f"on {card}")
+
+    ds, dR, dt_, dranges, dq, dgt, _ = depth
+    dgp = RangeSensorGaussianProcess3D(ds, dtype=np.float32, device=dev)
+    reset_launch_counts()
+    check(dgp.train(dR, dt_, dranges), "depth train")
+    dpred, dvalid = dgp.test(dq, False, True).get_mean()
+    counts["depth"] = launch_counts()
+    dmse = float(np.mean((dpred[dvalid] - dgt[dvalid]) ** 2))
+    log(f"depth protocol float32: {dgp.bank.x.shape[0]} members, valid "
+        f"{dvalid.mean():.4f}, MSE {dmse:.6e} (gate <= {DEPTH_MSE_GATE:g}); "
+        f"launch counts {counts['depth']}")
+    check(dvalid.any() and dmse <= DEPTH_MSE_GATE, f"depth MSE {dmse}")
+    check(counts["depth"]["bank_fit"] == 1, "depth: bank_fit launches != 1")
+
+    t0 = time.perf_counter()
+    _, Rs, ts, rb = lidar3d_replay_workload(REPLAY_SCANS)
+    log(f"replay: {REPLAY_SCANS} scans ({rb.size} rays) raycast in "
+        f"{time.perf_counter() - t0:.2f} s (host, outside the timed window)")
+    reset_launch_counts()
+    stacked, rep_ms = timed(lambda: gp.train_scan_batch(rb))
+    counts["replay"] = launch_counts()
+    check(counts["replay"]["bank_fit"] == 1,
+          f"replay bank_fit launches {counts['replay']['bank_fit']} != 1")
+    timings["replay_scans_per_s"] = REPLAY_SCANS / (rep_ms / 1e3)
+    B = gp.bank.x.shape[0]
+    check(stacked.L.shape[0] == REPLAY_SCANS * B and bool(
+        torch.isfinite(stacked.L).all()), "replay bank not finite")
+    for k in (0, REPLAY_SCANS - 1):
+        gp.train(Rs[k], ts[k], rb[k])
+        per = gp.bank
+        gp.use_scan_bank(stacked, k)
+        differ = [f for f, a, b in zip(per._fields, gp.bank, per)
+                  if not torch.equal(a, b)]
+        check(not differ, f"replay scan {k} differs from its per-scan "
+                          f"train in {differ}")
+    log(f"replay: {stacked.L.shape[0]} members, L and L_inv "
+        f"{stacked.L.nbytes / 2**30:.3f} GiB each, {rep_ms:.3f} ms = "
+        f"{timings['replay_scans_per_s']:.2f} scans/s; scans 0 and "
+        f"{REPLAY_SCANS - 1} equal to per-scan train bit for bit; launch "
+        f"counts {counts['replay']}")
+    del stacked
+
+    rng = np.random.default_rng(2)
+    bank = BatchGPBank(1000, 104, y_dim=1, dtype=np.float32, device=dev)
+    sizes = rng.integers(60, 105, 1000)
+    problems = []
+    for i, n in enumerate(sizes):
+        X = rng.normal(size=(n, 8))
+        K = X @ X.T / 8 + 2 * np.eye(n)
+        y = rng.normal(size=(n, 1))
+        bank.load_gp_data(i, n, K, y)
+        problems.append((K, y))
+    reset_launch_counts()
+    _, solve_ms = timed(bank.solve)
+    counts["batch_gp_bank"] = launch_counts()
+    check(counts["batch_gp_bank"]["bank_chol"] == 1,
+          "BatchGPBank.solve did not launch the bank Cholesky once")
+    worst_L = worst_a = 0.0
+    for i in range(0, 1000, 37):
+        n = sizes[i]
+        K, y = problems[i]
+        L, a = bank.get_gp_result(i)
+        worst_L = max(worst_L, float(np.abs(np.tril(L[:n, :n])
+                                            - np.linalg.cholesky(K)).max()))
+        a_ref = np.linalg.solve(K, y)
+        worst_a = max(worst_a, float(np.abs(a[:n] - a_ref).max()
+                                     / np.abs(a_ref).max()))
+        check(np.array_equal(L[n:, n:], np.eye(104 - n)) and not a[n:].any(),
+              f"BatchGPBank member {i}: padding not exact")
+    log(f"BatchGPBank (1000, 104) float32: solve {solve_ms:.3f} ms; vs numpy "
+        f"float64 on 28 members: L max_abs_err {worst_L:.3e}, alpha rel_err "
+        f"{worst_a:.3e} (tol {BANK_TOL[torch.float32]:g}, "
+        f"{BANK_CHOL_ALPHA_TOL[torch.float32]:g}); padding exact; launch "
+        f"counts {counts['batch_gp_bank']}")
+    check(worst_L <= BANK_TOL[torch.float32]
+          and worst_a <= BANK_CHOL_ALPHA_TOL[torch.float32],
+          "BatchGPBank results vs numpy")
+    timings["batch_gp_bank_solve_ms"] = solve_ms
+    return counts, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -351,15 +687,45 @@ def main() -> int:
     log(json.dumps({"timings": timings, "drift": drift["drift"],
                     "sign_agreement": drift["sign_agreement"],
                     "card": card}))
+
+    from erl_gaussian_process_tpu_torch.workloads import (
+        depth3d_reference_workload,
+        lidar3d_reference_workload,
+    )
+    lidar = lidar3d_reference_workload()
+    depth = depth3d_reference_workload()
+    bank = check_bank_kernels(dev, lidar, depth)
+    sensor_counts, sensor_timings = run_sensor_gp(dev, card, lidar, depth)
+    log(json.dumps({"sensor_timings": sensor_timings,
+                    "sensor_launch_counts": sensor_counts, "card": card}))
+    kern.update(bank)
+    for name, r in bank.items():
+        log(f"time on {card}: {name} kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms (median of {REPS})")
+    # launches of each kernel in the paths' runs: gram.cu serves the SPGP
+    # predict (cross_gram) and the sensor GPs' routed predict (batched)
+    launches = {
+        "fitc": counts["fitc"],
+        "gram": counts["gram"] + sum(c["gram_batched"]
+                                     for c in sensor_counts.values()),
+        "bank_fit": sum(c["bank_fit"] for c in sensor_counts.values()),
+        "bank_chol": sensor_counts["batch_gp_bank"]["bank_chol"],
+    }
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched by its path: {launches}")
     src = {"gram": ("erl_gaussian_process_tpu_torch/csrc/gram.cu",
                     "erl_gaussian_process_tpu/ops/pallas_gram.py:92"),
            "fitc": ("erl_gaussian_process_tpu_torch/csrc/fitc.cu",
-                    "erl_gaussian_process_tpu/ops/pallas_fitc.py:145")}
+                    "erl_gaussian_process_tpu/ops/pallas_fitc.py:145"),
+           "bank_fit": ("erl_gaussian_process_tpu_torch/csrc/bank.cu",
+                        "erl_gaussian_process_tpu/ops/pallas_bank.py:249"),
+           "bank_chol": ("erl_gaussian_process_tpu_torch/csrc/bank.cu",
+                         "erl_gaussian_process_tpu/ops/pallas_bank.py:269")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
-         "replaces": src[name][1], "launches": counts[name],
+         "replaces": src[name][1], "launches": launches[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"]} for name in ("fitc", "gram")]}))
+         "plain_ms": kern[name]["plain_ms"]} for name in src]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,8 +9,11 @@ other on the same inputs. This package imports ``torch`` and ``numpy`` (and
 
 Hand-written Hopper kernels live in ``csrc/`` and are bound in ``ops/``:
 
-- ``ops/gram.py`` + ``csrc/gram.cu``: the cross-gram k(x1, x2);
-- ``ops/fitc.py`` + ``csrc/fitc.cu``: the rank-N FITC update.
+- ``ops/gram.py`` + ``csrc/gram.cu``: the cross-gram k(x1, x2), also over
+  a leading member axis;
+- ``ops/fitc.py`` + ``csrc/fitc.cu``: the rank-N FITC update;
+- ``ops/bank.py`` + ``csrc/bank.cu``: the bank fit and bank Cholesky of B
+  small exact GPs.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel (built with nvcc at first use, ``ops/_build.py``) for CUDA tensors.

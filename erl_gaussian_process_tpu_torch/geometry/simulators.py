@@ -1,4 +1,5 @@
-"""Procedural 3D world for the hotel-0 replay (counterpart of
+"""Procedural 3D worlds for the hotel-0 replay and the 3D range-sensor GP
+protocols (counterpart of
 ``erl_gaussian_process_tpu/geometry/simulators.py:111-219``): a triangle
 soup with a numpy Möller–Trumbore raycaster. Host-side only; it
 synthesizes data. The JAX package's native OpenMP raycaster is not ported
@@ -64,6 +65,9 @@ class TriangleMesh:
     def num_triangles(self) -> int:
         return self.faces.shape[0]
 
+    def center(self) -> np.ndarray:
+        return 0.5 * (self.vertices.min(0) + self.vertices.max(0))
+
     def cast_rays(self, origin, directions, max_range=np.inf) -> np.ndarray:
         """origin (3,) or (n, 3); directions (n, 3) unit. Misses -> +inf."""
         return raycast_mesh(self.triangles, origin, directions, max_range)
@@ -97,6 +101,19 @@ class TriangleMesh:
             fs.append(m.faces + off)
             off += m.vertices.shape[0]
         return TriangleMesh(np.concatenate(vs), np.concatenate(fs))
+
+
+def reference_room_mesh_3d() -> TriangleMesh:
+    """Procedural stand-in for the Replica office-1 mesh of the reference's
+    3D sensor-GP protocols (the .ply is not distributed): a 6x5x3 room
+    shell with wall-flush, shallow furniture (wardrobe, shelf, low table),
+    whose silhouette depth steps stay ~0.3-0.4 m, like a scanned office
+    seen from its center."""
+    room = TriangleMesh.box([-3.0, -2.5, -1.5], [3.0, 2.5, 1.5])
+    wardrobe = TriangleMesh.box([0.5, 2.1, -1.5], [2.0, 2.5, 0.6])
+    shelf = TriangleMesh.box([-3.0, -1.0, -0.5], [-2.7, 1.0, 0.5])
+    table = TriangleMesh.box([0.9, -2.5, -1.5], [2.1, -2.0, -1.1])
+    return TriangleMesh.merge([room, wardrobe, shelf, table])
 
 
 def replica_hotel_like_mesh(lo=None, hi=None) -> TriangleMesh:

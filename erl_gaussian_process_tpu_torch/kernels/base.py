@@ -23,6 +23,16 @@ _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 _CPP_NAME_RE = re.compile(r"^erl::covariance::(\w+)\s*<.*>$")
 _CAMEL_RE = re.compile(r"(?<!^)(?=[A-Z])")
 
+# reduced-rank kernel type names (erl_gaussian_process_tpu/kernels/
+# reduced_rank.py:50); the port does not build them yet
+_RR_NAME_RE = re.compile(
+    r"^(?:erl::covariance::)?(?:ReducedRank|reduced_rank_?|rr_)(\w*?)"
+    r"\s*(?:<.*>)?$", re.IGNORECASE)
+
+REDUCED_RANK_TODO = ("reduced-rank kernels (kernels/reduced_rank.py and the "
+                     "RR bank) are not ported yet (ROADMAP.md, Queue 1 item "
+                     "11)")
+
 _ALIASES = {
     "radial_bias_function": "rbf",
     "squared_exponential": "rbf",
@@ -136,6 +146,11 @@ def resolve_kernel_name(name: str) -> str:
     raise KeyError(
         f"unknown kernel {name!r} (normalized {snake!r}); known: {sorted(_REGISTRY)}"
     )
+
+
+def is_reduced_rank_name(name: str) -> bool:
+    """Whether a kernel type names a reduced-rank kernel."""
+    return _RR_NAME_RE.match(name.strip()) is not None
 
 
 def register_kernel(name: str, **fns: Callable) -> None:

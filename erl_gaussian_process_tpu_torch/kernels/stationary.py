@@ -77,12 +77,13 @@ def cross_gram(name: str, x1, x2, scale, mask1=None) -> torch.Tensor:
 
 
 def train_gram(name: str, x, var, scale, mask=None) -> torch.Tensor:
-    """K = k(x, x) + diag(var), identity-padded outside ``mask``."""
+    """K = k(x, x) + diag(var), identity-padded outside ``mask``. x (...,
+    n, d); var and mask (..., n); leading axes are member axes."""
     k = kernel_fn(name)(x, x, scale)
-    n = x.shape[0]
-    k = k + torch.diag(var.to(k.dtype))
+    n = x.shape[-2]
+    k = k + torch.diag_embed(var.to(k.dtype))
     if mask is not None:
-        m2 = mask[:, None] & mask[None, :]
+        m2 = mask[..., :, None] & mask[..., None, :]
         eye = torch.eye(n, dtype=k.dtype, device=k.device)
         k = torch.where(m2, k, eye)
     return k

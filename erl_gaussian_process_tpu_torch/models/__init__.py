@@ -1,6 +1,23 @@
-"""Models on the main path: the incremental SPGP and the occupancy map
-built on it (counterpart of ``erl_gaussian_process_tpu/models``)."""
+"""Models: the incremental SPGP and the occupancy map built on it, the
+batched GP bank and the 3D range-sensor GP built on that (counterpart of
+``erl_gaussian_process_tpu/models``)."""
 
+from erl_gaussian_process_tpu_torch.models.batch_gp import (
+    BankState,
+    BatchGPBank,
+    bank_fit,
+    bank_predict,
+    bank_predict_assigned,
+)
+from erl_gaussian_process_tpu_torch.models.mapping import (
+    Mapping,
+    MappingSetting,
+    MappingType,
+)
+from erl_gaussian_process_tpu_torch.models.range_sensor_gp_3d import (
+    RangeSensorGaussianProcess3D,
+    RangeSensorGP3DSetting,
+)
 from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     SparsePseudoInputGaussianProcess,
     SpGpSetting,
@@ -10,11 +27,23 @@ from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
     SpGpOccupancyMap,
     SpGpOccupancyMapSetting,
 )
+from erl_gaussian_process_tpu_torch.models.vanilla_gp import VanillaGPSetting
 
 __all__ = [
+    "BankState",
+    "BatchGPBank",
+    "Mapping",
+    "MappingSetting",
+    "MappingType",
+    "RangeSensorGP3DSetting",
+    "RangeSensorGaussianProcess3D",
     "SparsePseudoInputGaussianProcess",
     "SpGpOccupancyMap",
     "SpGpOccupancyMapSetting",
     "SpGpSetting",
     "SpGpState",
+    "VanillaGPSetting",
+    "bank_fit",
+    "bank_predict",
+    "bank_predict_assigned",
 ]

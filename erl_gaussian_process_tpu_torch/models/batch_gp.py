@@ -1,0 +1,264 @@
+"""Batched bank of small exact GPs (counterpart of
+``erl_gaussian_process_tpu/models/batch_gp.py``): the sensor GPs' partition
+grids become one bank of B members, fit by one launch of the bank kernel
+(``ops/bank.py``) and queried by one routed predict.
+
+Each member is a padded fixed-size GP. Padding uses the identity-diagonal
+trick (gram diag 1 / alpha 0 outside the mask), so one batched
+factorization over (B, n, n) trains the whole bank. The bank fit always
+returns ``L^{-1}`` as well, so predicts whiten with a product; a state
+without it (a loaded checkpoint) whitens with a triangular solve.
+
+Reduced-rank banks and the sharded bank fit are not ported yet (ROADMAP.md,
+Queue 1 items 11 and 14).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from erl_gaussian_process_tpu_torch.kernels.base import REDUCED_RANK_TODO
+from erl_gaussian_process_tpu_torch.models.gp_core import whiten
+from erl_gaussian_process_tpu_torch.ops.bank import (
+    bank_cholesky_solve_cuda,
+    bank_fit_cuda,
+)
+from erl_gaussian_process_tpu_torch.ops.gram import cross_gram_batched_cuda
+
+
+class BankState(NamedTuple):
+    """x (B, n, d); mask (B, n) bool; L (B, n, n); alpha (B, n, q);
+    trained (B,) bool (the member has >= 1 sample); L_inv (B, n, n), None
+    for a state loaded from a checkpoint."""
+
+    x: torch.Tensor
+    mask: torch.Tensor
+    L: torch.Tensor
+    alpha: torch.Tensor
+    trained: torch.Tensor
+    L_inv: Optional[torch.Tensor] = None
+
+
+def bank_state_from_numpy(d, device="cpu") -> BankState:
+    """A BankState on ``device`` from a dict of host arrays: a checkpoint's
+    ``bank`` entry, or a JAX ``BankState._asdict()``. ``L_inv`` carries
+    over when present."""
+    return BankState(**{
+        k: torch.tensor(np.asarray(v), device=device)
+        for k, v in d.items() if k in BankState._fields and v is not None})
+
+
+def bank_fit_core(x, y, var, mask, scale, *, kernel: str) -> BankState:
+    """Train B GPs at once: x (B, n, d); y (B, n, q); var/mask (B, n). The
+    one implementation of the bank fit, shared by :func:`bank_fit` and the
+    sensor GPs' scan trains: the bank kernel for CUDA tensors, its plain
+    version for CPU tensors."""
+    L, L_inv, alpha = bank_fit_cuda(kernel, x, y, var, mask, scale)
+    return BankState(x=x, mask=mask, L=L, alpha=alpha,
+                     trained=torch.any(mask, dim=1), L_inv=L_inv)
+
+
+bank_fit = bank_fit_core
+
+
+def bank_fit_rr_core(*args, **kwargs) -> BankState:
+    raise NotImplementedError(REDUCED_RANK_TODO)
+
+
+def bank_fit_rr(*args, **kwargs) -> BankState:
+    raise NotImplementedError(REDUCED_RANK_TODO)
+
+
+def _members_predict(xs, ms, W, alphas, qs, scale, *, kernel: str,
+                     fused: bool):
+    """Member b answers its queries qs[b] (C, d): one batched cross gram
+    and one whitening per member. W is L^{-1} when ``fused``, else L.
+    Returns mean (B, C, q), var (B, C)."""
+    kt = cross_gram_batched_cuda(kernel, xs, qs.contiguous(), scale)
+    kt = torch.where(ms[:, :, None], kt, torch.zeros_like(kt))  # (B, n, C)
+    mean = torch.bmm(kt.mT, alphas)
+    at = torch.bmm(W, kt) if fused else whiten(W, kt)
+    s = torch.sum(at * at, dim=1)
+    # clamp: whitening can overshoot ||at||^2 past 1 by rounding near
+    # training points; a negative variance NaNs downstream sqrts
+    return mean, torch.clamp(1.0 - s, min=0.0)
+
+
+def bank_predict(state: BankState, xq, scale, *, kernel: str,
+                 reduced_rank: bool = False):
+    """Each bank member predicts its own queries. xq (B, m, d).
+    Returns mean (B, m, q), var (B, m)."""
+    if reduced_rank:
+        raise NotImplementedError(REDUCED_RANK_TODO)
+    fused = state.L_inv is not None
+    return _members_predict(state.x, state.mask,
+                            state.L_inv if fused else state.L, state.alpha,
+                            xq, scale, kernel=kernel, fused=fused)
+
+
+def _predict_segmented(state: BankState, mids, qs, scale, *, kernel: str,
+                       fused: bool):
+    """One active bank member per row of ``mids``: member mids[b'] answers
+    its C grouped queries qs[b'], so each member's (n, n) factor is read
+    once however many queries routed to it."""
+    W = state.L_inv if fused else state.L
+    return _members_predict(state.x[mids], state.mask[mids], W[mids],
+                            state.alpha[mids], qs, scale, kernel=kernel,
+                            fused=fused)
+
+
+def _next_pow2(v: int) -> int:
+    return 1 << max(0, int(v - 1).bit_length())
+
+
+def _next_mult8(v: int) -> int:
+    return max(8, -(-int(v) // 8) * 8)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def group_queries(idx: np.ndarray, trained: np.ndarray):
+    """The routed predict's host grouping: idx (m,) names each query's
+    member (-1 unresolved), trained (B,) is the bank's host mask.
+
+    Returns (ok, slots, svalid, member_ids): ok (m,) the queries a trained
+    member answers; row r of the (Bp, C) bucket holds member member_ids[r]'s
+    queries slots[r] where svalid[r]. Queries keep their order within a
+    member (stable sort); C is a power of two, Bp a multiple of 8 (padded
+    rows name member 0). The last three are None when no query is ok."""
+    B = trained.shape[0]
+    ok = (idx >= 0) & (idx < B)
+    ok[ok] = trained[idx[ok]]
+    if not ok.any():
+        return ok, None, None, None
+    okj = np.flatnonzero(ok)
+    order = okj[np.argsort(idx[okj], kind="stable")]
+    sorted_members = idx[order]
+    active = np.unique(sorted_members)
+    counts = np.bincount(sorted_members, minlength=B)[active]
+    C = _next_pow2(int(counts.max()))
+    # padded member rows run full discarded predicts against member 0;
+    # buckets of 8 cap that waste at 7 rows
+    Bp = _next_mult8(int(active.size))
+    starts = np.searchsorted(sorted_members, active)
+    row = np.searchsorted(active, sorted_members)
+    pos = np.arange(order.size) - starts[row]
+    slots = np.zeros((Bp, C), np.int64)
+    svalid = np.zeros((Bp, C), bool)
+    member_ids = np.zeros((Bp,), np.int64)
+    slots[row, pos] = order
+    svalid[row, pos] = True
+    member_ids[: active.size] = active
+    return ok, slots, svalid, member_ids
+
+
+def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
+                          reduced_rank: bool = False, basis=None,
+                          profile: dict | None = None):
+    """Per-query routed prediction: query j is answered by bank member
+    idx[j]. q (m, d) and idx (m,) host arrays; idx may be -1 (unresolved,
+    flagged invalid) or name an untrained member (invalid too).
+
+    Returns numpy (mean (m, q_dim), var (m,), valid (m,) bool).
+
+    Queries are grouped by member on the host (:func:`group_queries`), and
+    the active members answer their groups in one batched predict on the
+    state's device (:func:`_predict_segmented`).
+
+    ``profile``: pass a dict to record per-phase wall-clock seconds (keys
+    ``host_group``, ``h2d``, ``device``, ``d2h_scatter``, plus the bucket
+    shape ``bucket``). Profiling synchronizes between phases.
+    ``basis`` (reduced rank) is not ported yet."""
+    if basis is not None or reduced_rank:
+        raise NotImplementedError(REDUCED_RANK_TODO)
+    prof = profile is not None
+    if prof:
+        t0 = time.perf_counter()
+    q = np.asarray(q)
+    idx = np.asarray(idx)
+    m = q.shape[0]
+    dev = state.x.device
+    dtype = np.dtype(np.float32 if state.alpha.dtype == torch.float32
+                     else np.float64)
+    q_dim = state.alpha.shape[2]
+    mean_out = np.zeros((m, q_dim), dtype)
+    var_out = np.full((m,), 1.0, dtype)
+    ok, slots, svalid, member_ids = group_queries(
+        idx, state.trained.cpu().numpy())
+    if slots is None:
+        return mean_out, var_out, ok
+    if prof:
+        t1 = time.perf_counter()
+        profile["host_group"] = t1 - t0
+        profile["bucket"] = tuple(int(v) for v in slots.shape)
+    qs = torch.as_tensor(q[slots], dtype=state.x.dtype, device=dev)
+    mids = torch.as_tensor(member_ids, device=dev)
+    if prof:
+        _sync(dev)
+        t2 = time.perf_counter()
+        profile["h2d"] = t2 - t1
+    mean_seg, var_seg = _predict_segmented(
+        state, mids, qs, scale, kernel=kernel, fused=state.L_inv is not None)
+    if prof:
+        _sync(dev)
+        t3 = time.perf_counter()
+        profile["device"] = t3 - t2
+    mean_seg = mean_seg.cpu().numpy()
+    var_seg = var_seg.cpu().numpy()
+    mean_out[slots[svalid]] = mean_seg[svalid]
+    var_out[slots[svalid]] = var_seg[svalid]
+    if prof:
+        profile["d2h_scatter"] = time.perf_counter() - t3
+    return mean_out, var_out, ok
+
+
+class BatchGPBank:
+    """API-parity replacement for the reference's
+    BatchGaussianProcessUpdateTorch: collect B (gram, y) problems on the
+    host, solve them in one launch of the bank Cholesky kernel on
+    ``device`` (its plain version on the CPU), and read back per-GP (L,
+    alpha)."""
+
+    def __init__(self, batch_size: int, max_num_samples: int, y_dim: int = 1,
+                 dtype=np.float32, device="cpu"):
+        self.B = batch_size
+        self.n = max_num_samples
+        self.q = y_dim
+        self.dtype = np.dtype(dtype)
+        self.device = torch.device(device)
+        self.prepare_memory()
+
+    def prepare_memory(self):
+        eye = np.eye(self.n, dtype=self.dtype)
+        self._K = np.tile(eye, (self.B, 1, 1))
+        self._alpha = np.zeros((self.B, self.n, self.q), self.dtype)
+        self._L = None
+
+    def load_gp_data(self, i: int, size: int, ktrain, alpha):
+        """Pad GP i's (size, size) gram into slot i (identity beyond
+        size)."""
+        self._K[i] = np.eye(self.n, dtype=self.dtype)
+        self._K[i, :size, :size] = np.asarray(ktrain, self.dtype)[:size, :size]
+        self._alpha[i] = 0.0
+        a = np.asarray(alpha, self.dtype)
+        if a.ndim == 1:
+            a = a[:, None]
+        self._alpha[i, :size, :a.shape[1]] = a[:size]
+
+    def solve(self):
+        L, _, alpha = bank_cholesky_solve_cuda(
+            torch.as_tensor(self._K, device=self.device),
+            torch.as_tensor(self._alpha, device=self.device))
+        self._L = L.cpu().numpy()
+        self._alpha = alpha.cpu().numpy()
+
+    def get_gp_result(self, i: int):
+        """Returns (L_i, alpha_i)."""
+        return self._L[i], self._alpha[i]

@@ -1,5 +1,7 @@
-"""Shared GP linear-algebra core, main-path subset (counterpart of
-``erl_gaussian_process_tpu/models/gp_core.py:23-125,185-219``).
+"""Shared GP linear-algebra core (counterpart of
+``erl_gaussian_process_tpu/models/gp_core.py:23-152,185-241``: the SPGP
+main path's pieces plus the robust ``cholesky_fit`` and ``whiten`` of the
+sensor-GP banks).
 
 Dense factorizations and solves are plain torch (cuSOLVER/cuBLAS on the
 card, LAPACK on the CPU). A failed Cholesky is signalled the way the JAX
@@ -66,6 +68,27 @@ def robust_cholesky(K: torch.Tensor) -> torch.Tensor:
         L = cholesky_nan(K + (j * scale) * eye)
         j *= 100.0
     return L
+
+
+def cholesky_fit(K: torch.Tensor, y: torch.Tensor, *, robust: bool = True):
+    """L = chol(K) with :func:`robust_cholesky`'s jitter ladder; alpha =
+    K^{-1} y by two triangular solves. K (n, n), y (n, k). The JAX
+    package's ``robust=False`` route runs its blocked Pallas Cholesky and
+    triangular-solve kernels, which are not ported yet."""
+    if not robust:
+        raise NotImplementedError(
+            "cholesky_fit(robust=False) runs the blocked Cholesky and "
+            "triangular-solve kernels (ROADMAP.md, Queue 1 item 9; Queue 2 "
+            "items 5 and 8), which are not ported yet")
+    L = robust_cholesky(K)
+    a = torch.linalg.solve_triangular(L, y, upper=False)
+    return L, torch.linalg.solve_triangular(L.mT, a, upper=True)
+
+
+def whiten(L: torch.Tensor, ktest: torch.Tensor) -> torch.Tensor:
+    """L^{-1} ktest by a triangular solve; L (..., n, n), ktest (..., n,
+    m)."""
+    return torch.linalg.solve_triangular(L, ktest, upper=False)
 
 
 def host_jitter_retry(fit_once, check_arrays, jitters=(0.0, 1e-10, 1e-8,

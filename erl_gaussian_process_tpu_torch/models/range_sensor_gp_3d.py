@@ -1,0 +1,510 @@
+"""3D range-sensor GP: a 2D grid of local 2-input GPs over (azimuth-row x
+elevation-col) partitions of a 3D sensor frame (counterpart of
+``erl_gaussian_process_tpu/models/range_sensor_gp_3d.py``).
+
+The reference's OpenMP grid loop becomes one flattened bank of all
+row x col partitions: a scan train is the hit mask, distance mapping and
+partition gather on the model's device followed by ONE launch of the bank
+fit kernel (``ops/bank.py``); a test routes each query to its partition
+on the host and answers all partitions in one batched predict
+(``models/batch_gp.bank_predict_assigned``). Frames and partition search
+are host numpy, as in the JAX package.
+
+Not ported yet: reduced-rank kernel types (ROADMAP.md, Queue 1 item 11),
+the sharded bank fit ``mesh=`` (item 14) and the ``gps`` view of
+per-partition ``VanillaGaussianProcess`` objects (item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from erl_gaussian_process_tpu_torch.geometry.frames_3d import (
+    LidarFrame3DSetting,
+    create_range_sensor_frame_3d,
+)
+from erl_gaussian_process_tpu_torch.kernels import resolve_kernel_setting
+from erl_gaussian_process_tpu_torch.kernels.base import (
+    REDUCED_RANK_TODO,
+    is_reduced_rank_name,
+)
+from erl_gaussian_process_tpu_torch.models.batch_gp import (
+    BankState,
+    bank_fit_core,
+    bank_predict_assigned,
+    bank_state_from_numpy,
+)
+from erl_gaussian_process_tpu_torch.models.mapping import (
+    Mapping,
+    MappingSetting,
+    MappingType,
+)
+from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+    torch_dtype,
+)
+from erl_gaussian_process_tpu_torch.models.vanilla_gp import VanillaGPSetting
+from erl_gaussian_process_tpu_torch.ops.bank import solve_alpha
+from erl_gaussian_process_tpu_torch.utils.serialization import (
+    eq_state,
+    load_pytree,
+    save_pytree,
+)
+
+MESH_TODO = ("the sharded bank fit (mesh=) is not ported yet (ROADMAP.md, "
+             "Queue 1 item 14)")
+GPS_TODO = ("the gps view builds VanillaGaussianProcess objects, which are "
+            "not ported yet (ROADMAP.md, Queue 1 item 9)")
+
+
+def _grid_partitions(coords: np.ndarray, group_size: int, overlap: int,
+                     margin: int):
+    """Symmetric 1-axis partitioning used for both row and col axes
+    (port of the reference ctor math)."""
+    n = coords.shape[0]
+    step = group_size - overlap
+    half = overlap // 2
+    num_groups = max(1, n // step) + 1
+    gs2 = (n - (num_groups - 2) * step) // 2
+    parts = [(0, gs2 + half, coords[margin], coords[gs2])]
+    for i in range(num_groups - 2):
+        il = i * step + gs2 - half
+        ir = il + group_size
+        parts.append((il, ir, coords[il + half], coords[ir - half]))
+    parts.append((n - gs2 - half, n, coords[n - 1 - gs2],
+                  coords[n - 1 - margin]))
+    return parts
+
+
+def _gather_scan_3d(ranges, fc_flat, idx, inb, vmin, vmax, srv, min_count,
+                    *, mapping: Mapping):
+    """The device gather of a scan train, for S range images at once.
+
+    ranges (S, H, W); fc_flat (H*W, 2) frame coords; idx (B, width) the
+    flat grid indices of each partition's sub-block in row-major order,
+    inb (B, width) its valid slots. A stable sort on ~hit compacts each
+    member's hits to the front in that order, exactly numpy's boolean-mask
+    flattening; groups with at most ``min_count`` hits are masked out
+    whole. Returns xs (S, B, width, 2), ys (S, B, width, 1), vs and ms (S,
+    B, width)."""
+    r = ranges.reshape(ranges.shape[0], -1)
+    hit = torch.isfinite(r) & (r >= vmin) & (r <= vmax)
+    mapped = mapping.map(r)
+    h = hit[:, idx] & inb                                    # (S, B, width)
+    order = torch.argsort((~h).to(torch.uint8), dim=2, stable=True)
+    sel = torch.take_along_dim(idx[None], order, dim=2)
+    ms = torch.take_along_dim(h, order, dim=2)
+    ms = ms & (torch.sum(h, dim=2) > min_count)[..., None]
+    xs = torch.where(ms[..., None], fc_flat[sel], 0.0)
+    rows = torch.arange(r.shape[0], device=r.device)[:, None, None]
+    ys = torch.where(ms, mapped[rows, sel], 0.0)
+    vs = torch.full(ms.shape, srv, dtype=r.dtype, device=r.device)
+    return xs, ys[..., None], vs, ms
+
+
+@dataclasses.dataclass
+class RangeSensorGP3DSetting:
+    """Mirror of RangeSensorGaussianProcess3D::Setting."""
+
+    row_group_size: int = 12
+    row_overlap_size: int = 4
+    row_margin: int = 0
+    col_group_size: int = 12
+    col_overlap_size: int = 4
+    col_margin: int = 0
+    min_num_samples_per_group: int = 10
+    init_variance: float = 1e6
+    sensor_range_var: float = 0.01
+    max_valid_range_var: float = 0.1
+    occ_test_temperature: float = 30.0
+    sensor_frame_type: str = "lidar"
+    sensor_frame: dict | object = dataclasses.field(
+        default_factory=LidarFrame3DSetting)
+    gp: VanillaGPSetting = dataclasses.field(
+        default_factory=lambda: VanillaGPSetting(kernel_type="ou"))
+    mapping: MappingSetting = dataclasses.field(
+        default_factory=lambda: MappingSetting(type=MappingType.INVERSE_SQRT))
+
+    def to_dict(self):
+        d = dataclasses.asdict(self)
+        if hasattr(self.sensor_frame, "to_dict"):
+            d["sensor_frame"] = self.sensor_frame.to_dict()
+        d["mapping"] = self.mapping.to_dict()
+        return d
+
+    @classmethod
+    def from_dict(cls, d):
+        d = dict(d or {})
+        if "gp" in d:
+            d["gp"] = VanillaGPSetting.from_dict(d["gp"])
+        if "mapping" in d:
+            d["mapping"] = MappingSetting.from_dict(d["mapping"])
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+class RangeSensorGP3DTestResult:
+    def __init__(self, gp: "RangeSensorGaussianProcess3D",
+                 directions: np.ndarray, directions_are_local: bool,
+                 un_map: bool):
+        d = np.asarray(directions, gp.dtype)
+        if d.ndim == 1:
+            d = d[None, :]
+        if d.shape[0] == 3 and d.shape[1] != 3:
+            d = d.T  # accept the reference's (3, m) layout
+        if not directions_are_local:
+            d = gp.sensor_frame.dir_world_to_frame(d)
+        coords, idx = gp.route_directions(d)
+        mean, var, valid = bank_predict_assigned(
+            gp.bank, coords, idx, gp._scale, kernel=gp._kernel)
+        self._gp = gp
+        self._mean = mean[:, 0]
+        self._var = var
+        self._valid = valid
+        self._un_map = un_map
+
+    @property
+    def num_test(self):
+        return self._mean.shape[0]
+
+    def get_mean(self, parallel: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+        del parallel
+        f = self._mean
+        if self._un_map:
+            f = Mapping(self._gp.setting.mapping).inv_masked(f, self._valid)
+        return f, self._valid.copy()
+
+    def get_variance(self, parallel: bool = True):
+        del parallel
+        var = np.where(self._valid, self._var, self._gp.setting.init_variance)
+        return var, self._valid.copy()
+
+
+class RangeSensorGaussianProcess3D:
+    """The bank lives on ``device``; frames, partition tables and query
+    routing stay on the host."""
+
+    Setting = RangeSensorGP3DSetting
+    TestResult = RangeSensorGP3DTestResult
+
+    def __init__(self, setting: Optional[RangeSensorGP3DSetting] = None,
+                 dtype=np.float64, mesh=None, device="cpu"):
+        if mesh is not None:
+            raise NotImplementedError(MESH_TODO)
+        self.setting = setting or RangeSensorGP3DSetting()
+        if self.setting.row_overlap_size % 2 or \
+                self.setting.col_overlap_size % 2:
+            raise ValueError("row_overlap_size and col_overlap_size must be "
+                             "even")
+        self.dtype = np.dtype(dtype)
+        self._tdtype = torch_dtype(self.dtype)
+        self.device = torch.device(device)
+        self.sensor_frame = create_range_sensor_frame_3d(
+            self.setting.sensor_frame_type, self.setting.sensor_frame,
+            dtype=dtype)
+        self.mapping = Mapping(self.setting.mapping)
+        if is_reduced_rank_name(self.setting.gp.kernel_type):
+            raise NotImplementedError(REDUCED_RANK_TODO)
+        self._scale = float(self.setting.gp.kernel.scale)
+        self._kernel = resolve_kernel_setting(
+            self.setting.gp.kernel_type, self.setting.gp.kernel,
+            "RangeSensorGaussianProcess3D.gp")
+        self.reduced_rank_kernel = False
+        fc = self.sensor_frame.frame_coords()
+        self.row_partitions = _grid_partitions(
+            fc[:, 0, 0], self.setting.row_group_size,
+            self.setting.row_overlap_size, self.setting.row_margin)
+        self.col_partitions = _grid_partitions(
+            fc[0, :, 1], self.setting.col_group_size,
+            self.setting.col_overlap_size, self.setting.col_margin)
+        self._row_bounds = np.asarray(
+            [[cl, cr] for (_, _, cl, cr) in self.row_partitions], self.dtype)
+        self._col_bounds = np.asarray(
+            [[cl, cr] for (_, _, cl, cr) in self.col_partitions], self.dtype)
+        self._trained = False
+        self.bank: Optional[BankState] = None
+        self.mapped_distances = None
+        self._scan_fit_cache = None
+
+    def using_reduced_rank_kernel(self) -> bool:
+        return self.reduced_rank_kernel
+
+    @property
+    def is_trained(self):
+        return self._trained
+
+    @property
+    def num_partitions(self):
+        return len(self.row_partitions), len(self.col_partitions)
+
+    @property
+    def range_sensor_frame(self):
+        return self.sensor_frame
+
+    @property
+    def gps(self):
+        raise NotImplementedError(GPS_TODO)
+
+    def reset(self):
+        """Drop the trained state; frame, settings and partition tables
+        survive."""
+        self._trained = False
+        self.bank = None
+        self.mapped_distances = None
+
+    # -- frame transforms ----------------------------------------------------
+    def global_to_local_so3(self, dir_global):
+        """World direction(s) (n, 3) -> sensor frame (R^T d per row)."""
+        return self.sensor_frame.dir_world_to_frame(dir_global)
+
+    def local_to_global_so3(self, dir_local):
+        return (np.asarray(dir_local, self.dtype)
+                @ self.sensor_frame.rotation.T)
+
+    def global_to_local_se3(self, xyz_global):
+        p = (np.asarray(xyz_global, self.dtype)
+             - self.sensor_frame.translation)
+        return p @ self.sensor_frame.rotation
+
+    def local_to_global_se3(self, xyz_local):
+        return (np.asarray(xyz_local, self.dtype)
+                @ self.sensor_frame.rotation.T
+                + self.sensor_frame.translation)
+
+    def compute_frame_coords(self, dirs_local):
+        coords, _ = self.sensor_frame.compute_frame_coords(dirs_local)
+        return coords
+
+    def store_data(self, rotation, translation, ranges) -> bool:
+        """Store a scan (pose, ranges and mapped distances) without
+        training (reference StoreData; Train = StoreData + fit)."""
+        self.sensor_frame.update_ranges(rotation, translation, ranges)
+        if not self.sensor_frame.is_valid():
+            return False
+        self.mapped_distances = np.asarray(
+            self.mapping.map(self.sensor_frame.ranges), self.dtype)
+        return True
+
+    def _assemble_bank_arrays(self):
+        """Per-(row, col)-partition padded training arrays of the stored
+        scan, on the host (the reference's gather loop)."""
+        fc = self.sensor_frame.frame_coords()
+        hit = self.sensor_frame.hit_mask
+        R, C = self.num_partitions
+        width = (max(ir - il for (il, ir, _, _) in self.row_partitions)
+                 * max(ir - il for (il, ir, _, _) in self.col_partitions))
+        B = R * C
+        xs = np.zeros((B, width, 2), self.dtype)
+        ys = np.zeros((B, width, 1), self.dtype)
+        vs = np.full((B, width), self.setting.sensor_range_var, self.dtype)
+        ms = np.zeros((B, width), bool)
+        for i, (ril, rir, _, _) in enumerate(self.row_partitions):
+            for j, (cil, cir, _, _) in enumerate(self.col_partitions):
+                b = i * C + j
+                sub_hit = hit[ril:rir, cil:cir]
+                cnt = int(sub_hit.sum())
+                if cnt <= self.setting.min_num_samples_per_group:
+                    continue
+                xs[b, :cnt] = fc[ril:rir, cil:cir][sub_hit]
+                ys[b, :cnt, 0] = self.mapped_distances[ril:rir, cil:cir][sub_hit]
+                ms[b, :cnt] = True
+        return xs, ys, vs, ms
+
+    def _build_scan_fit_cache(self) -> dict:
+        """Geometry-only device constants of the scan train: the flat-index
+        partition table and the frame coords (the partition grid never
+        changes after the constructor). Setting scalars are read live at
+        every train."""
+        c = self._scan_fit_cache
+        if c is None:
+            fc = self.sensor_frame.frame_coords()
+            W = fc.shape[1]
+            R, C = self.num_partitions
+            rw = max(ir - il for (il, ir, _, _) in self.row_partitions)
+            cw = max(ir - il for (il, ir, _, _) in self.col_partitions)
+            idx = np.zeros((R * C, rw * cw), np.int64)
+            inb = np.zeros((R * C, rw * cw), bool)
+            for i, (ril, rir, _, _) in enumerate(self.row_partitions):
+                for j, (cil, cir, _, _) in enumerate(self.col_partitions):
+                    b = i * C + j
+                    rr, cc = np.meshgrid(np.arange(ril, rir),
+                                         np.arange(cil, cir), indexing="ij")
+                    flat = (rr * W + cc).ravel()  # row-major, as numpy's
+                    idx[b, :flat.size] = flat     # boolean-mask flattening
+                    inb[b, :flat.size] = True
+            dev = self.device
+            c = {"fc_flat": torch.as_tensor(fc.reshape(-1, 2), device=dev),
+                 "idx": torch.as_tensor(idx, device=dev),
+                 "inb": torch.as_tensor(inb, device=dev)}
+            self._scan_fit_cache = c
+        return c
+
+    def _gather_scans(self, ranges_batch: np.ndarray):
+        """S range images -> the bank fit's inputs (x, y, var, mask) of S*B
+        members, scan-major, gathered on the model's device."""
+        c = self._build_scan_fit_cache()
+        sf, s = self.sensor_frame.setting, self.setting
+        xs, ys, vs, ms = _gather_scan_3d(
+            torch.as_tensor(ranges_batch, dtype=self._tdtype,
+                            device=self.device),
+            c["fc_flat"], c["idx"], c["inb"], float(sf.valid_range_min),
+            float(sf.valid_range_max), float(s.sensor_range_var),
+            int(s.min_num_samples_per_group), mapping=self.mapping)
+        S, B, w = ms.shape
+        return (xs.reshape(S * B, w, 2), ys.reshape(S * B, w, 1),
+                vs.reshape(S * B, w), ms.reshape(S * B, w))
+
+    def _fit_scans(self, ranges_batch: np.ndarray) -> BankState:
+        """S range images -> one BankState of S*B members: the gather and
+        ONE bank fit. A member's L and L_inv do not depend on the bank it
+        is fit in, but cuBLAS picks its batched GEMM by the batch count, so
+        a replay's alpha is recomputed scan by scan: each scan's slice then
+        equals its own train bit for bit."""
+        x, y, var, mask = self._gather_scans(ranges_batch)
+        state = bank_fit_core(x, y, var, mask, self._scale,
+                              kernel=self._kernel)
+        R, C = self.num_partitions
+        B = R * C
+        if x.shape[0] == B:
+            return state
+        # the gather zeroes y outside the mask, as the bank fit does
+        return state._replace(alpha=torch.cat([
+            solve_alpha(state.L_inv[i:i + B], y[i:i + B])
+            for i in range(0, x.shape[0], B)]))
+
+    def train_scan_batch(self, ranges_batch) -> BankState:
+        """Offline trajectory replay: S range images' partition banks in ONE
+        bank fit. ranges_batch (S, n_az, n_el), or (S, H, W) for a depth
+        frame. Returns a BankState with S*B members, scan-major; use
+        :meth:`use_scan_bank` to route queries at one scan's slice. Does
+        not change this instance's trained state."""
+        rb = np.asarray(ranges_batch, self.dtype)
+        fc = self.sensor_frame.frame_coords()
+        if rb.ndim != 3 or rb.shape[1:] != fc.shape[:2]:
+            raise ValueError(
+                f"ranges_batch must be (S, {fc.shape[0]}, {fc.shape[1]}), "
+                f"got {rb.shape}")
+        return self._fit_scans(rb)
+
+    def use_scan_bank(self, stacked: BankState, scan_index: int) -> None:
+        """Point this instance's routed predict at one scan's slice of a
+        :meth:`train_scan_batch` result."""
+        R, C = self.num_partitions
+        B = R * C
+        sl = slice(scan_index * B, (scan_index + 1) * B)
+        self.bank = BankState(
+            x=stacked.x[sl], mask=stacked.mask[sl], L=stacked.L[sl],
+            alpha=stacked.alpha[sl], trained=stacked.trained[sl],
+            L_inv=None if stacked.L_inv is None else stacked.L_inv[sl])
+        self._trained = True
+
+    def train(self, rotation, translation, ranges) -> bool:
+        """One scan -> one flattened padded bank fit (reference Train)."""
+        self._trained = False
+        if not self.store_data(rotation, translation, ranges):
+            return False
+        self.bank = self._fit_scans(self.sensor_frame.ranges[None])
+        self._trained = True
+        return True
+
+    def search_partition(self, coords: np.ndarray) -> np.ndarray:
+        """coords (m, 2) -> flat bank index i*C + j; -1 when unresolved.
+        Row interval is [left, right), col interval is [left, right]."""
+        rc = coords[:, 0][:, None]
+        cc = coords[:, 1][:, None]
+        rok = (rc >= self._row_bounds[None, :, 0]) & (rc < self._row_bounds[None, :, 1])
+        cok = (cc >= self._col_bounds[None, :, 0]) & (cc <= self._col_bounds[None, :, 1])
+        ri = np.argmax(rok, axis=1)
+        ci = np.argmax(cok, axis=1)
+        ok = rok.any(axis=1) & cok.any(axis=1)
+        idx = (ri * len(self.col_partitions) + ci).astype(np.int32)
+        idx[~ok] = -1
+        return idx
+
+    def route_directions(self, dirs_local: np.ndarray):
+        """Sensor-frame directions (m, 3) -> their frame coords (m, 2) and
+        the bank member that answers each, -1 outside the frame: the
+        routing of :meth:`test` and :meth:`compute_occ`."""
+        coords, ok = self.sensor_frame.compute_frame_coords(dirs_local)
+        ok = ok & self.sensor_frame.coords_in_frame(coords)
+        return coords, np.where(ok, self.search_partition(coords),
+                                -1).astype(np.int32)
+
+    def test(self, directions, directions_are_local: bool, un_map: bool
+             ) -> Optional[RangeSensorGP3DTestResult]:
+        if not self._trained:
+            return None
+        return RangeSensorGP3DTestResult(self, directions,
+                                         directions_are_local, un_map)
+
+    def compute_occ(self, pos_local: np.ndarray):
+        """Vectorized ComputeOcc. pos_local (n, 3) returns (valid, dist,
+        range_pred, occ); a single point (3,) returns the reference
+        binding's dict {success, dist_pos, range_pred, occ} of scalars."""
+        single = np.asarray(pos_local).ndim == 1
+        p = np.atleast_2d(np.asarray(pos_local, self.dtype))
+        dist = np.linalg.norm(p, axis=-1)
+        dirs = p / np.where(dist > 0, dist, 1.0)[:, None]
+        coords, idx = self.route_directions(dirs)
+        mean, var, valid = bank_predict_assigned(
+            self.bank, coords, idx, self._scale, kernel=self._kernel)
+        mean = mean[:, 0]
+        valid = valid & (var <= self.setting.max_valid_range_var)
+        a = dist * self.setting.occ_test_temperature
+        mapped = self.mapping.map(dist)
+        # 2/(1+e^z)-1 == -tanh(z/2): saturates instead of overflowing exp
+        occ = -np.tanh(0.5 * a * (mean - mapped))
+        range_pred = self.mapping.inv(mean)
+        if single:
+            return {"success": bool(valid[0]), "dist_pos": float(dist[0]),
+                    "range_pred": float(range_pred[0]),
+                    "occ": float(occ[0])}
+        return valid, dist, range_pred, occ
+
+    def get_memory_usage(self) -> int:
+        """Bytes held by the bank's tensors."""
+        if self.bank is None:
+            return 0
+        return sum(t.nbytes for t in self.bank if t is not None)
+
+    # -- checkpoint ----------------------------------------------------------
+    def state_dict(self):
+        """Checkpoint dict; the bank arrays are host numpy copies (L_inv is
+        left out: a loaded bank whitens with a triangular solve)."""
+        return {
+            "setting": self.setting.to_dict(),
+            "trained": self._trained,
+            "sensor_frame": self.sensor_frame.state_dict(),
+            "mapped_distances": self.mapped_distances,
+            "bank": None if self.bank is None else {
+                k: v.detach().cpu().numpy()
+                for k, v in self.bank._asdict().items() if k != "L_inv"},
+        }
+
+    def load_state_dict(self, d):
+        """Load a checkpoint at its own dtype (its sensor frame's) onto this
+        model's device."""
+        self.__init__(RangeSensorGP3DSetting.from_dict(d["setting"]),
+                      dtype=np.asarray(d["sensor_frame"]["rotation"]).dtype,
+                      device=self.device)
+        self._trained = bool(d["trained"])
+        self.sensor_frame.load_state_dict(d["sensor_frame"])
+        md = d["mapped_distances"]
+        self.mapped_distances = None if md is None else np.asarray(md)
+        b = d["bank"]
+        self.bank = None if b is None else bank_state_from_numpy(
+            {k: v for k, v in b.items() if k != "L_inv"}, self.device)
+
+    def save(self, path):
+        save_pytree(path, self.state_dict())
+
+    def load(self, path):
+        self.load_state_dict(load_pytree(path))
+
+    def __eq__(self, other):
+        if not isinstance(other, RangeSensorGaussianProcess3D):
+            return NotImplemented
+        return eq_state(self.state_dict(), other.state_dict())

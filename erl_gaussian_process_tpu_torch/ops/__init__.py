@@ -5,16 +5,26 @@ CUDA kernel for CUDA tensors; every launch adds one to the wrapper's
 ``launches`` count, so a run can show that it went through the kernels.
 """
 
+from erl_gaussian_process_tpu_torch.ops.bank import (
+    bank_cholesky_solve_cuda,
+    bank_cholesky_solve_plain,
+    bank_fit_cuda,
+    bank_fit_plain,
+    solve_alpha,
+)
 from erl_gaussian_process_tpu_torch.ops.fitc import (
     fitc_update_cuda,
     fitc_update_plain,
 )
 from erl_gaussian_process_tpu_torch.ops.gram import (
+    cross_gram_batched_cuda,
     cross_gram_cuda,
     cross_gram_plain,
 )
 
-WRAPPERS = {"gram": cross_gram_cuda, "fitc": fitc_update_cuda}
+WRAPPERS = {"gram": cross_gram_cuda, "gram_batched": cross_gram_batched_cuda,
+            "fitc": fitc_update_cuda, "bank_fit": bank_fit_cuda,
+            "bank_chol": bank_cholesky_solve_cuda}
 
 
 def launch_counts() -> dict:
@@ -28,10 +38,16 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "bank_cholesky_solve_cuda",
+    "bank_cholesky_solve_plain",
+    "bank_fit_cuda",
+    "bank_fit_plain",
+    "cross_gram_batched_cuda",
     "cross_gram_cuda",
     "cross_gram_plain",
     "fitc_update_cuda",
     "fitc_update_plain",
     "launch_counts",
     "reset_launch_counts",
+    "solve_alpha",
 ]

@@ -1,19 +1,22 @@
 """Build and load the hand-written CUDA kernels.
 
-``csrc/gram.cu`` and ``csrc/fitc.cu`` (with the shared ``csrc/family.cuh``)
-compile with ``nvcc`` into ONE shared library with a plain C interface,
-loaded with ``ctypes``. Nothing is built when this module is imported: the
+``csrc/gram.cu``, ``csrc/fitc.cu`` and ``csrc/bank.cu`` (with the shared
+``csrc/family.cuh``) compile with ``nvcc`` into ONE shared library with a
+plain C interface, loaded with ``ctypes``. Nothing is built when this module is imported: the
 first call of :func:`load_library` builds, into
 ``erl_gaussian_process_tpu_torch/_build/<hash>/``, where the hash covers the
 sources and the compiler flags, so a changed source rebuilds and an
 unchanged one loads the existing library. A failed build raises with the
 compiler's output; there is no fallback.
 
-The sources include no PyTorch headers, so a build takes seconds.
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more links the objects. The sources include no PyTorch headers, so
+a build takes seconds.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -21,17 +24,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
-_SOURCES = ("family.cuh", "gram.cu", "fitc.cu")
-_COMPILED = ("gram.cu", "fitc.cu")
+_SOURCES = ("family.cuh", "gram.cu", "fitc.cu", "bank.cu")
+_COMPILED = ("gram.cu", "fitc.cu", "bank.cu")
 # sm_90a: the Hopper target. No --use_fast_math: the kernels need the
 # full-precision exp/sqrt/division (see csrc/family.cuh).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libegp_kernels.so"
 
 _P = ctypes.c_void_p
@@ -87,9 +91,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.egp_error_string.restype = ctypes.c_char_p
     for name in ("egp_gram_f32", "egp_gram_f64"):
         fn = getattr(lib, name)
-        # x1, x2, out, m, n, d, family, ncomp, ratios, weights, scale,
-        # device, stream
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _PD, _PD, _D, _I, _P]
+        # x1, x2, out, batch, m, n, d, family, ncomp, ratios, weights,
+        # scale, device, stream
+        fn.argtypes = [_P, _P, _P] + [_I] * 6 + [_PD, _PD, _D, _I, _P]
         fn.restype = _I
     for name in ("egp_fitc_f32", "egp_fitc_f64"):
         fn = getattr(lib, name)
@@ -97,6 +101,47 @@ def _declare(lib: ctypes.CDLL) -> None:
         # m, n, d, q, family, ncomp, ratios, weights, scale, device, stream
         fn.argtypes = [_P] * 11 + [_I] * 6 + [_PD, _PD, _D, _I, _P]
         fn.restype = _I
+    for name in ("egp_bank_fit_f32", "egp_bank_fit_f64"):
+        fn = getattr(lib, name)
+        # x, var, mask, L, L_inv, batch, n, d, family, ncomp, ratios,
+        # weights, scale, device, stream
+        fn.argtypes = [_P] * 5 + [_I] * 5 + [_PD, _PD, _D, _I, _P]
+        fn.restype = _I
+    for name in ("egp_bank_chol_f32", "egp_bank_chol_f64"):
+        fn = getattr(lib, name)
+        # K, L, L_inv, batch, n, device, stream
+        fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+        fn.restype = _I
+
+
+def _run(cmd: list) -> tuple:
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return " ".join(cmd) + "\n" + proc.stdout, proc.returncode
+
+
+def _compile(out_dir: str, path: str) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link into
+    ``path``; the compiler's output goes to ``nvcc.log``. Raises on a
+    failure."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp, \
+            concurrent.futures.ThreadPoolExecutor(len(_COMPILED)) as pool:
+        objs = [os.path.join(tmp, f"{s}.o") for s in _COMPILED]
+        runs = list(pool.map(_run, [
+            [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, s), "-o", o]
+            for s, o in zip(_COMPILED, objs)]))
+        lib = os.path.join(tmp, _LIB_NAME)
+        if not any(code for _, code in runs):
+            runs.append(_run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", lib,
+                              *objs]))
+        log = "".join(out for out, _ in runs)
+        with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+            f.write(log)
+        failed = [code for _, code in runs if code]
+        if failed:
+            raise RuntimeError(f"nvcc failed (exit {failed[0]}):\n{log}")
+        os.replace(lib, path)
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,20 +153,9 @@ def load_library() -> KernelLibrary:
     seconds = 0.0
     if not os.path.exists(path):
         os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[os.path.join(CSRC_DIR, s) for s in _COMPILED]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _compile(out_dir, path)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        with open(log_path, "w") as f:
-            f.write(" ".join(cmd) + "\n" + log)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{log}")
-        os.replace(tmp, path)
     log = ""
     if os.path.exists(log_path):
         with open(log_path) as f:

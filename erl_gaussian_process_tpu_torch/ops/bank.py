@@ -1,0 +1,146 @@
+"""Bank fit and bank Cholesky solve: the hand-written CUDA kernels
+(``csrc/bank.cu``) and their plain PyTorch versions.
+
+Counterpart of ``erl_gaussian_process_tpu/ops/pallas_bank.py``. Each call
+factors a bank of B small exact GPs of n samples:
+
+- :func:`bank_fit_cuda`: the gram ``k(x, x) + diag(var)`` with masked rows
+  as identity rows, then ``L`` and ``L^{-1}`` (``_fit_kernel``);
+- :func:`bank_cholesky_solve_cuda`: ``L`` and ``L^{-1}`` of a given gram
+  batch (``_chol_kernel``).
+
+Both return ``(L, L_inv, alpha)`` with ``alpha = K^{-1} y`` computed outside
+the kernel as two batched products against ``L^{-1}``, as in the JAX
+package. The JAX package took its kernel on a TPU in float32 above n = 96
+only; here every CUDA call launches the kernel, at any n and both dtypes. A
+member whose factorization fails comes out all NaN in both versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from erl_gaussian_process_tpu_torch.ops._build import double_array, load_library
+from erl_gaussian_process_tpu_torch.ops.gram import (
+    check_cuda_operands,
+    family_args,
+)
+
+
+def solve_alpha(L_inv: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """alpha = L^{-T} L^{-1} y: two batched products. L_inv (B, n, n), y
+    (B, n, q)."""
+    return torch.bmm(L_inv.mT, torch.bmm(L_inv, y))
+
+
+def _masked_y(y, mask):
+    return torch.where(mask[:, :, None], y, torch.zeros_like(y))
+
+
+def _factor_plain(K: torch.Tensor):
+    L, info = torch.linalg.cholesky_ex(K)
+    L = L.masked_fill((info != 0)[:, None, None], float("nan")).contiguous()
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    L_inv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    return L, L_inv.contiguous()
+
+
+def bank_fit_plain(name: str, x, y, var, mask, scale):
+    """The plain PyTorch version of the bank fit kernel, on any device:
+    batched ``train_gram`` -> ``cholesky_ex`` (a failed member all NaN, no
+    jitter) -> ``L^{-1}`` by a triangular solve -> :func:`solve_alpha`."""
+    # kernels.stationary imports this package's gram module: import late
+    from erl_gaussian_process_tpu_torch.kernels.stationary import train_gram
+
+    K = train_gram(name, x, torch.where(mask, var, torch.zeros_like(var)),
+                   scale, mask=mask)
+    L, L_inv = _factor_plain(K)
+    return L, L_inv, solve_alpha(L_inv, _masked_y(y, mask))
+
+
+def bank_cholesky_solve_plain(K, y):
+    """The plain PyTorch version of the bank Cholesky kernel, on any
+    device."""
+    L, L_inv = _factor_plain(K)
+    return L, L_inv, solve_alpha(L_inv, y)
+
+
+def bank_fit_cuda(name: str, x, y, var, mask, scale):
+    """(L, L_inv, alpha) of B GPs. x (B, n, d); y (B, n, q); var (B, n);
+    mask (B, n) bool, False rows padding (identity rows of the gram, zero
+    rows of alpha). A member's L and L_inv do not depend on the bank it is
+    fit in; its alpha may differ in the last bits, as cuBLAS picks its
+    batched GEMM by the batch count.
+
+    CPU tensors take :func:`bank_fit_plain`; CUDA tensors launch
+    ``csrc/bank.cu`` (counted in ``bank_fit_cuda.launches``) or raise."""
+    tensors = (x, y, var, mask)
+    if all(t.device.type == "cpu" for t in tensors):
+        return bank_fit_plain(name, x, y, var, mask, scale)
+    dt = x.dtype
+    check_cuda_operands("bank_fit_cuda", dt, x, y, var)
+    if mask.device != x.device or mask.dtype != torch.bool \
+            or not mask.is_contiguous():
+        raise ValueError("bank_fit_cuda: mask must be a contiguous bool "
+                         "tensor on the operands' device")
+    if x.dim() != 3 or y.dim() != 3:
+        raise ValueError("bank_fit_cuda: x and y must be 3-D")
+    b, n, d = x.shape
+    if (y.shape[:2] != (b, n) or var.shape != (b, n)
+            or mask.shape != (b, n)):
+        raise ValueError(
+            f"bank_fit_cuda: shapes x {tuple(x.shape)} y {tuple(y.shape)} "
+            f"var {tuple(var.shape)} mask {tuple(mask.shape)}")
+    if b == 0 or n == 0 or d == 0:
+        raise ValueError(f"bank_fit_cuda: empty operand, B={b} n={n} d={d}")
+    fam, ratios, weights = family_args(name)
+    L = torch.empty((b, n, n), dtype=dt, device=x.device)
+    L_inv = torch.empty_like(L)
+    kl = load_library()
+    fn = kl.lib.egp_bank_fit_f32 if dt == torch.float32 else \
+        kl.lib.egp_bank_fit_f64
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = fn(x.data_ptr(), var.data_ptr(), mask.data_ptr(), L.data_ptr(),
+              L_inv.data_ptr(), b, n, d, fam, len(ratios),
+              double_array(ratios), double_array(weights), float(scale),
+              x.device.index, stream)
+    kl.check(code, "bank fit kernel launch")
+    bank_fit_cuda.launches += 1
+    return L, L_inv, solve_alpha(L_inv, _masked_y(y, mask))
+
+
+bank_fit_cuda.launches = 0
+
+
+def bank_cholesky_solve_cuda(K, y):
+    """(L, L_inv, alpha = K^{-1} y) for a gram batch K (B, n, n), read from
+    its lower triangle; y (B, n, q).
+
+    CPU tensors take :func:`bank_cholesky_solve_plain`; CUDA tensors launch
+    ``csrc/bank.cu`` (counted in ``bank_cholesky_solve_cuda.launches``) or
+    raise."""
+    if K.device.type == "cpu" and y.device.type == "cpu":
+        return bank_cholesky_solve_plain(K, y)
+    check_cuda_operands("bank_cholesky_solve_cuda", K.dtype, K, y)
+    if K.dim() != 3 or y.dim() != 3 or K.shape[1] != K.shape[2] \
+            or y.shape[:2] != K.shape[:2]:
+        raise ValueError(f"bank_cholesky_solve_cuda: shapes K "
+                         f"{tuple(K.shape)} y {tuple(y.shape)}")
+    b, n, _ = K.shape
+    if b == 0 or n == 0:
+        raise ValueError(f"bank_cholesky_solve_cuda: empty operand, B={b} "
+                         f"n={n}")
+    L = torch.empty_like(K)
+    L_inv = torch.empty_like(K)
+    kl = load_library()
+    fn = kl.lib.egp_bank_chol_f32 if K.dtype == torch.float32 else \
+        kl.lib.egp_bank_chol_f64
+    stream = torch.cuda.current_stream(K.device).cuda_stream
+    code = fn(K.data_ptr(), L.data_ptr(), L_inv.data_ptr(), b, n,
+              K.device.index, stream)
+    kl.check(code, "bank Cholesky kernel launch")
+    bank_cholesky_solve_cuda.launches += 1
+    return L, L_inv, solve_alpha(L_inv, y)
+
+
+bank_cholesky_solve_cuda.launches = 0

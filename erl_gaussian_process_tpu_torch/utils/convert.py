@@ -1,8 +1,9 @@
 """Carry a JAX-package state over to the port.
 
 The JAX package's checkpoints (``state_dict()`` of
-``SparsePseudoInputGaussianProcess`` and ``SpGpOccupancyMap``, as numpy
-arrays) load here and compute the same thing from the same state. The one
+``SparsePseudoInputGaussianProcess``, ``SpGpOccupancyMap`` and
+``RangeSensorGaussianProcess3D``, as numpy arrays) load here and compute the
+same thing from the same state. The one
 piece that cannot carry over is the JAX PRNG key: the map gets a fresh
 ``torch.Generator`` seed derived from it (:func:`seed_from_key`), so its
 future free-space samples differ from the JAX map's.
@@ -13,6 +14,12 @@ from __future__ import annotations
 import numpy as np
 
 from erl_gaussian_process_tpu_torch.geometry.aabb import Aabb
+from erl_gaussian_process_tpu_torch.models.batch_gp import (  # noqa: F401
+    bank_state_from_numpy,
+)
+from erl_gaussian_process_tpu_torch.models.range_sensor_gp_3d import (
+    RangeSensorGaussianProcess3D,
+)
 from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     SpGpState,
     state_from_numpy,
@@ -63,3 +70,13 @@ def occupancy_map_from_numpy(d, device="cpu",
         "map_boundary": d["map_boundary"], "seed": seed,
         "step": int(d.get("step", 0))})
     return omap
+
+
+def range_sensor_gp_3d_from_numpy(d, device="cpu"
+                                  ) -> RangeSensorGaussianProcess3D:
+    """A port ``RangeSensorGaussianProcess3D`` on ``device`` from a JAX
+    ``RangeSensorGaussianProcess3D.state_dict()``, at the checkpoint's
+    dtype."""
+    gp = RangeSensorGaussianProcess3D(device=device)
+    gp.load_state_dict(d)
+    return gp

@@ -1,25 +1,45 @@
-"""The hotel-0 workload (counterpart of
-``erl_gaussian_process_tpu/workloads.py``): the 3D SPGP occupancy map
-replaying the 983-pose replica-hotel-0 trajectory. Its configuration —
-bounding box margins, mesh, kernel scale, pseudo grid, depth-ray grid —
-is the JAX package's, value for value, so both packages run one problem.
+"""The workloads of the port.
+
+- hotel-0 (counterpart of ``erl_gaussian_process_tpu/workloads.py``): the
+  3D SPGP occupancy map replaying the 983-pose replica-hotel-0 trajectory.
+  Its configuration (bounding box margins, mesh, kernel scale, pseudo
+  grid, depth-ray grid) is the JAX package's, value for value, so both
+  packages run one problem.
+- The 3D range-sensor GP's reference protocols (the JAX package's
+  ``tests/test_range_sensor_gp_3d.py:138-229``, value for value): one
+  scan of the procedural reference room from its center at a seeded
+  random orientation, then 10 000 uniform sphere directions against the
+  raycast ground truth.
 """
 
 import os
 
 import numpy as np
 
+from erl_gaussian_process_tpu_torch.geometry.frames_3d import (
+    DepthFrame3DSetting,
+    LidarFrame3DSetting,
+)
 from erl_gaussian_process_tpu_torch.geometry.grid_map_info import GridMapInfo3D
 from erl_gaussian_process_tpu_torch.geometry.simulators import (
+    reference_room_mesh_3d,
     replica_hotel_like_mesh,
 )
 from erl_gaussian_process_tpu_torch.kernels import KernelSetting
+from erl_gaussian_process_tpu_torch.models.mapping import (
+    MappingSetting,
+    MappingType,
+)
+from erl_gaussian_process_tpu_torch.models.range_sensor_gp_3d import (
+    RangeSensorGP3DSetting,
+)
 from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     SpGpSetting,
 )
 from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
     SpGpOccupancyMapSetting,
 )
+from erl_gaussian_process_tpu_torch.models.vanilla_gp import VanillaGPSetting
 
 _REPO_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           os.pardir)
@@ -102,3 +122,116 @@ def hotel0_workload(n_poses=None):
     return (np.stack(sensors), np.stack(pts), np.stack(masks),
             np.concatenate(hits), poses[:, :3, 3].astype(np.float32),
             setting, pseudo, lo, hi)
+
+
+def euler_rotation(roll, pitch, yaw) -> np.ndarray:
+    """R = Rz(yaw) Ry(pitch) Rx(roll)."""
+    cr, sr, cp, sp, cy, sy = (np.cos(roll), np.sin(roll), np.cos(pitch),
+                              np.sin(pitch), np.cos(yaw), np.sin(yaw))
+    return (np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
+            @ np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+            @ np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]]))
+
+
+def random_pose_and_queries(seed: int, n_test: int = 10000):
+    """A seeded sensor orientation (roll, pitch within pi/4, any yaw) and
+    ``n_test`` directions uniform in azimuth and elevation."""
+    rng = np.random.default_rng(seed)
+    rpy = rng.uniform(-1, 1, 3) * np.array([np.pi / 4, np.pi / 4, np.pi])
+    R = euler_rotation(*rpy)
+    az = rng.uniform(-np.pi, np.pi, n_test)
+    el = rng.uniform(-np.pi / 2, np.pi / 2, n_test)
+    dirs = np.stack([np.cos(az) * np.cos(el), np.sin(az) * np.cos(el),
+                     np.sin(el)], axis=-1)
+    return R, dirs
+
+
+def _sensor_setting(frame_type: str, frame, scale: float):
+    return RangeSensorGP3DSetting(
+        row_group_size=10, row_overlap_size=4, row_margin=0,
+        col_group_size=10, col_overlap_size=4, col_margin=0,
+        min_num_samples_per_group=10, sensor_range_var=0.01,
+        max_valid_range_var=0.1, sensor_frame_type=frame_type,
+        sensor_frame=frame,
+        gp=VanillaGPSetting(kernel_type="ou",
+                            kernel=KernelSetting(x_dim=2, scale=scale)),
+        mapping=MappingSetting(type=MappingType.INVERSE_SQRT))
+
+
+def lidar3d_setting() -> RangeSensorGP3DSetting:
+    """The reference lidar protocol: 271x91 rays over azimuth +-3pi/4 and
+    elevation +-pi/2, groups of 10 with overlap 4 (736 partitions of 100
+    samples), OU at scale 0.3, inverse-sqrt mapping, range variance
+    0.01."""
+    return _sensor_setting("lidar", LidarFrame3DSetting(
+        azimuth_min=-np.pi * 3 / 4, azimuth_max=np.pi * 3 / 4,
+        elevation_min=-np.pi / 2, elevation_max=np.pi / 2,
+        num_azimuth_lines=271, num_elevation_lines=91), 0.3)
+
+
+def depth3d_setting() -> RangeSensorGP3DSetting:
+    """The reference depth-camera protocol: a 120x160 pinhole image at
+    fx = fy = 110, OU at scale 8 (pixels), otherwise as the lidar's."""
+    return _sensor_setting("depth", DepthFrame3DSetting(
+        valid_range_min=0.1, valid_range_max=40.0, image_height=120,
+        image_width=160, fx=110.0, fy=110.0, cx=80.0, cy=60.0), 8.0)
+
+
+def _reference_protocol(setting, seed: int):
+    from erl_gaussian_process_tpu_torch.geometry.frames_3d import (
+        create_range_sensor_frame_3d,
+    )
+
+    mesh = reference_room_mesh_3d()
+    R, dirs_test = random_pose_and_queries(seed)
+    t = mesh.center()
+    frame = create_range_sensor_frame_3d(setting.sensor_frame_type,
+                                         setting.sensor_frame)
+    dirs_f = frame.ray_directions_in_frame()
+    ranges = mesh.cast_rays(t, dirs_f.reshape(-1, 3) @ R.T)
+    gt = mesh.cast_rays(t, dirs_test)
+    return (setting, R, t, ranges.reshape(dirs_f.shape[:2]), dirs_test, gt,
+            mesh)
+
+
+def lidar3d_reference_workload():
+    """(setting, R, t, ranges (271, 91), query directions (10000, 3) in the
+    world frame, their raycast ground truth, mesh): the lidar protocol,
+    pose and queries from seed 0. MSE gate 4.2e-4."""
+    return _reference_protocol(lidar3d_setting(), 0)
+
+
+def depth3d_reference_workload():
+    """The depth protocol's (setting, R, t, ranges (120, 160), queries,
+    ground truth, mesh), pose and queries from seed 1. Out-of-view queries
+    are invalid. MSE gate 2.2e-4."""
+    return _reference_protocol(depth3d_setting(), 1)
+
+
+def lidar3d_replay_workload(n_scans: int = 64, seed: int = 0):
+    """Offline replay of the lidar protocol: ``n_scans`` scans of the
+    reference room, each from a seeded pose (orientation as in
+    :func:`random_pose_and_queries`, position within +-1 x +-0.8 x +-0.4 m of
+    the room's center, clear of the furniture). Returns (setting,
+    rotations (S, 3, 3), positions (S, 3), ranges (S, 271, 91)); all rays
+    are raycast in one call."""
+    from erl_gaussian_process_tpu_torch.geometry.frames_3d import (
+        create_range_sensor_frame_3d,
+    )
+
+    setting = lidar3d_setting()
+    mesh = reference_room_mesh_3d()
+    frame = create_range_sensor_frame_3d(setting.sensor_frame_type,
+                                         setting.sensor_frame)
+    dirs_f = frame.ray_directions_in_frame().reshape(-1, 3)
+    rng = np.random.default_rng(seed)
+    Rs, ts = [], []
+    for _ in range(n_scans):
+        rpy = rng.uniform(-1, 1, 3) * np.array([np.pi / 4, np.pi / 4, np.pi])
+        Rs.append(euler_rotation(*rpy))
+        ts.append(mesh.center() + rng.uniform(-1, 1, 3) * [1.0, 0.8, 0.4])
+    Rs, ts = np.stack(Rs), np.stack(ts)
+    dirs = np.einsum("sij,nj->sni", Rs, dirs_f).reshape(-1, 3)
+    origins = np.repeat(ts, dirs_f.shape[0], axis=0)
+    ranges = mesh.cast_rays(origins, dirs)
+    return setting, Rs, ts, ranges.reshape((n_scans,) + frame.shape)

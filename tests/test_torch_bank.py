@@ -1,0 +1,349 @@
+"""The PyTorch port's GP bank (erl_gaussian_process_tpu_torch/ops/bank.py,
+models/batch_gp.py, models/mapping.py, the bank pieces of models/gp_core.py)
+against the JAX package on the same inputs, made from a numpy seed: float64
+to 1e-12 of each result's magnitude, float32 to 1e-4 (the JAX package's own
+bank parity tolerances), and the plain bank fit against the JAX Pallas
+kernel run in interpret mode."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import erl_gaussian_process_tpu.models.batch_gp as jbg
+from erl_gaussian_process_tpu.kernels import cross_gram as jax_cross_gram
+from erl_gaussian_process_tpu.models import gp_core as jgp
+from erl_gaussian_process_tpu.models.mapping import (
+    Mapping as JaxMapping,
+    MappingSetting as JaxMappingSetting,
+    MappingType as JaxMappingType,
+)
+from erl_gaussian_process_tpu_torch.models import gp_core
+from erl_gaussian_process_tpu_torch.models.batch_gp import (
+    BatchGPBank,
+    bank_fit,
+    bank_fit_rr,
+    bank_predict,
+    bank_predict_assigned,
+    bank_state_from_numpy,
+)
+from erl_gaussian_process_tpu_torch.models.mapping import (
+    Mapping,
+    MappingSetting,
+    MappingType,
+)
+from erl_gaussian_process_tpu_torch.ops import (
+    bank_cholesky_solve_cuda,
+    bank_cholesky_solve_plain,
+    bank_fit_cuda,
+    bank_fit_plain,
+    cross_gram_batched_cuda,
+    solve_alpha,
+)
+
+TOL = {np.float64: 1e-12, np.float32: 1e-4}
+FAMILIES = ["rbf", "ou", "matern32"]
+
+
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _close(got, ref, tol):
+    got, ref = _np(got), np.asarray(ref)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=tol * max(np.abs(ref).max(), 1e-300))
+
+
+def _bank_inputs(dtype, B=37, n=100, d=2, q=2, seed=0):
+    """The JAX package's bank parity shape: off any grid, masked rows."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, n, d)).astype(dtype),
+            rng.normal(size=(B, n, q)).astype(dtype),
+            (0.01 + 0.1 * rng.random((B, n))).astype(dtype),
+            rng.random((B, n)) < 0.9)
+
+
+def _t(*arrays):
+    return [torch.as_tensor(a) for a in arrays]
+
+
+# -- mapping ---------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("mtype,scale,domain", [
+    ("IDENTITY", 1.0, (0.1, 10.0)),
+    ("INVERSE", 1.0, (0.1, 10.0)),
+    ("INVERSE_SQRT", 1.0, (0.1, 10.0)),
+    ("EXP", 0.7, (0.1, 10.0)),
+    ("LOG", 0.7, (0.1, 10.0)),
+    ("TANH", 0.3, (0.1, 3.0)),
+    ("SIGMOID", 0.5, (0.1, 10.0)),
+])
+def test_mapping_matches_jax(mtype, scale, domain, dtype):
+    """map and inv on tensors and on numpy arrays, both dtypes, against the
+    JAX mapping to 256 ulps (the packages' elementwise math libraries
+    differ: torch's float64 atanh is ~50 ulps from XLA's); inv_masked
+    sends invalid lanes to +inf."""
+    x = np.linspace(*domain, 57).astype(dtype)
+    m = Mapping(MappingSetting(type=MappingType[mtype], scale=scale))
+    jm = JaxMapping(JaxMappingSetting(type=JaxMappingType[mtype],
+                                      scale=scale))
+    rtol = 256 * np.finfo(dtype).eps
+    mapped = m.map(torch.as_tensor(x))
+    assert mapped.dtype == torch.as_tensor(x).dtype
+    np.testing.assert_allclose(mapped.numpy(), np.asarray(jm.map(x)),
+                               rtol=rtol)
+    y = np.asarray(jm.map(x))
+    np.testing.assert_allclose(m.inv(y), np.asarray(jm.inv(y)), rtol=rtol)
+    assert isinstance(m.map(x), np.ndarray)
+    valid = np.arange(x.size) % 3 != 0
+    out = m.inv_masked(y, valid)
+    np.testing.assert_allclose(out[valid], np.asarray(jm.inv(y))[valid],
+                               rtol=rtol)
+    assert np.isinf(out[~valid]).all()
+    assert MappingSetting.from_dict(m.setting.to_dict()) == m.setting
+    assert m.setting.to_dict() == jm.setting.to_dict()
+
+
+# -- gp_core ---------------------------------------------------------------
+
+def test_cholesky_fit_and_whiten_match_jax():
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=(30, 30))
+    K = a @ a.T + 30 * np.eye(30)
+    y = rng.normal(size=(30, 2))
+    kt = rng.normal(size=(30, 7))
+    L, alpha = gp_core.cholesky_fit(*_t(K, y))
+    jL, ja = jgp.cholesky_fit(jnp.asarray(K), jnp.asarray(y))
+    _close(L, jL, 1e-12)
+    _close(alpha, ja, 1e-12)
+    _close(gp_core.whiten(L, torch.as_tensor(kt)),
+           jgp.whiten(jL, jnp.asarray(kt)), 1e-12)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        gp_core.cholesky_fit(*_t(K, y), robust=False)
+
+
+# -- bank fit --------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_bank_fit_plain_matches_jax(fam, dtype):
+    """The plain bank fit against the JAX package's XLA bank fit: L, alpha,
+    and L_inv really the inverse of L (identity on masked rows)."""
+    x, y, var, mask = _bank_inputs(dtype)
+    L, L_inv, alpha = bank_fit_plain(fam, *_t(x, y, var, mask), 0.7)
+    st = jbg._bank_fit_xla(*map(jnp.asarray, (x, y, var, mask)),
+                           dtype(0.7), kernel=fam)
+    tol = TOL[dtype]
+    _close(L, st.L, tol)
+    _close(alpha, st.alpha, tol)
+    eye_err = np.abs(_np(L_inv) @ np.asarray(st.L) - np.eye(100)).max()
+    assert eye_err < tol
+    # the CPU wrapper is the plain version
+    for a, b in zip(bank_fit_cuda(fam, *_t(x, y, var, mask), 0.7),
+                    (L, L_inv, alpha)):
+        assert torch.equal(a, b)
+
+
+def test_bank_fit_plain_marks_a_failed_member_nan():
+    x, y, var, mask = _bank_inputs(np.float64, B=5, n=20)
+    var[2, np.flatnonzero(mask[2])[0]] = -50.0
+    L, L_inv, alpha = bank_fit_plain("ou", *_t(x, y, var, mask), 0.7)
+    for t in (L, L_inv, alpha):
+        assert torch.isnan(t[2]).all()
+        assert torch.isfinite(t[[0, 1, 3, 4]]).all()
+
+
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_bank_fit_plain_matches_the_pallas_kernel_in_interpret_mode(fam):
+    """The TPU kernel itself (interpret mode, B = 2, n0 = 12, float32)
+    against the plain version that the CUDA kernel is held to."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from erl_gaussian_process_tpu.ops.pallas_bank import bank_fit_fused
+
+    x, y, var, mask = _bank_inputs(np.float32, B=2, n=12, q=1, seed=3)
+    with pltpu.force_tpu_interpret_mode():
+        jL, jLi, ja = bank_fit_fused(
+            fam, *map(jnp.asarray, (x, y, var, mask)), np.float32(0.7))
+    L, L_inv, alpha = bank_fit_plain(fam, *_t(x, y, var, mask), 0.7)
+    tri = np.tril(np.ones((12, 12), bool))
+    # the TPU kernel leaves rounding residue above L's diagonal
+    _close(np.where(tri, _np(L), 0), np.where(tri, np.asarray(jL), 0), 1e-4)
+    _close(L_inv, jLi, 1e-4)
+    _close(alpha, ja, 1e-4)
+
+
+def test_bank_cholesky_solve_matches_jax_and_the_pallas_kernel():
+    from jax.experimental.pallas import tpu as pltpu
+
+    from erl_gaussian_process_tpu.ops.pallas_bank import (
+        bank_cholesky_solve_fused,
+    )
+
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(21, 12, 8))
+    K = np.einsum("bnd,bmd->bnm", X, X) / 8 + 2 * np.eye(12)
+    y = rng.normal(size=(21, 12, 1))
+    L, L_inv, alpha = bank_cholesky_solve_plain(*_t(K, y))
+    jL, ja = jbg._batched_cholesky_solve(jnp.asarray(K), jnp.asarray(y))
+    _close(L, jL, 1e-12)
+    _close(alpha, ja, 1e-12)
+    for a, b in zip(bank_cholesky_solve_cuda(*_t(K, y)), (L, L_inv, alpha)):
+        assert torch.equal(a, b)
+    K32, y32 = K[:2].astype(np.float32), y[:2].astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        pL, pLi, pa = bank_cholesky_solve_fused(jnp.asarray(K32),
+                                                jnp.asarray(y32))
+    L, L_inv, alpha = bank_cholesky_solve_plain(*_t(K32, y32))
+    tri = np.tril(np.ones((12, 12), bool))
+    _close(np.where(tri, _np(L), 0), np.where(tri, np.asarray(pL), 0), 1e-4)
+    _close(L_inv, pLi, 1e-4)
+    _close(alpha, pa, 1e-3)
+
+
+def test_alpha_chunks_do_not_change_the_result():
+    """alpha solved slice by slice, as the sensor GPs' replay solves it
+    scan by scan, agrees with the whole bank's."""
+    x, y, var, mask = _t(*_bank_inputs(np.float64, B=9, n=16))
+    _, L_inv, alpha = bank_fit_plain("rbf", x, y, var, mask, 0.7)
+    y = torch.where(mask[..., None], y, 0.0)
+    _close(torch.cat([solve_alpha(L_inv[i:i + 4], y[i:i + 4])
+                      for i in range(0, 9, 4)]), alpha, 1e-14)
+
+
+@pytest.mark.parametrize("wrapper", ["bank_fit", "bank_chol", "gram"])
+def test_wrappers_take_the_plain_version_only_for_cpu_tensors(wrapper):
+    """Tensors on another device than the CPU go to the kernel, which
+    checks its operands and raises here (they are not on a CUDA device)."""
+    x, y, var, mask = (torch.as_tensor(a, device="meta")
+                       for a in _bank_inputs(np.float32, B=2, n=8))
+    with pytest.raises(ValueError, match="CUDA device"):
+        if wrapper == "bank_fit":
+            bank_fit_cuda("rbf", x, y, var, mask, 0.7)
+        elif wrapper == "bank_chol":
+            bank_cholesky_solve_cuda(torch.empty((2, 8, 8), device="meta"),
+                                     y)
+        else:
+            cross_gram_batched_cuda("rbf", x, x, 0.7)
+
+
+def test_batched_gram_plain_matches_jax_vmap():
+    rng = np.random.default_rng(5)
+    x1, x2 = rng.uniform(-1, 1, (6, 20, 2)), rng.uniform(-1, 1, (6, 9, 2))
+    import jax
+    ref = jax.vmap(lambda a, b: jax_cross_gram("matern32", a, b, 0.4))(
+        jnp.asarray(x1), jnp.asarray(x2))
+    _close(cross_gram_batched_cuda("matern32", *_t(x1, x2), 0.4), ref, 1e-12)
+
+
+# -- BatchGPBank ---------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_batch_gp_bank_matches_jax(dtype):
+    """Load padded (K, y) problems, one batched solve, read back (L,
+    alpha); members smaller than n are identity-padded exactly."""
+    rng = np.random.default_rng(2)
+    bank = BatchGPBank(batch_size=3, max_num_samples=24, y_dim=1,
+                       dtype=dtype)
+    jbank = jbg.BatchGPBank(batch_size=3, max_num_samples=24, y_dim=1,
+                            dtype=dtype)
+    sizes = [24, 10, 17]
+    for i, n in enumerate(sizes):
+        x = np.sort(rng.uniform(0, 1, n))
+        K = np.exp(-(x[:, None] - x[None, :]) ** 2 / (2 * 0.2 ** 2))
+        K += np.diag(np.full(n, 1e-2))
+        y = np.sin(5 * x)[:, None]
+        bank.load_gp_data(i, n, K, y)
+        jbank.load_gp_data(i, n, K, y)
+    bank.solve()
+    jbank.solve()
+    for i, n in enumerate(sizes):
+        L, a = bank.get_gp_result(i)
+        jL, ja = jbank.get_gp_result(i)
+        assert L.dtype == dtype and a.shape == (24, 1)
+        _close(L, jL, TOL[dtype])
+        _close(a, ja, TOL[dtype] * (1e2 if dtype == np.float32 else 1))
+        np.testing.assert_array_equal(L[n:, n:], np.eye(24 - n))
+        np.testing.assert_array_equal(a[n:], 0.0)
+
+
+# -- predict -------------------------------------------------------------
+
+def _routed_bank(seed=7, B=6, nmax=24):
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-1, 1, (B, nmax, 2))
+    ys = np.sin(xs[:, :, :1] * 3) + np.arange(B)[:, None, None]
+    vs = np.full((B, nmax), 1e-3)
+    ms = np.ones((B, nmax), bool)
+    ms[4, 11:] = False
+    ms[2] = False                                      # untrained member
+    return xs, ys, vs, ms
+
+
+def test_bank_predict_matches_jax():
+    xs, ys, vs, ms = _routed_bank()
+    rng = np.random.default_rng(8)
+    xq = rng.uniform(-1, 1, (6, 13, 2))
+    state = bank_fit(*_t(xs, ys, vs, ms), 0.4, kernel="matern32")
+    jstate = jbg.bank_fit(*map(jnp.asarray, (xs, ys, vs, ms)), 0.4,
+                          kernel="matern32")
+    mean, var = bank_predict(state, torch.as_tensor(xq), 0.4,
+                             kernel="matern32")
+    jm, jv = jbg.bank_predict(jstate, jnp.asarray(xq), 0.4,
+                              kernel="matern32")
+    _close(mean, jm, 1e-12)
+    _close(var, jv, 1e-12)
+    # a state without L_inv (a loaded checkpoint) whitens by a solve
+    loaded = state._replace(L_inv=None)
+    m2, v2 = bank_predict(loaded, torch.as_tensor(xq), 0.4, kernel="matern32")
+    _close(m2, jm, 1e-12)
+    _close(v2, jv, 1e-12)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        bank_predict(state, torch.as_tensor(xq), 0.4, kernel="matern32",
+                     reduced_rank=True)
+
+
+@pytest.mark.parametrize("from_jax_state", [False, True])
+def test_bank_predict_assigned_matches_jax(from_jax_state):
+    """Routed predict with -1 indices and an untrained member, from the
+    port's own fit and from the JAX state carried over."""
+    xs, ys, vs, ms = _routed_bank()
+    rng = np.random.default_rng(9)
+    q = rng.uniform(-1, 1, (237, 2))
+    idx = rng.integers(-1, 6, 237).astype(np.int32)
+    jstate = jbg.bank_fit(*map(jnp.asarray, (xs, ys, vs, ms)), 0.4,
+                          kernel="matern32")
+    state = bank_state_from_numpy(
+        {k: np.asarray(v) for k, v in jstate._asdict().items()
+         if v is not None}) if from_jax_state else \
+        bank_fit(*_t(xs, ys, vs, ms), 0.4, kernel="matern32")
+    prof = {}
+    mean, var, valid = bank_predict_assigned(state, q, idx, 0.4,
+                                             kernel="matern32", profile=prof)
+    jm, jv, jvalid = jbg.bank_predict_assigned(jstate, q, idx, 0.4,
+                                               kernel="matern32")
+    np.testing.assert_array_equal(valid, np.asarray(jvalid))
+    assert list(valid) == list((idx >= 0) & (idx != 2))
+    _close(mean, jm, 1e-12)
+    _close(var, jv, 1e-12)
+    assert mean.dtype == np.float64 and var.shape == (237,)
+    for k in ("host_group", "h2d", "device", "d2h_scatter"):
+        assert prof[k] >= 0.0
+    assert prof["bucket"][0] % 8 == 0
+    none_m, none_v, none_ok = bank_predict_assigned(
+        state, q[:3], np.array([-1, 2, -1]), 0.4, kernel="matern32")
+    assert not none_ok.any() and (none_v == 1.0).all()
+
+
+def test_reduced_rank_banks_are_deferred():
+    xs, ys, vs, ms = _routed_bank()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        bank_fit_rr(*_t(xs, ys, vs, ms), None)
+    state = bank_fit(*_t(xs, ys, vs, ms), 0.4, kernel="rbf")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        bank_predict_assigned(state, xs[0], np.zeros(24, np.int32), 0.4,
+                              kernel="rbf", basis=object())

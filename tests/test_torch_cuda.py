@@ -25,11 +25,17 @@ from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     spgp_init,
 )
 from erl_gaussian_process_tpu_torch.ops import (
+    bank_cholesky_solve_cuda,
+    bank_cholesky_solve_plain,
+    bank_fit_cuda,
+    bank_fit_plain,
+    cross_gram_batched_cuda,
     cross_gram_cuda,
     cross_gram_plain,
     fitc_update_cuda,
     fitc_update_plain,
     launch_counts,
+    solve_alpha,
 )
 
 pytestmark = pytest.mark.cuda
@@ -166,3 +172,149 @@ def test_map_on_the_card_batch_equals_sequential(cuda):
     for x, y in zip(seq.state, bat.state):
         assert torch.equal(x, y)
     assert lo.is_cuda and bool((lo < 0).all())
+
+
+def _bank_args(cuda, dtype, b, n, seed=0, q=2):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    return (t(rng.normal(size=(b, n, 2))), t(rng.normal(size=(b, n, q))),
+            t(0.01 + 0.1 * rng.random((b, n))),
+            torch.as_tensor(rng.random((b, n)) < 0.9, device=cuda))
+
+
+def _bank_errors(got, ref):
+    L, L_inv, alpha = got
+    L_ref, _, a_ref = ref
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return (float((L - L_ref).abs().max()),
+            float((alpha - a_ref).abs().max() / a_ref.abs().max()),
+            float((L_inv @ L_ref - eye).abs().max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("n", [12, 100, 144, 512])
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_bank_fit_kernel_matches_plain(cuda, fam, n, dtype, tol):
+    """Both slab placements (shared memory up to n = 144 in float32, the
+    outputs beyond), masked rows, B off any grid; one launch counted; L
+    exactly lower triangular."""
+    b = 37 if n < 512 else 5
+    args = _bank_args(cuda, dtype, b, n)
+    before = launch_counts()["bank_fit"]
+    got = bank_fit_cuda(_name(fam), *args, 0.7)
+    torch.cuda.synchronize()
+    assert launch_counts()["bank_fit"] == before + 1
+    assert max(_bank_errors(got, bank_fit_plain(_name(fam), *args,
+                                                0.7))) <= tol
+    assert (torch.triu(got[0], 1) == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bank_fit_non_spd_member_is_nan(cuda, dtype):
+    """A negative variance makes one member indefinite: it comes out all
+    NaN (never clamped), its neighbours bit for bit unchanged."""
+    x, y, v, m = _bank_args(cuda, dtype, 7, 100)
+    ok = bank_fit_cuda("ou", x, y, v, m, 0.7)
+    v[3, m[3].nonzero()[0]] = -50.0
+    bad = bank_fit_cuda("ou", x, y, v, m, 0.7)
+    rest = [0, 1, 2, 4, 5, 6]
+    for a, b in zip(bad, ok):
+        assert torch.isnan(a[3]).all()
+        assert torch.equal(a[rest], b[rest])
+
+
+def test_bank_fit_kernel_is_deterministic_and_batch_independent(cuda):
+    """Two launches agree bit for bit; a member's factor fit alone equals
+    the same member's inside the bank, and so does its alpha once solved
+    per 736 members, the size of the lone bank (cuBLAS picks its batched
+    GEMM by the batch count)."""
+    x, y, v, m = _bank_args(cuda, torch.float32, 3 * 736, 100)
+    a = bank_fit_cuda("ou", x, y, v, m, 0.3)
+    b = bank_fit_cuda("ou", x, y, v, m, 0.3)
+    alone = bank_fit_cuda("ou", *(t[736:1472].contiguous()
+                                  for t in (x, y, v, m)), 0.3)
+    for p, q in zip(a, b):
+        assert torch.equal(p, q)
+    assert torch.equal(alone[0], a[0][736:1472])
+    assert torch.equal(alone[1], a[1][736:1472])
+    ym = torch.where(m[..., None], y, 0.0)
+    assert torch.equal(alone[2], solve_alpha(a[1][736:1472], ym[736:1472]))
+    single = bank_fit_cuda("ou", *(t[800:801].contiguous()
+                                   for t in (x, y, v, m)), 0.3)
+    assert torch.equal(single[0][0], a[0][800])
+    assert torch.equal(single[1][0], a[1][800])
+
+
+@pytest.mark.parametrize("dtype,tol,atol", [(torch.float32, 1e-4, 1e-3),
+                                            (torch.float64, 1e-10, 1e-10)])
+@pytest.mark.parametrize("n", [12, 104, 300])
+def test_bank_chol_kernel_matches_plain(cuda, dtype, tol, atol, n):
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(21, n, 8))
+    K = torch.as_tensor(np.einsum("bnd,bmd->bnm", X, X) / 8 + 2 * np.eye(n),
+                        dtype=dtype, device=cuda)
+    y = torch.as_tensor(rng.normal(size=(21, n, 1)), dtype=dtype, device=cuda)
+    before = launch_counts()["bank_chol"]
+    got = bank_cholesky_solve_cuda(K, y)
+    torch.cuda.synchronize()
+    assert launch_counts()["bank_chol"] == before + 1
+    eL, ea, eI = _bank_errors(got, bank_cholesky_solve_plain(K, y))
+    assert eL <= tol and ea <= atol and eI <= tol
+
+
+@pytest.mark.parametrize("c", [1, 3, 19, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_batched_gram_kernel_matches_plain(cuda, fam, dtype, tol, c):
+    """c queries per member: below, across and at whole warps, as the
+    routed predict's buckets give them."""
+    rng = np.random.default_rng(4)
+    x1 = torch.as_tensor(rng.uniform(-1, 1, (37, 100, 2)), dtype=dtype,
+                         device=cuda)
+    x2 = torch.as_tensor(rng.uniform(-1, 1, (37, c, 2)), dtype=dtype,
+                         device=cuda)
+    before = launch_counts()["gram_batched"]
+    k = cross_gram_batched_cuda(_name(fam), x1, x2, 0.4)
+    torch.cuda.synchronize()
+    assert launch_counts()["gram_batched"] == before + 1
+    assert float((k - cross_gram_plain(_name(fam), x1, x2, 0.4)).abs().max()
+                 ) <= tol
+
+
+def test_cuda_sensor_gp_never_calls_the_plain_versions(cuda, monkeypatch):
+    """A CUDA train and test of the 3D sensor GP run the kernels only: the
+    plain versions are patched to raise."""
+    import erl_gaussian_process_tpu_torch.ops.bank as bank_ops
+    import erl_gaussian_process_tpu_torch.ops.gram as gram_ops
+    from erl_gaussian_process_tpu_torch.models import (
+        BatchGPBank,
+        RangeSensorGaussianProcess3D,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import (
+        lidar3d_reference_workload,
+    )
+
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version called on the CUDA path")
+
+    for mod, name in ((bank_ops, "bank_fit_plain"),
+                      (bank_ops, "bank_cholesky_solve_plain"),
+                      (gram_ops, "cross_gram_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    setting, R, t, ranges, q, gt, _ = lidar3d_reference_workload()
+    gp = RangeSensorGaussianProcess3D(setting, dtype=np.float32, device=cuda)
+    before = launch_counts()
+    assert gp.train(R, t, ranges)
+    pred, valid = gp.test(q, False, True).get_mean()
+    bank = BatchGPBank(3, 24, dtype=np.float32, device=cuda)
+    bank.solve()
+    after = launch_counts()
+    assert after["bank_fit"] == before["bank_fit"] + 1
+    assert after["gram_batched"] == before["gram_batched"] + 1
+    assert after["bank_chol"] == before["bank_chol"] + 1
+    assert np.mean((pred[valid] - gt[valid]) ** 2) <= 4.2e-4

@@ -1,7 +1,8 @@
 """The PyTorch port runs where neither JAX nor PyYAML is installed: in a
 fresh interpreter, importing it and driving a tiny occupancy map (a few CPU
-updates and a predict) must not import ``jax``, ``yaml`` or the JAX
-package."""
+updates and a predict), a small 3D range-sensor GP (train, replay, test,
+compute_occ, save/load) and a BatchGPBank must not import ``jax``,
+``yaml`` or the JAX package."""
 
 import os
 import subprocess
@@ -34,6 +35,39 @@ for _ in range(3):
     m.update(rng.uniform(-0.2, 0.2, 2), ring)
 lo, _ = m.predict(np.array([[0.0, 0.0], [1.5, 0.0]]))
 assert lo.shape == (2,) and bool((lo[:1] < 0).all()), lo
+
+import os, tempfile
+from erl_gaussian_process_tpu_torch.geometry import LidarFrame3DSetting
+from erl_gaussian_process_tpu_torch.models import (
+    BatchGPBank, RangeSensorGaussianProcess3D, RangeSensorGP3DSetting,
+    VanillaGPSetting)
+from erl_gaussian_process_tpu_torch.utils.convert import (
+    range_sensor_gp_3d_from_numpy)
+gp = RangeSensorGaussianProcess3D(RangeSensorGP3DSetting(
+    sensor_frame=LidarFrame3DSetting(
+        azimuth_min=-1.5, azimuth_max=1.5, elevation_min=-0.5,
+        elevation_max=0.5, num_azimuth_lines=40, num_elevation_lines=16),
+    gp=VanillaGPSetting(kernel_type="ou",
+                        kernel=KernelSetting(x_dim=2, scale=0.5))),
+    dtype=np.float32)
+ranges = 3.0 + 0.2 * rng.uniform(size=(40, 16))
+assert gp.train(np.eye(3), np.zeros(3), ranges)
+stacked = gp.train_scan_batch(np.stack([ranges, ranges + 0.1]))
+gp.use_scan_bank(stacked, 0)
+dirs = gp.sensor_frame.ray_directions_in_frame().reshape(-1, 3)
+pred, valid = gp.test(dirs, True, True).get_mean()
+assert valid.mean() > 0.5
+valid_occ = gp.compute_occ(dirs * 1.5)[0]
+path = os.path.join(tempfile.mkdtemp(), "gp3d.npz")
+gp.save(path)
+gp2 = RangeSensorGaussianProcess3D()
+gp2.load(path)
+assert gp2 == gp
+assert range_sensor_gp_3d_from_numpy(gp.state_dict()) == gp
+bank = BatchGPBank(2, 8)
+bank.load_gp_data(0, 3, 2 * np.eye(3), np.ones(3))
+bank.solve()
+assert np.allclose(bank.get_gp_result(0)[1][:3, 0], 0.5)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "yaml",
                                     "erl_gaussian_process_tpu"))

@@ -307,8 +307,14 @@ def test_gradient_predict_is_not_ported_yet():
 
 def test_robust_cholesky_escalates_jitter_like_jax():
     """A singular gram (two coincident points) fails the plain
-    factorization; both packages retry with the same jitter ladder and
-    land on the same factor."""
+    factorization; both packages retry with the same jitter ladder, take
+    the same rung, and land on a factor of the same jittered gram.
+
+    L[2, 1] is not compared: with rows 0 and 1 equal it is an exact
+    cancellation (K[2,1] - L[2,0] L[1,0]) divided by sqrt of the jitter
+    (~1.4e-7), i.e. rounding noise that LAPACK and XLA round differently
+    (3.755e-8 vs 3.791e-8 on one host). Neither package determines it; the
+    reconstruction L L^T below holds it to its own 1e-12 in both."""
     from erl_gaussian_process_tpu.models.gp_core import (
         robust_cholesky as jax_robust_cholesky,
     )
@@ -318,9 +324,24 @@ def test_robust_cholesky_escalates_jitter_like_jax():
                                          np.float64(1.0)))
     with pytest.raises(torch.linalg.LinAlgError):
         torch.linalg.cholesky(torch.tensor(km))
-    L = gp_core.robust_cholesky(torch.tensor(km))
-    assert torch.isfinite(L).all()
-    _close(L, jax_robust_cholesky(jnp.asarray(km)), 1e-12)
+    L = gp_core.robust_cholesky(torch.tensor(km)).numpy()
+    J = np.asarray(jax_robust_cholesky(jnp.asarray(km)))
+    assert np.isfinite(L).all()
+    ladder = [1e-14 * 100.0 ** k for k in range(8)]
+    scale = np.mean(np.diag(km))
+
+    def rung(F):
+        errs = [np.abs(F @ F.T - (km + j * scale * np.eye(3))).max()
+                for j in ladder]
+        return int(np.argmin(errs)), min(errs)
+
+    (r_port, e_port), (r_jax, e_jax) = rung(L), rung(J)
+    assert r_port == r_jax
+    assert e_port <= 1e-12 and e_jax <= 1e-12
+    np.testing.assert_allclose(L[1, 1], J[1, 1], rtol=1e-12)
+    well_determined = np.tril(np.ones((3, 3), bool))
+    well_determined[2, 1] = False
+    _close(L[well_determined], J[well_determined], 1e-12)
 
 
 def test_exact_host_repairs_an_indefinite_q_m_like_jax():
