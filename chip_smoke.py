@@ -39,6 +39,30 @@ The 3D range-sensor GP's path:
 10. ``BatchGPBank`` at (1000, 104): one bank-Cholesky launch, results
     against numpy float64, identity padding exact.
 
+The exact GPs' paths:
+
+11. the blocked Cholesky kernels against their plain versions: the plain-A
+    entry at the exact-GP gram (n = 8192, float32) and at n = 1000 float64,
+    the gram-fused entry at the exact-GP shape (with masked rows), the
+    joint entry at the NIGP shape (7680^2); metric the backward error
+    ||L L^T - K||_max / ||K||_max, at float32 no worse than 4x the plain
+    version's (cuSOLVER) on the same K, at float64 <= 1e-12; strict upper
+    part exactly 0, masked rows identity, a non-SPD input NaN; the
+    triangular solves (with and without the Cholesky's Dinv) by their
+    residuals, no worse than 4x the plain solve's; kernel, plain and
+    library times (``torch.linalg.cholesky``,
+    ``torch.linalg.solve_triangular``);
+12. the exact GP: ``VanillaGaussianProcess`` (float32) trains on 8192
+    points and tests 4096 queries; mean MAE and variance max error against
+    the plain float64 fit on the card no worse than 2x those of the plain
+    float32 fit;
+13. the noisy-input GP (float32) with gradients on the 7680^2 joint system,
+    mean, gradient, variance and covariance gated the same way; the same
+    data with a scale mixture of rbf (whose joint gram is built outside the
+    kernel and factored by the plain-A entry);
+14. the reference's 50x50 noisy-input golden at float64 (7500^2 joint
+    system): MAE < 1.0e-5, gradient errors < 1.1e-4 / 2.6e-4.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero before doing anything.
@@ -643,6 +667,445 @@ def run_sensor_gp(dev, card, lidar, depth):
     return counts, timings
 
 
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM, and FP32 /
+# FP64 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+CHOL_F32_FACTOR = 4.0       # backward error vs the plain version's, float32
+CHOL_F64_BERR = 1e-12
+POSTERIOR_FACTOR = 2.0      # posterior error vs the plain f32 fit's
+JAX_TPU_POSTERIOR_MAE = 2e-3   # tests/test_ops.py:498-506 (n = 2600)
+
+
+def bound(nbytes: float, flops: float, dtype=torch.float32):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` and do ``flops`` at its published peaks."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def backward_error(L, K) -> float:
+    """||L L^T - K||_max / ||K||_max, in float64."""
+    L64 = L.double()
+    K64 = K.double()
+    return float((L64 @ L64.T - K64).abs().max() / K64.abs().max())
+
+
+def reconstruction_error(L, K) -> float:
+    """||L L^T - K||_max, in float64."""
+    L64 = L.double()
+    return float((L64 @ L64.T - K.double()).abs().max())
+
+
+def residual(M, x, b) -> float:
+    """||M x - b||_max / ||b||_max, in float64."""
+    return float((M.double() @ x.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+def check_chol_kernels(dev, card):
+    """Phase 11: the blocked Cholesky and triangular-solve kernels against
+    their plain versions at the exact-GP paths' shapes. Returns {name:
+    {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    from erl_gaussian_process_tpu_torch.kernels import (
+        train_gram,
+        train_gram_with_gradient,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        cho_solve_vec,
+        chol_blocked,
+        chol_blocked_gram,
+        chol_blocked_gram_joint,
+        chol_blocked_gram_joint_plain,
+        chol_blocked_gram_plain,
+        chol_blocked_plain,
+        inverses_from_chol_dinv,
+        solve_lower,
+        solve_lower_t,
+        substitute_plain,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import (
+        exact_gp_workload,
+        nigp_workload,
+    )
+
+    out = {}
+    f32 = torch.float32
+    x, y, var, _, scale, kern = exact_gp_workload()
+    n = x.shape[0]
+    X = torch.as_tensor(x, device=dev)
+    V = torch.as_tensor(var, device=dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    K = train_gram(kern, X, V, scale, mask=ones)
+
+    # plain-A entry at the exact-GP gram, float32
+    L, D = chol_blocked(K, return_dinv=True)
+    torch.cuda.synchronize()
+    Lp = chol_blocked_plain(K)
+    be, bp = backward_error(L, K), backward_error(Lp, K)
+    check(bool((torch.triu(L, 1) == 0).all()), "chol: strict upper part not 0")
+    check(be <= CHOL_F32_FACTOR * bp,
+          f"chol f32 n={n}: backward error {be} > {CHOL_F32_FACTOR} x plain "
+          f"{bp}")
+    L2 = chol_blocked(K, return_dinv=False)
+    check(bool(torch.equal(L, L2)), "chol: two launches differ")
+    ms = cuda_ms(lambda: chol_blocked(K, return_dinv=True))
+    plain_ms = cuda_ms(lambda: chol_blocked_plain(K, return_dinv=True))
+    lib_ms = cuda_ms(lambda: torch.linalg.cholesky(K))
+    b_ms, b_by = bound(4 * (2 * n * n + n * 64), n ** 3 / 3)
+    out["chol"] = {"max_abs_err": reconstruction_error(L, K), "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+    log(f"chol f32 n={n} (exact-GP gram): backward error {be:.3e}, plain "
+        f"{bp:.3e} (gate <= {CHOL_F32_FACTOR:g}x); upper 0; two launches "
+        f"bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.linalg.cholesky {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}) on {card}")
+
+    # plain-A entry at an odd n, float64; and a non-SPD input
+    rng = np.random.default_rng(4)
+    A = rng.standard_normal((1000, 1008))
+    A64 = torch.as_tensor(A @ A.T / 1000 + 2 * np.eye(1000), device=dev)
+    L64 = chol_blocked(A64)
+    torch.cuda.synchronize()
+    be64 = backward_error(L64, A64)
+    log(f"chol f64 n=1000: backward error {be64:.3e} (gate <= "
+        f"{CHOL_F64_BERR:g}), plain {backward_error(chol_blocked_plain(A64), A64):.3e}")
+    check(be64 <= CHOL_F64_BERR and bool((torch.triu(L64, 1) == 0).all()),
+          f"chol f64 n=1000: backward error {be64}")
+    bad = A64.clone()
+    bad[700, 700] = -1.0
+    Lbad = chol_blocked(bad)
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(Lbad[700:, 700]).all()),
+          "chol: a non-SPD input did not give NaN")
+    log("chol: non-SPD input (negative pivot at 700) -> NaN from its tile on")
+
+    # triangular solves on the exact-GP factor: one direction, both, with
+    # and without the Cholesky's Dinv; gated by their residuals
+    Y = torch.as_tensor(y, device=dev)
+    inv = inverses_from_chol_dinv(D, n).contiguous()
+    cases = [("solve_lower", solve_lower(L, Y), substitute_plain(L, Y, False),
+              L),
+             ("solve_lower_t", solve_lower_t(L, Y),
+              substitute_plain(L, Y, True), L.T),
+             ("cho_solve_vec Dinv", cho_solve_vec(L, Y, chol_dinv=D),
+              torch.cholesky_solve(Y, L), K),
+             ("cho_solve_vec", cho_solve_vec(L, Y),
+              torch.cholesky_solve(Y, L), K)]
+    torch.cuda.synchronize()
+    trsv_err = 0.0
+    for label, got, ref, M in cases:
+        rk, rp = residual(M, got, Y), residual(M, ref, Y)
+        err = float((got - ref).abs().max())
+        log(f"trsv {label:20s} f32 n={n} q=1: residual {rk:.3e}, plain "
+            f"{rp:.3e} (gate <= {CHOL_F32_FACTOR:g}x); max |x - x_plain| "
+            f"{err:.3e}")
+        check(rk <= CHOL_F32_FACTOR * rp, f"trsv {label}: residual {rk} > "
+              f"{CHOL_F32_FACTOR} x {rp}")
+        if label == "solve_lower":
+            trsv_err = err
+    ms = cuda_ms(lambda: solve_lower(L, Y, inv))
+    plain_ms = cuda_ms(lambda: substitute_plain(L, Y, False))
+    lib_ms = cuda_ms(lambda: torch.linalg.solve_triangular(L, Y, upper=False))
+    b_ms, b_by = bound(4 * (n * n / 2 + n * 64 + 2 * n), n * n)
+    out["trsv"] = {"max_abs_err": trsv_err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"trsv f32 n={n} q=1, one direction (solve_lower): kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, torch.linalg.solve_triangular "
+        f"{lib_ms:.4f} ms (the plain version is that call), bound "
+        f"{b_ms:.4f} ms ({b_by}) on {card}")
+
+    # gram-fused entry at the exact-GP shape, all rows and 5% masked
+    Lg = chol_blocked_gram(kern, X, V, ones, scale)
+    torch.cuda.synchronize()
+    Lgp = chol_blocked_gram_plain(kern, X, V, ones, scale)
+    be, bp = backward_error(Lg, K), backward_error(Lgp, K)
+    check(bool((torch.triu(Lg, 1) == 0).all()) and be <= CHOL_F32_FACTOR * bp,
+          f"chol_gram f32: backward error {be} vs plain {bp}")
+    mask = torch.as_tensor(rng.random(n) < 0.95, device=dev)
+    Lm = chol_blocked_gram(kern, X, V, mask, scale)
+    Km = train_gram(kern, X, torch.where(mask, V, 0.0), scale, mask=mask)
+    bem = backward_error(Lm, Km)
+    bpm = backward_error(chol_blocked_gram_plain(kern, X, V, mask, scale), Km)
+    off = ~mask
+    eye = torch.eye(int(off.sum()), device=dev)
+    check(bool(torch.equal(Lm[off][:, off], eye))
+          and bool((Lm[off][:, mask] == 0).all())
+          and bool((Lm[mask][:, off] == 0).all())
+          and bem <= CHOL_F32_FACTOR * bpm,
+          f"chol_gram masked rows: identity / backward error {bem} vs {bpm}")
+    ms = cuda_ms(lambda: chol_blocked_gram(kern, X, V, ones, scale,
+                                           return_dinv=True))
+    plain_ms = cuda_ms(lambda: chol_blocked_gram_plain(
+        kern, X, V, ones, scale, return_dinv=True))
+    b_ms, b_by = bound(4 * (n * 4 + n * n + n * 64),
+                       n ** 3 / 3 + n * n / 2 * 12)
+    out["chol_gram"] = {"max_abs_err": reconstruction_error(Lg, K), "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": None,
+                        "bound_ms": b_ms, "bound_by": b_by}
+    log(f"chol_gram f32 n={n} rbf: backward error {be:.3e}, plain {bp:.3e}; "
+        f"{int(off.sum())} masked rows identity, backward error {bem:.3e} "
+        f"(plain {bpm:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}) on {card}")
+    del K, Km, L, Lp, L2, Lg, Lgp, Lm
+
+    # joint entry at the NIGP shape (7680^2)
+    xn, _, _, vx, vy, vg, _, scale, kern = nigp_workload()
+    n0, d = xn.shape
+    N = (1 + d) * n0
+    Xn = torch.as_tensor(xn, device=dev)
+    Vv = torch.as_tensor(vx + vy, device=dev)
+    Vg = torch.as_tensor(vg, device=dev)
+    sm = torch.ones(n0, dtype=torch.bool, device=dev)
+    gm = torch.as_tensor(rng.random(n0) < 0.9, device=dev)
+    Lj = chol_blocked_gram_joint(kern, Xn, Vv, Vg, sm, gm, scale)
+    torch.cuda.synchronize()
+    Kj = train_gram_with_gradient(kern, Xn, Vv, torch.zeros_like(Vv),
+                                  torch.where(gm, Vg, 0.0), sm, gm, scale)
+    Ljp = chol_blocked_gram_joint_plain(kern, Xn, Vv, Vg, sm, gm, scale)
+    be, bp = backward_error(Lj, Kj), backward_error(Ljp, Kj)
+    off = torch.cat([~sm] + [~gm] * d)
+    check(bool((torch.triu(Lj, 1) == 0).all()) and be <= CHOL_F32_FACTOR * bp
+          and bool(torch.equal(Lj[off][:, off],
+                               torch.eye(int(off.sum()), device=dev))),
+          f"chol_gram_joint f32: backward error {be} vs plain {bp}")
+    ms = cuda_ms(lambda: chol_blocked_gram_joint(kern, Xn, Vv, Vg, sm, gm,
+                                                 scale, return_dinv=True))
+    plain_ms = cuda_ms(lambda: chol_blocked_gram_joint_plain(
+        kern, Xn, Vv, Vg, sm, gm, scale, return_dinv=True))
+    b_ms, b_by = bound(4 * (n0 * 5 + N * N + N * 64),
+                       N ** 3 / 3 + N * N / 2 * 16)
+    out["chol_gram_joint"] = {"max_abs_err": reconstruction_error(Lj, Kj),
+                              "ms": ms, "plain_ms": plain_ms,
+                              "library_ms": None, "bound_ms": b_ms,
+                              "bound_by": b_by}
+    log(f"chol_gram_joint f32 N={N} (n0={n0}, d={d}) rbf, "
+        f"{int((~gm).sum())} gradient slots masked: backward error "
+        f"{be:.3e}, plain {bp:.3e}; masked rows identity; kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) on "
+        f"{card}")
+    return out
+
+
+def plain_posterior(name, x, y, var, xq, scale, dtype, dev):
+    """Mean and variance of the exact GP by the plain path on the card
+    (train_gram, cuSOLVER Cholesky, cholesky_solve, triangular solve) at
+    ``dtype``."""
+    from erl_gaussian_process_tpu_torch.kernels import train_gram
+    from erl_gaussian_process_tpu_torch.ops import cross_gram_plain
+
+    X, Y, V, Q = (torch.as_tensor(a, device=dev, dtype=dtype)
+                  for a in (x, y, var, xq))
+    K = train_gram(name, X, V, scale)
+    L = torch.linalg.cholesky(K)
+    kt = cross_gram_plain(name, X, Q, scale)
+    mean = kt.T @ torch.cholesky_solve(Y, L)
+    w = torch.linalg.solve_triangular(L, kt, upper=False)
+    return mean[:, 0], torch.clamp(1.0 - (w * w).sum(0), min=0.0)
+
+
+def run_exact_gp(dev, card):
+    """Phase 12. Returns (launch counts, timings, errors)."""
+    from erl_gaussian_process_tpu_torch.kernels import KernelSetting
+    from erl_gaussian_process_tpu_torch.models import (
+        VanillaGaussianProcess,
+        VanillaGPSetting,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import exact_gp_workload
+
+    x, y, var, xq, scale, kern = exact_gp_workload()
+    setting = VanillaGPSetting(kernel_type=kern,
+                               kernel=KernelSetting(x_dim=2, scale=scale),
+                               max_num_samples=x.shape[0])
+    gp = VanillaGaussianProcess(setting, dtype=np.float32, device=dev)
+    check(gp.train(x.T, y, var), "exact GP warm-up train")   # not counted
+    gp.test(xq.T).get_mean()
+    reset_launch_counts()
+    ok, train_ms = timed(lambda: gp.train(x.T, y, var))
+    check(ok, "exact GP train")
+    res, test_ms = timed(lambda: gp.test(xq.T))
+    (mean, var_k), var_ms = timed(lambda: (res.get_mean(), res.get_variance()))
+    counts = launch_counts()
+    m64, v64 = (t.cpu().numpy() for t in plain_posterior(
+        kern, x, y, var, xq, scale, torch.float64, dev))
+    m32, v32 = (t.cpu().numpy() for t in plain_posterior(
+        kern, x, y, var, xq, scale, torch.float32, dev))
+    mae_k, mae_p = np.abs(mean - m64).mean(), np.abs(m32 - m64).mean()
+    ve_k, ve_p = np.abs(var_k - v64).max(), np.abs(v32 - v64).max()
+    log(f"exact GP f32 n={x.shape[0]}, {xq.shape[0]} queries vs the plain "
+        f"f64 fit: mean MAE {mae_k:.3e} (plain f32 {mae_p:.3e}; gate <= "
+        f"{POSTERIOR_FACTOR:g}x; the JAX TPU test's class "
+        f"{JAX_TPU_POSTERIOR_MAE:g}), variance max error {ve_k:.3e} (plain "
+        f"f32 {ve_p:.3e}); train {train_ms:.3f} ms, test {test_ms:.3f} ms + "
+        f"mean and variance {var_ms:.3f} ms on {card}; launches {counts}")
+    check(np.isfinite(mean).all() and np.isfinite(var_k).all()
+          and mean.shape == (xq.shape[0],), "exact GP output not finite")
+    check(mae_k <= POSTERIOR_FACTOR * mae_p and ve_k <= POSTERIOR_FACTOR * ve_p,
+          f"exact GP posterior: MAE {mae_k} vs {mae_p}, variance {ve_k} vs "
+          f"{ve_p}")
+    check(counts["chol_gram"] == 1 and counts["trsv"] == 2
+          and counts["gram"] >= 1, f"exact GP launches {counts}")
+    return counts, {"exact_gp_train_ms": train_ms,
+                    "exact_gp_test_ms": test_ms + var_ms}, \
+        {"mae": float(mae_k), "mae_plain_f32": float(mae_p),
+         "var_err": float(ve_k), "var_err_plain_f32": float(ve_p)}
+
+
+def nigp_plain_outputs(name, x, y, grad, vx, vy, vg, xq, scale, dtype, dev):
+    """(mean, gradient, mean var, grad var, cov) of the NIGP by the plain
+    path on the card (joint gram, cuSOLVER Cholesky, triangular solves) at
+    ``dtype``."""
+    from erl_gaussian_process_tpu_torch.kernels import train_gram_with_gradient
+    from erl_gaussian_process_tpu_torch.models.noisy_input_gp import (
+        NoisyInputGPState,
+        nigp_gradient,
+        nigp_ktest,
+        nigp_mean,
+        nigp_variance_cov,
+        pack_alpha,
+    )
+
+    X, Y, G, VX, VY, VG, Q = (torch.as_tensor(a, device=dev, dtype=dtype)
+                              for a in (x, y, grad, vx, vy, vg, xq))
+    n, d = X.shape
+    m = torch.ones(n, dtype=torch.bool, device=dev)
+    K = train_gram_with_gradient(name, X, VX, VY, VG, m, m, scale)
+    L = torch.linalg.cholesky(K)
+    st = NoisyInputGPState(X, m, m, L, torch.cholesky_solve(
+        pack_alpha(Y, G, m, m), L))
+    kt = nigp_ktest(st, Q, scale, kernel=name, with_test_grad=True,
+                    with_train_grad=True)
+    mq = Q.shape[0]
+    return (nigp_mean(st, kt, mq)[:, 0], nigp_gradient(st, kt, mq, d)[:, :, 0],
+            *nigp_variance_cov(st, kt, scale, d=d))
+
+
+def run_nigp(dev, card):
+    """Phase 13. Returns (launch counts, timings, errors)."""
+    from erl_gaussian_process_tpu_torch.kernels import (
+        KernelSetting,
+        register_scale_mixture,
+    )
+    from erl_gaussian_process_tpu_torch.models import (
+        NoisyInputGaussianProcess,
+        NoisyInputGPSetting,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import nigp_workload
+
+    x, y, grad, vx, vy, vg, xq, scale, kern = nigp_workload()
+    n, d = x.shape
+    g_ref = grad[:, :, 0].T                          # (d * q, n)
+    counts, timings, errors = {}, {}, {}
+    mix = register_scale_mixture("rbf", 0.5, (0.7, 0.3))
+    for label, kt in (("rbf", kern), ("mixture", "mix")):
+        setting = NoisyInputGPSetting(
+            kernel_type=kt if kt != "mix" else "rbf",
+            kernel=KernelSetting(x_dim=d, scale=scale,
+                                 **({"scale_mix": 0.5, "weights": [0.7, 0.3]}
+                                    if kt == "mix" else {})),
+            max_num_samples=n)
+        gp = NoisyInputGaussianProcess(setting, dtype=np.float32, device=dev)
+        name = gp._kernel
+        check(name == (mix if kt == "mix" else kern), f"kernel {name}")
+        if label == "rbf":       # warm-up, not counted
+            gp.train(x.T, y, g_ref, vx, vy, vg)
+            gp.test(xq.T, True).get_mean()
+        reset_launch_counts()
+        ok, train_ms = timed(lambda: gp.train(x.T, y, g_ref, vx, vy, vg))
+        check(ok, f"NIGP {label} train")
+
+        def predict():
+            r = gp.test(xq.T, True)
+            return (r.get_mean(), r.get_gradient().T, r.get_mean_variance(),
+                    r.get_gradient_variance().T, r.get_covariance().T)
+        got, test_ms = timed(predict)
+        counts[label] = launch_counts()
+        ref64 = [t.cpu().numpy() for t in nigp_plain_outputs(
+            name, x, y, grad, vx, vy, vg, xq, scale, torch.float64, dev)]
+        ref32 = [t.cpu().numpy() for t in nigp_plain_outputs(
+            name, x, y, grad, vx, vy, vg, xq, scale, torch.float32, dev)]
+        what = ("mean", "gradient", "mean var", "grad var", "cov")
+        errs = {}
+        for w, g, r64, r32 in zip(what, got, ref64, ref32):
+            check(np.isfinite(g).all() and g.shape == r64.shape,
+                  f"NIGP {label} {w}: shape {g.shape} or not finite")
+            if w in ("mean", "gradient"):
+                ek, ep = np.abs(g - r64).mean(), np.abs(r32 - r64).mean()
+            else:
+                ek, ep = np.abs(g - r64).max(), np.abs(r32 - r64).max()
+            errs[w] = (float(ek), float(ep))
+            check(ek <= POSTERIOR_FACTOR * ep,
+                  f"NIGP {label} {w}: error {ek} > {POSTERIOR_FACTOR} x "
+                  f"plain f32 {ep}")
+        errors[label] = errs
+        timings[f"nigp_{label}_train_ms"] = train_ms
+        timings[f"nigp_{label}_test_ms"] = test_ms
+        log(f"NIGP f32 {label} n={n} d={d} (joint {(1 + d) * n}^2), "
+            f"{xq.shape[0]} queries vs the plain f64 fit (MAE for mean and "
+            f"gradient, max error for the rest; plain f32 in brackets, gate "
+            f"<= {POSTERIOR_FACTOR:g}x): "
+            + ", ".join(f"{w} {e[0]:.3e} ({e[1]:.3e})"
+                        for w, e in errs.items())
+            + f"; train {train_ms:.3f} ms, test {test_ms:.3f} ms on {card}; "
+            f"launches {counts[label]}")
+    check(counts["rbf"]["chol_gram_joint"] == 1 and counts["rbf"]["trsv"] == 2,
+          f"NIGP launches {counts['rbf']}")
+    check(counts["mixture"]["chol"] == 1 and counts["mixture"]["trsv"] == 2,
+          f"NIGP mixture launches {counts['mixture']}")
+    return counts, timings, errors
+
+
+def run_nigp_golden(dev, card):
+    """Phase 14: the reference's 50x50 golden at float64. Returns (launch
+    counts, timings, (mae, mx, my))."""
+    from erl_gaussian_process_tpu_torch.models import (
+        NoisyInputGaussianProcess,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import (
+        NIGP_GOLDEN_BOUNDS,
+        NIGP_GOLDEN_RECORDED,
+        nigp_golden_workload,
+    )
+
+    setting, pts, z, grad, noise, qt, zt, gt = nigp_golden_workload()
+    gp = NoisyInputGaussianProcess(setting, dtype=np.float64, device=dev)
+    reset_launch_counts()
+    ok, train_ms = timed(lambda: gp.train(pts, z, grad, var_x=noise,
+                                          var_y=noise, var_grad=noise))
+    check(ok, "NIGP golden train")
+    res, test_ms = timed(lambda: gp.test(qt, predict_gradient=True))
+    mean, g = res.get_mean(0), res.get_gradient(0)
+    counts = launch_counts()
+    got = (np.abs(mean - zt).mean(), np.abs(g[0] - gt[0]).mean(),
+           np.abs(g[1] - gt[1]).mean())
+    log(f"NIGP golden f64 (7500^2 joint): MAE {got[0]:.6e}, mx {got[1]:.6e},"
+        f" my {got[2]:.6e} (bounds {NIGP_GOLDEN_BOUNDS}); deviation from the "
+        f"recorded values "
+        + ", ".join(f"{a - r:.3e}" for a, r in zip(got, NIGP_GOLDEN_RECORDED))
+        + f" (reported); train {train_ms:.3f} ms, test {test_ms:.3f} ms on "
+        f"{card}; launches {counts}")
+    check(all(a < b for a, b in zip(got, NIGP_GOLDEN_BOUNDS)),
+          f"NIGP golden: {got} not under {NIGP_GOLDEN_BOUNDS}")
+    check(counts["chol_gram_joint"] == 1, f"NIGP golden launches {counts}")
+    return counts, {"nigp_golden_train_ms": train_ms,
+                    "nigp_golden_test_ms": test_ms}, \
+        tuple(float(v) for v in got)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -702,17 +1165,48 @@ def main() -> int:
     for name, r in bank.items():
         log(f"time on {card}: {name} kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms (median of {REPS})")
+
+    kern.update(check_chol_kernels(dev, card))
+    exact_counts, exact_timings, exact_err = run_exact_gp(dev, card)
+    nigp_counts, nigp_timings, nigp_err = run_nigp(dev, card)
+    golden_counts, golden_timings, golden = run_nigp_golden(dev, card)
+    log(json.dumps({"exact_timings": {**exact_timings, **nigp_timings,
+                                      **golden_timings},
+                    "exact_gp_errors": exact_err, "nigp_errors": nigp_err,
+                    "nigp_golden": golden, "card": card}))
+
+    # bounds of the earlier slices' kernels at their timed shapes (FP32
+    # outside the tensor cores, HBM; see bound()): FITC M=1152, N=2048, d=3
+    # (L_inv GEMM 2 M^2 N + lower SYRK M^2 N); gram 1152 x 2048 (its
+    # write); bank fit 736 x 100 (L and L^{-1} written; elimination 2 n^3/3
+    # per member); bank Cholesky 1000 x 104 (K read, L and L^{-1} written)
+    m_, n_ = 1152, 2048
+    for name, nbytes, flops in (
+            ("fitc", 4 * (2 * m_ * m_ + 6 * n_), 3 * m_ * m_ * n_),
+            ("gram", 4 * (m_ * n_ + 3 * (m_ + n_)), 20 * m_ * n_),
+            ("bank_fit", 4 * 736 * (2 * 100 * 100 + 3 * 100),
+             736 * (2 * 100 ** 3 / 3 + 100 * 100 / 2 * 11)),
+            ("bank_chol", 4 * 1000 * 3 * 104 * 104,
+             1000 * 2 * 104 ** 3 / 3)):
+        kern[name]["bound_ms"], kern[name]["bound_by"] = bound(nbytes, flops)
+        kern[name]["library_ms"] = None
+
     # launches of each kernel in the paths' runs: gram.cu serves the SPGP
-    # predict (cross_gram) and the sensor GPs' routed predict (batched)
+    # predict (cross_gram), the sensor GPs' routed predict (batched) and the
+    # exact GP's test; trsv runs in every exact fit's solve
+    exact_all = [exact_counts, golden_counts, *nigp_counts.values()]
     launches = {
         "fitc": counts["fitc"],
-        "gram": counts["gram"] + sum(c["gram_batched"]
-                                     for c in sensor_counts.values()),
+        "gram": counts["gram"] + exact_counts["gram"] + sum(
+            c["gram_batched"] for c in sensor_counts.values()),
         "bank_fit": sum(c["bank_fit"] for c in sensor_counts.values()),
         "bank_chol": sensor_counts["batch_gp_bank"]["bank_chol"],
     }
+    for name in ("chol", "chol_gram", "chol_gram_joint", "trsv"):
+        launches[name] = sum(c[name] for c in exact_all)
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched by its path: {launches}")
+    chol_src = "erl_gaussian_process_tpu_torch/csrc/chol.cu"
     src = {"gram": ("erl_gaussian_process_tpu_torch/csrc/gram.cu",
                     "erl_gaussian_process_tpu/ops/pallas_gram.py:92"),
            "fitc": ("erl_gaussian_process_tpu_torch/csrc/fitc.cu",
@@ -720,12 +1214,23 @@ def main() -> int:
            "bank_fit": ("erl_gaussian_process_tpu_torch/csrc/bank.cu",
                         "erl_gaussian_process_tpu/ops/pallas_bank.py:249"),
            "bank_chol": ("erl_gaussian_process_tpu_torch/csrc/bank.cu",
-                         "erl_gaussian_process_tpu/ops/pallas_bank.py:269")}
+                         "erl_gaussian_process_tpu/ops/pallas_bank.py:269"),
+           "chol": (chol_src,
+                    "erl_gaussian_process_tpu/ops/pallas_chol.py:454"),
+           "chol_gram": (chol_src,
+                         "erl_gaussian_process_tpu/ops/pallas_chol.py:571"),
+           "chol_gram_joint": (
+               chol_src, "erl_gaussian_process_tpu/ops/pallas_chol.py:502"),
+           "trsv": ("erl_gaussian_process_tpu_torch/csrc/trsv.cu",
+                    "erl_gaussian_process_tpu/ops/pallas_trsv.py:99")}
+    log(f"launch counts of the paths' runs: {launches}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
-         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"]} for name in src]}))
+         **{k: kern[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}}
+        for name in src]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

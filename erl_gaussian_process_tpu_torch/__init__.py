@@ -13,7 +13,11 @@ Hand-written Hopper kernels live in ``csrc/`` and are bound in ``ops/``:
   a leading member axis;
 - ``ops/fitc.py`` + ``csrc/fitc.cu``: the rank-N FITC update;
 - ``ops/bank.py`` + ``csrc/bank.cu``: the bank fit and bank Cholesky of B
-  small exact GPs.
+  small exact GPs;
+- ``ops/chol.py`` + ``csrc/chol.cu``: the blocked Cholesky of one large
+  system (a given matrix, the train gram, or the joint value/gradient
+  gram, built per tile);
+- ``ops/trsv.py`` + ``csrc/trsv.cu``: the triangular solves after it.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel (built with nvcc at first use, ``ops/_build.py``) for CUDA tensors.

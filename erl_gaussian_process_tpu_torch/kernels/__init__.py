@@ -1,6 +1,7 @@
-"""Covariance kernels (counterpart of ``erl_gaussian_process_tpu/kernels``,
-main-path subset: registry, the stationary families and scale mixtures).
-All kernels are unit-variance (``k(x, x) = 1``)."""
+"""Covariance kernels (counterpart of ``erl_gaussian_process_tpu/kernels``:
+registry, the stationary families, scale mixtures and the joint
+value/gradient grams; reduced-rank kernels are not ported yet). All kernels
+are unit-variance (``k(x, x) = 1``)."""
 
 from erl_gaussian_process_tpu_torch.kernels.base import (
     KernelSetting,
@@ -9,6 +10,12 @@ from erl_gaussian_process_tpu_torch.kernels.base import (
     register_kernel,
     resolve_kernel_name,
     resolve_kernel_setting,
+)
+from erl_gaussian_process_tpu_torch.kernels.gradient import (
+    cross_gram_with_gradient,
+    gradient_prior_variance,
+    joint_mask,
+    train_gram_with_gradient,
 )
 from erl_gaussian_process_tpu_torch.kernels.stationary import (
     cross_gram,
@@ -27,7 +34,11 @@ __all__ = [
     "resolve_kernel_name",
     "resolve_kernel_setting",
     "cross_gram",
+    "cross_gram_with_gradient",
+    "gradient_prior_variance",
+    "joint_mask",
     "kernel_fn",
     "pairwise_sqdist",
     "train_gram",
+    "train_gram_with_gradient",
 ]

@@ -22,7 +22,11 @@ import numpy as np
 import torch
 
 from erl_gaussian_process_tpu_torch.kernels.base import REDUCED_RANK_TODO
-from erl_gaussian_process_tpu_torch.models.gp_core import whiten
+from erl_gaussian_process_tpu_torch.models.gp_core import (
+    DEFAULT_DEVICE,
+    resolve_device,
+    whiten,
+)
 from erl_gaussian_process_tpu_torch.ops.bank import (
     bank_cholesky_solve_cuda,
     bank_fit_cuda,
@@ -43,10 +47,11 @@ class BankState(NamedTuple):
     L_inv: Optional[torch.Tensor] = None
 
 
-def bank_state_from_numpy(d, device="cpu") -> BankState:
+def bank_state_from_numpy(d, device=DEFAULT_DEVICE) -> BankState:
     """A BankState on ``device`` from a dict of host arrays: a checkpoint's
     ``bank`` entry, or a JAX ``BankState._asdict()``. ``L_inv`` carries
     over when present."""
+    device = resolve_device(device)
     return BankState(**{
         k: torch.tensor(np.asarray(v), device=device)
         for k, v in d.items() if k in BankState._fields and v is not None})
@@ -227,12 +232,12 @@ class BatchGPBank:
     alpha)."""
 
     def __init__(self, batch_size: int, max_num_samples: int, y_dim: int = 1,
-                 dtype=np.float32, device="cpu"):
+                 dtype=np.float32, device=DEFAULT_DEVICE):
         self.B = batch_size
         self.n = max_num_samples
         self.q = y_dim
         self.dtype = np.dtype(dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.prepare_memory()
 
     def prepare_memory(self):

@@ -1,11 +1,14 @@
 """Shared GP linear-algebra core (counterpart of
-``erl_gaussian_process_tpu/models/gp_core.py:23-152,185-241``: the SPGP
-main path's pieces plus the robust ``cholesky_fit`` and ``whiten`` of the
-sensor-GP banks).
+``erl_gaussian_process_tpu/models/gp_core.py``).
 
-Dense factorizations and solves are plain torch (cuSOLVER/cuBLAS on the
-card, LAPACK on the CPU). A failed Cholesky is signalled the way the JAX
-package signals it, with NaN: ``torch.linalg.cholesky`` would raise, so
+The exact GPs' single large systems (``cholesky_fit(robust=False)`` and
+:func:`solve_with_L`) run the hand-written blocked Cholesky and
+triangular-solve kernels (``ops/chol.py``, ``ops/trsv.py``) on the card
+and their plain versions on the CPU. The banks' small systems
+(``robust=True``), :func:`whiten` and the SPGP's factorizations are plain
+torch (cuSOLVER/cuBLAS on the card, LAPACK on the CPU), as the JAX package
+leaves them to XLA. A failed Cholesky is signalled the way the JAX package
+signals it, with NaN: ``torch.linalg.cholesky`` would raise, so
 :func:`cholesky_nan` uses ``cholesky_ex`` and fills a factor whose ``info``
 is non-zero with NaN, on the device and without a host sync.
 """
@@ -19,6 +22,21 @@ import numpy as np
 import torch
 
 _LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device) -> torch.device:
+    """The device of a model or state: the card unless the caller names
+    another. Asking for CUDA where there is none raises; nothing falls back
+    to the CPU without being asked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: no CUDA device is available. The "
+            "port's entry points run on the card by default; pass "
+            "device='cpu' to run on the CPU")
+    return dev
 
 
 def use_full_fp32_matmul() -> None:
@@ -71,24 +89,90 @@ def robust_cholesky(K: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_fit(K: torch.Tensor, y: torch.Tensor, *, robust: bool = True):
-    """L = chol(K) with :func:`robust_cholesky`'s jitter ladder; alpha =
-    K^{-1} y by two triangular solves. K (n, n), y (n, k). The JAX
-    package's ``robust=False`` route runs its blocked Pallas Cholesky and
-    triangular-solve kernels, which are not ported yet."""
-    if not robust:
-        raise NotImplementedError(
-            "cholesky_fit(robust=False) runs the blocked Cholesky and "
-            "triangular-solve kernels (ROADMAP.md, Queue 1 item 9; Queue 2 "
-            "items 5 and 8), which are not ported yet")
-    L = robust_cholesky(K)
+    """L = chol(K); alpha = K^{-1} y. K (n, n) SPD (identity-padded for
+    inactive rows), y (n, k).
+
+    ``robust=True`` (the banks' small systems): :func:`robust_cholesky`'s
+    jitter ladder and two triangular solves. ``robust=False`` (one large
+    system): the blocked Cholesky (``ops/chol.chol_blocked``) and its
+    diagonal-block inverses feeding :func:`solve_with_L`; a failed
+    factorization gives NaN, and the caller retries on the host
+    (:func:`host_jitter_retry`)."""
+    if robust:
+        L = robust_cholesky(K)
+        a = torch.linalg.solve_triangular(L, y, upper=False)
+        return L, torch.linalg.solve_triangular(L.mT, a, upper=True)
+    from erl_gaussian_process_tpu_torch.ops.chol import chol_blocked
+
+    L, dinv = chol_blocked(K, return_dinv=True)
+    return L, solve_with_L(L, y, chol_dinv=dinv)
+
+
+def solve_with_L(L: torch.Tensor, y: torch.Tensor, chol_dinv=None):
+    """alpha = K^{-1} y from the Cholesky factor: the blocked substitution
+    (``ops/trsv.cho_solve_vec``) for one (n, n) factor, two triangular
+    solves for a batch. ``chol_dinv``: the blocked Cholesky's diagonal-tile
+    inverses, which spare the substitution its block inversion."""
+    if L.dim() == 2:
+        from erl_gaussian_process_tpu_torch.ops.trsv import cho_solve_vec
+
+        return cho_solve_vec(L, y, chol_dinv)
     a = torch.linalg.solve_triangular(L, y, upper=False)
-    return L, torch.linalg.solve_triangular(L.mT, a, upper=True)
+    return torch.linalg.solve_triangular(L.mT, a, upper=True)
 
 
-def whiten(L: torch.Tensor, ktest: torch.Tensor) -> torch.Tensor:
-    """L^{-1} ktest by a triangular solve; L (..., n, n), ktest (..., n,
-    m)."""
-    return torch.linalg.solve_triangular(L, ktest, upper=False)
+def mean_from_ktest(ktest: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Posterior mean(s): ktest (n, m), alpha (n, k) -> (m, k)."""
+    return ktest.mT @ alpha
+
+
+def variance_from_whitened(alpha_test: torch.Tensor,
+                           reduced_rank: bool = False) -> torch.Tensor:
+    """var_j = 1 - ||alpha_test[:, j]||^2 for normalized kernels, clamped at
+    0 (rounding near a training point can push it below); the plain norm
+    for reduced-rank kernels."""
+    s = torch.sum(alpha_test * alpha_test, dim=0)
+    return s if reduced_rank else torch.clamp(1.0 - s, min=0.0)
+
+
+def whiten(L: torch.Tensor, ktest: torch.Tensor, dinv=None) -> torch.Tensor:
+    """L^{-1} ktest; L (..., n, n), ktest (..., n, m).
+
+    A triangular solve, except for one float32 factor given with ``dinv``,
+    the inverses of its diagonal tiles from the blocked Cholesky
+    (``ops/chol.py``): then the block forward substitution
+    X_k = Dinv_k (B_k - L[k, :k] X[:k]) with the factor's own tile inverses,
+    as the JAX package whitens at float32 on its TPU
+    (``ops/blocked_solve.py``). Its products round as the factorization's
+    did, so for queries near the training points, where 1 - ||L^{-1} k||^2
+    cancels, the rounding cancels too: on the H100 at the exact-GP shape
+    (n = 8192, 4096 queries, f32) the variance's max error against the f64
+    fit is 2.9e-6 this way and 1.9e-5 by a triangular solve with the same
+    factor (PERF.md). Float64 keeps the triangular solve."""
+    if dinv is None or L.dim() != 2 or L.dtype != torch.float32:
+        return torch.linalg.solve_triangular(L, ktest, upper=False)
+    n = L.shape[0]
+    tile = dinv.shape[1]
+    out = torch.empty_like(ktest)
+    for lo in range(0, n, tile):
+        hi = min(n, lo + tile)
+        rhs = ktest[lo:hi]
+        if lo:
+            rhs = torch.addmm(rhs, L[lo:hi, :lo], out[:lo], alpha=-1.0)
+        torch.matmul(dinv[lo:hi, :hi - lo], rhs, out=out[lo:hi])
+    return out
+
+
+def with_tile_inverses(state):
+    """An exact GP's state (a NamedTuple with ``L`` and ``dinv``) loaded
+    from a checkpoint, which does not store ``dinv``: at float32 the
+    inverses of its factor's diagonal tiles are rebuilt, for
+    :func:`whiten`."""
+    if state.L.dtype != torch.float32:
+        return state
+    from erl_gaussian_process_tpu_torch.ops.chol import diag_tile_inverses
+
+    return state._replace(dinv=diag_tile_inverses(state.L))
 
 
 def host_jitter_retry(fit_once, check_arrays, jitters=(0.0, 1e-10, 1e-8,

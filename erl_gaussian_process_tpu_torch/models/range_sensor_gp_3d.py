@@ -38,6 +38,10 @@ from erl_gaussian_process_tpu_torch.models.batch_gp import (
     bank_predict_assigned,
     bank_state_from_numpy,
 )
+from erl_gaussian_process_tpu_torch.models.gp_core import (
+    DEFAULT_DEVICE,
+    resolve_device,
+)
 from erl_gaussian_process_tpu_torch.models.mapping import (
     Mapping,
     MappingSetting,
@@ -191,7 +195,7 @@ class RangeSensorGaussianProcess3D:
     TestResult = RangeSensorGP3DTestResult
 
     def __init__(self, setting: Optional[RangeSensorGP3DSetting] = None,
-                 dtype=np.float64, mesh=None, device="cpu"):
+                 dtype=np.float64, mesh=None, device=DEFAULT_DEVICE):
         if mesh is not None:
             raise NotImplementedError(MESH_TODO)
         self.setting = setting or RangeSensorGP3DSetting()
@@ -201,7 +205,7 @@ class RangeSensorGaussianProcess3D:
                              "even")
         self.dtype = np.dtype(dtype)
         self._tdtype = torch_dtype(self.dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.sensor_frame = create_range_sensor_frame_3d(
             self.setting.sensor_frame_type, self.setting.sensor_frame,
             dtype=dtype)

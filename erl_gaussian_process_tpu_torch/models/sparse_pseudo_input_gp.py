@@ -32,10 +32,12 @@ from erl_gaussian_process_tpu_torch.kernels import (
     resolve_kernel_setting,
 )
 from erl_gaussian_process_tpu_torch.models.gp_core import (
+    DEFAULT_DEVICE,
     cholesky_nan,
     cond_escalate_threshold,
     host_jitter_retry,
     kahan_add,
+    resolve_device,
     robust_cholesky,
     use_full_fp32_matmul,
 )
@@ -339,11 +341,12 @@ class SparsePseudoInputGaussianProcess:
     TestResult = SpGpTestResult
 
     def __init__(self, setting: Optional[SpGpSetting], pseudo_points,
-                 dtype=torch.float64, y_dim: int = 1, device="cpu"):
+                 dtype=torch.float64, y_dim: int = 1,
+                 device=DEFAULT_DEVICE):
         use_full_fp32_matmul()
         self.setting = setting or SpGpSetting()
         self.dtype = torch_dtype(dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._set_setting(self.setting)
         np_dt = numpy_dtype(self.dtype)
         p = np.asarray(pseudo_points, np_dt)

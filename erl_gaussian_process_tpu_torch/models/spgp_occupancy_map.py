@@ -29,6 +29,10 @@ from erl_gaussian_process_tpu_torch.geometry.occupancy_dataset import (
     generate_dataset_fixed,
     generate_dataset_np,
 )
+from erl_gaussian_process_tpu_torch.models.gp_core import (
+    DEFAULT_DEVICE,
+    resolve_device,
+)
 from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     GRADIENT_TODO,
     SparsePseudoInputGaussianProcess,
@@ -168,13 +172,13 @@ class SpGpOccupancyMap:
     def __init__(self, setting: Optional[SpGpOccupancyMapSetting],
                  pseudo_points, map_boundary: Aabb, seed: int = 0,
                  dtype=torch.float64, free_slots_per_ray: Optional[int] = None,
-                 mesh=None, device="cpu"):
+                 mesh=None, device=DEFAULT_DEVICE):
         """pseudo_points: (d, M) column-major (reference constructor
         layout). Every tensor of the map lives on ``device``."""
         if mesh is not None:
             raise NotImplementedError(MESH_TODO)
         self.setting = setting or SpGpOccupancyMapSetting()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.sp_gp = SparsePseudoInputGaussianProcess(
             self.setting.sp_gp, pseudo_points, dtype=dtype,
             device=self.device)

@@ -1,13 +1,154 @@
-"""The vanilla GP's setting (counterpart of
-``erl_gaussian_process_tpu/models/vanilla_gp.py:192-215``). The sensor GPs
-configure their partition GPs with it; the model itself is not ported yet
-(ROADMAP.md, Queue 1 item 9)."""
+"""Exact multi-output GP regression (counterpart of
+``erl_gaussian_process_tpu/models/vanilla_gp.py``; reference:
+VanillaGaussianProcess, src/vanilla_gp.cpp).
+
+Functional core: :func:`vanilla_fit` (the gram-fused blocked Cholesky and
+the blocked substitution, ``ops/chol.py`` + ``ops/trsv.py``),
+:func:`vanilla_ktest` (the gram kernel), mean and variance. The
+:class:`VanillaGaussianProcess` class mirrors the reference's Python API
+(train/test/TestResult) over padded fixed-shape buffers on ``device``.
+Reduced-rank kernels are not ported yet (ROADMAP.md, Queue 1 item 11).
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+from typing import NamedTuple, Optional
 
-from erl_gaussian_process_tpu_torch.kernels import KernelSetting
+import numpy as np
+import torch
+
+from erl_gaussian_process_tpu_torch.kernels import (
+    KernelSetting,
+    cross_gram,
+    resolve_kernel_setting,
+)
+from erl_gaussian_process_tpu_torch.kernels.base import (
+    REDUCED_RANK_TODO,
+    is_reduced_rank_name,
+)
+from erl_gaussian_process_tpu_torch.models.gp_core import (
+    DEFAULT_DEVICE,
+    host_jitter_retry,
+    mean_from_ktest,
+    resolve_device,
+    solve_with_L,
+    use_full_fp32_matmul,
+    variance_from_whitened,
+    whiten,
+    with_tile_inverses,
+)
+from erl_gaussian_process_tpu_torch.ops.chol import chol_blocked_gram
+from erl_gaussian_process_tpu_torch.utils.serialization import (
+    eq_state,
+    load_pytree,
+    save_pytree,
+)
+
+_LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
+
+
+class VanillaGPState(NamedTuple):
+    """Trained GP; shapes static (padded to max_num_samples): x (n, d), mask
+    (n,) bool, L (n, n), alpha (n, y_dim). ``dinv``: the blocked
+    Cholesky's diagonal-tile inverses, which :func:`gp_core.whiten` uses at
+    float32; not part of a checkpoint (rebuilt from L on load)."""
+
+    x: torch.Tensor
+    mask: torch.Tensor
+    L: torch.Tensor
+    alpha: torch.Tensor
+    dinv: Optional[torch.Tensor] = None
+
+
+def vanilla_fit(x, y, var, mask, scale, *, kernel: str) -> VanillaGPState:
+    """Train: gram + noise diagonal (identity-padded) -> Cholesky -> alpha.
+    x (n, d); y (n, y_dim); var (n,); mask (n,) bool. The gram is built per
+    tile inside the factorization (``chol_blocked_gram``), whose
+    diagonal-tile inverses feed the substitution."""
+    y = torch.where(mask[:, None], y, torch.zeros_like(y))
+    L, dinv = chol_blocked_gram(kernel, x, var, mask, scale, return_dinv=True)
+    return VanillaGPState(x=x, mask=mask, L=L,
+                          alpha=solve_with_L(L, y, chol_dinv=dinv), dinv=dinv)
+
+
+def vanilla_ktest(state: VanillaGPState, xq, scale, *, kernel: str):
+    """Cross gram (n, m); masked train rows zeroed."""
+    return cross_gram(kernel, state.x, xq, scale, mask1=state.mask)
+
+
+def vanilla_mean(state: VanillaGPState, ktest):
+    return mean_from_ktest(ktest, state.alpha)
+
+
+def vanilla_variance(state: VanillaGPState, ktest, *, reduced_rank=False):
+    return variance_from_whitened(whiten(state.L, ktest, state.dinv),
+                                  reduced_rank)
+
+
+def vanilla_l_inv(state: VanillaGPState):
+    """Explicit L^{-1} for the repeated-query path: computed once (from the
+    second variance query on); every later query batch whitens with a
+    product instead of a triangular solve."""
+    n = state.L.shape[0]
+    return whiten(state.L, torch.eye(n, dtype=state.L.dtype,
+                                     device=state.L.device), state.dinv)
+
+
+def vanilla_variance_fast(L_inv, ktest, *, reduced_rank=False):
+    return variance_from_whitened(L_inv @ ktest, reduced_rank)
+
+
+def vanilla_predict(state: VanillaGPState, xq, scale, *, kernel: str,
+                    reduced_rank: bool = False):
+    """Mean and variance of one query batch."""
+    ktest = vanilla_ktest(state, xq, scale, kernel=kernel)
+    return (mean_from_ktest(ktest, state.alpha),
+            variance_from_whitened(whiten(state.L, ktest, state.dinv),
+                                   reduced_rank))
+
+
+def rr_fit(*args, **kwargs):
+    """The reduced-rank fit, not ported yet."""
+    raise NotImplementedError(REDUCED_RANK_TODO)
+
+
+class VanillaTrainSet:
+    """Mirror of VanillaGaussianProcess::TrainSet: ``x`` (x_dim, n)
+    column-major, ``y`` (n, y_dim), ``var`` (n,), held as padded host
+    arrays so a checkpointed model can be retrained."""
+
+    def __init__(self, xp: np.ndarray, yp: np.ndarray, vp: np.ndarray,
+                 num_samples: int):
+        self.xp, self.yp, self.vp = xp, yp, vp
+        self.num_samples = int(num_samples)
+
+    @property
+    def x(self):
+        return self.xp[:self.num_samples].T
+
+    @property
+    def y(self):
+        return self.yp[:self.num_samples]
+
+    @property
+    def var(self):
+        return self.vp[:self.num_samples]
+
+    @property
+    def x_dim(self):
+        return self.xp.shape[1]
+
+    @property
+    def y_dim(self):
+        return self.yp.shape[1]
+
+    @property
+    def mask(self):
+        m = np.zeros((self.xp.shape[0],), bool)
+        m[:self.num_samples] = True
+        return m
 
 
 @dataclasses.dataclass
@@ -29,3 +170,213 @@ class VanillaGPSetting:
             d["kernel"] = KernelSetting.from_dict(d["kernel"])
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+class VanillaTestResult:
+    """Lazy test result (the reference's TestResult): ktest at
+    construction, the whitening deferred to the first variance query."""
+
+    def __init__(self, gp: "VanillaGaussianProcess", xq: torch.Tensor):
+        self._gp = gp
+        self._xq = xq
+        self._ktest = vanilla_ktest(gp.state, xq, gp._scale,
+                                    kernel=gp._kernel)
+        self._mean = None
+        self._var = None
+
+    @property
+    def num_test(self):
+        return self._xq.shape[0]
+
+    @property
+    def k_test(self):
+        return self._ktest.cpu().numpy()
+
+    def get_mean(self, y_index: int = 0, parallel: bool = True):
+        del parallel
+        if self._mean is None:
+            self._mean = vanilla_mean(self._gp.state, self._ktest)
+        return self._mean[:, y_index].cpu().numpy()
+
+    def get_variance(self, parallel: bool = True):
+        del parallel
+        if self._var is None:
+            gp = self._gp
+            gp._var_queries += 1
+            # the product whitening only beats the solve while the query
+            # batch is thin
+            if gp._var_queries >= 2 and self._ktest.shape[1] <= 512:
+                if gp._L_inv is None:
+                    gp._L_inv = vanilla_l_inv(gp.state)
+                self._var = vanilla_variance_fast(gp._L_inv, self._ktest)
+            else:
+                self._var = vanilla_variance(gp.state, self._ktest)
+        return self._var.cpu().numpy()
+
+
+class VanillaGaussianProcess:
+    """Stateful wrapper mirroring the reference class API. Inputs follow the
+    reference layout: ``x`` (x_dim, n) column-major, ``y`` (n, y_dim),
+    ``var`` (n,). The state lives on ``device``."""
+
+    Setting = VanillaGPSetting
+    TestResult = VanillaTestResult
+    TrainSet = VanillaTrainSet
+
+    def __init__(self, setting: Optional[VanillaGPSetting] = None,
+                 dtype=np.float64, device=DEFAULT_DEVICE):
+        use_full_fp32_matmul()
+        self.setting = setting or VanillaGPSetting()
+        self.dtype = np.dtype(dtype)
+        self.device = resolve_device(device)
+        self.state: Optional[VanillaGPState] = None
+        self._setup_kernel()
+        self._trained = False
+        self._n = 0
+        self._x_dim = 0
+        self._y_dim = 0
+        self._L_inv = None
+        self._var_queries = 0
+        self._train_set: Optional[VanillaTrainSet] = None
+
+    def _setup_kernel(self):
+        if is_reduced_rank_name(self.setting.kernel_type):
+            raise NotImplementedError(REDUCED_RANK_TODO)
+        self._scale = float(self.setting.kernel.scale)
+        self._kernel = resolve_kernel_setting(
+            self.setting.kernel_type, self.setting.kernel,
+            "VanillaGaussianProcess")
+        self.reduced_rank_kernel = False
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.tensor(np.ascontiguousarray(a), device=self.device)
+
+    @property
+    def is_trained(self) -> bool:
+        return self._trained
+
+    def get_train_set(self) -> Optional[VanillaTrainSet]:
+        return self._train_set
+
+    def reset(self, max_num_samples: int, x_dim: int, y_dim: int):
+        """Size the buffers and clear the trained flag; the stored train set
+        survives."""
+        self.setting.max_num_samples = int(max_num_samples)
+        self._x_dim, self._y_dim = int(x_dim), int(y_dim)
+        self._n = 0
+        self._trained = False
+        self.state = None
+        self._L_inv = None
+        self._var_queries = 0
+
+    def _fit_train_set(self) -> bool:
+        """The C++ Train() body: fit from the stored train set, with the
+        empty-data guard and the host jitter retry."""
+        ts = self._train_set
+        if ts is None or ts.num_samples <= 0:
+            _LOG.warning("num_samples = %d, it should be > 0.",
+                         0 if ts is None else ts.num_samples)
+            return False
+        x, y, mask = self._tensor(ts.xp), self._tensor(ts.yp), \
+            self._tensor(ts.mask)
+        self.state = host_jitter_retry(
+            lambda j: vanilla_fit(x, y, self._tensor(ts.vp + self.dtype.type(j)),
+                                  mask, self._scale, kernel=self._kernel),
+            lambda st: (st.alpha,))
+        self._n = ts.num_samples
+        self._trained = True
+        self._L_inv = None
+        self._var_queries = 0
+        return True
+
+    def train(self, mat_x_train=None, mat_y_train=None, vec_var_y=None
+              ) -> bool:
+        """``train()`` with no arguments is the C++ ``Train()``: refuses when
+        already trained (call ``reset`` first) or when the stored train set
+        is empty, else fits it. ``train(x, y, var)`` is the binding's: reset,
+        store the data, fit. x (x_dim, n); y (n, y_dim) or (n,); var (n,) or
+        a scalar."""
+        if mat_x_train is None:
+            if self._trained:
+                _LOG.warning("The model has been trained. Please reset the "
+                             "model before training.")
+                return False
+            return self._fit_train_set()
+        x = np.asarray(mat_x_train, dtype=self.dtype)
+        if x.ndim == 1:
+            x = x[None, :]
+        y = np.asarray(mat_y_train, dtype=self.dtype)
+        if y.ndim == 1:
+            y = y[:, None]
+        n = x.shape[1]
+        var = np.broadcast_to(np.asarray(vec_var_y, dtype=self.dtype), (n,))
+        self.reset(max(self.setting.max_num_samples, max(n, 1)),
+                   x.shape[0], y.shape[1])
+        nmax = self.setting.max_num_samples
+        xp = np.zeros((nmax, x.shape[0]), self.dtype)
+        xp[:n] = x.T
+        yp = np.zeros((nmax, y.shape[1]), self.dtype)
+        yp[:n] = y
+        vp = np.zeros((nmax,), self.dtype)
+        vp[:n] = var
+        self._train_set = VanillaTrainSet(xp, yp, vp, n)
+        return self._fit_train_set()
+
+    def test(self, mat_x_test) -> Optional[VanillaTestResult]:
+        """x (x_dim, m) column-major (or (m,) for 1-D inputs)."""
+        if not self._trained:
+            return None
+        xq = np.asarray(mat_x_test, dtype=self.dtype)
+        if xq.ndim == 1:
+            xq = xq[None, :]
+        return VanillaTestResult(self, self._tensor(xq.T))
+
+    def get_memory_usage(self) -> int:
+        """Bytes held by the state's tensors."""
+        return 0 if self.state is None else sum(
+            t.nbytes for t in self.state if t is not None)
+
+    # -- checkpoint (the full train set round-trips, as in the reference) --
+    def state_dict(self) -> dict:
+        ts = self._train_set
+        return {
+            "setting": self.setting.to_dict(),
+            "trained": self._trained,
+            "n": self._n,
+            "x_dim": self._x_dim,
+            "y_dim": self._y_dim,
+            "state": None if self.state is None else {
+                k: v.detach().cpu().numpy()
+                for k, v in self.state._asdict().items() if k != "dinv"},
+            "train_set": None if ts is None else {
+                "x": ts.xp, "y": ts.yp, "var": ts.vp,
+                "num_samples": ts.num_samples},
+        }
+
+    def load_state_dict(self, d: dict):
+        self.setting = VanillaGPSetting.from_dict(d["setting"])
+        self._setup_kernel()
+        self._L_inv = None
+        self._var_queries = 0
+        self._trained = bool(d["trained"])
+        self._n = int(d["n"])
+        self._x_dim = int(d["x_dim"])
+        self._y_dim = int(d["y_dim"])
+        s = d["state"]
+        self.state = None if s is None else with_tile_inverses(VanillaGPState(
+            **{k: self._tensor(s[k]) for k in ("x", "mask", "L", "alpha")}))
+        ts = d.get("train_set")
+        self._train_set = None if ts is None else VanillaTrainSet(
+            np.asarray(ts["x"]), np.asarray(ts["y"]), np.asarray(ts["var"]),
+            int(ts["num_samples"]))
+
+    def save(self, path: str):
+        save_pytree(path, self.state_dict())
+
+    def load(self, path: str):
+        self.load_state_dict(load_pytree(path))
+
+    def __eq__(self, other):
+        if not isinstance(other, VanillaGaussianProcess):
+            return NotImplemented
+        return eq_state(self.state_dict(), other.state_dict())

@@ -12,6 +12,16 @@ from erl_gaussian_process_tpu_torch.ops.bank import (
     bank_fit_plain,
     solve_alpha,
 )
+from erl_gaussian_process_tpu_torch.ops.chol import (
+    chol_blocked,
+    chol_blocked_gram,
+    chol_blocked_gram_joint,
+    chol_blocked_gram_joint_plain,
+    chol_blocked_gram_plain,
+    chol_blocked_plain,
+    TILE,
+    diag_tile_inverses,
+)
 from erl_gaussian_process_tpu_torch.ops.fitc import (
     fitc_update_cuda,
     fitc_update_plain,
@@ -21,10 +31,21 @@ from erl_gaussian_process_tpu_torch.ops.gram import (
     cross_gram_cuda,
     cross_gram_plain,
 )
+from erl_gaussian_process_tpu_torch.ops.trsv import (
+    cho_solve_vec,
+    inverses_from_chol_dinv,
+    solve_lower,
+    solve_lower_t,
+    substitute_cuda,
+    substitute_plain,
+)
 
 WRAPPERS = {"gram": cross_gram_cuda, "gram_batched": cross_gram_batched_cuda,
             "fitc": fitc_update_cuda, "bank_fit": bank_fit_cuda,
-            "bank_chol": bank_cholesky_solve_cuda}
+            "bank_chol": bank_cholesky_solve_cuda, "chol": chol_blocked,
+            "chol_gram": chol_blocked_gram,
+            "chol_gram_joint": chol_blocked_gram_joint,
+            "trsv": substitute_cuda}
 
 
 def launch_counts() -> dict:
@@ -38,16 +59,30 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "TILE",
     "bank_cholesky_solve_cuda",
     "bank_cholesky_solve_plain",
     "bank_fit_cuda",
     "bank_fit_plain",
+    "cho_solve_vec",
+    "chol_blocked",
+    "chol_blocked_gram",
+    "chol_blocked_gram_joint",
+    "chol_blocked_gram_joint_plain",
+    "chol_blocked_gram_plain",
+    "chol_blocked_plain",
+    "diag_tile_inverses",
     "cross_gram_batched_cuda",
     "cross_gram_cuda",
     "cross_gram_plain",
     "fitc_update_cuda",
     "fitc_update_plain",
+    "inverses_from_chol_dinv",
     "launch_counts",
     "reset_launch_counts",
     "solve_alpha",
+    "solve_lower",
+    "solve_lower_t",
+    "substitute_cuda",
+    "substitute_plain",
 ]

@@ -1,8 +1,9 @@
 """Carry a JAX-package state over to the port.
 
 The JAX package's checkpoints (``state_dict()`` of
-``SparsePseudoInputGaussianProcess``, ``SpGpOccupancyMap`` and
-``RangeSensorGaussianProcess3D``, as numpy arrays) load here and compute the
+``SparsePseudoInputGaussianProcess``, ``SpGpOccupancyMap``,
+``RangeSensorGaussianProcess3D``, ``VanillaGaussianProcess`` and
+``NoisyInputGaussianProcess``, as numpy arrays) load here and compute the
 same thing from the same state. The one
 piece that cannot carry over is the JAX PRNG key: the map gets a fresh
 ``torch.Generator`` seed derived from it (:func:`seed_from_key`), so its
@@ -17,6 +18,13 @@ from erl_gaussian_process_tpu_torch.geometry.aabb import Aabb
 from erl_gaussian_process_tpu_torch.models.batch_gp import (  # noqa: F401
     bank_state_from_numpy,
 )
+from erl_gaussian_process_tpu_torch.models.gp_core import (
+    DEFAULT_DEVICE,
+    resolve_device,
+)
+from erl_gaussian_process_tpu_torch.models.noisy_input_gp import (
+    NoisyInputGaussianProcess,
+)
 from erl_gaussian_process_tpu_torch.models.range_sensor_gp_3d import (
     RangeSensorGaussianProcess3D,
 )
@@ -28,13 +36,16 @@ from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
     SpGpOccupancyMap,
     SpGpOccupancyMapSetting,
 )
+from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
+    VanillaGaussianProcess,
+)
 
 
-def spgp_state_from_numpy(d, device="cpu") -> SpGpState:
+def spgp_state_from_numpy(d, device=DEFAULT_DEVICE) -> SpGpState:
     """SpGpState on ``device`` from the ``state`` dict of a JAX
     ``SparsePseudoInputGaussianProcess.state_dict()`` (pseudo, L_km, L_inv,
     qm, alpha, qm_c, alpha_c)."""
-    return state_from_numpy(d, device)
+    return state_from_numpy(d, resolve_device(device))
 
 
 def seed_from_key(key) -> int:
@@ -46,7 +57,7 @@ def seed_from_key(key) -> int:
     return seed
 
 
-def occupancy_map_from_numpy(d, device="cpu",
+def occupancy_map_from_numpy(d, device=DEFAULT_DEVICE,
                              free_slots_per_ray=None) -> SpGpOccupancyMap:
     """A port ``SpGpOccupancyMap`` on ``device`` from a JAX
     ``SpGpOccupancyMap.state_dict()``. Setting, boundary, step and the SPGP
@@ -72,11 +83,36 @@ def occupancy_map_from_numpy(d, device="cpu",
     return omap
 
 
-def range_sensor_gp_3d_from_numpy(d, device="cpu"
+def range_sensor_gp_3d_from_numpy(d, device=DEFAULT_DEVICE
                                   ) -> RangeSensorGaussianProcess3D:
     """A port ``RangeSensorGaussianProcess3D`` on ``device`` from a JAX
     ``RangeSensorGaussianProcess3D.state_dict()``, at the checkpoint's
     dtype."""
     gp = RangeSensorGaussianProcess3D(device=device)
+    gp.load_state_dict(d)
+    return gp
+
+
+def _checkpoint_dtype(d) -> np.dtype:
+    """The dtype of an exact GP's checkpoint: its train set's."""
+    ts = d.get("train_set")
+    src = ts["x"] if ts is not None else (d.get("state") or {}).get("L")
+    return np.asarray(src).dtype if src is not None else np.dtype(np.float64)
+
+
+def vanilla_gp_from_numpy(d, device=DEFAULT_DEVICE) -> VanillaGaussianProcess:
+    """A port ``VanillaGaussianProcess`` on ``device`` from a JAX
+    ``VanillaGaussianProcess.state_dict()``, at the checkpoint's dtype."""
+    gp = VanillaGaussianProcess(dtype=_checkpoint_dtype(d), device=device)
+    gp.load_state_dict(d)
+    return gp
+
+
+def noisy_input_gp_from_numpy(d, device=DEFAULT_DEVICE
+                              ) -> NoisyInputGaussianProcess:
+    """A port ``NoisyInputGaussianProcess`` on ``device`` from a JAX
+    ``NoisyInputGaussianProcess.state_dict()``, at the checkpoint's
+    dtype."""
+    gp = NoisyInputGaussianProcess(dtype=_checkpoint_dtype(d), device=device)
     gp.load_state_dict(d)
     return gp

@@ -14,6 +14,10 @@ import numpy as np
 import torch
 
 from erl_gaussian_process_tpu_torch.kernels.stationary import kernel_fn
+from erl_gaussian_process_tpu_torch.models.gp_core import (
+    DEFAULT_DEVICE,
+    resolve_device,
+)
 from erl_gaussian_process_tpu_torch.ops.gram import cross_gram_plain
 
 
@@ -22,7 +26,8 @@ def _f64(a, device) -> torch.Tensor:
 
 
 def replay_f64(pseudo, scale, kernel, dx, dy, dm, var, grid,
-               poses_per_chunk: int = 16, device="cpu") -> np.ndarray:
+               poses_per_chunk: int = 16,
+               device=DEFAULT_DEVICE) -> np.ndarray:
     """Float64 replay of the collected datasets; returns the posterior
     log-odds on ``grid`` as a numpy array.
 
@@ -32,7 +37,7 @@ def replay_f64(pseudo, scale, kernel, dx, dy, dm, var, grid,
     ``poses_per_chunk`` poses go into one increment (the FITC increment is
     an order-free sum over sample columns, so this is exact up to float64
     reassociation). Runs on ``device``."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     p64 = _f64(pseudo, dev)
     m = p64.shape[0]
     km = kernel_fn(kernel)(p64, p64, float(scale))

@@ -10,6 +10,13 @@
   scan of the procedural reference room from its center at a seeded
   random orientation, then 10 000 uniform sphere directions against the
   raycast ground truth.
+- The exact GPs (the JAX package's ``benchmarks/suite.py:174-208`` and
+  ``:245-290``, value for value): the vanilla GP at n = 8192, and the
+  noisy-input GP with gradients at n = 2500 padded to 2560 (a 7680^2 joint
+  system); and the reference's largest noisy-input golden
+  (``tests/test_noisy_input_gp.py:245-280``, reference
+  ``test_noisy_input_gp.cpp:354-560``): a 50x50 grid with gradients, a
+  7500^2 joint system, float64.
 """
 
 import os
@@ -235,3 +242,76 @@ def lidar3d_replay_workload(n_scans: int = 64, seed: int = 0):
     origins = np.repeat(ts, dirs_f.shape[0], axis=0)
     ranges = mesh.cast_rays(origins, dirs)
     return setting, Rs, ts, ranges.reshape((n_scans,) + frame.shape)
+
+
+def exact_gp_workload(n: int = 8192, m_test: int = 4096, d: int = 2,
+                      seed: int = 0):
+    """The exact-GP fit and predict: x ~ U(-1, 1)^d, y ~ U(-1, 1), noise
+    1e-2 (the f32-feasible noise: at n >= 4k the dense rbf gram's norm is
+    ~1e3-1e4, so f32 storage rounding alone perturbs it by ~1e-4), rbf at
+    scale 0.5, float32. Returns (x (n, d), y (n, 1), var (n,), queries
+    (m_test, d), scale, kernel)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (n, d)).astype(np.float32)
+    y = rng.uniform(-1, 1, (n, 1)).astype(np.float32)
+    var = np.full((n,), 1e-2, np.float32)
+    xq = rng.uniform(-1, 1, (m_test, d)).astype(np.float32)
+    return x, y, var, xq, 0.5, "rbf"
+
+
+def nigp_workload(n: int = 2500, d: int = 2, m_test: int = 1024,
+                  seed: int = 0):
+    """The noisy-input GP with gradient observations at the reference's
+    hardest test shape: n padded to a multiple of 128 (2560, so the joint
+    system is 7680^2), x, y, gradients ~ U(-1, 1), var_x 1e-6, var_y =
+    var_grad = 1e-2 (f32-feasible), rbf at scale 0.5, float32. Returns (x
+    (n, d), y (n, 1), grad (n, d, 1), var_x, var_y, var_grad (n,), queries
+    (m_test, d), scale, kernel)."""
+    n = -(-n // 128) * 128
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (n, d)).astype(np.float32)
+    y = rng.uniform(-1, 1, (n, 1)).astype(np.float32)
+    grad = rng.uniform(-1, 1, (n, d, 1)).astype(np.float32)
+    var_x = np.full((n,), 1e-6, np.float32)
+    var_y = np.full((n,), 1e-2, np.float32)
+    var_grad = np.full((n,), 1e-2, np.float32)
+    xq = rng.uniform(-1, 1, (m_test, d)).astype(np.float32)
+    return x, y, grad, var_x, var_y, var_grad, xq, 0.5, "rbf"
+
+
+def _grid_points(n, xmin, xmax, ymin, ymax):
+    xs = np.linspace(xmin, xmax, n)
+    ys = np.linspace(ymin, ymax, n)
+    return np.array([[x, y] for x in xs for y in ys]).T   # reference order
+
+
+# the reference's bounds (test_noisy_input_gp.cpp:556-558) and its recorded
+# observations (:554) for the 50x50 golden: MAE, mean |gx err|, |gy err|
+NIGP_GOLDEN_BOUNDS = (1.0e-5, 1.1e-4, 2.6e-4)
+NIGP_GOLDEN_RECORDED = (9.516671456234042e-06, 1.0712550862064423e-04,
+                        2.508214688791491e-04)
+
+
+def nigp_golden_workload():
+    """The reference's 2D noisy-input case with gradients at full size: z =
+    2 sin(10 x) cos(5 y) and its gradient on a 50x50 grid over [-2, 2] x
+    [-1, 1] (2500 samples, 7500^2 joint system), rbf at scale 0.1, noise
+    1e-4 on values, inputs and gradients, float64; tested on a 100x100
+    grid. Returns (setting, x (2, 2500), z, grad (2, 2500), noise, queries
+    (2, 10000), z at the queries, (gx, gy) at the queries)."""
+    from erl_gaussian_process_tpu_torch.models.noisy_input_gp import (
+        NoisyInputGPSetting,
+    )
+
+    pts = _grid_points(50, -2, 2, -1, 1)
+    z = 2 * np.sin(10 * pts[0]) * np.cos(5 * pts[1])
+    grad = np.stack([20 * np.cos(10 * pts[0]) * np.cos(5 * pts[1]),
+                     -10 * np.sin(10 * pts[0]) * np.sin(5 * pts[1])])
+    setting = NoisyInputGPSetting(
+        kernel_type="rbf", kernel=KernelSetting(x_dim=2, scale=0.1),
+        max_num_samples=2500, no_gradient_observation=False)
+    qt = _grid_points(100, -2, 2, -1, 1)
+    zt = 2 * np.sin(10 * qt[0]) * np.cos(5 * qt[1])
+    gt = (20 * np.cos(10 * qt[0]) * np.cos(5 * qt[1]),
+          -10 * np.sin(10 * qt[0]) * np.sin(5 * qt[1]))
+    return setting, pts, z, grad, 1e-4, qt, zt, gt

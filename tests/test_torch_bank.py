@@ -122,8 +122,12 @@ def test_cholesky_fit_and_whiten_match_jax():
     _close(alpha, ja, 1e-12)
     _close(gp_core.whiten(L, torch.as_tensor(kt)),
            jgp.whiten(jL, jnp.asarray(kt)), 1e-12)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        gp_core.cholesky_fit(*_t(K, y), robust=False)
+    # the single-system route: the blocked Cholesky and substitution (their
+    # plain versions on the CPU) against the JAX package's robust=False
+    L, alpha = gp_core.cholesky_fit(*_t(K, y), robust=False)
+    jL, ja = jgp.cholesky_fit(jnp.asarray(K), jnp.asarray(y), robust=False)
+    _close(L, jL, 1e-12)
+    _close(alpha, ja, 1e-12)
 
 
 # -- bank fit --------------------------------------------------------------
@@ -248,7 +252,7 @@ def test_batch_gp_bank_matches_jax(dtype):
     alpha); members smaller than n are identity-padded exactly."""
     rng = np.random.default_rng(2)
     bank = BatchGPBank(batch_size=3, max_num_samples=24, y_dim=1,
-                       dtype=dtype)
+                       dtype=dtype, device="cpu")
     jbank = jbg.BatchGPBank(batch_size=3, max_num_samples=24, y_dim=1,
                             dtype=dtype)
     sizes = [24, 10, 17]
@@ -319,7 +323,7 @@ def test_bank_predict_assigned_matches_jax(from_jax_state):
                           kernel="matern32")
     state = bank_state_from_numpy(
         {k: np.asarray(v) for k, v in jstate._asdict().items()
-         if v is not None}) if from_jax_state else \
+         if v is not None}, device="cpu") if from_jax_state else \
         bank_fit(*_t(xs, ys, vs, ms), 0.4, kernel="matern32")
     prof = {}
     mean, var, valid = bank_predict_assigned(state, q, idx, 0.4,

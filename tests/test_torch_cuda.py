@@ -318,3 +318,220 @@ def test_cuda_sensor_gp_never_calls_the_plain_versions(cuda, monkeypatch):
     assert after["gram_batched"] == before["gram_batched"] + 1
     assert after["bank_chol"] == before["bank_chol"] + 1
     assert np.mean((pred[valid] - gt[valid]) ** 2) <= 4.2e-4
+
+
+# -- the exact GPs: blocked Cholesky and triangular solves -------------------
+
+def _spd(cuda, n, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, n + 8))
+    return torch.as_tensor(X @ X.T / n + 2 * np.eye(n), dtype=dtype,
+                           device=cuda)
+
+
+def _berr(L, K):
+    """||L L^T - K||_max / ||K||_max in float64."""
+    L64, K64 = L.double(), K.double()
+    return float((L64 @ L64.T - K64).abs().max() / K64.abs().max())
+
+
+def _chol_sizes(dtype):
+    T = 128 if dtype == torch.float32 else 64
+    return [1, 17, T, T + 1, 3 * T - 5]
+
+
+def _berr_ok(be, bp, dtype):
+    """float32: no worse than 4x the plain version's; float64: 1e-12."""
+    return be <= 4 * bp + 1e-7 if dtype == torch.float32 else be <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("i", range(5))
+def test_chol_kernel_matches_plain(cuda, dtype, i):
+    """n in {1, 17, T, T + 1, 3T - 5}: backward error, an exactly zero
+    strict upper part, Dinv against the plain version's, one launch, and
+    two launches bitwise equal."""
+    from erl_gaussian_process_tpu_torch.ops import (
+        chol_blocked,
+        chol_blocked_plain,
+    )
+
+    n = _chol_sizes(dtype)[i]
+    A = _spd(cuda, n, dtype, seed=n)
+    before = launch_counts()["chol"]
+    L, D = chol_blocked(A, return_dinv=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["chol"] == before + 1
+    Lp, Dp = chol_blocked_plain(A, return_dinv=True)
+    assert _berr_ok(_berr(L, A), _berr(Lp, A), dtype)
+    assert bool((torch.triu(L, 1) == 0).all())
+    assert float((D - Dp).abs().max()) <= (1e-4 if dtype == torch.float32
+                                           else 1e-12)
+    assert torch.equal(chol_blocked(A), L)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fam", FAMILIES)
+@pytest.mark.parametrize("i", [1, 4])
+def test_chol_gram_kernel_matches_plain(cuda, fam, dtype, i):
+    """The gram-fused entry with masked rows: backward error against the
+    train gram, masked rows exact identity rows."""
+    from erl_gaussian_process_tpu_torch.kernels import train_gram
+    from erl_gaussian_process_tpu_torch.ops import (
+        chol_blocked_gram,
+        chol_blocked_gram_plain,
+    )
+
+    n = _chol_sizes(dtype)[i]
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.uniform(-2, 2, (n, 2)), dtype=dtype, device=cuda)
+    var = torch.as_tensor(0.05 + 0.01 * rng.random(n), dtype=dtype,
+                          device=cuda)
+    mask = torch.as_tensor(rng.random(n) < 0.9, device=cuda)
+    mask[0] = True
+    name = _name(fam)
+    L = chol_blocked_gram(name, x, var, mask, 0.7)
+    torch.cuda.synchronize()
+    K = train_gram(name, x, torch.where(mask, var, 0.0), 0.7, mask=mask)
+    Lp = chol_blocked_gram_plain(name, x, var, mask, 0.7)
+    assert _berr_ok(_berr(L, K), _berr(Lp, K), dtype)
+    off = ~mask
+    assert torch.equal(L[off][:, off], torch.eye(int(off.sum()), dtype=dtype,
+                                                 device=cuda))
+    assert bool((L[off][:, mask] == 0).all() and (L[mask][:, off] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fam,d,n0", [("rbf", 2, 33), ("matern32", 1, 45),
+                                      ("rbf", 3, 100), ("matern32", 2, 150)])
+def test_chol_joint_kernel_matches_plain(cuda, fam, d, n0, dtype):
+    """The joint value/gradient entry: backward error against the plain
+    joint gram, masked rows identity, one launch."""
+    from erl_gaussian_process_tpu_torch.kernels import (
+        train_gram_with_gradient,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        chol_blocked_gram_joint,
+        chol_blocked_gram_joint_plain,
+    )
+
+    rng = np.random.default_rng(n0)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa: E731
+    x = t(rng.uniform(-2, 2, (n0, d)))
+    vv, vg = t(0.05 + 0.01 * rng.random(n0)), t(0.05 + 0.01 * rng.random(n0))
+    sm = torch.as_tensor(rng.random(n0) < 0.9, device=cuda)
+    gm = torch.as_tensor(rng.random(n0) < 0.7, device=cuda)
+    before = launch_counts()["chol_gram_joint"]
+    L = chol_blocked_gram_joint(fam, x, vv, vg, sm, gm, 0.9)
+    torch.cuda.synchronize()
+    assert launch_counts()["chol_gram_joint"] == before + 1
+    K = train_gram_with_gradient(fam, x, torch.where(sm, vv, 0.0),
+                                 torch.zeros_like(vv),
+                                 torch.where(gm, vg, 0.0), sm, gm, 0.9)
+    Lp = chol_blocked_gram_joint_plain(fam, x, vv, vg, sm, gm, 0.9)
+    assert _berr_ok(_berr(L, K), _berr(Lp, K), dtype)
+    off = ~torch.cat([sm] + [gm] * d)
+    assert torch.equal(L[off][:, off], torch.eye(int(off.sum()), dtype=dtype,
+                                                 device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_kernel_non_spd_is_nan(cuda, dtype):
+    """A negative pivot makes the factor NaN from its tile on (never a
+    clamp), and the solve's alpha NaN."""
+    from erl_gaussian_process_tpu_torch.models.gp_core import cholesky_fit
+    from erl_gaussian_process_tpu_torch.ops import chol_blocked
+
+    n = _chol_sizes(dtype)[4]
+    A = _spd(cuda, n, dtype)
+    A[n - 20, n - 20] = -1.0
+    L = chol_blocked(A)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(L[n - 20:, n - 20]).all())
+    _, alpha = cholesky_fit(A, torch.ones((n, 1), dtype=dtype, device=cuda),
+                            robust=False)
+    assert bool(torch.isnan(alpha).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("q", [1, 3, 129])
+@pytest.mark.parametrize("with_dinv", [False, True])
+def test_trsv_kernel_matches_plain(cuda, dtype, q, with_dinv):
+    """Both directions and the Cholesky solve at a ragged n, with the
+    Cholesky's Dinv and without it: residuals no worse than 4x the plain
+    solve's (float32) or 1e-12 relative (float64); two launches per
+    cho_solve_vec, bitwise repeatable."""
+    from erl_gaussian_process_tpu_torch.ops import (
+        cho_solve_vec,
+        chol_blocked,
+        inverses_from_chol_dinv,
+        solve_lower,
+        solve_lower_t,
+        substitute_plain,
+    )
+
+    n = _chol_sizes(dtype)[4]
+    A = _spd(cuda, n, dtype, seed=q)
+    L, D = chol_blocked(A, return_dinv=True)
+    b = torch.as_tensor(np.random.default_rng(q).standard_normal((n, q)),
+                        dtype=dtype, device=cuda)
+    inv = inverses_from_chol_dinv(D, n).contiguous() if with_dinv else None
+    before = launch_counts()["trsv"]
+    x = cho_solve_vec(L, b, chol_dinv=D if with_dinv else None)
+    torch.cuda.synchronize()
+    assert launch_counts()["trsv"] == before + 2
+    cases = [(solve_lower(L, b, inv), substitute_plain(L, b, False), L),
+             (solve_lower_t(L, b, inv), substitute_plain(L, b, True), L.T),
+             (x, torch.cholesky_solve(b, L), A)]
+    for got, ref, M in cases:
+        r_k = float((M.double() @ got.double() - b.double()).abs().max())
+        r_p = float((M.double() @ ref.double() - b.double()).abs().max())
+        if dtype == torch.float32:
+            assert r_k <= 4 * r_p + 1e-6
+        else:
+            assert float((got - ref).abs().max() / ref.abs().max()) < 1e-12
+    assert torch.equal(cho_solve_vec(L, b, chol_dinv=D if with_dinv
+                                     else None), x)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_exact_gps_on_the_card_match_the_cpu(cuda, dtype, monkeypatch):
+    """A small exact GP and noisy-input GP trained and tested on the card
+    run the kernels only (the plain Cholesky versions are patched to raise)
+    and agree with the same models on the CPU."""
+    import erl_gaussian_process_tpu_torch.ops.chol as chol_ops
+    from erl_gaussian_process_tpu_torch.models import (
+        NoisyInputGaussianProcess,
+        NoisyInputGPSetting,
+        VanillaGaussianProcess,
+        VanillaGPSetting,
+    )
+
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-1, 1, (2, 300))
+    y = np.sin(3 * x[0]) * np.cos(2 * x[1])
+    g = np.stack([3 * np.cos(3 * x[0]) * np.cos(2 * x[1]),
+                  -2 * np.sin(3 * x[0]) * np.sin(2 * x[1])])
+    xt = rng.uniform(-1, 1, (2, 50))
+    ks = KernelSetting(x_dim=2, scale=0.5)
+    outs = {}
+    for dev in ("cpu", cuda):
+        if dev != "cpu":
+            def boom(*args, **kwargs):
+                raise AssertionError("plain version on the CUDA path")
+            for name in ("chol_blocked_plain", "chol_blocked_gram_plain",
+                         "chol_blocked_gram_joint_plain"):
+                monkeypatch.setattr(chol_ops, name, boom)
+        vgp = VanillaGaussianProcess(VanillaGPSetting(
+            kernel=ks, max_num_samples=300), dtype=dtype, device=dev)
+        assert vgp.train(x, y, 1e-2)
+        vr = vgp.test(xt)
+        ngp = NoisyInputGaussianProcess(NoisyInputGPSetting(
+            kernel=ks, max_num_samples=300), dtype=dtype, device=dev)
+        assert ngp.train(x, y, g, 1e-4, 1e-2, 1e-2)
+        nr = ngp.test(xt, True)
+        outs[str(dev)] = (vr.get_mean(), vr.get_variance(), nr.get_mean(),
+                          nr.get_gradient(), nr.get_mean_variance())
+    tol = 1e-3 if dtype == np.float32 else 1e-9
+    for a, b in zip(*outs.values()):
+        assert np.abs(a - b).max() < tol

@@ -1,8 +1,8 @@
 """The PyTorch port runs where neither JAX nor PyYAML is installed: in a
 fresh interpreter, importing it and driving a tiny occupancy map (a few CPU
 updates and a predict), a small 3D range-sensor GP (train, replay, test,
-compute_occ, save/load) and a BatchGPBank must not import ``jax``,
-``yaml`` or the JAX package."""
+compute_occ, save/load), a BatchGPBank, an exact GP and a noisy-input GP
+with gradients must not import ``jax``, ``yaml`` or the JAX package."""
 
 import os
 import subprocess
@@ -49,7 +49,7 @@ gp = RangeSensorGaussianProcess3D(RangeSensorGP3DSetting(
         elevation_max=0.5, num_azimuth_lines=40, num_elevation_lines=16),
     gp=VanillaGPSetting(kernel_type="ou",
                         kernel=KernelSetting(x_dim=2, scale=0.5))),
-    dtype=np.float32)
+    dtype=np.float32, device="cpu")
 ranges = 3.0 + 0.2 * rng.uniform(size=(40, 16))
 assert gp.train(np.eye(3), np.zeros(3), ranges)
 stacked = gp.train_scan_batch(np.stack([ranges, ranges + 0.1]))
@@ -60,14 +60,32 @@ assert valid.mean() > 0.5
 valid_occ = gp.compute_occ(dirs * 1.5)[0]
 path = os.path.join(tempfile.mkdtemp(), "gp3d.npz")
 gp.save(path)
-gp2 = RangeSensorGaussianProcess3D()
+gp2 = RangeSensorGaussianProcess3D(device="cpu")
 gp2.load(path)
 assert gp2 == gp
-assert range_sensor_gp_3d_from_numpy(gp.state_dict()) == gp
-bank = BatchGPBank(2, 8)
+assert range_sensor_gp_3d_from_numpy(gp.state_dict(), device="cpu") == gp
+bank = BatchGPBank(2, 8, device="cpu")
 bank.load_gp_data(0, 3, 2 * np.eye(3), np.ones(3))
 bank.solve()
 assert np.allclose(bank.get_gp_result(0)[1][:3, 0], 0.5)
+from erl_gaussian_process_tpu_torch.models import (
+    NoisyInputGaussianProcess, NoisyInputGPSetting, VanillaGaussianProcess)
+x = np.linspace(0, 2 * np.pi, 40)
+vgp = VanillaGaussianProcess(VanillaGPSetting(
+    kernel_type="rbf", kernel=KernelSetting(x_dim=1, scale=0.5),
+    max_num_samples=40), dtype=np.float32, device="cpu")
+assert vgp.train(x[None], np.sin(x), 1e-3)
+vres = vgp.test(x[None] + 0.05)
+assert np.abs(vres.get_mean() - np.sin(x + 0.05)).max() < 1e-2
+assert (vres.get_variance() >= 0).all()
+ngp = NoisyInputGaussianProcess(NoisyInputGPSetting(
+    kernel_type="matern32", kernel=KernelSetting(x_dim=1, scale=0.5),
+    max_num_samples=40), device="cpu")
+assert ngp.train(x[None], np.sin(x), np.cos(x)[None], 1e-4, 1e-4, 1e-4)
+q = x[:-1] + 0.05
+nres = ngp.test(q[None], predict_gradient=True)
+assert np.abs(nres.get_gradient()[0] - np.cos(q)).max() < 0.1
+assert nres.get_covariance().shape == (1, 39)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "yaml",
                                     "erl_gaussian_process_tpu"))

@@ -111,7 +111,8 @@ def _maps(dtype=np.float64, seed=7, max_samples=256):
                                seed=seed, dtype=dtype,
                                free_slots_per_ray=FREE_SLOTS)
     tm = SpGpOccupancyMap(ts, _pseudo(), Aabb.from_min_max(*box), seed=seed,
-                          dtype=dtype, free_slots_per_ray=FREE_SLOTS)
+                          dtype=dtype, free_slots_per_ray=FREE_SLOTS,
+                          device="cpu")
     return jm, tm
 
 
@@ -215,7 +216,7 @@ def test_update_slice_matches_jax_f64():
     kw = _kw(tm)
     jst = jm.state
     tst = spgp_state_from_numpy({k: np.array(v) for k, v in
-                                 jst._asdict().items()})
+                                 jst._asdict().items()}, device="cpu")
     for i in range(5):
         step = i + 1
         p = np.where(masks[i][:, None], pts[i], 0.0)
@@ -252,7 +253,7 @@ def test_update_batch_equals_sequential(dtype):
     def make():
         return SpGpOccupancyMap(ts, _pseudo(), Aabb.from_min_max(
             [-2] * 3, [2] * 3), seed=11, dtype=dtype,
-            free_slots_per_ray=FREE_SLOTS)
+            free_slots_per_ray=FREE_SLOTS, device="cpu")
 
     seq = make()
     used = [int(seq.update(sensors[i], pts[i], masks[i])) for i in range(4)]
@@ -310,12 +311,12 @@ def test_checkpoint_round_trip_continues_identically(tmp_path):
     sensors, pts, masks = _sphere_scans(rng, 4, 100)
     box = Aabb.from_min_max([-2] * 3, [2] * 3)
     a = SpGpOccupancyMap(ts, _pseudo(), box, seed=1, dtype=np.float32,
-                         free_slots_per_ray=FREE_SLOTS)
+                         free_slots_per_ray=FREE_SLOTS, device="cpu")
     a.update_batch(sensors[:2], pts[:2], masks[:2])
     path = str(tmp_path / "map.npz")
     a.save(path)
     b = SpGpOccupancyMap(ts, _pseudo(), box, seed=2, dtype=np.float32,
-                         free_slots_per_ray=FREE_SLOTS)
+                         free_slots_per_ray=FREE_SLOTS, device="cpu")
     b.load(path)
     assert a == b and b.seed == 1 and b.step == 2
     q = rng.uniform(-1.5, 1.5, (20, 3)).astype(np.float32)
@@ -347,9 +348,9 @@ def test_update_online_buffers_and_flushes():
     sensors, pts, masks = _sphere_scans(rng, 5, 100)
     box = Aabb.from_min_max([-2] * 3, [2] * 3)
     seq = SpGpOccupancyMap(ts, _pseudo(), box, seed=4, dtype=np.float32,
-                           free_slots_per_ray=FREE_SLOTS)
+                           free_slots_per_ray=FREE_SLOTS, device="cpu")
     onl = SpGpOccupancyMap(ts, _pseudo(), box, seed=4, dtype=np.float32,
-                           free_slots_per_ray=FREE_SLOTS)
+                           free_slots_per_ray=FREE_SLOTS, device="cpu")
     for i in range(5):
         seq.update(sensors[i], pts[i], masks[i])
         onl.update_online(sensors[i], pts[i], masks[i], chunk=2)
@@ -369,7 +370,8 @@ def test_online_mapping_3d_quality():
     ts.sp_gp.kernel.scale = 0.35
     rng = np.random.default_rng(0)
     m = SpGpOccupancyMap(ts, _pseudo(9), Aabb.from_min_max([-2] * 3, [2] * 3),
-                         seed=0, dtype=np.float32, free_slots_per_ray=8)
+                         seed=0, dtype=np.float32, free_slots_per_ray=8,
+                         device="cpu")
     sensors, pts, _ = _sphere_scans(rng, 8, 400)
     for i in range(8):
         m.update(sensors[i].astype(np.float32), pts[i].astype(np.float32))
@@ -388,8 +390,9 @@ def test_paths_not_ported_yet_raise():
     _, ts = _settings()
     box = Aabb.from_min_max([-2] * 3, [2] * 3)
     with pytest.raises(NotImplementedError, match="mesh="):
-        SpGpOccupancyMap(ts, _pseudo(), box, mesh=object())
-    m = SpGpOccupancyMap(ts, _pseudo(), box, free_slots_per_ray=FREE_SLOTS)
+        SpGpOccupancyMap(ts, _pseudo(), box, mesh=object(), device="cpu")
+    m = SpGpOccupancyMap(ts, _pseudo(), box, free_slots_per_ray=FREE_SLOTS,
+                         device="cpu")
     sensors, pts, masks = _sphere_scans(np.random.default_rng(8), 2, 50)
     with pytest.raises(NotImplementedError, match="poses_per_step"):
         m.update_batch(sensors, pts, masks, poses_per_step=2)

@@ -135,7 +135,7 @@ def test_frames_match_jax_exactly(frame):
 @pytest.mark.parametrize("frame", ["lidar", "depth"])
 def test_partitions_and_search_match_jax_exactly(frame):
     s = _setting(frame)
-    gp = RangeSensorGaussianProcess3D(s)
+    gp = RangeSensorGaussianProcess3D(s, device="cpu")
     jgp = _jax_gp(s, np.float64)
     fc = gp.sensor_frame.frame_coords()
     for coords, g in ((fc[:, 0, 0], 12), (fc[0, :, 1], 10)):
@@ -160,7 +160,7 @@ def test_train_test_and_compute_occ_match_jax(frame, dtype):
     and valid, and compute_occ, on the same holed scan at a rotated,
     translated pose."""
     s = _setting(frame)
-    gp = RangeSensorGaussianProcess3D(s, dtype=dtype)
+    gp = RangeSensorGaussianProcess3D(s, dtype=dtype, device="cpu")
     jgp = _jax_gp(s, dtype)
     ranges = _holed_scan(gp)
     assert gp.train(*_POSE, ranges) and jgp.train(*_POSE, ranges)
@@ -197,7 +197,7 @@ def test_scan_gather_matches_the_host_assembled_arrays():
     including whole groups skipped below the sample floor."""
     s = _setting()
     s.min_num_samples_per_group = 100
-    gp = RangeSensorGaussianProcess3D(s)
+    gp = RangeSensorGaussianProcess3D(s, device="cpu")
     assert gp.train(np.eye(3), np.zeros(3), _holed_scan(gp, frac=0.35))
     xs, ys, vs, ms = gp._assemble_bank_arrays()
     got = gp._gather_scans(gp.sensor_frame.ranges[None])
@@ -211,7 +211,7 @@ def test_train_scan_batch_equals_per_scan_train(dtype):
     """S scans in one bank fit: each scan's slice equals its own train bit
     for bit, and use_scan_bank routes queries at it."""
     s, Rs, ts, rb = _replay(3)
-    gp = RangeSensorGaussianProcess3D(s, dtype=dtype)
+    gp = RangeSensorGaussianProcess3D(s, dtype=dtype, device="cpu")
     stacked = gp.train_scan_batch(rb)
     B = gp.num_partitions[0] * gp.num_partitions[1]
     assert stacked.x.shape[0] == 3 * B
@@ -239,7 +239,7 @@ def test_state_from_jax_gives_jax_predictions():
     s = _setting()
     jgp = _jax_gp(s, np.float64)
     assert jgp.train(*_POSE, _holed_scan(jgp))
-    gp = range_sensor_gp_3d_from_numpy(jgp.state_dict())
+    gp = range_sensor_gp_3d_from_numpy(jgp.state_dict(), device="cpu")
     assert gp.dtype == np.float64 and gp.is_trained
     assert gp.bank.L_inv is None
     q = gp.sensor_frame.ray_directions_in_frame().reshape(-1, 3)[::5]
@@ -253,11 +253,11 @@ def test_state_from_jax_gives_jax_predictions():
 
 def test_save_load_round_trip(tmp_path):
     s = _setting()
-    gp = RangeSensorGaussianProcess3D(s)
+    gp = RangeSensorGaussianProcess3D(s, device="cpu")
     assert gp.train(np.eye(3), np.zeros(3), _holed_scan(gp))
     p = str(tmp_path / "gp3d.npz")
     gp.save(p)
-    gp2 = RangeSensorGaussianProcess3D()
+    gp2 = RangeSensorGaussianProcess3D(device="cpu")
     gp2.load(p)
     assert gp == gp2
     assert gp2.get_memory_usage() > 0
@@ -287,7 +287,7 @@ def test_reference_protocol_mse(name, gate, dtype):
     10 000 sphere directions against the raycast ground truth."""
     setting, R, t, ranges, q, gt, _ = _protocol(name)
     assert np.isfinite(ranges).all()
-    gp = RangeSensorGaussianProcess3D(setting, dtype=dtype)
+    gp = RangeSensorGaussianProcess3D(setting, dtype=dtype, device="cpu")
     assert gp.train(R, t, ranges)
     if name == "lidar":
         assert tuple(gp.bank.L.shape) == (736, 100, 100)
@@ -304,10 +304,10 @@ def test_deferred_features_raise_naming_their_roadmap_item():
     s.gp = VanillaGPSetting(kernel_type="reduced_rank_rbf",
                             kernel=KernelSetting(x_dim=2, scale=0.5))
     with pytest.raises(NotImplementedError, match="item 11"):
-        RangeSensorGaussianProcess3D(s)
+        RangeSensorGaussianProcess3D(s, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
-        RangeSensorGaussianProcess3D(_setting(), mesh=object())
-    gp = RangeSensorGaussianProcess3D(_setting())
+        RangeSensorGaussianProcess3D(_setting(), mesh=object(), device="cpu")
+    gp = RangeSensorGaussianProcess3D(_setting(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         gp.gps
     assert not gp.using_reduced_rank_kernel()

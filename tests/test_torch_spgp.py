@@ -105,7 +105,8 @@ def test_class_matches_jax_f64(config):
     rng = np.random.default_rng(1)
     pseudo = rng.uniform(-2, 2, (3, 50))          # (d, M) reference layout
     jgp = jsp.SparsePseudoInputGaussianProcess(js, pseudo, dtype=np.float64)
-    tgp = SparsePseudoInputGaussianProcess(ts, pseudo, dtype=np.float64)
+    tgp = SparsePseudoInputGaussianProcess(
+        ts, pseudo, dtype=np.float64, device="cpu")
     assert tgp._zero_threshold == jgp._zero_threshold
     for x, y, var, _ in _batches(rng, 3, 90):
         jgp.update(x.T, y, var)
@@ -126,7 +127,8 @@ def test_class_matches_jax_f32():
     rng = np.random.default_rng(2)
     pseudo = rng.uniform(-2, 2, (3, 50))
     jgp = jsp.SparsePseudoInputGaussianProcess(js, pseudo, dtype=np.float32)
-    tgp = SparsePseudoInputGaussianProcess(ts, pseudo, dtype=np.float32)
+    tgp = SparsePseudoInputGaussianProcess(
+        ts, pseudo, dtype=np.float32, device="cpu")
     assert tgp.state.qm.shape == (128, 128) == jgp.state.qm.shape
     for x, y, var, _ in _batches(rng, 3, 90, dtype=np.float32):
         jgp.update(x.T, y, var)
@@ -143,7 +145,7 @@ def test_state_tensors_are_contiguous():
     _, ts = _settings()
     rng = np.random.default_rng(3)
     gp = SparsePseudoInputGaussianProcess(ts, rng.uniform(-2, 2, (3, 40)),
-                                          dtype=np.float32)
+                                          dtype=np.float32, device="cpu")
     assert all(t.is_contiguous() for t in gp.state)
     x, y, var, _ = _batches(rng, 1, 30, dtype=np.float32)[0]
     gp.update(x.T, y, var)
@@ -203,7 +205,8 @@ def _ill_conditioned_gp():
     gp = SparsePseudoInputGaussianProcess(
         SpGpSetting(kernel_type="matern32",
                     kernel=KernelSetting(x_dim=2, scale=0.6),
-                    max_num_samples=32), pseudo, dtype=np.float32)
+                    max_num_samples=32), pseudo, dtype=np.float32,
+        device="cpu")
     x = rng.uniform(-1, 1, (24, 2)).astype(np.float32)
     y = rng.uniform(-1, 1, (24, 1)).astype(np.float32)
     for _ in range(400):
@@ -238,7 +241,7 @@ def test_escalation_boundary(monkeypatch, caplog):
     _, ts = _settings(max_num_samples=64)
     rng = np.random.default_rng(4)
     gp = SparsePseudoInputGaussianProcess(ts, rng.uniform(-2, 2, (3, 40)),
-                                          dtype=np.float32)
+                                          dtype=np.float32, device="cpu")
     x, y, var, _ = _batches(rng, 1, 60, dtype=np.float32, var=1e-3)[0]
     gp.update(x.T, y, var)
     L, _ = spgp_prepare(gp.state)
@@ -267,10 +270,11 @@ def test_convert_round_trip_predicts_the_same():
         jgp.update(x.T, y, var)
     d = jgp.state_dict()
     st = spgp_state_from_numpy({k: np.asarray(v) for k, v in
-                                d["state"].items()})
+                                d["state"].items()}, device="cpu")
     assert st.qm.dtype == torch.float64
     _close(st.qm, d["state"]["qm"], 0)
-    tgp = SparsePseudoInputGaussianProcess(ts, pseudo, dtype=np.float64)
+    tgp = SparsePseudoInputGaussianProcess(
+        ts, pseudo, dtype=np.float64, device="cpu")
     tgp.load_state_dict(d)
     assert tgp.is_trained and tgp.num_pseudo_points == 45
     xq = rng.uniform(-2, 2, (3, 30))
@@ -282,12 +286,14 @@ def test_save_load_round_trip(tmp_path):
     _, ts = _settings()
     rng = np.random.default_rng(6)
     pseudo = rng.uniform(-2, 2, (3, 30))
-    gp = SparsePseudoInputGaussianProcess(ts, pseudo, dtype=np.float32)
+    gp = SparsePseudoInputGaussianProcess(
+        ts, pseudo, dtype=np.float32, device="cpu")
     x, y, var, _ = _batches(rng, 1, 50, dtype=np.float32)[0]
     gp.update(x.T, y, var)
     path = str(tmp_path / "spgp.npz")
     gp.save(path)
-    gp2 = SparsePseudoInputGaussianProcess(ts, pseudo, dtype=np.float32)
+    gp2 = SparsePseudoInputGaussianProcess(
+        ts, pseudo, dtype=np.float32, device="cpu")
     assert not gp2 == gp
     gp2.load(path)
     assert gp2 == gp
@@ -297,7 +303,7 @@ def test_save_load_round_trip(tmp_path):
 
 def test_gradient_predict_is_not_ported_yet():
     _, ts = _settings()
-    gp = SparsePseudoInputGaussianProcess(ts, np.zeros((3, 4)))
+    gp = SparsePseudoInputGaussianProcess(ts, np.zeros((3, 4)), device="cpu")
     with pytest.raises(NotImplementedError, match="Gradient predict"):
         gp.test(np.zeros((3, 2)), predict_gradient=True)
     with pytest.raises(NotImplementedError, match="Gradient predict"):
@@ -356,7 +362,7 @@ def test_exact_host_repairs_an_indefinite_q_m_like_jax():
     d = {"pseudo": np.zeros((6, 2)), "L_km": np.eye(6), "L_inv": np.eye(6),
          "qm": qm, "alpha": rng.normal(size=(6, 1)),
          "qm_c": np.zeros((6, 6)), "alpha_c": np.zeros((6, 1))}
-    tL, ta = spgp_prepare_exact_host(spgp_state_from_numpy(d))
+    tL, ta = spgp_prepare_exact_host(spgp_state_from_numpy(d, device="cpu"))
     jL, ja = jsp.spgp_prepare_exact_host(jsp.SpGpState(
         **{k: jnp.asarray(v) for k, v in d.items()}))
     assert torch.isfinite(tL).all() and torch.isfinite(ta).all()
