@@ -29,7 +29,8 @@ The 3D range-sensor GP's path:
    float64, a default-grouped 271x91 scan's 408 x 144 in float32; bank
    Cholesky: 1000 x 104; the batched gram on the operands the routed
    predict builds for the lidar and depth tests and for ``compute_occ``),
-   a non-SPD member NaN with its neighbours finite, kernel and plain times;
+   a non-SPD member NaN with its neighbours finite, kernel and plain times,
+   and ``torch.linalg.cholesky`` on the same grams as the yardstick;
 8. the lidar protocol (271x91 scan of the reference room, 10 000 sphere
    queries) through ``RangeSensorGaussianProcess3D.train``/``test`` at
    float32: MSE <= 4.2e-4, ``compute_occ`` signs, one bank-fit launch per
@@ -55,7 +56,9 @@ The exact GPs' paths:
 12. the exact GP: ``VanillaGaussianProcess`` (float32) trains on 8192
     points and tests 4096 queries; mean MAE and variance max error against
     the plain float64 fit on the card no worse than 2x those of the plain
-    float32 fit;
+    float32 fit; then one more ``train`` under ``torch.profiler``: launches
+    and device ms of the factorization's update, diagonal and apply kernels
+    and of the substitution (one launch per direction);
 13. the noisy-input GP (float32) with gradients on the 7680^2 joint system,
     mean, gradient, variance and covariance gated the same way; the same
     data with a scale mixture of rbf (whose joint gram is built outside the
@@ -374,7 +377,8 @@ def bank_errors(L, L_inv, alpha, ref):
 def check_bank_kernels(dev, lidar, depth):
     """Phase 7: the bank kernels and the batched gram against their plain
     versions at the sensor-GP path's shapes. Returns {name: {max_abs_err,
-    ms, plain_ms}}."""
+    ms, plain_ms, library_ms}}."""
+    from erl_gaussian_process_tpu_torch.kernels import train_gram
     from erl_gaussian_process_tpu_torch.models import (
         RangeSensorGaussianProcess3D,
     )
@@ -415,8 +419,16 @@ def check_bank_kernels(dev, lidar, depth):
         check(bool((torch.triu(got[0], 1) == 0).all()),
               f"bank_fit {label} {dt}: L not lower triangular")
         if "bank_fit" not in out:
+            # no one call builds the gram and gives L, L^{-1} and alpha;
+            # the Cholesky of the same grams is logged for the comparison
+            Kb = train_gram(kern, x, torch.where(m, v, torch.zeros_like(v)),
+                            scale, mask=m)
+            chol_ms = cuda_ms(lambda: torch.linalg.cholesky(Kb))
+            log(f"bank_fit note: torch.linalg.cholesky on the "
+                f"{tuple(Kb.shape)} {str(dt)} grams {chol_ms:.4f} ms (L "
+                "alone, the gram built outside)")
             out["bank_fit"] = {"max_abs_err": eL, "ms": ms,
-                               "plain_ms": plain_ms}
+                               "plain_ms": plain_ms, "library_ms": None}
             first = (kern, x, y, v, m, scale, got[0])
 
     # a trained member of the lidar bank made indefinite: all NaN, and its
@@ -454,7 +466,13 @@ def check_bank_kernels(dev, lidar, depth):
         f"{plain_ms:.4f} ms")
     check(eL <= tol and ea <= atol and eI <= tol,
           f"bank_chol: errors {eL}, {ea}, {eI}")
-    out["bank_chol"] = {"max_abs_err": eL, "ms": ms, "plain_ms": plain_ms}
+    # the library yardstick: one torch.linalg.cholesky call on the same
+    # batch computes L alone (the kernel also gives L^{-1} and alpha)
+    lib_ms = cuda_ms(lambda: torch.linalg.cholesky(K))
+    log(f"bank_chol library yardstick: torch.linalg.cholesky on the "
+        f"{tuple(K.shape)} float32 batch {lib_ms:.4f} ms (L alone)")
+    out["bank_chol"] = {"max_abs_err": eL, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms}
 
     # the batched gram on the operands the routed predict gives it: the
     # lidar and depth tests' buckets and compute_occ's, whose few queries
@@ -671,6 +689,7 @@ def run_sensor_gp(dev, card, lidar, depth):
 # FP64 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+TF32X3_FLOPS = 495e12 / 3   # dense TF32 tensor cores, three products each
 CHOL_F32_FACTOR = 4.0       # backward error vs the plain version's, float32
 CHOL_F64_BERR = 1e-12
 POSTERIOR_FACTOR = 2.0      # posterior error vs the plain f32 fit's
@@ -760,8 +779,10 @@ def check_chol_kernels(dev, card):
     log(f"chol f32 n={n} (exact-GP gram): backward error {be:.3e}, plain "
         f"{bp:.3e} (gate <= {CHOL_F32_FACTOR:g}x); upper 0; two launches "
         f"bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.linalg.cholesky {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}) on {card}")
+        f"torch.linalg.cholesky {lib_ms:.4f} ms ({ms / lib_ms:.3f}x), "
+        f"bound {b_ms:.4f} ms ({b_by}; "
+        f"{1e3 * n ** 3 / 3 / TF32X3_FLOPS:.4f} ms at the 3xTF32 rate the "
+        f"update runs at) on {card}")
 
     # plain-A entry at an odd n, float64; and a non-SPD input
     rng = np.random.default_rng(4)
@@ -814,7 +835,8 @@ def check_chol_kernels(dev, card):
                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
     log(f"trsv f32 n={n} q=1, one direction (solve_lower): kernel {ms:.4f} "
         f"ms, plain {plain_ms:.4f} ms, torch.linalg.solve_triangular "
-        f"{lib_ms:.4f} ms (the plain version is that call), bound "
+        f"{lib_ms:.4f} ms ({ms / lib_ms:.3f}x; the plain version is that "
+        f"call), bound "
         f"{b_ms:.4f} ms ({b_by}) on {card}")
 
     # gram-fused entry at the exact-GP shape, all rows and 5% masked
@@ -955,6 +977,53 @@ def run_exact_gp(dev, card):
                     "exact_gp_test_ms": test_ms + var_ms}, \
         {"mae": float(mae_k), "mae_plain_f32": float(mae_p),
          "var_err": float(ve_k), "var_err_plain_f32": float(ve_p)}
+
+
+# the exact fit's kernels by name: the factorization's three launches per
+# column and the two substitutions
+FIT_PARTS = (("update", "chol_update"), ("diagonal", "chol_diag"),
+             ("apply", "chol_apply"), ("substitution", "trsv_kernel"))
+
+
+def profile_exact_fit(dev, card):
+    """Phase 12b: one exact-GP ``train`` (n = 8192, float32) under
+    ``torch.profiler``: launches and device ms of the factorization's update,
+    diagonal and apply kernels and of the substitution. The substitution is
+    one launch per direction. Returns {part: [launches, device ms]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from erl_gaussian_process_tpu_torch.kernels import KernelSetting
+    from erl_gaussian_process_tpu_torch.models import (
+        VanillaGaussianProcess,
+        VanillaGPSetting,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import exact_gp_workload
+
+    x, y, var, _, scale, kern = exact_gp_workload()
+    gp = VanillaGaussianProcess(VanillaGPSetting(
+        kernel_type=kern, kernel=KernelSetting(x_dim=2, scale=scale),
+        max_num_samples=x.shape[0]), dtype=np.float32, device=dev)
+    check(gp.train(x.T, y, var), "exact GP train before the profile")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        check(gp.train(x.T, y, var), "profiled exact GP train")
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    parts = {}
+    for part, key in FIT_PARTS:
+        hit = [e for e in events if key in e.key]
+        parts[part] = [sum(e.count for e in hit),
+                       sum(e.self_device_time_total for e in hit) / 1e3]
+    log(f"exact GP fit profile (n={x.shape[0]}, float32, torch.profiler) on "
+        f"{card}: " + "; ".join(
+            f"{part} {cnt} launches {ms:.3f} ms ({1e3 * ms / max(cnt, 1):.2f}"
+            f" us each)" for part, (cnt, ms) in parts.items()))
+    check(parts["substitution"][0] == 2,
+          f"the substitution is not one launch per direction: {parts}")
+    check(all(cnt > 0 and ms > 0 for cnt, ms in parts.values()),
+          f"the profile saw no device time for a part of the fit: {parts}")
+    return parts
 
 
 def nigp_plain_outputs(name, x, y, grad, vx, vy, vg, xq, scale, dtype, dev):
@@ -1168,10 +1237,12 @@ def main() -> int:
 
     kern.update(check_chol_kernels(dev, card))
     exact_counts, exact_timings, exact_err = run_exact_gp(dev, card)
+    fit_profile = profile_exact_fit(dev, card)
     nigp_counts, nigp_timings, nigp_err = run_nigp(dev, card)
     golden_counts, golden_timings, golden = run_nigp_golden(dev, card)
     log(json.dumps({"exact_timings": {**exact_timings, **nigp_timings,
                                       **golden_timings},
+                    "exact_fit_profile": fit_profile,
                     "exact_gp_errors": exact_err, "nigp_errors": nigp_err,
                     "nigp_golden": golden, "card": card}))
 
@@ -1189,7 +1260,7 @@ def main() -> int:
             ("bank_chol", 4 * 1000 * 3 * 104 * 104,
              1000 * 2 * 104 ** 3 / 3)):
         kern[name]["bound_ms"], kern[name]["bound_by"] = bound(nbytes, flops)
-        kern[name]["library_ms"] = None
+        kern[name].setdefault("library_ms", None)
 
     # launches of each kernel in the paths' runs: gram.cu serves the SPGP
     # predict (cross_gram), the sensor GPs' routed predict (batched) and the

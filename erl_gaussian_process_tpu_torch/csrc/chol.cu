@@ -6,7 +6,8 @@
 //   - _chol_gram_kernel (via _chol_gram_padded / chol_blocked_gram): A =
 //     k(x, x) + diag(var), masked rows exact identity rows, built per tile
 //     from the coordinates;
-//   - _chol_gram_kernel with joint=True (_joint_tile / chol_blocked_gram_joint):
+//   - _chol_gram_kernel with joint=True (_joint_tile /
+//     chol_blocked_gram_joint):
 //     A = the joint value/gradient gram of the NIGP, rows [values(n0);
 //     d/dx_0 (n0); ...; d/dx_{d-1} (n0)], built per tile from the coordinates
 //     and each row's (sample, type) index.
@@ -17,57 +18,82 @@
 // dtypes; n needs no padding: indices past n read as identity rows):
 //
 //   for each column j of tiles:
-//     update: P_s[i] = sum_{p in split s} L[i, p] L[j, p]^T  for i >= j
-//     diag  : L[j, j], Dinv[j] = factor(A[j, j] - sum_s P_s[j])
-//     apply : L[i, j] = (A[i, j] - sum_s P_s[i]) Dinv[j]^T    for i > j
+//     update: W_0[i] = A[i, j]; W_s[i] = sum_{p in split s} L[i, p] L[j, p]^T
+//             for i >= j, over the panels p < j - 1 (the look-ahead part)
+//     diag  : L[j, j], Dinv[j] = factor(W_0[j] - sum_{s>0} W_s[j]
+//                                        - L[j, j-1] L[j, j-1]^T)
+//     apply : L[i, j] = (W_0[i] - sum_{s>0} W_s[i] - L[i, j-1] L[j, j-1]^T)
+//                       Dinv[j]^T                                  for i > j
 //
-// The TPU ran this as one sequential grid with a 4-deep DMA window and
-// deferred writes; here the card's blocks run in no order, so each column
-// is three launches. A tile of A is only ever built inside the diag and
-// apply launches (from memory, or from coordinates for the gram-fused
-// variants) and used at once: the (n, n) gram is never written to device
-// memory, which is what the left-looking order buys. A right-looking
-// trailing update would have to store it.
+// A tile of A is built (from memory, or from coordinates for the
+// gram-fused variants) by blocks of the update launch into the column's
+// workspace and consumed by the diag and apply launches that follow: the
+// (n, n) gram is never stored, only the current column's tiles, which is
+// what the left-looking order buys. A right-looking trailing update would
+// store it.
 //
-// Bounds on this card: the update holds n^3 / 6 of the n^3 / 6 + O(n^2 T)
-// fused multiply-adds, so the factorization is bound by FP32 (FP64) FMA
-// throughput, 67 (34) TFLOP/s; the diag launches are a serial chain of n / T
-// single-block eliminations that no width hides. Design against both: the
-// update splits each column's prefix over several blocks (the split count
-// fills ~2 blocks per SM), each block a T x T SIMT tile of 4 x 4 outputs
-// per thread from shared memory in 16-byte loads, the next k-chunk loaded
-// while the current one is multiplied; the split partials are summed by the
-// consumer in a fixed order (no atomics: two calls on one input are bitwise
-// equal). The diag's augmented T x 2T tile lives in shared memory, one
-// block of 512 threads, one barrier per elimination step; a step's loads
-// are issued before its stores. In the exact-GP fit on the H100 a diagonal
-// launch took 222 us at T = 128 and 70 us at T = 64 with two barriers a
-// step and in-place read-modify-writes, and takes 44 us this way (PERF.md).
-// Precision: true FP32 FMA, never TF32, and a two-level sum: each block
-// sums one T-wide panel into a fresh partial before adding it to its
-// running sum, and the splits are a third level (a single running float32
-// sum over 2048 terms broke the FITC drift gate, PERF.md).
+// What bounds it on this card: the update holds n^3 / 6 of the n^3 / 6 +
+// O(n^2 T) multiply-adds, and the diagonal tiles are a serial chain of n / T
+// factorizations that no width hides; with the update off the chain, the
+// chain of diag and apply launches bounds the call. The first version
+// (PERF.md; NVIDIA H100 80GB HBM3, 700 W) ran the update as a SIMT FP32
+// tile (~19 TFLOP/s of the 67), factored each diagonal tile by a 64-step
+// elimination with one block barrier a step (44 us a tile, 131 of 132 SMs
+// idle) and ran the three launches of each column in strict sequence. The
+// design now:
+//   1. The float32 update runs on the tensor cores in 3xTF32: each operand
+//      is split into hi + lo TF32 parts (cvt.rna), the product taken as
+//      lo*hi + hi*lo + hi*hi with mma.sync m16n8k8 and FP32 accumulation
+//      (the counterpart of the JAX kernel's bf16x3 _dot3x); operands stream
+//      through a 3-stage cp.async ring. Float64 keeps a SIMT update.
+//   2. The diagonal tile is factored blocked, as the JAX _factor_tile does:
+//      four 16-column sub-blocks, each factored in one warp's registers
+//      with shuffles (no block barrier a pivot) and inverted by forward
+//      substitution, its panel formed by a product with the sub-block's
+//      inverse, the rest by rank-16 updates; the rows of L^-1 ride along as
+//      the right half of [A | I] (Dinv with no pass of its own).
+//   3. Look-ahead: the update of column j covers the panels p < j - 1 and
+//      runs on a low-priority side stream while column j - 1's diag and
+//      apply run on a high-priority stream (CUDA events order the two);
+//      only the last panel's rank-T term, L[., j-1] L[j, j-1]^T, is on the
+//      critical path, folded into the diag and apply launches. The tiles of
+//      A come from the update too, by blocks of their own beside the
+//      product blocks, so the chain never evaluates the source. The
+//      workspace is double-buffered by column parity.
+//   4. The apply sums each tile's split partials once, into registers (four
+//      splits' loads in flight), and takes both of its T x T x T products
+//      from shared memory.
+// Sums stay in a fixed order (per element: A, the splits in order, the last
+// panel), with no atomics: two calls on one input are bitwise equal. Each
+// update block sums one T-wide panel into a fresh partial before adding it
+// to its running sum (a two-level sum; a single running float32 sum over
+// 2048 terms broke the FITC drift gate, PERF.md), the splits are a third
+// level. The split plan (panels per split for each column, sized to keep
+// the update within a few blocks per SM) and the workspace come from the
+// caller (ops/chol.py::chol_plan).
 //
-// The diagonal tile is factored by the augmented elimination [A | I] ->
-// [L^T | L^{-1}] of csrc/bank.cu; L^{-1} is Dinv[j], which the apply
-// launch uses as it is and the triangular solves slice their block inverses
-// from (ops/trsv.py). A pivot that is not positive writes the tile's lower
-// part and Dinv[j] as NaN, and NaN then reaches every later column and the
-// solve; it is never clamped. The strict upper part of L is written as
-// exact zeros by the same launches (no memset).
+// A pivot that is not positive writes the tile's lower part and Dinv[j] as
+// NaN, and NaN then reaches every later column and the solve; it is never
+// clamped. The strict upper part of L is written as exact zeros by the same
+// launches (no memset). Dinv[j] = inv(L[j, j]) (the last one of L padded with
+// identity) is used by the apply as it is, and the triangular solves and
+// the float32 whitening slice their block inverses from it (ops/trsv.py,
+// models/gp_core.py).
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
+#include "async_copy.cuh"
 #include "family.cuh"
 
 namespace egp {
 
-constexpr int kTile = 64;             // T: the factorization's tile edge
-constexpr int kKc = 16;               // apply: k-chunk staged in shared memory
-constexpr int kGemmThreads = 256;     // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kDiagTx = 32;
-constexpr int kDiagTy = 16;
-constexpr int kDiagThreads = kDiagTx * kDiagTy;
+constexpr int kTile = 64;      // T: the factorization's tile edge
+constexpr int kThreads = 256;  // diag and apply: 16 x 16 threads
+constexpr int kKL = kTile + 4; // row stride of a k-major staged operand
+constexpr int kDL = kTile + 1; // row stride of the diagonal tile
+constexpr int kSub = 16;       // the diagonal tile's sub-block edge
+constexpr int kMaxSplits = 16; // split buffers a consumer sums
 
 __device__ __forceinline__ float fma_(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -166,16 +192,6 @@ struct JointSource {
   }
 };
 
-// ---- update: split partials of the column's prefix products ----
-
-// k-chunk of the update: 32 at float32, 16 at float64 (the two staged
-// buffers of both operands then fit the 48 KB of static shared memory)
-template <typename T>
-struct UpdateChunk {
-  static constexpr int kK = sizeof(T) == 4 ? 32 : 16;
-};
-constexpr int kUpad = 4;  // row padding that keeps 16-byte alignment
-
 // four consecutive values from shared memory in 16-byte loads
 __device__ __forceinline__ void lds4(const float* p, float v[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
@@ -193,72 +209,239 @@ __device__ __forceinline__ void lds4(const double* p, double v[4]) {
   v[3] = q1.y;
 }
 
-// ws[s][t] (T x T) = sum over panels p of split s of L[(j+t)T.., pT..]
-// L[jT.., pT..]^T, for row tiles t = 0 .. nb - j - 1. Grid (nb - j,
-// splits), one T x T tile per block, each thread 4 x 4 neighbouring
-// outputs. The next k-chunk is loaded into registers while the current one
-// is multiplied from shared memory (two buffers, one barrier a chunk).
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-    chol_update_kernel(const T* __restrict__ L, T* __restrict__ ws, int n,
-                       int j, int pps) {
-  constexpr int KU = UpdateChunk<T>::kK;
-  constexpr int kLoads = kTile * KU / kGemmThreads;  // per thread, operand
+// ---- update: split partials of the column's look-ahead prefix ----
+
+// Grid (nb - j, 1 + splits): block (t, s) writes ws[s][t] (T x T) for row
+// tile j + t against row tile j. Split 0 is the tile of A, built off the
+// critical path by blocks of its own (beside the product blocks, not after
+// them), so the diag and apply launches never evaluate the source; for the
+// diagonal tile, t = 0, only its lower part (A is read from its lower
+// triangle). Split s >= 1 sums the panels [(s - 1) pps, min(npan, s pps)),
+// npan = max(0, j - 1).
+
+// float32: 3xTF32 on the tensor cores. 4 warps, each 32 x 32 outputs (2 x 4
+// m16n8 tiles); 32-deep k-chunks through a 3-stage cp.async ring.
+constexpr int kTcThreads = 128;
+constexpr int kTcK = 32;
+constexpr int kTcLd = kTcK + 4;  // conflict-free fragment reads
+constexpr int kTcStages = 3;
+constexpr int kTcSmem = kTcStages * 2 * kTile * kTcLd * (int)sizeof(float);
+
+__device__ __forceinline__ unsigned to_tf32(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo, both TF32
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi,
+                                           unsigned& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4],
+                                         const unsigned b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <typename T, typename Src, int kThr>
+__device__ __forceinline__ void a_tile(Src src, T* out, int t, int r0,
+                                       int c0) {
+  for (int e = threadIdx.x; e < kTile * kTile; e += kThr) {
+    const int r = e / kTile;
+    const int c = e - r * kTile;
+    out[e] = t > 0 || c <= r ? src(r0 + r, c0 + c) : T(0);
+  }
+}
+
+template <typename Src>
+__global__ void __launch_bounds__(kTcThreads)
+    chol_update_tc_kernel(Src src, const float* __restrict__ L,
+                          float* __restrict__ ws, int n, int j, int pps,
+                          int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
   const int t = blockIdx.x;
   const int s = blockIdx.y;
-  __shared__ __align__(16) T As[2][KU][kTile + kUpad];
-  __shared__ __align__(16) T Bs[2][KU][kTile + kUpad];
+  const int row0 = (j + t) * kTile;
+  const int col0 = j * kTile;
+  float* out = ws + ((size_t)s * gridDim.x + t) * kTile * kTile;
+  if (s == 0) {
+    a_tile<float, Src, kTcThreads>(src, out, t, row0, col0);
+    return;
+  }
+  const int npan = max(0, j - 1);
+  const int kbeg = (s - 1) * pps * kTile;
+  const int kend = min(npan, s * pps) * kTile;
+  const int nch = (kend - kbeg) / kTcK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wr = (warp & 1) * 32;
+  const int wc = (warp >> 1) * 32;
+  auto load = [&](int ch) {
+    float* As = ring + (ch % kTcStages) * 2 * kTile * kTcLd;
+    float* Bs = As + kTile * kTcLd;
+    const int k0 = kbeg + ch * kTcK;
+    cp_tile<float, kTile, kTcK, kTcLd, kTcThreads>(As, L, n, row0, k0, n, n,
+                                                    vec != 0);
+    cp_tile<float, kTile, kTcK, kTcLd, kTcThreads>(Bs, L, n, col0, k0, n, n,
+                                                    vec != 0);
+  };
+  float acc[2][4][4], part[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = part[mi][ni][e] = 0.f;
+#pragma unroll
+  for (int st = 0; st < kTcStages - 1; ++st) {
+    if (st < nch) load(st);
+    cp_commit();
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_wait<kTcStages - 2>();
+    __syncthreads();
+    if (ch + kTcStages - 1 < nch) load(ch + kTcStages - 1);
+    cp_commit();
+    const float* As = ring + (ch % kTcStages) * 2 * kTile * kTcLd;
+    const float* Bs = As + kTile * kTcLd;
+#pragma unroll
+    for (int kk = 0; kk < kTcK; kk += 8) {
+      unsigned ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* a = As + (wr + mi * 16 + g) * kTcLd + kk + tq;
+        split_tf32(a[0], ahi[mi][0], alo[mi][0]);
+        split_tf32(a[8 * kTcLd], ahi[mi][1], alo[mi][1]);
+        split_tf32(a[4], ahi[mi][2], alo[mi][2]);
+        split_tf32(a[8 * kTcLd + 4], ahi[mi][3], alo[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const float* b = Bs + (wc + ni * 8 + g) * kTcLd + kk + tq;
+        split_tf32(b[0], bhi[ni][0], blo[ni][0]);
+        split_tf32(b[4], bhi[ni][1], blo[ni][1]);
+      }
+      // the small terms first, each pass over all eight tiles so that no
+      // product waits on the one before it
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_tf32(part[mi][ni], alo[mi], bhi[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_tf32(part[mi][ni], ahi[mi], blo[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_tf32(part[mi][ni], ahi[mi], bhi[ni]);
+    }
+    if (ch & 1) {  // a T-wide panel ends: fold its fresh partial in
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[mi][ni][e] += part[mi][ni][e];
+            part[mi][ni][e] = 0.f;
+          }
+    }
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int r = wr + mi * 16 + g;
+      const int c = wc + ni * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(out + r * kTile + c) =
+          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(out + (r + 8) * kTile + c) =
+          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+}
+
+// float64: a SIMT T x T tile, each of 256 threads 4 x 4 neighbouring
+// outputs from shared memory in 16-byte loads, the next 16-deep k-chunk
+// loaded into registers while the current one is multiplied.
+constexpr int kUK64 = 16;
+
+template <typename Src>
+__global__ void __launch_bounds__(kThreads)
+    chol_update_f64_kernel(Src src, const double* __restrict__ L,
+                           double* __restrict__ ws, int n, int j, int pps) {
+  constexpr int kLoads = kTile * kUK64 / kThreads;  // per thread, operand
+  const int t = blockIdx.x;
+  const int s = blockIdx.y;
+  __shared__ __align__(16) double As[2][kUK64][kKL];
+  __shared__ __align__(16) double Bs[2][kUK64][kKL];
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int row0 = (j + t) * kTile;
   const int col0 = j * kTile;
-  const int kbeg = s * pps * kTile;
-  const int kend = min(j, (s + 1) * pps) * kTile;
-  T ra[kLoads], rb[kLoads];
+  double* out = ws + ((size_t)s * gridDim.x + t) * kTile * kTile;
+  if (s == 0) {
+    a_tile<double, Src, kThreads>(src, out, t, row0, col0);
+    return;
+  }
+  const int kbeg = (s - 1) * pps * kTile;
+  const int kend = min(max(0, j - 1), s * pps) * kTile;
+  double ra[kLoads], rb[kLoads];
   auto load = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
-      const int e = threadIdx.x + kGemmThreads * i;
-      const int r = e / KU;
-      const int kk = e - r * KU;
-      ra[i] = row0 + r < n ? L[(size_t)(row0 + r) * n + k0 + kk] : T(0);
-      rb[i] = col0 + r < n ? L[(size_t)(col0 + r) * n + k0 + kk] : T(0);
+      const int e = threadIdx.x + kThreads * i;
+      const int r = e / kUK64;
+      const int kk = e - r * kUK64;
+      ra[i] = row0 + r < n ? L[(size_t)(row0 + r) * n + k0 + kk] : 0.0;
+      rb[i] = col0 + r < n ? L[(size_t)(col0 + r) * n + k0 + kk] : 0.0;
     }
   };
   auto stage = [&](int buf) {
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
-      const int e = threadIdx.x + kGemmThreads * i;
-      const int r = e / KU;
-      const int kk = e - r * KU;
+      const int e = threadIdx.x + kThreads * i;
+      const int r = e / kUK64;
+      const int kk = e - r * kUK64;
       As[buf][kk][r] = ra[i];
       Bs[buf][kk][r] = rb[i];
     }
   };
-  T acc[4][4], part[4][4];
+  double acc[4][4], part[4][4];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = part[a][b] = T(0);
+    for (int b = 0; b < 4; ++b) acc[a][b] = part[a][b] = 0.0;
   if (kbeg < kend) {
     load(kbeg);
     stage(0);
   }
   __syncthreads();
   int buf = 0;
-  for (int k0 = kbeg; k0 < kend; k0 += KU) {
-    const int kn = k0 + KU;
+  for (int k0 = kbeg; k0 < kend; k0 += kUK64) {
+    const int kn = k0 + kUK64;
     if (kn < kend) load(kn);
 #pragma unroll
-    for (int kk = 0; kk < KU; ++kk) {
-      T av[4], bv[4];
+    for (int kk = 0; kk < kUK64; ++kk) {
+      double av[4], bv[4];
       lds4(&As[buf][kk][ty * 4], av);
       lds4(&Bs[buf][kk][tx * 4], bv);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
-          part[a][b] = fma_(av[a], bv[b], part[a][b]);
+        for (int b = 0; b < 4; ++b) part[a][b] = fma_(av[a], bv[b], part[a][b]);
     }
     if (kn % kTile == 0) {  // a panel ends: fold its fresh partial in
 #pragma unroll
@@ -266,14 +449,13 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
           acc[a][b] += part[a][b];
-          part[a][b] = T(0);
+          part[a][b] = 0.0;
         }
     }
     if (kn < kend) stage(buf ^ 1);
     __syncthreads();
     buf ^= 1;
   }
-  T* out = ws + ((size_t)s * gridDim.x + t) * kTile * kTile;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -281,169 +463,326 @@ __global__ void __launch_bounds__(kGemmThreads)
       out[(ty * 4 + a) * kTile + tx * 4 + b] = acc[a][b];
 }
 
+// ---- the reduced tile, shared by diag and apply ----
+
+// S[k][r] = M[r0 + r][c0 + k] (0 for rows past nrows): a T x T block of a
+// row-major matrix staged k-major, for tile_product
+template <typename T>
+__device__ __forceinline__ void stage_kmajor(T* S, const T* M, size_t ld,
+                                             int r0, int c0, int nrows) {
+  constexpr int kPer = kTile * kTile / kThreads;
+  T v[kPer];  // every load in flight before the first store
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int e = threadIdx.x + q * kThreads;
+    const int r = e / kTile;
+    v[q] = r0 + r < nrows ? M[(size_t)(r0 + r) * ld + c0 + e % kTile] : T(0);
+  }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int e = threadIdx.x + q * kThreads;
+    S[(e % kTile) * kKL + e / kTile] = v[q];
+  }
+}
+
+// The 16 elements of a T x T tile each of the 256 threads of diag and
+// apply holds, e = 0 .. 15: a 4 x 4 block of neighbours, rows row(0) ..,
+// columns col(0) ...
+__device__ __forceinline__ int elem_row(int e) {
+  return (threadIdx.x / 16) * 4 + e / 4;
+}
+__device__ __forceinline__ int elem_col(int e) {
+  return (threadIdx.x % 16) * 4 + e % 4;
+}
+
+// v[e] = tile[row(e)][col(e)] of a row-major T x T tile in global memory,
+// four neighbours a 16-byte load
+__device__ __forceinline__ void load_elems(const float* tile, float v[16]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(
+        tile + elem_row(4 * a) * kTile + elem_col(0)));
+    v[4 * a] = q.x;
+    v[4 * a + 1] = q.y;
+    v[4 * a + 2] = q.z;
+    v[4 * a + 3] = q.w;
+  }
+}
+__device__ __forceinline__ void load_elems(const double* tile, double v[16]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const double2* p = reinterpret_cast<const double2*>(
+        tile + elem_row(4 * a) * kTile + elem_col(0));
+    const double2 q0 = __ldg(p);
+    const double2 q1 = __ldg(p + 1);
+    v[4 * a] = q0.x;
+    v[4 * a + 1] = q0.y;
+    v[4 * a + 2] = q1.x;
+    v[4 * a + 3] = q1.y;
+  }
+}
+
+// out[e] = sum_k SA[k][row(e)] SB[k][col(e)], k < T: one T x T x T product
+// of two k-major staged operands, SIMT FMA from 16-byte shared loads (on the
+// tensor cores, in 3xTF32, these small products made the chain slower,
+// PERF.md)
+template <typename T>
+__device__ __forceinline__ void tile_product(const T* SA, const T* SB,
+                                             T out[16]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) out[e] = T(0);
+#pragma unroll 8
+  for (int k = 0; k < kTile; ++k) {
+    T av[4], bv[4];
+    lds4(SA + k * kKL + elem_row(0), av);
+    lds4(SB + k * kKL + elem_col(0), bv);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        out[a * 4 + b] = fma_(av[a], bv[b], out[a * 4 + b]);
+  }
+}
+
+// v[e] = A[t] - sum_{s >= 1} P_s[t] - L[i, j-1] L[j, j-1]^T at element e
+// (i = j + t), the splits summed in order, four in flight. SA and SB are
+// scratch; ends with them free.
+template <typename T>
+__device__ __forceinline__ void reduced_tile(const T* L, const T* ws, int n,
+                                             int j, int t, int nsplit,
+                                             size_t split_stride, T* SA,
+                                             T* SB, T v[16]) {
+  const T* wt = ws + (size_t)t * kTile * kTile;
+  load_elems(wt, v);  // split 0, the tile of A: overlaps the staging
+  T last[16];
+  if (j > 0) {  // the diagonal tile (t = 0) stages its one operand once
+    stage_kmajor<T>(SA, L, n, (j + t) * kTile, (j - 1) * kTile, n);
+    if (t > 0) stage_kmajor<T>(SB, L, n, j * kTile, (j - 1) * kTile, n);
+    __syncthreads();
+    tile_product<T>(SA, t > 0 ? SB : SA, last);
+    __syncthreads();
+  }
+#pragma unroll 4
+  for (int s = 1; s < nsplit; ++s) {
+    T w[16];
+    load_elems(wt + s * split_stride, w);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) v[e] -= w[e];
+  }
+  if (j > 0) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) v[e] -= last[e];
+  }
+}
+
 // ---- diag: factor the reduced diagonal tile ----
 
-// [A | E] -> [L^T | L^{-1}] (A's upper triangle, E = I on entry), the
-// elimination of csrc/bank.cu with one barrier a step: row j is read
-// unscaled by every thread at step j and never written again; its scaled
-// copy goes to separate output rows (Lo, Eo), and every product uses the
-// same scaled values the in-place form stores, so the result is bitwise
-// that of csrc/bank.cu's order. Each thread holds rows ty + kDiagTy * ri
-// and columns tx + kDiagTx * ci, and issues all loads of a step before its
-// stores (in place, the compiler may not reorder them). Returns false on a
-// non-positive pivot; every thread reads the same pivot after the same
-// barrier.
+// Sub-block o .. o + 15 of At (lower triangle, row stride kDL), in one
+// warp (lanes 16-31 repeat lanes 0-15). Lane r holds row r in registers
+// and the 16 pivots run unrolled with shuffles: the pivot row, scaled by
+// 1/sqrt(pivot), is broadcast column by column and every row less its
+// multiple of it (one shuffle and one FMA a column). Then lane c forms
+// column c of the inverse by forward substitution, X[i][c] = (delta_ic -
+// sum_k L[i][k] X[k][c]) / L[i][i], reading L back from shared memory.
+// Writes L into At and the inverse into D; returns false on a
+// non-positive pivot. (Eliminating [A | I] instead doubled the work on
+// the serial pivot chain, and a rolled step loop ran 2-3x slower; the
+// four sub-blocks share this one copy of the code, PERF.md.)
 template <typename T>
-__device__ bool tile_eliminate(T* A, T* E, T* Lo, T* Eo) {
-  constexpr int kRows = kTile / kDiagTy;
-  constexpr int kCols = kTile / kDiagTx;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  for (int j = 0; j < kTile; ++j) {
-    const T* Aj = A + j * kTile;
-    const T* Ej = E + j * kTile;
-    const T d = Aj[j];
-    if (!(d > T(0))) return false;
+__device__ __forceinline__ bool factor_sub_block(T* At, T* D, int o) {
+  const int rr = threadIdx.x & 15;
+  T a[kSub], inv[kSub];
+#pragma unroll
+  for (int c = 0; c < kSub; ++c)
+    a[c] = c <= rr ? At[(o + rr) * kDL + o + c] : At[(o + c) * kDL + o + rr];
+  bool ok = true;
+#pragma unroll
+  for (int j = 0; j < kSub; ++j) {
+    const T d = __shfl_sync(0xffffffffu, a[j], j);
+    ok = ok && d > T(0);
     const T s = sqrt_(d);
-    const T inv = T(1) / s;
-    T aj[kCols], ej[kCols], l[kRows], va[kRows][kCols], ve[kRows][kCols];
+    inv[j] = T(1) / s;
+    const T lr = a[j] * inv[j];
+    // every row less its multiple of the scaled pivot row (rows <= j
+    // change only their upper part, which is never read)
 #pragma unroll
-    for (int ci = 0; ci < kCols; ++ci) {
-      aj[ci] = Aj[tx + kDiagTx * ci];
-      ej[ci] = Ej[tx + kDiagTx * ci];
+    for (int c = j + 1; c < kSub; ++c)
+      a[c] = fma_(-lr, __shfl_sync(0xffffffffu, a[c], j) * inv[j], a[c]);
+    a[j] = rr > j ? lr : (rr == j ? s : a[j]);
+  }
+  if ((threadIdx.x & 31) < kSub) {
+#pragma unroll
+    for (int c = 0; c < kSub; ++c)
+      if (c <= rr) At[(o + rr) * kDL + o + c] = a[c];
+  }
+  __syncwarp();
+  T x[kSub];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    T acc = i == rr ? T(1) : T(0);
+#pragma unroll
+    for (int k = 0; k < i; ++k)
+      acc = fma_(-At[(o + i) * kDL + o + k], x[k], acc);
+    x[i] = i >= rr ? acc * inv[i] : T(0);
+  }
+  if ((threadIdx.x & 31) < kSub) {
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) D[(o + i) * kDL + o + rr] = x[i];
+  }
+  return ok;
+}
+
+// The T x T tile in At (lower triangle) -> L in At, L^-1 in D (whose
+// strict lower part is 0 on entry): right-looking over four sub-blocks of
+// 16 columns on [A | E], E = I. For sub-block o: warp 0 factors its
+// diagonal block (L_oo and Inv_oo); then the panel below, L[r, o] =
+// A[r, o] Inv_oo^T, and block row o of L^-1 left of the diagonal,
+// Inv_oo E[o, :o]; then the trailing update of both, A[r, c] -= L[r, o]
+// L[c, o]^T and E[r, :o+16] -= L[r, o] E[o, :o+16] for the rows below.
+// Returns false (in every thread) on a non-positive pivot.
+template <typename T>
+__device__ bool factor_tile(T* At, T* D, int* fail) {
+  const int tid = threadIdx.x;
+#pragma unroll 1
+  for (int sb = 0; sb < kTile / kSub; ++sb) {
+    const int o = sb * kSub;
+    const int r0 = o + kSub;
+    const int rows = kTile - r0;
+    if (tid < 32) {
+      const bool ok = factor_sub_block<T>(At, D, o);
+      if (tid == 0 && !ok) *fail = 1;
     }
+    __syncthreads();
+    // rows * 16 panel entries and 16 * o entries of L^-1: 768 in all
+    T pv[3];
 #pragma unroll
-    for (int ri = 0; ri < kRows; ++ri) {
-      const int r = ty + kDiagTy * ri;
-      l[ri] = Aj[r];
+    for (int q = 0; q < 3; ++q) {
+      const int e = tid + q * kThreads;
+      T s = T(0);
+      if (e < rows * kSub) {  // L[r][o + c] = sum_{k <= c} A[r][o+k] Inv[c][k]
+        const int r = r0 + e / kSub;
+        const int c = e % kSub;
 #pragma unroll
-      for (int ci = 0; ci < kCols; ++ci) {
-        va[ri][ci] = A[r * kTile + tx + kDiagTx * ci];
-        ve[ri][ci] = E[r * kTile + tx + kDiagTx * ci];
+        for (int k = 0; k < kSub; ++k)
+          if (k <= c)
+            s = fma_(At[r * kDL + o + k], D[(o + c) * kDL + o + k], s);
+      } else {  // Inv[o + r][c] = sum_{k <= r} Inv_oo[r][k] E[o + k][c]
+        const int f = e - rows * kSub;
+        const int r = f / (o > 0 ? o : 1);
+        const int c = f - r * o;
+#pragma unroll
+        for (int k = 0; k < kSub; ++k)
+          if (k <= r)
+            s = fma_(D[(o + r) * kDL + o + k], D[(o + k) * kDL + c], s);
       }
+      pv[q] = s;
     }
-    if (ty == j % kDiagTy) {
+    __syncthreads();
 #pragma unroll
-      for (int ci = 0; ci < kCols; ++ci) {
-        const int c = tx + kDiagTx * ci;
-        Lo[j * kTile + c] = c > j ? aj[ci] * inv : (c == j ? s : T(0));
-        Eo[j * kTile + c] = c <= j ? ej[ci] * inv : T(0);
-      }
-    }
-#pragma unroll
-    for (int ri = 0; ri < kRows; ++ri) {
-      const int r = ty + kDiagTy * ri;
-      if (r <= j) continue;
-      const T lr = l[ri] * inv;
-#pragma unroll
-      for (int ci = 0; ci < kCols; ++ci) {
-        const int c = tx + kDiagTx * ci;
-        if (c >= r) A[r * kTile + c] = va[ri][ci] - lr * (aj[ci] * inv);
-        if (c <= j) E[r * kTile + c] = ve[ri][ci] - lr * (ej[ci] * inv);
+    for (int q = 0; q < 3; ++q) {
+      const int e = tid + q * kThreads;
+      if (e < rows * kSub) {
+        At[(r0 + e / kSub) * kDL + o + e % kSub] = pv[q];
+      } else {
+        const int f = e - rows * kSub;
+        const int r = f / (o > 0 ? o : 1);
+        D[(o + r) * kDL + f - r * o] = pv[q];
       }
     }
     __syncthreads();
+    if (rows == 0) break;
+    // trailing: rows r0.. of A (lower part, columns r0..) and of E
+    // (columns 0 .. r0 - 1), each less its rank-16 product with the panel.
+    // Thread t keeps column c = t % 64 and its 16 panel values in
+    // registers and walks the rows r0 + t / 64, + 4, ...
+    const int c = tid % kTile;
+    const bool on_a = c >= r0;
+    T col[kSub];
+#pragma unroll
+    for (int k = 0; k < kSub; ++k)
+      col[k] = on_a ? At[c * kDL + o + k] : D[(o + k) * kDL + c];
+    T* out = on_a ? At : D;
+#pragma unroll 2
+    for (int r = r0 + tid / kTile; r < kTile; r += kThreads / kTile) {
+      T s = T(0);
+#pragma unroll
+      for (int k = 0; k < kSub; ++k) s = fma_(At[r * kDL + o + k], col[k], s);
+      if (!on_a || c <= r) out[r * kDL + c] -= s;
+    }
+    __syncthreads();
   }
-  return true;
+  return *fail == 0;
 }
 
-template <typename T, typename Src>
-__global__ void __launch_bounds__(kDiagThreads)
-    chol_diag_kernel(Src src, T* __restrict__ L, T* __restrict__ Dinv,
+template <typename T>
+constexpr int diag_smem() {
+  return (2 * kTile * kKL + 2 * kTile * kDL) * (int)sizeof(T);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    chol_diag_kernel(T* __restrict__ L, T* __restrict__ Dinv,
                      const T* __restrict__ ws, int n, int j, int nsplit,
                      size_t split_stride) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* A = reinterpret_cast<T*>(smem_raw);
-  T* E = A + kTile * kTile;
-  T* Lo = E + kTile * kTile;
-  T* Eo = Lo + kTile * kTile;
-  const int tid = threadIdx.y * kDiagTx + threadIdx.x;
-  const int base = j * kTile;
-  for (int idx = tid; idx < kTile * kTile; idx += kDiagThreads) {
-    const int r = idx / kTile;
-    const int c = idx - r * kTile;
-    if (c >= r) {  // A[r][c] of the upper triangle = Acc[c][r] of the lower
-      T a = src(base + c, base + r);
-      for (int s = 0; s < nsplit; ++s) a -= ws[s * split_stride + c * kTile + r];
-      A[idx] = a;
-    }
-    E[idx] = r == c ? T(1) : T(0);
-  }
+  T* SA = reinterpret_cast<T*>(smem_raw);
+  T* SB = SA + kTile * kKL;
+  T* At = SB + kTile * kKL;
+  T* D = At + kTile * kDL;
+  __shared__ int fail;
+  if (threadIdx.x == 0) fail = 0;
+  for (int e = threadIdx.x; e < kTile * kDL; e += kThreads) D[e] = T(0);
+  T v[16];
+  reduced_tile<T>(L, ws, n, j, 0, nsplit, split_stride, SA, SB, v);
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    At[elem_row(e) * kDL + elem_col(e)] = v[e];
   __syncthreads();
-  const bool ok = tile_eliminate<T>(A, E, Lo, Eo);
-  __syncthreads();
+  const bool ok = factor_tile<T>(At, D, &fail);
   const T nan = T(NAN);
-  for (int idx = tid; idx < kTile * kTile; idx += kDiagThreads) {
+  const int base = j * kTile;
+  for (int idx = threadIdx.x; idx < kTile * kTile; idx += kThreads) {
     const int r = idx / kTile;
     const int c = idx - r * kTile;
     const int gr = base + r;
     const int gc = base + c;
     if (gr < n && gc < n)
-      L[(size_t)gr * n + gc] = c > r ? T(0) : (ok ? Lo[c * kTile + r] : nan);
-    Dinv[(size_t)gr * kTile + c] = ok ? Eo[idx] : nan;
+      L[(size_t)gr * n + gc] = c > r ? T(0) : (ok ? At[r * kDL + c] : nan);
+    Dinv[(size_t)gr * kTile + c] = ok ? (c > r ? T(0) : D[r * kDL + c]) : nan;
   }
 }
 
-// ---- apply: L[i, j] = (A[i, j] - sum_s P_s[i]) Dinv[j]^T ----
+// ---- apply: L[i, j] = (reduced A[i, j]) Dinv[j]^T, i > j ----
 
-template <typename T, typename Src>
-__global__ void __launch_bounds__(kGemmThreads)
-    chol_apply_kernel(Src src, T* __restrict__ L, const T* __restrict__ Dinv,
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    chol_apply_kernel(T* __restrict__ L, const T* __restrict__ Dinv,
                       const T* __restrict__ ws, int n, int j, int nsplit,
                       size_t split_stride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* SA = reinterpret_cast<T*>(smem_raw);
+  T* SB = SA + kTile * kKL;
   const int t = blockIdx.x + 1;  // row tile j + t, ws tile t
-  __shared__ T As[kKc][kTile + 1];
-  __shared__ T Bs[kKc][kTile + 1];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  T v[16];
+  reduced_tile<T>(L, ws, n, j, t, nsplit, split_stride, SA, SB, v);
+  // SA[k][r] = reduced(r, k); SB[k][c] = Dinv[jT + c][k]
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    SA[elem_col(e) * kKL + elem_row(e)] = v[e];
+  stage_kmajor<T>(SB, Dinv, kTile, j * kTile, 0, (j + 1) * kTile);
+  __syncthreads();
+  T out[16];
+  tile_product<T>(SA, SB, out);
+  // the column tile j < nb - 1 is full, so every column index is < n
   const int row0 = (j + t) * kTile;
   const int col0 = j * kTile;
-  const T* wst = ws + (size_t)t * kTile * kTile;
-  T acc[4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = T(0);
-  for (int k0 = 0; k0 < kTile; k0 += kKc) {
-    for (int e = threadIdx.x; e < kTile * kKc; e += kGemmThreads) {
-      const int r = e / kKc;
-      const int kk = e - r * kKc;
-      const int gr = row0 + r;
-      T a = T(0);
-      if (gr < n) {
-        a = src(gr, col0 + k0 + kk);
-        const size_t off = (size_t)r * kTile + k0 + kk;
-        for (int s = 0; s < nsplit; ++s) a -= wst[s * split_stride + off];
-      }
-      As[kk][r] = a;
-      Bs[kk][r] = Dinv[(size_t)(col0 + r) * kTile + k0 + kk];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kKc; ++kk) {
-      T av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = As[kk][ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = Bs[kk][tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fma_(av[a], bv[b], acc[a][b]);
-    }
-    __syncthreads();
-  }
-  // the column tile j < nb - 1 is full, so every column index is < n
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int gr = row0 + ty + 16 * a;
-    if (gr >= n) continue;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      L[(size_t)gr * n + col0 + tx + 16 * b] = acc[a][b];
+  for (int e = 0; e < 16; ++e) {
+    const int gr = row0 + elem_row(e);
+    if (gr < n) L[(size_t)gr * n + col0 + elem_col(e)] = out[e];
   }
   // the mirrored tile of the strict upper part: exact zeros
-  for (int e = threadIdx.x; e < kTile * kTile; e += kGemmThreads) {
+  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
     const int r = e / kTile;
     const int c = e - r * kTile;
     if (row0 + c < n) L[(size_t)(col0 + r) * n + row0 + c] = T(0);
@@ -452,91 +791,145 @@ __global__ void __launch_bounds__(kGemmThreads)
 
 // ---- host side ----
 
-// Splits of column j's prefix: as many as keep its blocks within one wave
-// of ~2 per SM (a few blocks more would take a second wave and double the
-// launch's time), each split at least one panel, at most kMaxSplits (the
-// diag and apply launches sum the partials of a tile in one block).
-// Returns the split count; *pps = panels per split.
-constexpr int kMaxSplits = 16;
+// The streams of the look-ahead, one set per device: diag and apply on a
+// high-priority stream, the update on a low-priority side stream, ordered
+// by events (updated[j % 2]: column j's update is done; applied[j % 2]:
+// column j's apply is done, so column j + 2's update may overwrite the
+// split buffer it read and read the panel it wrote).
+struct LookAhead {
+  bool ready = false;
+  cudaStream_t hi, side;
+  cudaEvent_t start, done, updated[2], applied[2];
+};
 
-static int chol_splits(int nb, int j, int sms, int* pps) {
-  int ns = 2 * sms / (nb - j);
-  if (ns < 1) ns = 1;
-  if (ns > kMaxSplits) ns = kMaxSplits;
-  if (ns > j) ns = j;
-  *pps = (j + ns - 1) / ns;
-  return (j + *pps - 1) / *pps;
+static cudaError_t look_ahead(int device, LookAhead** out) {
+  static LookAhead per_device[64];
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  LookAhead& la = per_device[device];
+  *out = &la;
+  if (la.ready) return cudaSuccess;
+  int least = 0, greatest = 0;
+  cudaError_t err = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaStreamCreateWithPriority(&la.hi, cudaStreamNonBlocking,
+                                          greatest)) != cudaSuccess ||
+      (err = cudaStreamCreateWithPriority(&la.side, cudaStreamNonBlocking,
+                                          least)) != cudaSuccess)
+    return err;
+  for (int k = 0; k < 2; ++k)
+    if ((err = cudaEventCreateWithFlags(&la.updated[k],
+                                        cudaEventDisableTiming)) !=
+            cudaSuccess ||
+        (err = cudaEventCreateWithFlags(&la.applied[k],
+                                        cudaEventDisableTiming)) !=
+            cudaSuccess)
+      return err;
+  if ((err = cudaEventCreateWithFlags(&la.start, cudaEventDisableTiming)) !=
+          cudaSuccess ||
+      (err = cudaEventCreateWithFlags(&la.done, cudaEventDisableTiming)) !=
+          cudaSuccess)
+    return err;
+  la.ready = true;
+  return cudaSuccess;
 }
 
-static int device_sms(int device, int* sms) {
-  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
-                                     device);
+// the split buffers of column j under the caller's plan: the tile of A and
+// the panel splits of its update
+static int column_splits(const int* pps, int j) {
+  return 1 + (j >= 2 ? (j - 1 + pps[j] - 1) / pps[j] : 0);
 }
 
-static long long chol_workspace(int n, int sms) {
-  const int nb = (n + kTile - 1) / kTile;
-  long long most = 1;
-  for (int j = 1; j < nb; ++j) {
-    int pps = 0;
-    const int ns = chol_splits(nb, j, sms, &pps);
-    const long long need = (long long)ns * (nb - j) * kTile * kTile;
-    if (need > most) most = need;
-  }
-  return most;
+template <typename Src>
+static cudaError_t launch_update(Src src, const float* L, float* ws, int n,
+                                 int j, int nt, int ns, int pps,
+                                 cudaStream_t s) {
+  const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(L) % 16 == 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      chol_update_tc_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTcSmem);
+  if (err != cudaSuccess) return err;
+  chol_update_tc_kernel<Src><<<dim3(nt, ns), kTcThreads, kTcSmem, s>>>(
+      src, L, ws, n, j, pps, vec);
+  return cudaGetLastError();
 }
+
+template <typename Src>
+static cudaError_t launch_update(Src src, const double* L, double* ws, int n,
+                                 int j, int nt, int ns, int pps,
+                                 cudaStream_t s) {
+  chol_update_f64_kernel<Src><<<dim3(nt, ns), kThreads, 0, s>>>(src, L, ws, n,
+                                                                j, pps);
+  return cudaGetLastError();
+}
+
+#define EGP_TRY(call)                      \
+  do {                                     \
+    const cudaError_t e_ = (call);         \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
 
 template <typename T, typename Src>
-static int run_chol(Src src, T* L, T* Dinv, T* ws, int n, int device,
-                    cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+static int run_chol(Src src, T* L, T* Dinv, T* ws, long long ws_half,
+                    const int* pps, int n, int device, cudaStream_t stream) {
+  EGP_TRY(cudaSetDevice(device));
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  const int code = device_sms(device, &sms);
-  if (code != 0) return code;
-  // [A | E] of the diagonal tile and its scaled output rows: 64 KB at
-  // float32, 128 KB at float64
-  const int smem = 4 * kTile * kTile * (int)sizeof(T);
-  err = cudaFuncSetAttribute(chol_diag_kernel<T, Src>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
   const int nb = (n + kTile - 1) / kTile;
-  for (int j = 0; j < nb; ++j) {
-    const size_t stride = (size_t)(nb - j) * kTile * kTile;
-    int nsplit = 0;
-    if (j > 0) {
-      int pps = 0;
-      nsplit = chol_splits(nb, j, sms, &pps);
-      chol_update_kernel<T><<<dim3(nb - j, nsplit), kGemmThreads, 0,
-                              stream>>>(L, ws, n, j, pps);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    chol_diag_kernel<T, Src><<<1, dim3(kDiagTx, kDiagTy), smem, stream>>>(
-        src, L, Dinv, ws, n, j, nsplit, stride);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if (j < nb - 1) {
-      chol_apply_kernel<T, Src><<<nb - j - 1, kGemmThreads, 0, stream>>>(
-          src, L, Dinv, ws, n, j, nsplit, stride);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
+  for (int j = 0; j < nb; ++j) {  // the caller's plan must fit
+    if (j >= 2 && pps[j] < 1) return (int)cudaErrorInvalidValue;
+    const int ns = column_splits(pps, j);
+    if (ns > kMaxSplits || (long long)ns * (nb - j) * kTile * kTile > ws_half)
+      return (int)cudaErrorInvalidValue;
   }
+  LookAhead* la = nullptr;
+  EGP_TRY(look_ahead(device, &la));
+  EGP_TRY(cudaFuncSetAttribute(chol_diag_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               diag_smem<T>()));
+  const int apply_smem = 2 * kTile * kKL * (int)sizeof(T);
+  EGP_TRY(cudaFuncSetAttribute(chol_apply_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               apply_smem));
+  EGP_TRY(cudaEventRecord(la->start, stream));
+  EGP_TRY(cudaStreamWaitEvent(la->hi, la->start, 0));
+  EGP_TRY(cudaStreamWaitEvent(la->side, la->start, 0));
+  for (int j = 0; j < nb; ++j) {
+    const int nt = nb - j;
+    const int ns = column_splits(pps, j);
+    const size_t stride = (size_t)nt * kTile * kTile;
+    const int b = j & 1;  // the buffer and events of this column's parity
+    T* wj = ws + b * ws_half;
+    EGP_TRY(cudaStreamWaitEvent(la->side, la->applied[b], 0));
+    EGP_TRY(launch_update(src, L, wj, n, j, nt, ns, j >= 2 ? pps[j] : 1,
+                          la->side));
+    EGP_TRY(cudaEventRecord(la->updated[b], la->side));
+    EGP_TRY(cudaStreamWaitEvent(la->hi, la->updated[b], 0));
+    chol_diag_kernel<T><<<1, kThreads, diag_smem<T>(), la->hi>>>(
+        L, Dinv, wj, n, j, ns, stride);
+    EGP_TRY(cudaGetLastError());
+    if (j < nb - 1) {
+      chol_apply_kernel<T><<<nt - 1, kThreads, apply_smem, la->hi>>>(
+          L, Dinv, wj, n, j, ns, stride);
+      EGP_TRY(cudaGetLastError());
+    }
+    EGP_TRY(cudaEventRecord(la->applied[b], la->hi));
+  }
+  EGP_TRY(cudaEventRecord(la->done, la->hi));
+  EGP_TRY(cudaStreamWaitEvent(stream, la->done, 0));
   return 0;
 }
 
 template <typename T>
-static int launch_chol(const T* A, T* L, T* Dinv, T* ws, int n, int device,
+static int launch_chol(const T* A, T* L, T* Dinv, T* ws, long long ws_half,
+                       const int* pps, int n, int device,
                        cudaStream_t stream) {
   PlainSource<T> src{A, n};
-  return run_chol<T>(src, L, Dinv, ws, n, device, stream);
+  return run_chol<T>(src, L, Dinv, ws, ws_half, pps, n, device, stream);
 }
 
 template <typename T>
 static int launch_chol_gram(const T* x, const T* var, const unsigned char* mask,
-                            T* L, T* Dinv, T* ws, int n, int d, int family,
+                            T* L, T* Dinv, T* ws, long long ws_half,
+                            const int* pps, int n, int d, int family,
                             int ncomp, const double* ratios,
                             const double* weights, double scale, int device,
                             cudaStream_t stream) {
@@ -549,64 +942,66 @@ static int launch_chol_gram(const T* x, const T* var, const unsigned char* mask,
   src.n = n;
   src.d = d;
   src.scale = (T)scale;
-  return run_chol<T>(src, L, Dinv, ws, n, device, stream);
+  return run_chol<T>(src, L, Dinv, ws, ws_half, pps, n, device, stream);
 }
 
 template <typename T>
 static int launch_chol_joint(const T* x, const T* var_v, const T* var_g,
                              const unsigned char* smask,
                              const unsigned char* gmask, T* L, T* Dinv, T* ws,
-                             int n0, int d, int family, double scale,
-                             int device, cudaStream_t stream) {
+                             long long ws_half, const int* pps, int n0, int d,
+                             int family, double scale, int device,
+                             cudaStream_t stream) {
   if (n0 <= 0 || d <= 0 || (family != kRbf && family != kMatern32))
     return (int)cudaErrorInvalidValue;
   JointSource<T> src{x, var_v, var_g, smask, gmask, n0, d, (1 + d) * n0,
                      family, (T)scale};
-  return run_chol<T>(src, L, Dinv, ws, (1 + d) * n0, device, stream);
+  return run_chol<T>(src, L, Dinv, ws, ws_half, pps, (1 + d) * n0, device,
+                     stream);
 }
 
 }  // namespace egp
 
-// Elements of the split-partial workspace a call at size n needs (at least
-// 1), or minus a CUDA error code.
-extern "C" long long egp_chol_workspace(int n, int device) {
-  int sms = 0;
-  const int code = egp::device_sms(device, &sms);
-  if (code != 0) return -(long long)code;
-  return egp::chol_workspace(n, sms);
-}
-
+// Every entry: ws holds 2 * ws_half elements (the split buffers of the two
+// column parities); pps[j] (host memory, nb = ceil(n / 64) entries) is the
+// number of panels per split of column j's update, read for j >= 2
+// (ops/chol.py::chol_plan).
 extern "C" int egp_chol_f32(const float* A, float* L, float* Dinv, float* ws,
-                            int n, int device, void* stream) {
-  return egp::launch_chol<float>(A, L, Dinv, ws, n, device,
+                            long long ws_half, const int* pps, int n,
+                            int device, void* stream) {
+  return egp::launch_chol<float>(A, L, Dinv, ws, ws_half, pps, n, device,
                                  (cudaStream_t)stream);
 }
 
 extern "C" int egp_chol_f64(const double* A, double* L, double* Dinv,
-                            double* ws, int n, int device, void* stream) {
-  return egp::launch_chol<double>(A, L, Dinv, ws, n, device,
+                            double* ws, long long ws_half, const int* pps,
+                            int n, int device, void* stream) {
+  return egp::launch_chol<double>(A, L, Dinv, ws, ws_half, pps, n, device,
                                   (cudaStream_t)stream);
 }
 
 extern "C" int egp_chol_gram_f32(const float* x, const float* var,
                                  const unsigned char* mask, float* L,
-                                 float* Dinv, float* ws, int n, int d,
-                                 int family, int ncomp, const double* ratios,
+                                 float* Dinv, float* ws, long long ws_half,
+                                 const int* pps, int n, int d, int family,
+                                 int ncomp, const double* ratios,
                                  const double* weights, double scale,
                                  int device, void* stream) {
-  return egp::launch_chol_gram<float>(x, var, mask, L, Dinv, ws, n, d, family,
-                                      ncomp, ratios, weights, scale, device,
-                                      (cudaStream_t)stream);
+  return egp::launch_chol_gram<float>(x, var, mask, L, Dinv, ws, ws_half, pps,
+                                      n, d, family, ncomp, ratios, weights,
+                                      scale, device, (cudaStream_t)stream);
 }
 
 extern "C" int egp_chol_gram_f64(const double* x, const double* var,
                                  const unsigned char* mask, double* L,
-                                 double* Dinv, double* ws, int n, int d,
-                                 int family, int ncomp, const double* ratios,
+                                 double* Dinv, double* ws, long long ws_half,
+                                 const int* pps, int n, int d, int family,
+                                 int ncomp, const double* ratios,
                                  const double* weights, double scale,
                                  int device, void* stream) {
-  return egp::launch_chol_gram<double>(x, var, mask, L, Dinv, ws, n, d, family,
-                                       ncomp, ratios, weights, scale, device,
+  return egp::launch_chol_gram<double>(x, var, mask, L, Dinv, ws, ws_half,
+                                       pps, n, d, family, ncomp, ratios,
+                                       weights, scale, device,
                                        (cudaStream_t)stream);
 }
 
@@ -614,22 +1009,22 @@ extern "C" int egp_chol_joint_f32(const float* x, const float* var_v,
                                   const float* var_g,
                                   const unsigned char* smask,
                                   const unsigned char* gmask, float* L,
-                                  float* Dinv, float* ws, int n0, int d,
-                                  int family, double scale, int device,
-                                  void* stream) {
+                                  float* Dinv, float* ws, long long ws_half,
+                                  const int* pps, int n0, int d, int family,
+                                  double scale, int device, void* stream) {
   return egp::launch_chol_joint<float>(x, var_v, var_g, smask, gmask, L, Dinv,
-                                       ws, n0, d, family, scale, device,
-                                       (cudaStream_t)stream);
+                                       ws, ws_half, pps, n0, d, family, scale,
+                                       device, (cudaStream_t)stream);
 }
 
 extern "C" int egp_chol_joint_f64(const double* x, const double* var_v,
                                   const double* var_g,
                                   const unsigned char* smask,
                                   const unsigned char* gmask, double* L,
-                                  double* Dinv, double* ws, int n0, int d,
-                                  int family, double scale, int device,
-                                  void* stream) {
-  return egp::launch_chol_joint<double>(x, var_v, var_g, smask, gmask, L, Dinv,
-                                        ws, n0, d, family, scale, device,
-                                        (cudaStream_t)stream);
+                                  double* Dinv, double* ws, long long ws_half,
+                                  const int* pps, int n0, int d, int family,
+                                  double scale, int device, void* stream) {
+  return egp::launch_chol_joint<double>(x, var_v, var_g, smask, gmask, L,
+                                        Dinv, ws, ws_half, pps, n0, d, family,
+                                        scale, device, (cudaStream_t)stream);
 }

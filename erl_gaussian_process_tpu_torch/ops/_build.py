@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 ``csrc/gram.cu``, ``csrc/fitc.cu``, ``csrc/bank.cu``, ``csrc/chol.cu`` and
-``csrc/trsv.cu`` (with the shared ``csrc/family.cuh``) compile with ``nvcc`` into ONE shared library with a
+``csrc/trsv.cu`` (with the shared ``csrc/family.cuh`` and
+``csrc/async_copy.cuh``) compile with ``nvcc`` into ONE shared library with a
 plain C interface, loaded with ``ctypes``. Nothing is built when this module is imported: the
 first call of :func:`load_library` builds, into
 ``erl_gaussian_process_tpu_torch/_build/<hash>/``, where the hash covers the
@@ -31,7 +32,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 _COMPILED = ("gram.cu", "fitc.cu", "bank.cu", "chol.cu", "trsv.cu")
-_SOURCES = ("family.cuh",) + _COMPILED
+_SOURCES = ("family.cuh", "async_copy.cuh") + _COMPILED
 # sm_90a: the Hopper target. No --use_fast_math: the kernels need the
 # full-precision exp/sqrt/division (see csrc/family.cuh).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -112,30 +113,32 @@ def _declare(lib: ctypes.CDLL) -> None:
         # K, L, L_inv, batch, n, device, stream
         fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
         fn.restype = _I
-    # n, device -> workspace elements (or -error)
-    lib.egp_chol_workspace.argtypes = [_I, _I]
-    lib.egp_chol_workspace.restype = ctypes.c_longlong
+    # the split plan of every Cholesky entry: ws_half, panels per split
+    plan = [ctypes.c_longlong, ctypes.POINTER(_I)]
     for name in ("egp_chol_f32", "egp_chol_f64"):
         fn = getattr(lib, name)
-        # A, L, Dinv, ws, n, device, stream
-        fn.argtypes = [_P] * 4 + [_I, _I, _P]
+        # A, L, Dinv, ws, ws_half, pps, n, device, stream
+        fn.argtypes = [_P] * 4 + plan + [_I, _I, _P]
         fn.restype = _I
     for name in ("egp_chol_gram_f32", "egp_chol_gram_f64"):
         fn = getattr(lib, name)
-        # x, var, mask, L, Dinv, ws, n, d, family, ncomp, ratios, weights,
-        # scale, device, stream
-        fn.argtypes = [_P] * 6 + [_I] * 4 + [_PD, _PD, _D, _I, _P]
+        # x, var, mask, L, Dinv, ws, ws_half, pps, n, d, family, ncomp,
+        # ratios, weights, scale, device, stream
+        fn.argtypes = [_P] * 6 + plan + [_I] * 4 + [_PD, _PD, _D, _I, _P]
         fn.restype = _I
     for name in ("egp_chol_joint_f32", "egp_chol_joint_f64"):
         fn = getattr(lib, name)
-        # x, var_v, var_g, smask, gmask, L, Dinv, ws, n0, d, family, scale,
-        # device, stream
-        fn.argtypes = [_P] * 8 + [_I] * 3 + [_D, _I, _P]
+        # x, var_v, var_g, smask, gmask, L, Dinv, ws, ws_half, pps, n0, d,
+        # family, scale, device, stream
+        fn.argtypes = [_P] * 8 + plan + [_I] * 3 + [_D, _I, _P]
         fn.restype = _I
+    # f64, device -> co-resident blocks of the solve (or -error)
+    lib.egp_trsv_max_grid.argtypes = [_I, _I]
+    lib.egp_trsv_max_grid.restype = _I
     for name in ("egp_trsv_f32", "egp_trsv_f64"):
         fn = getattr(lib, name)
-        # L, inv, work, x, n, q, trans, device, stream
-        fn.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        # L, inv, b, x, words, n, q, trans, grid, device, stream
+        fn.argtypes = [_P] * 5 + [_I] * 5 + [_P]
         fn.restype = _I
 
 

@@ -25,6 +25,9 @@ float32 and float64.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from erl_gaussian_process_tpu_torch.ops._build import double_array, load_library
@@ -96,17 +99,46 @@ def chol_blocked_gram_joint_plain(name: str, x, var_v, var_g, sample_mask,
     return _factor_plain(K, return_dinv)
 
 
+UPDATE_BLOCKS_PER_SM = 3  # the update's blocks per SM a split plan aims at
+MAX_SPLITS = 16           # csrc/chol.cu kMaxSplits: buffers a consumer sums
+
+
+@functools.lru_cache(maxsize=None)
+def chol_plan(n: int, sms: int) -> tuple:
+    """The kernels' split plan at size n on a card with ``sms`` SMs:
+    ``(pps, ws_half)``. Column j's update writes the column's tiles of A
+    (buffer 0) and the products of the panels 0 .. j - 2 (the look-ahead
+    leaves panel j - 1 to the diag and apply launches) in splits of
+    ``pps[j]`` panels each: as many as keep the product blocks, (nb - j) x
+    splits, within about :data:`UPDATE_BLOCKS_PER_SM` per SM, each at least
+    one panel, at most :data:`MAX_SPLITS` - 1 of them (the first two columns
+    have no such panel; their ``pps`` is 1, unused). ``ws_half`` is the
+    elements of one column's buffers (the largest (1 + splits) x tiles x
+    T^2); the workspace holds two, one per column parity."""
+    nb = -(-n // TILE)
+    pps = [1] * nb
+    half = nb * TILE * TILE
+    for j in range(2, nb):
+        npan, nt = j - 1, nb - j
+        ns = max(1, min(MAX_SPLITS - 1, npan,
+                        UPDATE_BLOCKS_PER_SM * sms // nt))
+        per = -(-npan // ns)
+        pps[j] = per
+        half = max(half, (1 + -(-npan // per)) * nt * TILE * TILE)
+    return tuple(pps), half
+
+
 def _outputs(n: int, dtype, device):
-    """L (n, n), Dinv (nb T, T) and the kernels' split workspace."""
+    """L (n, n), Dinv (nb T, T), the kernels' split workspace and the split
+    plan (``ws_half`` and the host array of panels per split)."""
     kl = load_library()
-    elems = kl.lib.egp_chol_workspace(n, device.index)
-    if elems < 0:
-        kl.check(int(-elems), "chol workspace query")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    pps, half = chol_plan(n, sms)
     L = torch.empty((n, n), dtype=dtype, device=device)
     dinv = torch.empty((-(-n // TILE) * TILE, TILE), dtype=dtype,
                        device=device)
-    ws = torch.empty((elems,), dtype=dtype, device=device)
-    return kl, L, dinv, ws
+    ws = torch.empty((2 * half,), dtype=dtype, device=device)
+    return kl, L, dinv, ws, (half, (ctypes.c_int * len(pps))(*pps))
 
 
 def _check_mask(what, mask, like):
@@ -133,11 +165,12 @@ def chol_blocked(A, *, return_dinv: bool = False):
         raise ValueError(f"chol_blocked: A must be square and non-empty, "
                          f"got {tuple(A.shape)}")
     n = A.shape[0]
-    kl, L, dinv, ws = _outputs(n, A.dtype, A.device)
+    kl, L, dinv, ws, plan = _outputs(n, A.dtype, A.device)
     fn = kl.lib.egp_chol_f32 if A.dtype == torch.float32 else \
         kl.lib.egp_chol_f64
-    code = fn(A.data_ptr(), L.data_ptr(), dinv.data_ptr(), ws.data_ptr(), n,
-              A.device.index, torch.cuda.current_stream(A.device).cuda_stream)
+    code = fn(A.data_ptr(), L.data_ptr(), dinv.data_ptr(), ws.data_ptr(),
+              *plan, n, A.device.index,
+              torch.cuda.current_stream(A.device).cuda_stream)
     kl.check(code, "chol kernel launch")
     chol_blocked.launches += 1
     return _result(L, dinv, return_dinv)
@@ -165,11 +198,11 @@ def chol_blocked_gram(name: str, x, var, mask, scale, *,
     _check_mask("chol_blocked_gram", mask, x)
     n, d = x.shape
     fam, ratios, weights = family_args(name)
-    kl, L, dinv, ws = _outputs(n, x.dtype, x.device)
+    kl, L, dinv, ws, plan = _outputs(n, x.dtype, x.device)
     fn = kl.lib.egp_chol_gram_f32 if x.dtype == torch.float32 else \
         kl.lib.egp_chol_gram_f64
     code = fn(x.data_ptr(), var.data_ptr(), mask.data_ptr(), L.data_ptr(),
-              dinv.data_ptr(), ws.data_ptr(), n, d, fam, len(ratios),
+              dinv.data_ptr(), ws.data_ptr(), *plan, n, d, fam, len(ratios),
               double_array(ratios), double_array(weights), float(scale),
               x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     kl.check(code, "chol gram kernel launch")
@@ -208,12 +241,12 @@ def chol_blocked_gram_joint(name: str, x, var_v, var_g, sample_mask,
     _check_mask("chol_blocked_gram_joint", sample_mask, x)
     _check_mask("chol_blocked_gram_joint", grad_mask, x)
     n0, d = x.shape
-    kl, L, dinv, ws = _outputs((1 + d) * n0, x.dtype, x.device)
+    kl, L, dinv, ws, plan = _outputs((1 + d) * n0, x.dtype, x.device)
     fn = kl.lib.egp_chol_joint_f32 if x.dtype == torch.float32 else \
         kl.lib.egp_chol_joint_f64
     code = fn(x.data_ptr(), var_v.data_ptr(), var_g.data_ptr(),
               sample_mask.data_ptr(), grad_mask.data_ptr(), L.data_ptr(),
-              dinv.data_ptr(), ws.data_ptr(), n0, d, FAMILY_IDS[name],
+              dinv.data_ptr(), ws.data_ptr(), *plan, n0, d, FAMILY_IDS[name],
               float(scale), x.device.index,
               torch.cuda.current_stream(x.device).cuda_stream)
     kl.check(code, "chol joint kernel launch")

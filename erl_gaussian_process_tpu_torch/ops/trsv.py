@@ -16,6 +16,8 @@ float64.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from erl_gaussian_process_tpu_torch.ops._build import load_library
@@ -58,11 +60,42 @@ def substitute_plain(L, b, trans: bool):
     return torch.linalg.solve_triangular(L, b, upper=False)
 
 
-def substitute_cuda(L, inv, b, trans: bool):
+def trsv_grid(n: int, coresident: int, grid=None) -> int:
+    """Thread blocks of one persistent solve: one per 64-row block up to the
+    ``coresident`` count (the kernel needs every block resident at once),
+    or the ``grid`` asked for (at most ``coresident``; results are bitwise
+    the same for every grid)."""
+    nb = -(-n // TILE)
+    if grid is None:
+        return max(1, min(nb, coresident))
+    if not 1 <= grid <= coresident:
+        raise ValueError(f"trsv grid {grid}: the card keeps 1 .. "
+                         f"{coresident} blocks of the solve resident")
+    return min(grid, nb)
+
+
+def trsv_word_count(n: int, q: int, dtype) -> int:
+    """The 64-bit words through which one solve's thread blocks publish x:
+    one per 32-bit part of each value (zeroed for every solve)."""
+    return n * q * (torch.finfo(dtype).bits // 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _coresident(f64: bool, device_index: int) -> int:
+    kl = load_library()
+    most = kl.lib.egp_trsv_max_grid(int(f64), device_index)
+    if most < 0:
+        kl.check(-most, "trsv occupancy query")
+    return most
+
+
+def substitute_cuda(L, inv, b, trans: bool, *, grid=None):
     """One direction of the blocked substitution on the card: L x = b, or
     L^T x = b with ``trans``; ``inv`` the (nb * B, B) diagonal-block
-    inverses. Launches ``csrc/trsv.cu`` (one solve counted in
-    ``substitute_cuda.launches``) or raises."""
+    inverses. One persistent launch per 32 columns of b
+    (``csrc/trsv.cu``; one solve counted in ``substitute_cuda.launches``)
+    or raises. ``grid`` forces the number of thread blocks
+    (:func:`trsv_grid`)."""
     check_cuda_operands("substitute_cuda", L.dtype, L, inv, b)
     n = L.shape[0]
     bs = TILE
@@ -73,13 +106,16 @@ def substitute_cuda(L, inv, b, trans: bool):
     if tuple(inv.shape) != (-(-n // bs) * bs, bs):
         raise ValueError(f"substitute_cuda: inv {tuple(inv.shape)}, want "
                          f"({-(-n // bs) * bs}, {bs})")
-    work = b.clone()
+    q = b.shape[1]
+    f64 = L.dtype == torch.float64
+    blocks = trsv_grid(n, _coresident(f64, L.device.index), grid)
     x = torch.empty_like(b)
+    words = torch.zeros(trsv_word_count(n, q, L.dtype), dtype=torch.int64,
+                        device=L.device)
     kl = load_library()
-    fn = kl.lib.egp_trsv_f32 if L.dtype == torch.float32 else \
-        kl.lib.egp_trsv_f64
-    code = fn(L.data_ptr(), inv.data_ptr(), work.data_ptr(), x.data_ptr(), n,
-              b.shape[1], int(trans), L.device.index,
+    fn = kl.lib.egp_trsv_f64 if f64 else kl.lib.egp_trsv_f32
+    code = fn(L.data_ptr(), inv.data_ptr(), b.data_ptr(), x.data_ptr(),
+              words.data_ptr(), n, q, int(trans), blocks, L.device.index,
               torch.cuda.current_stream(L.device).cuda_stream)
     kl.check(code, "trsv kernel launch")
     substitute_cuda.launches += 1

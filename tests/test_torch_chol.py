@@ -310,3 +310,52 @@ def test_cpu_tensors_launch_nothing_and_other_devices_raise():
         chol_blocked_gram_joint("rbf", x, v, v, m, m, 1.0)
     with pytest.raises(ValueError, match="family"):
         chol_blocked_gram_joint("ou", x, v, v, m, m, 1.0)
+
+
+@pytest.mark.parametrize("n", [1, 64, 129, 1300, 7500, 7680, 8192])
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_chol_plan_fits_the_kernels(n, sms):
+    """The split plan the kernels are given (``ops.chol.chol_plan``): every
+    column has the tile of A as buffer 0; the first two have no panel for
+    the update (column j's covers panels 0 .. j - 2, the look-ahead leaving
+    panel j - 1 to the diag and apply); every later column's panels are
+    covered exactly by at most MAX_SPLITS - 1 splits of at least one panel,
+    at most about UPDATE_BLOCKS_PER_SM product blocks per SM where a column
+    has fewer tiles than that, and every column's buffers fit one parity's
+    half of the workspace."""
+    from erl_gaussian_process_tpu_torch.ops.chol import (
+        MAX_SPLITS,
+        UPDATE_BLOCKS_PER_SM,
+        chol_plan,
+    )
+
+    pps, half = chol_plan(n, sms)
+    nb = -(-n // TILE)
+    assert len(pps) == nb and pps[:2] == (1, 1)[:nb]
+    buffers = [1, 1][:nb]
+    for j in range(2, nb):
+        npan, nt = j - 1, nb - j
+        ns = -(-npan // pps[j])
+        assert 1 <= pps[j] <= npan and 1 <= ns <= MAX_SPLITS - 1
+        assert (ns - 1) * pps[j] < npan <= ns * pps[j]
+        if ns > 1:
+            assert ns * nt <= UPDATE_BLOCKS_PER_SM * sms
+        buffers.append(1 + ns)
+    assert half == max(nbuf * (nb - j) * TILE * TILE
+                       for j, nbuf in enumerate(buffers))
+
+
+def test_chol_plan_splits_long_columns_on_a_wide_card():
+    """At the exact-GP size on the H100's 132 SMs the late columns (few
+    tiles, a long prefix) take the most splits and the early ones one; the
+    workspace stays within what the plan's blocks per SM allow."""
+    from erl_gaussian_process_tpu_torch.ops.chol import (
+        MAX_SPLITS,
+        UPDATE_BLOCKS_PER_SM,
+        chol_plan,
+    )
+
+    pps, half = chol_plan(8192, 132)
+    assert pps[2] == 1 and MAX_SPLITS // 2 <= -(-126 // pps[127]) < MAX_SPLITS
+    assert 128 * TILE * TILE <= half \
+        <= (128 + UPDATE_BLOCKS_PER_SM * 132) * TILE * TILE

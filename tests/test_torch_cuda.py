@@ -336,8 +336,12 @@ def _berr(L, K):
 
 
 def _chol_sizes(dtype):
-    T = 128 if dtype == torch.float32 else 64
-    return [1, 17, T, T + 1, 3 * T - 5]
+    """Sizes around the kernels' tile (ops.chol.TILE at both dtypes) and two
+    of many columns, where the update splits, the look-ahead and every
+    sub-block of the diagonal tiles run."""
+    from erl_gaussian_process_tpu_torch.ops import TILE
+
+    return [1, 17, TILE, TILE + 1, 3 * TILE - 5, 1300, 2600]
 
 
 def _berr_ok(be, bp, dtype):
@@ -346,9 +350,9 @@ def _berr_ok(be, bp, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("i", range(5))
+@pytest.mark.parametrize("i", range(7))
 def test_chol_kernel_matches_plain(cuda, dtype, i):
-    """n in {1, 17, T, T + 1, 3T - 5}: backward error, an exactly zero
+    """n in {1, 17, T, T + 1, 3T - 5, 1300, 2600}: backward error, an exactly zero
     strict upper part, Dinv against the plain version's, one launch, and
     two launches bitwise equal."""
     from erl_gaussian_process_tpu_torch.ops import (
@@ -451,6 +455,56 @@ def test_chol_kernel_non_spd_is_nan(cuda, dtype):
     _, alpha = cholesky_fit(A, torch.ones((n, 1), dtype=dtype, device=cuda),
                             robust=False)
     assert bool(torch.isnan(alpha).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offset", [3, 37])
+def test_chol_kernel_sub_block_pivot_is_nan(cuda, dtype, offset):
+    """A negative pivot in the first (offset 3) or a middle (37) 16-column
+    sub-block of a diagonal tile: that tile's lower part, its Dinv and every
+    later column NaN, the columns before it finite."""
+    from erl_gaussian_process_tpu_torch.ops import TILE, chol_blocked
+
+    n = 1300
+    at = 10 * TILE + offset
+    A = _spd(cuda, n, dtype)
+    A[at, at] = -1.0
+    L, D = chol_blocked(A, return_dinv=True)
+    torch.cuda.synchronize()
+    tile = slice(10 * TILE, 11 * TILE)
+    r, c = torch.tril_indices(TILE, TILE, device=cuda)
+    assert bool(torch.isfinite(L[:, :10 * TILE]).all())
+    assert bool(torch.isnan(L[tile, tile][r, c]).all())
+    assert bool((torch.triu(L[tile, tile], 1) == 0).all())
+    assert bool(torch.isnan(D[tile]).all())
+    assert bool(torch.isnan(L[11 * TILE:, tile]).all())
+    assert bool(torch.isnan(L[-1, 11 * TILE:]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("q", [1, 3, 33, 129])
+@pytest.mark.parametrize("grid", [1, 3, 7])
+def test_trsv_forced_grid_is_bitwise_equal(cuda, dtype, q, grid):
+    """The persistent solve at a forced small grid (fewer thread blocks
+    than the 21 row blocks, each block taking several) equals the default
+    grid bit for bit, in both directions."""
+    from erl_gaussian_process_tpu_torch.ops import chol_blocked
+    from erl_gaussian_process_tpu_torch.ops.trsv import (
+        inverses_from_chol_dinv,
+        substitute_cuda,
+    )
+
+    n = 1300
+    L, D = chol_blocked(_spd(cuda, n, dtype, seed=q), return_dinv=True)
+    inv = inverses_from_chol_dinv(D, n).contiguous()
+    b = torch.as_tensor(np.random.default_rng(q).standard_normal((n, q)),
+                        dtype=dtype, device=cuda)
+    for trans in (False, True):
+        ref = substitute_cuda(L, inv, b, trans)
+        got = substitute_cuda(L, inv, b, trans, grid=grid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        assert bool(torch.isfinite(got).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

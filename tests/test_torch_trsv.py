@@ -130,3 +130,37 @@ def test_whiten_with_dinv_matches_the_triangular_solve(n):
     assert torch.equal(gp_core.whiten(L64, kt.double(), d64),
                        torch.linalg.solve_triangular(L64, kt.double(),
                                                      upper=False))
+
+
+@pytest.mark.parametrize("n,coresident,grid,want", [
+    (8192, 264, None, 128), (8192, 100, None, 100), (1, 264, None, 1),
+    (1300, 264, 3, 3), (1300, 264, 7, 7), (100, 264, 7, 2),
+    (1300, 264, 264, 21)])
+def test_trsv_grid(n, coresident, grid, want):
+    """The persistent solve's thread blocks: one per 64-row block up to the
+    co-resident count, or the grid asked for, never more than the row
+    blocks."""
+    from erl_gaussian_process_tpu_torch.ops.trsv import trsv_grid
+
+    assert trsv_grid(n, coresident, grid) == want
+
+
+@pytest.mark.parametrize("grid", [0, -1, 265])
+def test_trsv_grid_refuses_what_cannot_be_resident(grid):
+    """A grid of no blocks or of more than the card keeps resident raises
+    (the kernel would never finish), before any launch."""
+    from erl_gaussian_process_tpu_torch.ops.trsv import trsv_grid
+
+    with pytest.raises(ValueError, match="resident"):
+        trsv_grid(8192, 264, grid)
+
+
+@pytest.mark.parametrize("n,q,dtype,want", [
+    (8192, 1, torch.float32, 8192), (1300, 33, torch.float32, 42900),
+    (1, 129, torch.float64, 258), (64, 32, torch.float64, 4096)])
+def test_trsv_word_count(n, q, dtype, want):
+    """x is published through one 64-bit word per 32-bit part of each
+    value: one per float32 value, two per float64 value."""
+    from erl_gaussian_process_tpu_torch.ops.trsv import trsv_word_count
+
+    assert trsv_word_count(n, q, dtype) == want
