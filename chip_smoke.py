@@ -11,6 +11,8 @@ The SPGP occupancy map's path:
    library (first use, into ``erl_gaussian_process_tpu_torch/_build/``);
 3. every kernel against its plain PyTorch version on the card, at the main
    path's shapes, with kernel and plain times (CUDA events, median of 20);
+   FITC's two products alone (``torch.matmul`` on a precomputed kmn) as a
+   note;
 4. the slice: the 983-pose replica-hotel-0 replay at full width (1089
    pseudo points padded to 1152, 384 rays, 2048-sample budget, float32)
    through ``SpGpOccupancyMap`` on the card — once pose by pose through
@@ -18,7 +20,8 @@ The SPGP occupancy map's path:
    ``predict`` with the map-quality gates (surface > 0.9 occupied,
    trajectory > 0.95 free);
 5. the launch counts of that run: one FITC launch per pose update and at
-   least one gram launch;
+   least one gram launch; one more pose under ``torch.profiler``: the FITC
+   kernel's launches per pose equal its plan's (3 per call);
 6. the drift check: the collected datasets replayed through the port's
    plain float64 path, posterior drift on the fixed query grid <= 0.2.
 
@@ -242,7 +245,50 @@ def check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks):
         "ms": cuda_ms(lambda: fitc_update_cuda(*fitc_args)),
         "plain_ms": cuda_ms(lambda: fitc_update_plain(*fitc_args)),
     }
+    # no one PyTorch call computes the update; the note times its two
+    # products (full FP32 cuBLAS) on a kmn and weights computed beforehand
+    name, P, linv, x, y, var, mask, _ = fitc_args
+    kmn = cross_gram_plain(name, P, x, scale)
+    lam = torch.clamp(1.0 - torch.sum((linv @ kmn) ** 2, dim=0), min=0.0)
+    ksc = kmn * torch.where(mask, 1.0 / (lam + var), torch.zeros_like(lam))
+    gemm_ms = cuda_ms(lambda: (torch.matmul(linv, kmn),
+                               torch.matmul(ksc, kmn.T)))
+    log(f"fitc note: torch.matmul(L_inv, kmn) and torch.matmul(kmn w, "
+        f"kmn^T) on a precomputed kmn {tuple(kmn.shape)} float32 "
+        f"{gemm_ms:.4f} ms (the two products alone; kernel "
+        f"{out['fitc']['ms']:.4f} ms, plain {out['fitc']['plain_ms']:.4f} ms)")
+    log_device_split("fitc M=1152 N=2048 float32",
+                     lambda: fitc_update_cuda(*fitc_args))
     return out
+
+
+def device_kernels(fn) -> dict:
+    """{kernel name: (launches, device ms)} of ``fn()`` on the card, by
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def log_device_split(label, fn, reps=10):
+    """Log each kernel's device time per call of ``fn`` (``reps`` calls
+    under ``torch.profiler``): the CUDA-event times above also hold the
+    wrapper's host time, since each rep starts on an idle card."""
+    split = device_kernels(lambda: [fn() for _ in range(reps)])
+    log(f"{label} device time per call (torch.profiler, {reps} calls): "
+        + "; ".join(f"{k.split('(')[0][:48]} {1e3 * ms / reps:.2f} us"
+                    for k, (_, ms) in split.items())
+        + f"; sum {1e3 * sum(ms for _, ms in split.values()) / reps:.2f} us")
+
+
+# the FITC kernel's launches by name (csrc/fitc.cu)
+FITC_KERNELS = ("kmn_kernel", "beta_tc_kernel", "syrk_tc_kernel")
 
 
 def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
@@ -330,6 +376,24 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
           f"fitc launches {counts['fitc']} != pose updates {2 * b}")
     check(counts["gram"] > 0, "gram kernel never launched by predict")
     check(int(n_used.sum()) == int(dm.sum()), "collected masks != n_used")
+    # FITC's kernel launches per call (its plan) and per pose (one more pose
+    # update under torch.profiler, after the counts above were read)
+    from erl_gaussian_process_tpu_torch.ops.fitc import fitc_plan
+
+    plan = fitc_plan(seq.state.pseudo.shape[0],
+                     int(setting.sp_gp.max_num_samples),
+                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    pose_kernels = device_kernels(
+        lambda: seq.update(sensors[0], pts[0], masks[0]))
+    fitc_pose = sum(c for k, (c, _) in pose_kernels.items()
+                    if any(f in k for f in FITC_KERNELS))
+    log(f"FITC launches: {plan.launches} per call (plan: {plan.tiles} dQ "
+        f"tiles x {plan.splits} splits of {plan.chunk}), {fitc_pose} per pose "
+        f"by torch.profiler, of {sum(c for c, _ in pose_kernels.values())} "
+        "kernel launches "
+        "per pose")
+    check(fitc_pose == plan.launches,
+          f"FITC launches per pose {fitc_pose} != plan {plan.launches}")
 
     grid = hotel0_query_grid(lo, hi)
     lo32, _ = bat.predict(grid)
@@ -352,6 +416,9 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
         "predict_ms_first": 1e3 * t_predict["update_batch"],
         "predict_ms_cached": 1e3 * t_predict_cached,
         "n_predict": int(len(sel)),
+        "fitc_launches_per_pose": fitc_pose,
+        "kernel_launches_per_pose": sum(c for c, _ in
+                                        pose_kernels.values()),
     }
     log(f"times on {card}: update {timings['update_ms_per_pose']:.4f} "
         f"ms/pose; update_batch {timings['replay_updates_per_s']:.2f} "
@@ -473,6 +540,8 @@ def check_bank_kernels(dev, lidar, depth):
         f"{tuple(K.shape)} float32 batch {lib_ms:.4f} ms (L alone)")
     out["bank_chol"] = {"max_abs_err": eL, "ms": ms, "plain_ms": plain_ms,
                         "library_ms": lib_ms}
+    log_device_split("bank_chol (1000, 104) float32 (with alpha's two "
+                     "products)", lambda: bank_cholesky_solve_cuda(K, y))
 
     # the batched gram on the operands the routed predict gives it: the
     # lidar and depth tests' buckets and compute_occ's, whose few queries
@@ -1248,12 +1317,16 @@ def main() -> int:
 
     # bounds of the earlier slices' kernels at their timed shapes (FP32
     # outside the tensor cores, HBM; see bound()): FITC M=1152, N=2048, d=3
-    # (L_inv GEMM 2 M^2 N + lower SYRK M^2 N); gram 1152 x 2048 (its
-    # write); bank fit 736 x 100 (L and L^{-1} written; elimination 2 n^3/3
-    # per member); bank Cholesky 1000 x 104 (K read, L and L^{-1} written)
+    # (the triangular L_inv product M (M + 1) N, the lower SYRK M (M + 1) N,
+    # kmn ~20 M N); gram 1152 x 2048 (its write); bank fit 736 x 100 (L and
+    # L^{-1} written; elimination 2 n^3/3 per member); bank Cholesky 1000 x
+    # 104 (K read, L and L^{-1} written; factor and inverse 2 n^3/3). FITC
+    # and the bank Cholesky run their products in 3xTF32 at float32: their
+    # bound at that rate is logged beside
     m_, n_ = 1152, 2048
     for name, nbytes, flops in (
-            ("fitc", 4 * (2 * m_ * m_ + 6 * n_), 3 * m_ * m_ * n_),
+            ("fitc", 4 * (2 * m_ * m_ + 6 * n_),
+             2 * m_ * (m_ + 1) * n_ + 20 * m_ * n_),
             ("gram", 4 * (m_ * n_ + 3 * (m_ + n_)), 20 * m_ * n_),
             ("bank_fit", 4 * 736 * (2 * 100 * 100 + 3 * 100),
              736 * (2 * 100 ** 3 / 3 + 100 * 100 / 2 * 11)),
@@ -1261,6 +1334,13 @@ def main() -> int:
              1000 * 2 * 104 ** 3 / 3)):
         kern[name]["bound_ms"], kern[name]["bound_by"] = bound(nbytes, flops)
         kern[name].setdefault("library_ms", None)
+        if name in ("fitc", "bank_chol"):
+            tc_ms = max(1e3 * nbytes / HBM_BYTES_PER_S,
+                        1e3 * flops / TF32X3_FLOPS)
+            log(f"{name}: kernel {kern[name]['ms']:.4f} ms, bound "
+                f"{kern[name]['bound_ms']:.4f} ms ({kern[name]['bound_by']}, "
+                f"FP32) and {tc_ms:.4f} ms at the 3xTF32 rate its products "
+                f"run at, on {card}")
 
     # launches of each kernel in the paths' runs: gram.cu serves the SPGP
     # predict (cross_gram), the sensor GPs' routed predict (batched) and the

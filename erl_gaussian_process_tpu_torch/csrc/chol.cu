@@ -44,11 +44,13 @@
 //   1. The float32 update runs on the tensor cores in 3xTF32: each operand
 //      is split into hi + lo TF32 parts (cvt.rna), the product taken as
 //      lo*hi + hi*lo + hi*hi with mma.sync m16n8k8 and FP32 accumulation
-//      (the counterpart of the JAX kernel's bf16x3 _dot3x); operands stream
-//      through a 3-stage cp.async ring. Float64 keeps a SIMT update.
+//      (the counterpart of the JAX kernel's bf16x3 _dot3x, csrc/mma_tf32.cuh);
+//      operands stream through a 3-stage cp.async ring. Float64 keeps a SIMT
+//      update.
 //   2. The diagonal tile is factored blocked, as the JAX _factor_tile does:
 //      four 16-column sub-blocks, each factored in one warp's registers
-//      with shuffles (no block barrier a pivot) and inverted by forward
+//      with shuffles (csrc/sub_block.cuh; no block barrier a pivot) and
+//      inverted by forward
 //      substitution, its panel formed by a product with the sub-block's
 //      inverse, the rest by rank-16 updates; the rows of L^-1 ride along as
 //      the right half of [A | I] (Dinv with no pass of its own).
@@ -85,6 +87,8 @@
 
 #include "async_copy.cuh"
 #include "family.cuh"
+#include "mma_tf32.cuh"
+#include "sub_block.cuh"
 
 namespace egp {
 
@@ -92,15 +96,7 @@ constexpr int kTile = 64;      // T: the factorization's tile edge
 constexpr int kThreads = 256;  // diag and apply: 16 x 16 threads
 constexpr int kKL = kTile + 4; // row stride of a k-major staged operand
 constexpr int kDL = kTile + 1; // row stride of the diagonal tile
-constexpr int kSub = 16;       // the diagonal tile's sub-block edge
 constexpr int kMaxSplits = 16; // split buffers a consumer sums
-
-__device__ __forceinline__ float fma_(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fma_(double a, double b, double c) {
-  return ::fma(a, b, c);
-}
 
 // ---- tile sources: A(r, c) for r >= c (the lower triangle is read) ----
 
@@ -226,27 +222,6 @@ constexpr int kTcK = 32;
 constexpr int kTcLd = kTcK + 4;  // conflict-free fragment reads
 constexpr int kTcStages = 3;
 constexpr int kTcSmem = kTcStages * 2 * kTile * kTcLd * (int)sizeof(float);
-
-__device__ __forceinline__ unsigned to_tf32(float v) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo, both TF32
-__device__ __forceinline__ void split_tf32(float v, unsigned& hi,
-                                           unsigned& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4],
-                                         const unsigned b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <typename T, typename Src, int kThr>
 __device__ __forceinline__ void a_tile(Src src, T* out, int t, int r0,
@@ -577,61 +552,6 @@ __device__ __forceinline__ void reduced_tile(const T* L, const T* ws, int n,
 
 // ---- diag: factor the reduced diagonal tile ----
 
-// Sub-block o .. o + 15 of At (lower triangle, row stride kDL), in one
-// warp (lanes 16-31 repeat lanes 0-15). Lane r holds row r in registers
-// and the 16 pivots run unrolled with shuffles: the pivot row, scaled by
-// 1/sqrt(pivot), is broadcast column by column and every row less its
-// multiple of it (one shuffle and one FMA a column). Then lane c forms
-// column c of the inverse by forward substitution, X[i][c] = (delta_ic -
-// sum_k L[i][k] X[k][c]) / L[i][i], reading L back from shared memory.
-// Writes L into At and the inverse into D; returns false on a
-// non-positive pivot. (Eliminating [A | I] instead doubled the work on
-// the serial pivot chain, and a rolled step loop ran 2-3x slower; the
-// four sub-blocks share this one copy of the code, PERF.md.)
-template <typename T>
-__device__ __forceinline__ bool factor_sub_block(T* At, T* D, int o) {
-  const int rr = threadIdx.x & 15;
-  T a[kSub], inv[kSub];
-#pragma unroll
-  for (int c = 0; c < kSub; ++c)
-    a[c] = c <= rr ? At[(o + rr) * kDL + o + c] : At[(o + c) * kDL + o + rr];
-  bool ok = true;
-#pragma unroll
-  for (int j = 0; j < kSub; ++j) {
-    const T d = __shfl_sync(0xffffffffu, a[j], j);
-    ok = ok && d > T(0);
-    const T s = sqrt_(d);
-    inv[j] = T(1) / s;
-    const T lr = a[j] * inv[j];
-    // every row less its multiple of the scaled pivot row (rows <= j
-    // change only their upper part, which is never read)
-#pragma unroll
-    for (int c = j + 1; c < kSub; ++c)
-      a[c] = fma_(-lr, __shfl_sync(0xffffffffu, a[c], j) * inv[j], a[c]);
-    a[j] = rr > j ? lr : (rr == j ? s : a[j]);
-  }
-  if ((threadIdx.x & 31) < kSub) {
-#pragma unroll
-    for (int c = 0; c < kSub; ++c)
-      if (c <= rr) At[(o + rr) * kDL + o + c] = a[c];
-  }
-  __syncwarp();
-  T x[kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    T acc = i == rr ? T(1) : T(0);
-#pragma unroll
-    for (int k = 0; k < i; ++k)
-      acc = fma_(-At[(o + i) * kDL + o + k], x[k], acc);
-    x[i] = i >= rr ? acc * inv[i] : T(0);
-  }
-  if ((threadIdx.x & 31) < kSub) {
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) D[(o + i) * kDL + o + rr] = x[i];
-  }
-  return ok;
-}
-
 // The T x T tile in At (lower triangle) -> L in At, L^-1 in D (whose
 // strict lower part is 0 on entry): right-looking over four sub-blocks of
 // 16 columns on [A | E], E = I. For sub-block o: warp 0 factors its
@@ -649,7 +569,8 @@ __device__ bool factor_tile(T* At, T* D, int* fail) {
     const int r0 = o + kSub;
     const int rows = kTile - r0;
     if (tid < 32) {
-      const bool ok = factor_sub_block<T>(At, D, o);
+      const bool ok = factor_sub_block<T>(At, D, StridedIdx{o, kDL},
+                                          StridedIdx{o, kDL});
       if (tid == 0 && !ok) *fail = 1;
     }
     __syncthreads();

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 ``csrc/gram.cu``, ``csrc/fitc.cu``, ``csrc/bank.cu``, ``csrc/chol.cu`` and
-``csrc/trsv.cu`` (with the shared ``csrc/family.cuh`` and
-``csrc/async_copy.cuh``) compile with ``nvcc`` into ONE shared library with a
+``csrc/trsv.cu`` (with the shared ``csrc/family.cuh``,
+``csrc/async_copy.cuh``, ``csrc/mma_tf32.cuh`` and ``csrc/sub_block.cuh``)
+compile with ``nvcc`` into ONE shared library with a
 plain C interface, loaded with ``ctypes``. Nothing is built when this module is imported: the
 first call of :func:`load_library` builds, into
 ``erl_gaussian_process_tpu_torch/_build/<hash>/``, where the hash covers the
@@ -32,7 +33,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 _COMPILED = ("gram.cu", "fitc.cu", "bank.cu", "chol.cu", "trsv.cu")
-_SOURCES = ("family.cuh", "async_copy.cuh") + _COMPILED
+_SOURCES = ("family.cuh", "async_copy.cuh", "mma_tf32.cuh",
+            "sub_block.cuh") + _COMPILED
 # sm_90a: the Hopper target. No --use_fast_math: the kernels need the
 # full-precision exp/sqrt/division (see csrc/family.cuh).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -98,9 +100,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = _I
     for name in ("egp_fitc_f32", "egp_fitc_f64"):
         fn = getattr(lib, name)
-        # pseudo, linv, x, y, var, mask, kmn, partial, w, dq, da,
-        # m, n, d, q, family, ncomp, ratios, weights, scale, device, stream
-        fn.argtypes = [_P] * 11 + [_I] * 6 + [_PD, _PD, _D, _I, _P]
+        # pseudo, linv, x, y, var, mask, kmn, partial, w, dq, da, ws,
+        # counters, m, n, d, q, splits, chunk, family, ncomp, ratios,
+        # weights, scale, device, stream
+        fn.argtypes = [_P] * 13 + [_I] * 8 + [_PD, _PD, _D, _I, _P]
         fn.restype = _I
     for name in ("egp_bank_fit_f32", "egp_bank_fit_f64"):
         fn = getattr(lib, name)
@@ -110,9 +113,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = _I
     for name in ("egp_bank_chol_f32", "egp_bank_chol_f64"):
         fn = getattr(lib, name)
-        # K, L, L_inv, batch, n, device, stream
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+        # K, L, L_inv, batch, n, members_per_block, device, stream
+        fn.argtypes = [_P, _P, _P] + [_I] * 4 + [_P]
         fn.restype = _I
+    # device -> opt-in shared memory per block in bytes (or -error)
+    lib.egp_smem_optin.argtypes = [_I]
+    lib.egp_smem_optin.restype = _I
     # the split plan of every Cholesky entry: ws_half, panels per split
     plan = [ctypes.c_longlong, ctypes.POINTER(_I)]
     for name in ("egp_chol_f32", "egp_chol_f64"):

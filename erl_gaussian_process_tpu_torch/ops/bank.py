@@ -18,6 +18,9 @@ member whose factorization fails comes out all NaN in both versions.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from erl_gaussian_process_tpu_torch.ops._build import double_array, load_library
@@ -112,13 +115,61 @@ def bank_fit_cuda(name: str, x, y, var, mask, scale):
 bank_fit_cuda.launches = 0
 
 
+PANEL = 16  # csrc/bank.cu kPt: the blocked kernel's panel and tile edge
+MAX_MEMBERS_PER_BLOCK = 8  # csrc/bank.cu kMaxMembers
+
+
+@dataclasses.dataclass(frozen=True)
+class BankCholPlan:
+    """How ``csrc/bank.cu`` factors a (B, n, n) batch: ``path`` is
+    ``"blocked"`` (float32: one warp per member, ``members_per_block`` of
+    them a block, each holding its :func:`member_tiles` in shared memory)
+    or ``"eliminate"`` (the augmented elimination, one block per member;
+    ``members_per_block`` 0, the code the C entry takes for it)."""
+
+    path: str
+    members_per_block: int
+
+
+def member_tiles(n: int) -> int:
+    """Shared-memory tiles of one member on the blocked path: the P (P + 1)
+    / 2 lower tiles of the member padded to P = ceil(n / 16) a side, plus a
+    scratch tile when P = 1 (csrc/bank.cu ``member_tiles``)."""
+    p = -(-n // PANEL)
+    return p * (p + 1) // 2 + (1 if p == 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def bank_chol_plan(n: int, dtype: torch.dtype, smem_limit: int) -> BankCholPlan:
+    """The bank Cholesky's path at member size n: float32 members whose
+    tiles fit ``smem_limit`` (the card's opt-in shared memory per block)
+    take the blocked tensor-core kernel with as many members per block as
+    fit, at most :data:`MAX_MEMBERS_PER_BLOCK`; float64, and float32 members
+    too large for it (n > 320 on an H100), take the augmented
+    elimination."""
+    member = member_tiles(n) * PANEL * PANEL * 4
+    if dtype != torch.float32 or member > smem_limit:
+        return BankCholPlan("eliminate", 0)
+    return BankCholPlan("blocked",
+                        min(MAX_MEMBERS_PER_BLOCK, smem_limit // member))
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device_index: int) -> int:
+    """The card's opt-in shared memory per block, in bytes."""
+    kl = load_library()
+    limit = kl.lib.egp_smem_optin(device_index)
+    kl.check(max(0, -limit), "shared-memory query")
+    return limit
+
+
 def bank_cholesky_solve_cuda(K, y):
     """(L, L_inv, alpha = K^{-1} y) for a gram batch K (B, n, n), read from
     its lower triangle; y (B, n, q).
 
     CPU tensors take :func:`bank_cholesky_solve_plain`; CUDA tensors launch
-    ``csrc/bank.cu`` (counted in ``bank_cholesky_solve_cuda.launches``) or
-    raise."""
+    ``csrc/bank.cu`` on the path :func:`bank_chol_plan` picks (counted in
+    ``bank_cholesky_solve_cuda.launches``) or raise."""
     if K.device.type == "cpu" and y.device.type == "cpu":
         return bank_cholesky_solve_plain(K, y)
     check_cuda_operands("bank_cholesky_solve_cuda", K.dtype, K, y)
@@ -130,14 +181,14 @@ def bank_cholesky_solve_cuda(K, y):
     if b == 0 or n == 0:
         raise ValueError(f"bank_cholesky_solve_cuda: empty operand, B={b} "
                          f"n={n}")
-    L = torch.empty_like(K)
-    L_inv = torch.empty_like(K)
+    L, L_inv = torch.empty((2, b, n, n), dtype=K.dtype, device=K.device)
     kl = load_library()
     fn = kl.lib.egp_bank_chol_f32 if K.dtype == torch.float32 else \
         kl.lib.egp_bank_chol_f64
+    plan = bank_chol_plan(n, K.dtype, smem_optin(K.device.index))
     stream = torch.cuda.current_stream(K.device).cuda_stream
     code = fn(K.data_ptr(), L.data_ptr(), L_inv.data_ptr(), b, n,
-              K.device.index, stream)
+              plan.members_per_block, K.device.index, stream)
     kl.check(code, "bank Cholesky kernel launch")
     bank_cholesky_solve_cuda.launches += 1
     return L, L_inv, solve_alpha(L_inv, y)

@@ -2,12 +2,17 @@
 (``csrc/fitc.cu``) and its plain PyTorch version.
 
 Counterpart of ``erl_gaussian_process_tpu/ops/pallas_fitc.py``. The L_inv
-product, the weighted SYRK and the ``y`` product all run inside the kernel;
-the Kahan accumulation of the result stays with the caller
-(``models/sparse_pseudo_input_gp.spgp_update``).
+product, the weighted SYRK and the ``y`` product all run inside the kernel's
+three launches; the Kahan accumulation of the result stays with the caller
+(``models/sparse_pseudo_input_gp.spgp_update``). :func:`fitc_plan` is the
+host side of the kernel's grid: its tiles and the N-split of the SYRK.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+import math
 
 import torch
 
@@ -18,7 +23,89 @@ from erl_gaussian_process_tpu_torch.ops.gram import (
     family_args,
 )
 
-_TILE = 64  # csrc/fitc.cu kTile: rows of beta per partial sum
+TILE = 64  # csrc/fitc.cu kTile: the tile edge of beta and of dQ
+SYRK_BLOCKS_PER_SM = 3  # the SYRK's blocks per SM a split plan aims at
+LAUNCHES = 3  # kmn, beta (+ weights), SYRK (+ dalpha)
+
+
+def lower_tile(b: int) -> tuple:
+    """(tr, tc), tc <= tr: the lower tile that SYRK tile index b stands for,
+    row by row (``csrc/fitc.cu`` ``lower_tile``)."""
+    tr = int((math.sqrt(8.0 * b + 1.0) - 1.0) * 0.5)
+    while tr * (tr + 1) // 2 > b:
+        tr -= 1
+    while (tr + 1) * (tr + 2) // 2 <= b:
+        tr += 1
+    return tr, b - tr * (tr + 1) // 2
+
+
+@dataclasses.dataclass(frozen=True)
+class FitcPlan:
+    """The kernel's grid at (m, n): ``row_blocks`` x ``col_blocks`` tiles of
+    beta, ``tiles`` lower tiles of dQ, each summed over ``splits`` chunks of
+    ``chunk`` samples (a multiple of :data:`TILE`; the last one may be
+    short), in ``launches`` kernel launches."""
+
+    row_blocks: int
+    col_blocks: int
+    tiles: int
+    splits: int
+    chunk: int
+    launches: int = LAUNCHES
+
+    def split_range(self, s: int, n: int) -> range:
+        """The samples split s sums."""
+        return range(s * self.chunk, min(n, (s + 1) * self.chunk))
+
+
+@functools.lru_cache(maxsize=None)
+def fitc_plan(m: int, n: int, sms: int) -> FitcPlan:
+    """The FITC kernel's plan for M = m pseudo points and n samples on a
+    card with ``sms`` SMs: as many N-splits as keep the SYRK's tiles x
+    splits blocks within :data:`SYRK_BLOCKS_PER_SM` per SM (4 fit one SM's
+    shared memory), each split at least one 64-sample panel and every split
+    non-empty: 171 tiles x 2 splits of 1024 at the hotel-0 shape on an
+    H100, the fastest of 1 to 8 splits there (PERF.md)."""
+    row_blocks = -(-m // TILE)
+    tiles = row_blocks * (row_blocks + 1) // 2
+    panels = -(-n // TILE)
+    splits = max(1, min(panels, SYRK_BLOCKS_PER_SM * sms // tiles))
+    chunk = -(-panels // splits) * TILE
+    return FitcPlan(row_blocks=row_blocks, col_blocks=panels, tiles=tiles,
+                    splits=-(-n // chunk), chunk=chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _family_arrays(name: str) -> tuple:
+    """(family id, component count, ratios, weights) as the C entry takes
+    them; the ctypes arrays are read, never written, by the kernel."""
+    fam, ratios, weights = family_args(name)
+    return fam, len(ratios), double_array(ratios), double_array(weights)
+
+
+def _buffers(plan: FitcPlan, m: int, n: int, q: int, dtype, device):
+    """dQ (m, m), dalpha (m, q) and the addresses of the kernel's scratch
+    (kmn, the beta partials, w, the SYRK's workspace, the int32 arrival
+    counters), all in one allocation of 16-byte aligned parts: one
+    allocator call a pose instead of seven."""
+    item = 4 if dtype == torch.float32 else 8
+    sizes = (m * m, m * q, m * n, plan.row_blocks * n, n,
+             plan.tiles * plan.splits * TILE * TILE,
+             -(-4 * (plan.col_blocks + plan.tiles) // item))
+    align = 16 // item
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + -(-size // align) * align)
+    buf = torch.empty((offsets[-1],), dtype=dtype, device=device)
+    base = buf.data_ptr()
+    return (buf[:m * m].view(m, m),
+            buf[offsets[1]:offsets[1] + m * q].view(m, q),
+            [base + item * o for o in offsets[2:-1]])
 
 
 def fitc_update_plain(name: str, pseudo, linv, x, y, var, mask, scale):
@@ -37,10 +124,12 @@ def fitc_update_plain(name: str, pseudo, linv, x, y, var, mask, scale):
 def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
     """(dQ_M (M, M), dalpha (M, q)) for one rank-N FITC update.
 
-    pseudo: (M, d); linv: (M, M) = chol(K_M)^{-1}; x: (n, d); y: (n, q);
-    var: (n,); mask: (n,) bool. Any M and n. CPU tensors take
-    :func:`fitc_update_plain`; CUDA tensors launch ``csrc/fitc.cu``
-    (counted in ``fitc_update_cuda.launches``) or raise."""
+    pseudo: (M, d); linv: (M, M) = chol(K_M)^{-1}, lower triangular (the
+    kernel does not read its upper part); x: (n, d); y: (n, q); var: (n,);
+    mask: (n,) bool. Any M and n. CPU tensors take
+    :func:`fitc_update_plain`; CUDA tensors launch ``csrc/fitc.cu``, the
+    :data:`LAUNCHES` kernels of :func:`fitc_plan`'s grid (one call counted
+    in ``fitc_update_cuda.launches``), or raise."""
     tensors = (pseudo, linv, x, y, var, mask)
     if all(t.device.type == "cpu" for t in tensors):
         return fitc_update_plain(name, pseudo, linv, x, y, var, mask, scale)
@@ -63,21 +152,19 @@ def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
     if m == 0 or n == 0 or d == 0 or q == 0:
         raise ValueError(f"fitc_update_cuda: empty operand, m={m} n={n} "
                          f"d={d} q={q}")
-    fam, ratios, weights = family_args(name)
+    fam, ncomp, ratios, weights = _family_arrays(name)
     dev = pseudo.device
-    kmn = torch.empty((m, n), dtype=dt, device=dev)
-    partial = torch.empty((-(-m // _TILE), n), dtype=dt, device=dev)
-    w = torch.empty((n,), dtype=dt, device=dev)
-    dq = torch.empty((m, m), dtype=dt, device=dev)
-    da = torch.empty((m, q), dtype=dt, device=dev)
+    plan = fitc_plan(m, n, _sms(dev.index))
+    dq, da, (kmn, partial, w, ws, counters) = _buffers(plan, m, n, q, dt,
+                                                       dev)
     kl = load_library()
     fn = kl.lib.egp_fitc_f32 if dt == torch.float32 else kl.lib.egp_fitc_f64
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(pseudo.data_ptr(), linv.data_ptr(), x.data_ptr(), y.data_ptr(),
-              var.data_ptr(), mask.data_ptr(), kmn.data_ptr(),
-              partial.data_ptr(), w.data_ptr(), dq.data_ptr(), da.data_ptr(),
-              m, n, d, q, fam, len(ratios), double_array(ratios),
-              double_array(weights), float(scale), dev.index, stream)
+              var.data_ptr(), mask.data_ptr(), kmn, partial, w,
+              dq.data_ptr(), da.data_ptr(), ws, counters, m, n, d, q,
+              plan.splits, plan.chunk, fam, ncomp, ratios, weights,
+              float(scale), dev.index, stream)
     kl.check(code, "FITC kernel launch")
     fitc_update_cuda.launches += 1
     return dq, da

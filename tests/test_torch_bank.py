@@ -351,3 +351,79 @@ def test_reduced_rank_banks_are_deferred():
     with pytest.raises(NotImplementedError, match="item 11"):
         bank_predict_assigned(state, xs[0], np.zeros(24, np.int32), 0.4,
                               kernel="rbf", basis=object())
+
+
+# -- the bank Cholesky's plan (csrc/bank.cu's two paths) ---------------------
+
+H100_SMEM_OPTIN = 232448  # bytes of shared memory a block may opt into
+
+
+@pytest.mark.parametrize("n", [1, 12, 16, 17, 24, 100, 104, 112, 300, 320])
+def test_bank_chol_plan_takes_the_blocked_path_where_members_fit(n):
+    """float32 members up to n = 320 take the blocked kernel on an H100,
+    as many a block as fit (at most 8), each a slab of its lower 16 x 16
+    tiles, one warp each; n = 104 fits 8 members a block, so B = 1000 is
+    one wave of 125 blocks."""
+    from erl_gaussian_process_tpu_torch.ops.bank import (
+        MAX_MEMBERS_PER_BLOCK,
+        PANEL,
+        bank_chol_plan,
+        member_tiles,
+    )
+
+    plan = bank_chol_plan(n, torch.float32, H100_SMEM_OPTIN)
+    p = -(-n // PANEL)
+    member = member_tiles(n) * PANEL * PANEL * 4
+    assert member_tiles(n) == p * (p + 1) // 2 + (p == 1)
+    assert plan.path == "blocked"
+    assert 1 <= plan.members_per_block <= MAX_MEMBERS_PER_BLOCK
+    assert plan.members_per_block * member <= H100_SMEM_OPTIN
+    more = plan.members_per_block + 1
+    assert more > MAX_MEMBERS_PER_BLOCK or more * member > H100_SMEM_OPTIN
+    if n == 104:
+        assert plan.members_per_block == 8 and -(-1000 // 8) <= 132
+
+
+@pytest.mark.parametrize("n,dtype", [(104, torch.float64), (12, torch.float64),
+                                     (336, torch.float32),
+                                     (512, torch.float32)])
+def test_bank_chol_plan_keeps_the_elimination_elsewhere(n, dtype):
+    """float64, and float32 members whose tiles do not fit a block, take the
+    augmented elimination (members_per_block 0 in the C entry)."""
+    from erl_gaussian_process_tpu_torch.ops.bank import bank_chol_plan
+
+    plan = bank_chol_plan(n, dtype, H100_SMEM_OPTIN)
+    assert (plan.path, plan.members_per_block) == ("eliminate", 0)
+
+
+def test_bank_chol_plan_follows_the_cards_shared_memory():
+    """A card with less shared memory packs fewer members a block, and
+    moves the largest sizes to the elimination."""
+    from erl_gaussian_process_tpu_torch.ops.bank import bank_chol_plan
+
+    small = 101376
+    assert bank_chol_plan(104, torch.float32, small).members_per_block == 3
+    assert bank_chol_plan(240, torch.float32, small).path == "eliminate"
+
+
+@pytest.mark.parametrize("n", [5, 17, 100, 104])
+def test_identity_padding_leaves_the_leading_factor_exact(n):
+    """The blocked kernel factors the member padded to a multiple of 16 with
+    identity rows: the padded factor is [[L, 0], [0, I]] and its inverse
+    [[L^-1, 0], [0, I]] (float64, against the unpadded factor)."""
+    rng = np.random.default_rng(n)
+    X = rng.normal(size=(n, 8))
+    K = torch.as_tensor(X @ X.T / 8 + 2 * np.eye(n))
+    p = -(-n // 16) * 16
+    Kp = torch.eye(p, dtype=K.dtype)
+    Kp[:n, :n] = K
+    L, L_inv, _ = bank_cholesky_solve_plain(K[None], torch.ones(1, n, 1,
+                                                                 dtype=K.dtype))
+    Lp, Lp_inv, _ = bank_cholesky_solve_plain(
+        Kp[None], torch.ones(1, p, 1, dtype=K.dtype))
+    _close(Lp[0, :n, :n], L[0], 1e-14)
+    _close(Lp_inv[0, :n, :n], L_inv[0], 1e-14)
+    eye = torch.eye(p - n, dtype=K.dtype)
+    assert torch.equal(Lp[0, n:, n:], eye) and torch.equal(Lp_inv[0, n:, n:],
+                                                            eye)
+    assert not Lp[0, n:, :n].any() and not Lp_inv[0, n:, :n].any()

@@ -91,9 +91,11 @@ def _fitc_args(cuda, dtype, m, n, var, seed=5):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m,n", [(1152, 2048), (1089, 1500), (70, 33)])
+@pytest.mark.parametrize("m,n", [(1152, 2048), (1089, 1500), (70, 33),
+                                 (1152, 2000)])
 def test_fitc_kernel_matches_plain(cuda, dtype, m, n):
-    """Ragged shapes included (the kernel masks its own edges); dQ exactly
+    """Ragged shapes included (the kernel masks its own edges; n = 1500 and
+    2000 are not multiples of the SYRK's split chunk); dQ exactly
     symmetric; one launch counted; float32 at var = 0.1 to 1e-4 and
     float64 at var = 1e-4 to 1e-10 of the result's magnitude."""
     var, tol = (0.1, 1e-4) if dtype == torch.float32 else (1e-4, 1e-10)
@@ -108,12 +110,70 @@ def test_fitc_kernel_matches_plain(cuda, dtype, m, n):
     assert torch.equal(dq, dq.T)
 
 
-def test_fitc_kernel_is_deterministic(cuda):
-    """No float atomics: two launches on the same inputs agree bit for bit."""
-    args = _fitc_args(cuda, torch.float32, 1152, 2048, 1e-4)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fitc_kernel_is_deterministic(cuda, dtype):
+    """No float atomics (an integer counter picks which block sums a
+    tile's split partials, never their order): two launches on the same
+    inputs agree bit for bit, and dQ is exactly symmetric."""
+    args = _fitc_args(cuda, dtype, 1152, 2048, 1e-4)
     a = fitc_update_cuda(*args)
     b = fitc_update_cuda(*args)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0], a[0].T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fitc_kernel_all_masked_is_zero(cuda, dtype):
+    """A pose whose samples are all masked adds exactly nothing."""
+    args = list(_fitc_args(cuda, dtype, 1089, 1500, 1e-4))
+    args[6] = torch.zeros_like(args[6])
+    dq, da = fitc_update_cuda(*args)
+    assert not dq.any() and not da.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fitc_kernel_far_point_rows_are_zero(cuda, dtype):
+    """The map's far-point padded pseudo points (1089 padded to 1152) give
+    rows and columns of dQ and rows of dalpha that are exactly 0."""
+    rng = np.random.default_rng(6)
+    pseudo = torch.as_tensor(pad_pseudo_points(rng.uniform(-2, 2, (1089, 3))),
+                             dtype=dtype, device=cuda)
+    st = spgp_init(pseudo, 0.6, kernel="matern32")
+    args = list(_fitc_args(cuda, dtype, 1152, 2048, 0.1))
+    args[1:3] = [st.pseudo, st.L_inv]
+    dq, da = fitc_update_cuda(*args)
+    dq_ref, da_ref = fitc_update_plain(*args)
+    assert (dq[1089:] == 0).all() and (dq[:, 1089:] == 0).all()
+    assert (da[1089:] == 0).all()
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert float((dq - dq_ref).abs().max() / dq_ref.abs().max()) <= tol
+
+
+def _device_kernels(fn):
+    """{kernel name: launches} of ``fn()`` on the card, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", [(1152, 2048), (70, 33)])
+def test_fitc_kernel_launches_as_planned(cuda, dtype, m, n):
+    """One call is the plan's launches on the card and nothing else (no
+    memset of the workspace or the counters)."""
+    from erl_gaussian_process_tpu_torch.ops.fitc import fitc_plan
+
+    args = _fitc_args(cuda, dtype, m, n, 0.1)
+    fitc_update_cuda(*args)                      # build and warm up
+    kernels = _device_kernels(lambda: fitc_update_cuda(*args))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sum(kernels.values()) == fitc_plan(m, n, sms).launches == 3, \
+        kernels
 
 
 def test_wrappers_raise_on_operands_the_kernels_do_not_take(cuda):
@@ -249,21 +309,95 @@ def test_bank_fit_kernel_is_deterministic_and_batch_independent(cuda):
     assert torch.equal(single[1][0], a[1][800])
 
 
-@pytest.mark.parametrize("dtype,tol,atol", [(torch.float32, 1e-4, 1e-3),
-                                            (torch.float64, 1e-10, 1e-10)])
-@pytest.mark.parametrize("n", [12, 104, 300])
-def test_bank_chol_kernel_matches_plain(cuda, dtype, tol, atol, n):
-    rng = np.random.default_rng(1)
-    X = rng.normal(size=(21, n, 8))
+def _chol_bank(cuda, b, n, dtype, seed=1):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(b, n, 8))
     K = torch.as_tensor(np.einsum("bnd,bmd->bnm", X, X) / 8 + 2 * np.eye(n),
                         dtype=dtype, device=cuda)
-    y = torch.as_tensor(rng.normal(size=(21, n, 1)), dtype=dtype, device=cuda)
+    y = torch.as_tensor(rng.normal(size=(b, n, 1)), dtype=dtype, device=cuda)
+    return K, y
+
+
+@pytest.mark.parametrize("dtype,tol,atol", [(torch.float32, 1e-4, 1e-3),
+                                            (torch.float64, 1e-10, 1e-10)])
+@pytest.mark.parametrize("n", [12, 100, 104, 112, 300])
+def test_bank_chol_kernel_matches_plain(cuda, dtype, tol, atol, n):
+    """Sizes on and off the blocked kernel's 16-grid (float32: the blocked
+    path, 8 members a block up to n = 112, one at n = 300; float64: the
+    elimination); L exactly lower triangular."""
+    K, y = _chol_bank(cuda, 21, n, dtype)
     before = launch_counts()["bank_chol"]
     got = bank_cholesky_solve_cuda(K, y)
     torch.cuda.synchronize()
     assert launch_counts()["bank_chol"] == before + 1
     eL, ea, eI = _bank_errors(got, bank_cholesky_solve_plain(K, y))
     assert eL <= tol and ea <= atol and eI <= tol
+    assert (torch.triu(got[0], 1) == 0).all()
+    assert (torch.triu(got[1], 1) == 0).all()
+
+
+def test_bank_chol_plan_on_the_card(cuda):
+    """The card's shared memory gives the blocked path at the bank's size:
+    8 members of n = 104 a block, one warp each, so (1000, 104) is one
+    wave."""
+    from erl_gaussian_process_tpu_torch.ops.bank import (
+        bank_chol_plan,
+        smem_optin,
+    )
+
+    plan = bank_chol_plan(104, torch.float32, smem_optin(cuda.index or 0))
+    assert (plan.path, plan.members_per_block) == ("blocked", 8)
+
+
+@pytest.mark.parametrize("n", [5, 100, 104])
+def test_bank_chol_identity_padding_is_exact(cuda, n):
+    """The blocked kernel pads a member to a multiple of 16 with identity
+    rows: its factor equals, bit for bit, the leading block of the factor
+    of the member padded with identity by hand, whose padding comes out as
+    exact identity and zeros."""
+    K, y = _chol_bank(cuda, 9, n, torch.float32, seed=2)
+    p = -(-n // 16) * 16
+    Kp = torch.eye(p, device=cuda).repeat(9, 1, 1)
+    Kp[:, :n, :n] = K
+    yp = torch.zeros((9, p, 1), device=cuda)
+    yp[:, :n] = y
+    L, Li, _ = bank_cholesky_solve_cuda(K, y)
+    Lp, Lpi, _ = bank_cholesky_solve_cuda(Kp, yp)
+    assert torch.equal(Lp[:, :n, :n], L) and torch.equal(Lpi[:, :n, :n], Li)
+    eye = torch.eye(p - n, device=cuda).expand(9, -1, -1)
+    assert torch.equal(Lp[:, n:, n:], eye) and torch.equal(Lpi[:, n:, n:], eye)
+    assert not Lp[:, n:, :n].any() and not Lpi[:, n:, :n].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [24, 104])
+def test_bank_chol_non_spd_member_is_nan(cuda, dtype, n):
+    """An indefinite member comes out all NaN (never clamped), its
+    neighbours in the same block bit for bit unchanged."""
+    K, y = _chol_bank(cuda, 11, n, dtype)
+    ok = bank_cholesky_solve_cuda(K, y)
+    K[5, n // 2, n // 2] = -4.0
+    bad = bank_cholesky_solve_cuda(K, y)
+    rest = [i for i in range(11) if i != 5]
+    for a, b in zip(bad[:2], ok[:2]):
+        assert torch.isnan(a[5]).all()
+        assert torch.equal(a[rest], b[rest])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bank_chol_member_alone_equals_it_in_the_bank(cuda, dtype):
+    """A member factored alone equals, bit for bit, the same member inside
+    a 1000-member bank (L and L^{-1}; whichever warp or block it lands
+    on), and two launches agree."""
+    K, y = _chol_bank(cuda, 1000, 104, dtype, seed=3)
+    a = bank_cholesky_solve_cuda(K, y)
+    b = bank_cholesky_solve_cuda(K, y)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for i in (0, 7, 8, 517, 999):
+        alone = bank_cholesky_solve_cuda(K[i:i + 1].contiguous(),
+                                         y[i:i + 1].contiguous())
+        assert torch.equal(alone[0][0], a[0][i])
+        assert torch.equal(alone[1][0], a[1][i])
 
 
 @pytest.mark.parametrize("c", [1, 3, 19, 128])
