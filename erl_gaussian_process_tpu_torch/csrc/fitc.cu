@@ -3,8 +3,9 @@
 // Replaces erl_gaussian_process_tpu/ops/pallas_fitc.py::_fitc_kernel (via
 // _fitc_update_padded / pallas_fitc_update), the hot loop of the SPGP
 // occupancy map. For pseudo points P (M, d), L_inv = chol(K_M)^{-1} (M, M,
-// lower triangular: its upper part is not read) and one pose's samples x
-// (N, d), y (N, q), var (N,), mask (N,):
+// lower triangular with exact zeros above the diagonal: only the 64 x 64
+// tiles on and below it are read, the diagonal tiles whole) and one pose's
+// samples x (N, d), y (N, q), var (N,), mask (N,):
 //
 //   kmn    = k(P, x)                                   (M, N)
 //   beta   = L_inv kmn                                 (M, N)
@@ -150,7 +151,9 @@ __global__ void __launch_bounds__(kTcThreads)
   const int rb = gridDim.y - 1 - blockIdx.y;
   const int r0 = rb * kTile;
   const int c0 = blockIdx.x * kTile;
-  const int kend = min(m, r0 + kTile);  // L_inv[r][k] = 0 for k > r
+  // L_inv[r][k] = 0 for k > r: the tiles right of the diagonal one are
+  // skipped, the diagonal tile's zeros are read and multiplied
+  const int kend = min(m, r0 + kTile);
   const int nch = (kend + kTcK - 1) / kTcK;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;

@@ -88,26 +88,6 @@ def _family_arrays(name: str) -> tuple:
     return fam, len(ratios), double_array(ratios), double_array(weights)
 
 
-def _buffers(plan: FitcPlan, m: int, n: int, q: int, dtype, device):
-    """dQ (m, m), dalpha (m, q) and the addresses of the kernel's scratch
-    (kmn, the beta partials, w, the SYRK's workspace, the int32 arrival
-    counters), all in one allocation of 16-byte aligned parts: one
-    allocator call a pose instead of seven."""
-    item = 4 if dtype == torch.float32 else 8
-    sizes = (m * m, m * q, m * n, plan.row_blocks * n, n,
-             plan.tiles * plan.splits * TILE * TILE,
-             -(-4 * (plan.col_blocks + plan.tiles) // item))
-    align = 16 // item
-    offsets = [0]
-    for size in sizes:
-        offsets.append(offsets[-1] + -(-size // align) * align)
-    buf = torch.empty((offsets[-1],), dtype=dtype, device=device)
-    base = buf.data_ptr()
-    return (buf[:m * m].view(m, m),
-            buf[offsets[1]:offsets[1] + m * q].view(m, q),
-            [base + item * o for o in offsets[2:-1]])
-
-
 def fitc_update_plain(name: str, pseudo, linv, x, y, var, mask, scale):
     """The plain PyTorch version of the FITC kernel, on any device: the
     beta-via-L_inv formulation of ``fitc_delta`` (the one the Pallas kernel
@@ -124,8 +104,10 @@ def fitc_update_plain(name: str, pseudo, linv, x, y, var, mask, scale):
 def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
     """(dQ_M (M, M), dalpha (M, q)) for one rank-N FITC update.
 
-    pseudo: (M, d); linv: (M, M) = chol(K_M)^{-1}, lower triangular (the
-    kernel does not read its upper part); x: (n, d); y: (n, q); var: (n,);
+    pseudo: (M, d); linv: (M, M) = chol(K_M)^{-1}, lower triangular with
+    exact zeros above the diagonal, as ``solve_triangular`` writes them (the
+    kernel reads only the 64 x 64 tiles on and below the diagonal, the
+    plain version all of it); x: (n, d); y: (n, q); var: (n,);
     mask: (n,) bool. Any M and n. CPU tensors take
     :func:`fitc_update_plain`; CUDA tensors launch ``csrc/fitc.cu``, the
     :data:`LAUNCHES` kernels of :func:`fitc_plan`'s grid (one call counted
@@ -155,14 +137,24 @@ def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
     fam, ncomp, ratios, weights = _family_arrays(name)
     dev = pseudo.device
     plan = fitc_plan(m, n, _sms(dev.index))
-    dq, da, (kmn, partial, w, ws, counters) = _buffers(plan, m, n, q, dt,
-                                                       dev)
+    dq = torch.empty((m, m), dtype=dt, device=dev)
+    da = torch.empty((m, q), dtype=dt, device=dev)
+    # scratch: kmn, the beta partials, the weights, the SYRK's partial
+    # tiles and the int32 arrival counters (zeroed by the first launch)
+    kmn = torch.empty((m, n), dtype=dt, device=dev)
+    partial = torch.empty((plan.row_blocks, n), dtype=dt, device=dev)
+    w = torch.empty((n,), dtype=dt, device=dev)
+    ws = torch.empty((plan.tiles * plan.splits, TILE, TILE), dtype=dt,
+                     device=dev)
+    counters = torch.empty((plan.col_blocks + plan.tiles,), dtype=torch.int32,
+                           device=dev)
     kl = load_library()
     fn = kl.lib.egp_fitc_f32 if dt == torch.float32 else kl.lib.egp_fitc_f64
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(pseudo.data_ptr(), linv.data_ptr(), x.data_ptr(), y.data_ptr(),
-              var.data_ptr(), mask.data_ptr(), kmn, partial, w,
-              dq.data_ptr(), da.data_ptr(), ws, counters, m, n, d, q,
+              var.data_ptr(), mask.data_ptr(), kmn.data_ptr(),
+              partial.data_ptr(), w.data_ptr(), dq.data_ptr(),
+              da.data_ptr(), ws.data_ptr(), counters.data_ptr(), m, n, d, q,
               plan.splits, plan.chunk, fam, ncomp, ratios, weights,
               float(scale), dev.index, stream)
     kl.check(code, "FITC kernel launch")
