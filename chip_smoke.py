@@ -11,8 +11,10 @@ The SPGP occupancy map's path:
    library (first use, into ``erl_gaussian_process_tpu_torch/_build/``);
 3. every kernel against its plain PyTorch version on the card, at the main
    path's shapes, with kernel and plain times (CUDA events, median of 20);
-   FITC's two products alone (``torch.matmul`` on a precomputed kmn) as a
-   note;
+   at the map's variance (1e-4) the float32 FITC kernel and its plain
+   version against the float64 update of the same inputs, the kernel's
+   errors no worse than 2x the plain version's; FITC's two products alone
+   (``torch.matmul`` on a precomputed kmn) as a note;
 4. the slice: the 983-pose replica-hotel-0 replay at full width (1089
    pseudo points padded to 1152, 384 rays, 2048-sample budget, float32)
    through ``SpGpOccupancyMap`` on the card — once pose by pose through
@@ -34,16 +36,22 @@ The 3D range-sensor GP's path:
    float64, a default-grouped 271x91 scan's 408 x 144 in float32; bank
    Cholesky: 1000 x 104; the batched gram on the operands the routed
    predict builds for the lidar and depth tests and for ``compute_occ``),
-   a non-SPD member NaN with its neighbours finite, kernel and plain times,
-   and ``torch.linalg.cholesky`` on the same grams as the yardstick;
+   a non-SPD member NaN in L, L^-1 and alpha with its neighbours bit for
+   bit unchanged, kernel and plain times, ``torch.linalg.cholesky`` on the
+   same grams as the yardstick at each float32 shape, and the bank fit at
+   each members-a-block count that fits beside the plan's;
 8. the lidar protocol (271x91 scan of the reference room, 10 000 sphere
    queries) through ``RangeSensorGaussianProcess3D.train``/``test`` at
-   float32: MSE <= 4.2e-4, ``compute_occ`` signs, one bank-fit launch per
-   train; then the depth protocol: MSE <= 2.2e-4;
+   float32: one ``train`` under ``torch.profiler`` (one bank-fit launch and
+   no matrix product), MSE <= 4.2e-4, ``compute_occ`` signs, one bank-fit
+   launch per train; the same scan at the default 12/4 grouping (408 x
+   144); then the depth protocol: MSE <= 2.2e-4;
 9. offline replay: ``train_scan_batch`` of 64 lidar scans (47 104 members)
-   in one bank-fit launch, equal bit for bit to per-scan ``train``;
+   in one bank-fit launch, equal bit for bit to per-scan ``train``, timed
+   as the median of 5 after a warm-up;
 10. ``BatchGPBank`` at (1000, 104): one bank-Cholesky launch, results
-    against numpy float64, identity padding exact.
+    against numpy float64, identity padding exact, the solve timed as the
+    median of 5 after a warm-up.
 
 The exact GPs' paths:
 
@@ -93,7 +101,9 @@ REPS = 20
 TIMING_REPLAYS = 4
 # gram: max abs error; FITC: relative to max |result|, at the variance
 # given (float32 at 0.1: the 1/(lambda + var) amplification of float32
-# rounding at the main path's 1e-4 makes a pointwise check meaningless)
+# rounding at the main path's 1e-4 makes a pointwise check against the
+# float32 plain version meaningless; at 1e-4 both are held against the
+# float64 truth instead, fitc_against_truth)
 GRAM_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 FITC_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 FITC_VAR = {torch.float64: 1e-4, torch.float32: 0.1}
@@ -106,6 +116,9 @@ LIDAR_MSE_GATE = 4.2e-4
 DEPTH_MSE_GATE = 2.2e-4
 SENSOR_REPS = 10
 REPLAY_SCANS = 64
+# timed runs of the replay and of BatchGPBank.solve after a warm-up, for
+# their median and range
+TIMED_RUNS = 5
 # compute_occ's points: each ray at these fractions of its measured range
 OCC_FRACTIONS = (0.6, 1.3)
 
@@ -245,6 +258,7 @@ def check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks):
                 fitc_err32 = float((dq - dq_ref).abs().max())
             if dt == torch.float32 and var_val == s.logodd_variance:
                 fitc_args = args
+    fitc_against_truth(fitc_args)
     out["fitc"] = {
         "max_abs_err": fitc_err32,
         "ms": cuda_ms(lambda: fitc_update_cuda(*fitc_args)),
@@ -265,6 +279,43 @@ def check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks):
     log_device_split("fitc M=1152 N=2048 float32",
                      lambda: fitc_update_cuda(*fitc_args))
     return out
+
+
+def fitc_against_truth(args):
+    """Phase 3's gate at the main path's variance: the float32 FITC kernel
+    and the float32 plain version against the float64 update of the same
+    inputs (the float32 pseudo points, samples and variances in float64,
+    L_inv from a float64 init), relative errors max |err| / max |truth| of
+    dQ and dalpha; the kernel's no worse than 2x the plain version's, as
+    the exact GPs are gated."""
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        spgp_init,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        fitc_update_cuda,
+        fitc_update_plain,
+    )
+
+    name, P, _, x, y, var, mask, scale = args
+    st64 = spgp_init(P.double(), scale, kernel=name)
+    truth = fitc_update_plain(name, st64.pseudo, st64.L_inv, x.double(),
+                              y.double(), var.double(), mask, scale)
+
+    def rel(got):
+        return tuple(float((g.double() - t).abs().max() / t.abs().max())
+                     for g, t in zip(got, truth))
+
+    (kq, ka) = rel(fitc_update_cuda(*args))
+    torch.cuda.synchronize()
+    (pq, pa) = rel(fitc_update_plain(*args))
+    v = float(var[0])
+    log(f"fitc float32 at var {v:g} vs the float64 update of the same "
+        f"inputs: relative error dQ kernel {kq:.3e} plain {pq:.3e}, dalpha "
+        f"kernel {ka:.3e} plain {pa:.3e} (gate <= {POSTERIOR_FACTOR:g}x "
+        "plain)")
+    check(kq <= POSTERIOR_FACTOR * pq and ka <= POSTERIOR_FACTOR * pa,
+          f"fitc float32 at var {v:g}: kernel error {kq}, {ka} > "
+          f"{POSTERIOR_FACTOR} x plain {pq}, {pa}")
 
 
 def device_kernels(fn) -> dict:
@@ -489,17 +540,27 @@ def check_bank_kernels(dev, lidar, depth):
     )
     from erl_gaussian_process_tpu_torch.workloads import lidar3d_setting
 
-    grouped12 = lidar3d_setting()
-    for k in ("row", "col"):
-        setattr(grouped12, f"{k}_group_size", 12)
-    cases = [("lidar protocol, groups 10/4", lidar3d_setting(), np.float32),
-             ("271x91 scan, groups 12/4", grouped12, np.float32),
-             ("lidar protocol, groups 10/4", lidar3d_setting(), np.float64)]
+    from erl_gaussian_process_tpu_torch.ops.bank import (
+        MAX_MEMBERS_PER_BLOCK,
+        bank_chol_plan,
+        member_tiles,
+        smem_optin,
+    )
+
+    smem = smem_optin(dev.index or 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [("bank_fit", "lidar protocol, groups 10/4", lidar3d_setting(),
+              np.float32),
+             ("bank_fit_408x144", "271x91 scan, groups 12/4",
+              default_grouped_setting(), np.float32),
+             (None, "lidar protocol, groups 10/4", lidar3d_setting(),
+              np.float64)]
     out = {}
-    for label, setting, np_dt in cases:
+    for key, label, setting, np_dt in cases:
         gp = RangeSensorGaussianProcess3D(setting, dtype=np_dt, device=dev)
         x, y, v, m = gp._gather_scans(lidar[3][None])
         dt, kern, scale = x.dtype, gp._kernel, gp._scale
+        B, n = x.shape[:2]
         got = bank_fit_cuda(kern, x, y, v, m, scale)
         torch.cuda.synchronize()
         ref = bank_fit_plain(kern, x, y, v, m, scale)
@@ -507,42 +568,54 @@ def check_bank_kernels(dev, lidar, depth):
         tol = BANK_TOL[dt]
         ms = cuda_ms(lambda: bank_fit_cuda(kern, x, y, v, m, scale))
         plain_ms = cuda_ms(lambda: bank_fit_plain(kern, x, y, v, m, scale))
-        log(f"bank_fit {label} {str(dt):14s} B={x.shape[0]} n={x.shape[1]} "
-            f"{kern}: L max_abs_err {eL:.3e}, alpha rel_err {ea:.3e}, "
-            f"|L_inv L - I| {eI:.3e} (tol {tol:g}); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+        plan = bank_chol_plan(n, dt, smem, B, sms)
+        log(f"bank_fit {label} {str(dt):14s} B={B} n={n} {kern} ({plan.path}"
+            f", {plan.members_per_block} members a block): L max_abs_err "
+            f"{eL:.3e}, alpha rel_err {ea:.3e}, |L_inv L - I| {eI:.3e} (tol "
+            f"{tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         check(max(eL, ea, eI) <= tol,
               f"bank_fit {label} {dt}: errors {eL}, {ea}, {eI} > {tol}")
         check(bool((torch.triu(got[0], 1) == 0).all()),
               f"bank_fit {label} {dt}: L not lower triangular")
-        if "bank_fit" not in out:
-            # no one call builds the gram and gives L, L^{-1} and alpha;
-            # the Cholesky of the same grams is logged for the comparison
-            Kb = train_gram(kern, x, torch.where(m, v, torch.zeros_like(v)),
-                            scale, mask=m)
-            chol_ms = cuda_ms(lambda: torch.linalg.cholesky(Kb))
-            log(f"bank_fit note: torch.linalg.cholesky on the "
-                f"{tuple(Kb.shape)} {str(dt)} grams {chol_ms:.4f} ms (L "
-                "alone, the gram built outside)")
-            out["bank_fit"] = {"max_abs_err": eL, "ms": ms,
-                               "plain_ms": plain_ms, "library_ms": None}
-            first = (kern, x, y, v, m, scale, got[0])
+        if key is None:
+            continue
+        # no one call builds the gram and gives L, L^{-1} and alpha; the
+        # Cholesky of the same grams, built outside, is the yardstick
+        Kb = train_gram(kern, x, torch.where(m, v, torch.zeros_like(v)),
+                        scale, mask=m)
+        chol_ms = cuda_ms(lambda: torch.linalg.cholesky(Kb))
+        b_ms, b_by = bank_fit_bound(B, n, x.shape[2], y.shape[2])
+        log(f"bank_fit yardstick: torch.linalg.cholesky on the "
+            f"{tuple(Kb.shape)} {str(dt)} grams {chol_ms:.4f} ms (L alone); "
+            f"kernel {ms / chol_ms:.3f}x of it; bound {b_ms:.4f} ms ({b_by})")
+        out[key] = {"max_abs_err": eL, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        # the plan's members a block against the other counts that fit
+        fits = min(MAX_MEMBERS_PER_BLOCK, smem // (member_tiles(n) * 1024))
+        sweep = {c: cuda_ms(lambda: bank_fit_cuda(kern, x, y, v, m, scale,
+                                                  members_per_block=c))
+                 for c in range(1, fits + 1)}
+        log(f"bank_fit B={B} n={n} members a block (blocks): "
+            + ", ".join(f"{c} ({-(-B // c)}) {t:.4f} ms"
+                        for c, t in sweep.items())
+            + f"; the plan takes {plan.members_per_block}")
+        if key == "bank_fit":
+            first = (kern, x, y, v, m, scale, got)
 
     # a trained member of the lidar bank made indefinite: all NaN, and its
     # neighbours bit for bit what they were
-    kern, x, y, v, m, scale, L_ok = first
+    kern, x, y, v, m, scale, ok = first
     b = int(torch.nonzero(m[:, 0])[3])
     v_bad = v.clone()
     v_bad[b, 0] = -50.0
-    L_bad, Li_bad, a_bad = bank_fit_cuda(kern, x, y, v_bad, m, scale)
+    bad = bank_fit_cuda(kern, x, y, v_bad, m, scale)
     rest = torch.arange(x.shape[0], device=dev) != b
-    check(bool(torch.isnan(L_bad[b]).all() and torch.isnan(Li_bad[b]).all()
-               and torch.isnan(a_bad[b]).all()),
+    check(all(bool(torch.isnan(t[b]).all()) for t in bad),
           "bank_fit: a non-SPD member is not NaN")
-    check(bool(torch.equal(L_bad[rest], L_ok[rest])),
+    check(all(bool(torch.equal(t[rest], u[rest])) for t, u in zip(bad, ok)),
           "bank_fit: a non-SPD member changed its neighbours")
-    log(f"bank_fit: non-SPD member {b} all NaN, the other {int(rest.sum())} "
-        "members bit for bit unchanged")
+    log(f"bank_fit: non-SPD member {b} all NaN (L, L^-1, alpha), the other "
+        f"{int(rest.sum())} members bit for bit unchanged")
 
     # BatchGPBank.solve's shape (the JAX package's torch-sweep shape)
     rng = np.random.default_rng(1)
@@ -566,12 +639,17 @@ def check_bank_kernels(dev, lidar, depth):
     # the library yardstick: one torch.linalg.cholesky call on the same
     # batch computes L alone (the kernel also gives L^{-1} and alpha)
     lib_ms = cuda_ms(lambda: torch.linalg.cholesky(K))
+    n = K.shape[1]
+    b_ms, b_by = bound(4 * 1000 * (n * (n + 1) // 2 + 2 * n * n + 2 * n),
+                       1000 * (2 * n ** 3 / 3 + 2 * n * n))
     log(f"bank_chol library yardstick: torch.linalg.cholesky on the "
-        f"{tuple(K.shape)} float32 batch {lib_ms:.4f} ms (L alone)")
+        f"{tuple(K.shape)} float32 batch {lib_ms:.4f} ms (L alone); bound "
+        f"{b_ms:.4f} ms ({b_by})")
     out["bank_chol"] = {"max_abs_err": eL, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": lib_ms}
-    log_device_split("bank_chol (1000, 104) float32 (with alpha's two "
-                     "products)", lambda: bank_cholesky_solve_cuda(K, y))
+                        "library_ms": lib_ms, "bound_ms": b_ms,
+                        "bound_by": b_by}
+    log_device_split("bank_chol (1000, 104) float32 (alpha in the kernel)",
+                     lambda: bank_cholesky_solve_cuda(K, y))
 
     # the batched gram on the operands the routed predict gives it: the
     # lidar and depth tests' buckets and compute_occ's, whose few queries
@@ -613,6 +691,24 @@ def check_bank_kernels(dev, lidar, depth):
     log(f"gram_batched timed at the lidar test's bucket {tuple(x1.shape)} x "
         f"{tuple(x2.shape)}")
     return out
+
+
+def default_grouped_setting():
+    """The lidar protocol's scan at the setting's default 12/4 grouping
+    (408 partitions of 144 samples)."""
+    from erl_gaussian_process_tpu_torch.workloads import lidar3d_setting
+
+    s = lidar3d_setting()
+    s.row_group_size = s.col_group_size = 12
+    return s
+
+
+def bank_fit_bound(B, n, d, q):
+    """(ms, by) of the bank fit of B members: x, var, mask and y read once,
+    L, L^{-1} and alpha written once; the factor and inverse 2 n^3 / 3, the
+    gram ~11 operations an entry of its lower half, alpha 2 n^2 a column."""
+    nbytes = 4 * B * (2 * n * n + n * d + n + 2 * n * q) + B * n
+    return bound(nbytes, B * (2 * n ** 3 / 3 + 11 * n * n / 2 + 2 * n * n * q))
 
 
 def routed_gram_operands(gp, dirs_local):
@@ -666,6 +762,24 @@ def run_sensor_gp(dev, card, lidar, depth):
     gp = RangeSensorGaussianProcess3D(setting, dtype=np.float32, device=dev)
     gp.train(R, t, ranges)                     # warm-up, not counted
     gp.test(q, False, True).get_mean()
+    # one train under torch.profiler: the bank fit is one launch and no
+    # matrix product runs beside it (alpha is formed in the kernel)
+    train_kernels = device_kernels(lambda: gp.train(R, t, ranges))
+    fit_launches = sum(c for k, (c, _) in train_kernels.items()
+                       if "bank_fit" in k)
+    gemms = {k: c for k, (c, _) in train_kernels.items()
+             if any(w in k.lower() for w in ("gemm", "gemv", "bmm"))}
+    fit_ms = sum(ms for k, (_, ms) in train_kernels.items()
+                 if "bank_fit" in k)
+    dev_ms = sum(ms for _, ms in train_kernels.values())
+    log(f"lidar train under torch.profiler: {fit_launches} bank-fit launch, "
+        f"{fit_ms:.4f} of {dev_ms:.4f} ms device time "
+        f"({sum(c for c, _ in train_kernels.values())} launches); products "
+        f"{gemms or 'none'}")
+    check(fit_launches == 1 and not gemms,
+          f"lidar train kernels: {fit_launches} bank fits, products {gemms}")
+    timings["train_device_ms"] = dev_ms
+    timings["train_bank_fit_device_ms"] = fit_ms
     reset_launch_counts()
     train_ms = [timed(lambda: gp.train(R, t, ranges))[1]
                 for _ in range(SENSOR_REPS)]
@@ -698,11 +812,34 @@ def run_sensor_gp(dev, card, lidar, depth):
     check(counts["lidar"]["gram_batched"] >= 5,
           "batched gram not launched by every test")
     timings["train_ms"] = statistics.median(train_ms)
+    timings["train_ms_range"] = [min(train_ms), max(train_ms)]
     timings["test_ms_10000"] = statistics.median(test_ms)
     log(f"lidar launch counts {counts['lidar']}; train "
-        f"{timings['train_ms']:.4f} ms (median of {SENSOR_REPS}), test of "
-        f"{len(q)} queries {timings['test_ms_10000']:.4f} ms (median of 5) "
-        f"on {card}")
+        f"{timings['train_ms']:.4f} ms (median of {SENSOR_REPS}, range "
+        f"{min(train_ms):.4f}-{max(train_ms):.4f}), test of {len(q)} queries "
+        f"{timings['test_ms_10000']:.4f} ms (median of 5) on {card}")
+
+    # the same scan at the setting's default grouping: 408 members of 144
+    ggp = RangeSensorGaussianProcess3D(default_grouped_setting(),
+                                       dtype=np.float32, device=dev)
+    ggp.train(R, t, ranges)                    # warm-up, not counted
+    reset_launch_counts()
+    grouped_ms = [timed(lambda: ggp.train(R, t, ranges))[1]
+                  for _ in range(SENSOR_REPS)]
+    counts["lidar_default_grouping"] = launch_counts()
+    gpred, gvalid = ggp.test(q, False, True).get_mean()
+    gmse = float(np.mean((gpred[gvalid] - gt[gvalid]) ** 2))
+    check(tuple(ggp.bank.L.shape) == (408, 144, 144)
+          and counts["lidar_default_grouping"]["bank_fit"] == SENSOR_REPS
+          and gvalid.any() and gmse <= LIDAR_MSE_GATE,
+          f"lidar at the default grouping: {tuple(ggp.bank.L.shape)}, "
+          f"{counts['lidar_default_grouping']}, MSE {gmse}")
+    timings["train_ms_default_grouping"] = statistics.median(grouped_ms)
+    log(f"lidar at the default 12/4 grouping (408 x 144): train "
+        f"{statistics.median(grouped_ms):.4f} ms (median of {SENSOR_REPS}, "
+        f"range {min(grouped_ms):.4f}-{max(grouped_ms):.4f}), MSE "
+        f"{gmse:.6e} (gate <= {LIDAR_MSE_GATE:g})")
+    del ggp
 
     ds, dR, dt_, dranges, dq, dgt, _ = depth
     dgp = RangeSensorGaussianProcess3D(ds, dtype=np.float32, device=dev)
@@ -721,12 +858,25 @@ def run_sensor_gp(dev, card, lidar, depth):
     _, Rs, ts, rb = lidar3d_replay_workload(REPLAY_SCANS)
     log(f"replay: {REPLAY_SCANS} scans ({rb.size} rays) raycast in "
         f"{time.perf_counter() - t0:.2f} s (host, outside the timed window)")
-    reset_launch_counts()
-    stacked, rep_ms = timed(lambda: gp.train_scan_batch(rb))
-    counts["replay"] = launch_counts()
+    # warm-up, then the counted replay and more for the median and range
+    gp.train_scan_batch(rb)
+    rep_times = []
+    for i in range(TIMED_RUNS):
+        if i == 0:
+            reset_launch_counts()
+        stacked, rep_ms = timed(lambda: gp.train_scan_batch(rb))
+        if i == 0:
+            counts["replay"] = launch_counts()
+            first_replay = stacked
+        rep_times.append(rep_ms)
+        del stacked
+    stacked = first_replay
+    rep_ms = statistics.median(rep_times)
     check(counts["replay"]["bank_fit"] == 1,
           f"replay bank_fit launches {counts['replay']['bank_fit']} != 1")
     timings["replay_scans_per_s"] = REPLAY_SCANS / (rep_ms / 1e3)
+    timings["replay_ms"] = rep_ms
+    timings["replay_ms_range"] = [min(rep_times), max(rep_times)]
     B = gp.bank.x.shape[0]
     check(stacked.L.shape[0] == REPLAY_SCANS * B and bool(
         torch.isfinite(stacked.L).all()), "replay bank not finite")
@@ -739,11 +889,12 @@ def run_sensor_gp(dev, card, lidar, depth):
         check(not differ, f"replay scan {k} differs from its per-scan "
                           f"train in {differ}")
     log(f"replay: {stacked.L.shape[0]} members, L and L_inv "
-        f"{stacked.L.nbytes / 2**30:.3f} GiB each, {rep_ms:.3f} ms = "
-        f"{timings['replay_scans_per_s']:.2f} scans/s; scans 0 and "
+        f"{stacked.L.nbytes / 2**30:.3f} GiB each, {rep_ms:.3f} ms (median "
+        f"of {TIMED_RUNS}, range {min(rep_times):.3f}-{max(rep_times):.3f}) "
+        f"= {timings['replay_scans_per_s']:.2f} scans/s; scans 0 and "
         f"{REPLAY_SCANS - 1} equal to per-scan train bit for bit; launch "
         f"counts {counts['replay']}")
-    del stacked
+    del stacked, first_replay
 
     rng = np.random.default_rng(2)
     bank = BatchGPBank(1000, 104, y_dim=1, dtype=np.float32, device=dev)
@@ -755,9 +906,21 @@ def run_sensor_gp(dev, card, lidar, depth):
         y = rng.normal(size=(n, 1))
         bank.load_gp_data(i, n, K, y)
         problems.append((K, y))
+    # solve() overwrites the right-hand sides with alpha (the reference's
+    # in-place semantics): each run starts from the loaded ones, restored
+    # outside the timed window
+    rhs = bank._alpha.copy()
+
+    def solve_once():
+        bank._alpha = rhs.copy()
+        return timed(bank.solve)[1]
+
+    solve_once()                               # warm-up, not counted
     reset_launch_counts()
-    _, solve_ms = timed(bank.solve)
+    solve_times = [solve_once()]
     counts["batch_gp_bank"] = launch_counts()
+    solve_times += [solve_once() for _ in range(TIMED_RUNS - 1)]
+    solve_ms = statistics.median(solve_times)
     check(counts["batch_gp_bank"]["bank_chol"] == 1,
           "BatchGPBank.solve did not launch the bank Cholesky once")
     worst_L = worst_a = 0.0
@@ -772,7 +935,9 @@ def run_sensor_gp(dev, card, lidar, depth):
                                      / np.abs(a_ref).max()))
         check(np.array_equal(L[n:, n:], np.eye(104 - n)) and not a[n:].any(),
               f"BatchGPBank member {i}: padding not exact")
-    log(f"BatchGPBank (1000, 104) float32: solve {solve_ms:.3f} ms; vs numpy "
+    log(f"BatchGPBank (1000, 104) float32: solve {solve_ms:.3f} ms (median "
+        f"of {TIMED_RUNS}, range {min(solve_times):.3f}-"
+        f"{max(solve_times):.3f}); vs numpy "
         f"float64 on 28 members: L max_abs_err {worst_L:.3e}, alpha rel_err "
         f"{worst_a:.3e} (tol {BANK_TOL[torch.float32]:g}, "
         f"{BANK_CHOL_ALPHA_TOL[torch.float32]:g}); padding exact; launch "
@@ -781,6 +946,8 @@ def run_sensor_gp(dev, card, lidar, depth):
           and worst_a <= BANK_CHOL_ALPHA_TOL[torch.float32],
           "BatchGPBank results vs numpy")
     timings["batch_gp_bank_solve_ms"] = solve_ms
+    timings["batch_gp_bank_solve_ms_range"] = [min(solve_times),
+                                               max(solve_times)]
     return counts, timings
 
 
@@ -789,6 +956,7 @@ def run_sensor_gp(dev, card, lidar, depth):
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 TF32X3_FLOPS = 495e12 / 3   # dense TF32 tensor cores, three products each
+FP64_TC_FLOPS = 67e12       # FP64 tensor cores
 CHOL_F32_FACTOR = 4.0       # backward error vs the plain version's, float32
 CHOL_F64_BERR = 1e-12
 POSTERIOR_FACTOR = 2.0      # posterior error vs the plain f32 fit's
@@ -1345,33 +1513,28 @@ def main() -> int:
                     "exact_gp_errors": exact_err, "nigp_errors": nigp_err,
                     "nigp_golden": golden, "card": card}))
 
-    # bounds of the earlier slices' kernels at their timed shapes (FP32
-    # outside the tensor cores, HBM; see bound()): FITC M=1152, N=2048, d=3
-    # (L_inv's lower triangle read, dQ written; the triangular L_inv product
-    # M (M + 1) N, the lower SYRK M (M + 1) N, kmn ~20 M N); gram 1152 x 2048
-    # (its write); bank fit 736 x 100 (L and L^{-1} written; elimination
-    # 2 n^3/3 per member); bank Cholesky 1000 x 104 (K's lower triangle read,
-    # L and L^{-1} written; factor and inverse 2 n^3/3). FITC and the bank
-    # Cholesky run their products in 3xTF32 at float32: their bound at that
-    # rate is logged beside
+    # bounds of the SPGP slice's kernels at their timed shapes (FP32
+    # outside the tensor cores, HBM; see bound(); the bank kernels' are
+    # computed in check_bank_kernels): FITC M=1152, N=2048, d=3 (L_inv's
+    # lower triangle read, dQ written; the triangular L_inv product M (M +
+    # 1) N, the lower SYRK M (M + 1) N, kmn ~20 M N); gram 1152 x 2048 (its
+    # write). At float32 FITC's beta runs on the FP64 tensor cores and its
+    # SYRK in 3xTF32: its bound at those rates is logged beside
     m_, n_ = 1152, 2048
     for name, nbytes, flops in (
             ("fitc", 4 * (m_ * (m_ + 1) // 2 + m_ * m_ + 6 * n_),
              2 * m_ * (m_ + 1) * n_ + 20 * m_ * n_),
-            ("gram", 4 * (m_ * n_ + 3 * (m_ + n_)), 20 * m_ * n_),
-            ("bank_fit", 4 * 736 * (2 * 100 * 100 + 3 * 100),
-             736 * (2 * 100 ** 3 / 3 + 100 * 100 / 2 * 11)),
-            ("bank_chol", 4 * 1000 * (104 * 105 // 2 + 2 * 104 * 104),
-             1000 * 2 * 104 ** 3 / 3)):
+            ("gram", 4 * (m_ * n_ + 3 * (m_ + n_)), 20 * m_ * n_)):
         kern[name]["bound_ms"], kern[name]["bound_by"] = bound(nbytes, flops)
         kern[name].setdefault("library_ms", None)
-        if name in ("fitc", "bank_chol"):
+        if name == "fitc":
+            half = m_ * (m_ + 1) * n_       # each product's operations
             tc_ms = max(1e3 * nbytes / HBM_BYTES_PER_S,
-                        1e3 * flops / TF32X3_FLOPS)
+                        1e3 * (half / FP64_TC_FLOPS + half / TF32X3_FLOPS))
             log(f"{name}: kernel {kern[name]['ms']:.4f} ms, bound "
                 f"{kern[name]['bound_ms']:.4f} ms ({kern[name]['bound_by']}, "
-                f"FP32) and {tc_ms:.4f} ms at the 3xTF32 rate its products "
-                f"run at, on {card}")
+                f"FP32) and {tc_ms:.4f} ms at the tensor-core rates its "
+                f"products run at (beta FP64, SYRK 3xTF32), on {card}")
 
     # launches of each kernel in the paths' runs: gram.cu serves the SPGP
     # predict (cross_gram), the sensor GPs' routed predict (batched) and the
@@ -1381,7 +1544,10 @@ def main() -> int:
         "fitc": counts["fitc"],
         "gram": counts["gram"] + exact_counts["gram"] + sum(
             c["gram_batched"] for c in sensor_counts.values()),
-        "bank_fit": sum(c["bank_fit"] for c in sensor_counts.values()),
+        "bank_fit": sum(c["bank_fit"] for k, c in sensor_counts.items()
+                        if k != "lidar_default_grouping"),
+        "bank_fit_408x144":
+            sensor_counts["lidar_default_grouping"]["bank_fit"],
         "bank_chol": sensor_counts["batch_gp_bank"]["bank_chol"],
     }
     for name in ("chol", "chol_gram", "chol_gram_joint", "trsv"):
@@ -1395,6 +1561,9 @@ def main() -> int:
                     "erl_gaussian_process_tpu/ops/pallas_fitc.py:145"),
            "bank_fit": ("erl_gaussian_process_tpu_torch/csrc/bank.cu",
                         "erl_gaussian_process_tpu/ops/pallas_bank.py:249"),
+           "bank_fit_408x144": (
+               "erl_gaussian_process_tpu_torch/csrc/bank.cu",
+               "erl_gaussian_process_tpu/ops/pallas_bank.py:249"),
            "bank_chol": ("erl_gaussian_process_tpu_torch/csrc/bank.cu",
                          "erl_gaussian_process_tpu/ops/pallas_bank.py:269"),
            "chol": (chol_src,

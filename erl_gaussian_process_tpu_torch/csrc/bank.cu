@@ -4,28 +4,33 @@
 // _fit_raw / bank_fit_fused) and ::_chol_kernel (via _chol_raw /
 // bank_cholesky_solve_fused). On the 3D range-sensor GP's path every scan
 // is one bank fit of (rows x cols) partitions: 736 members of n = 100 at the
-// reference lidar protocol; BatchGPBank.solve factors (1000, 104).
+// reference lidar protocol, 408 of n = 144 at the default-grouped scan;
+// BatchGPBank.solve factors (1000, 104).
 //
-// What one member computes, for the gram A (n x n): L (lower, zeros above)
-// and L^{-1}, where
+// What one member computes, for the gram A (n x n) and y (n x q): L (lower,
+// zeros above), L^{-1} and alpha = A^{-1} y_hat, where
 //
 //   fit : A = k(x, x) + diag(var), masked rows and columns exact identity
-//         rows (the TPU kernel's far-point padding, here an explicit mask)
-//   chol: A = the given gram, read from its lower triangle
+//         rows (the TPU kernel's far-point padding, here an explicit mask
+//         that need not be a prefix); y_hat is y with masked rows zeroed
+//   chol: A = the given gram, read from its lower triangle; y_hat = y
 //
-// A pivot that is not positive makes the whole member NaN, as rsqrt does on
-// the TPU and as the plain version's failed Cholesky does; it is never
-// clamped. alpha = K^{-1} y is two batched products against L^{-1} outside
-// the kernel, as in the JAX package. No float atomics and no cross-member
-// reduction: a member's factor is bit for bit the same whatever batch it is
-// factored in.
+// A pivot that is not positive makes the whole member NaN (L, L^{-1} and
+// alpha), as rsqrt does on the TPU and as the plain version's failed
+// Cholesky does; it is never clamped. alpha is formed in the kernel from the
+// member's final L^{-1}, w = L^{-1} y_hat then alpha = L^{-T} w, in FP32 (or
+// FP64) SIMT FMAs in a fixed order. No float atomics and no cross-member
+// reduction: a member's L, L^{-1} and alpha are bit for bit the same
+// whatever bank they are computed in (the JAX package's two batched
+// products outside the kernel, on cuBLAS, picked their algorithm by the
+// batch count).
 //
 // Two designs, picked per call by the host (ops/bank.py::bank_chol_plan):
 //
-// (1) The augmented elimination (bank fit at both dtypes; bank Cholesky at
-//     float64 and where a float32 member's tiles do not fit shared memory):
-//     one thread block per member, [A | E] -> [L^T | L^{-1}] right-looking
-//     in the order of pallas_bank.py::_elimination, for j = 0 .. n-1:
+// (1) The augmented elimination (float64, and float32 members whose tiles do
+//     not fit a block's shared memory, n > 320 on an H100): one thread block
+//     per member, [A | E] -> [L^T | L^{-1}] right-looking in the order of
+//     pallas_bank.py::_elimination, for j = 0 .. n-1:
 //
 //       s = sqrt(A[j][j]);  row j of [A | E] /= s;  A[j][j] = s
 //       rows r > j:  [A | E][r] -= A[j][r] * [A | E][j]
@@ -39,16 +44,20 @@
 //     card's opt-in per-block limit (227 KB on an H100: n <= 170 in
 //     float32, n <= 120 in float64) and in the outputs themselves (global
 //     memory) beyond that; one code path serves both. It is latency-bound:
-//     a chain of n pivots with two block barriers each (1.18 ms at B = 1000,
-//     n = 104, PERF.md).
+//     a chain of n pivots with two block barriers each.
 //
-// (2) The blocked factorization (bank Cholesky, float32): one warp per
-//     member, several members per block, the member padded to P = ceil(n /
-//     16) tiles a side with identity rows (which leave the leading n x n
-//     factor exactly as it is) and only its P (P + 1) / 2 lower 16 x 16
-//     tiles held in shared memory (28 KB at n = 104, so 8 members fit a
-//     block and B = 1000 one wave of 125 blocks on 132 SMs). For each
-//     16-column panel k, right-looking:
+// (2) The blocked factorization (float32 bank fit and bank Cholesky): one
+//     warp per member, several members per block, the member padded to P =
+//     ceil(n / 16) tiles a side with identity rows (which leave the leading
+//     n x n factor exactly as it is) and only its P (P + 1) / 2 lower 16 x 16
+//     tiles held in shared memory (28 KB at n = 104). The tiles come from one
+//     of two sources, the only difference between the two entries:
+//       - TileFromK (bank Cholesky): cp.async copies of the gram's tiles;
+//       - TileBuilt (bank fit): each entry built in place from the member's
+//         x, var and mask with family.cuh's kernel_entry, all tiles but the
+//         last diagonal one in a loop of their own before the panels (the
+//         family math is not live beside the fragment code).
+//     For each 16-column panel k, right-looking:
 //       - the diagonal tile factored in the warp's registers by shuffles,
 //         its inverse alongside (csrc/sub_block.cuh, as csrc/chol.cu's
 //         diagonal sub-blocks), L_kk written out and Inv_kk kept in its slot;
@@ -61,13 +70,17 @@
 //     X[i, k] = -sum_{k <= p < i} M[i, p] X[p, k] for k ascending (X[k, k] =
 //     Inv_kk), each X[i, k] over the slot of M[i, k], which no later k reads.
 //     The factor's scratch tile is a slot whose contents are already in the
-//     output (the last diagonal tile, loaded after the first panel, then
-//     the sub-diagonal tile of the panel before, restored from L before the
-//     inversion), so no slot beyond the lower triangle is held. Every tile
-//     of L, of L^{-1} and of the zeros above their diagonals is stored as
-//     soon as it is final, so the stores drain while the warp computes.
-//     Bound on the card: bytes (K read, L and L^{-1} written: 0.039 ms at B
-//     = 1000, n = 104); the tensor-core work is ~1e-3 ms of it.
+//     output (the last diagonal tile, loaded or built after the first panel,
+//     then the sub-diagonal tile of the panel before, restored from L before
+//     the inversion), so no slot beyond the lower triangle is held. Every
+//     tile of L, of L^{-1} and of the zeros above their diagonals is stored
+//     as soon as it is final, so the stores drain while the warp computes;
+//     alpha then reads L^{-1} from the member's tiles, w held in alpha's own
+//     output until alpha overwrites it block by block.
+//     Bound on the card: bytes (L and L^{-1} written, K read for the bank
+//     Cholesky: 0.0178 ms at B = 736, n = 100 for the fit); the tensor-core
+//     work is a small part of it. What holds it above that is the serial
+//     panel chain of each warp, hidden by as many members an SM as fit.
 //
 // The TPU design's members-per-step G, 128-lane padding, size gate and
 // opt-in rank-2 elimination were VMEM/VPU tuning and are not carried over.
@@ -85,6 +98,7 @@ namespace egp {
 constexpr int kBankTx = 32;
 constexpr int kBankTy = 8;
 constexpr int kBankThreads = kBankTx * kBankTy;
+constexpr unsigned kFull = 0xffffffffu;
 
 // Augmented elimination of one member: A and E are n x n, row-major, E = I
 // on entry; only A's upper triangle (diagonal included) is read. On exit
@@ -126,10 +140,11 @@ __device__ bool eliminate(T* A, T* E, int n) {
 // Write one member's L (lower, zeros above) and L^{-1}. With the slab in
 // shared memory A/E are copied out; otherwise A is L's own storage and its
 // upper triangle is moved into the lower one in place (each pair (i, k),
-// i > k, is owned by one thread, so nothing races).
+// i > k, is owned by one thread, so nothing races). A failed member is NaN
+// in L, L^{-1} and alpha.
 template <typename T>
-__device__ void finish(const T* A, const T* E, T* L, T* Linv, int n, bool ok,
-                       bool in_smem) {
+__device__ void finish(const T* A, const T* E, T* L, T* Linv, T* alpha,
+                       int n, int q, bool ok, bool in_smem) {
   const int tid = threadIdx.y * kBankTx + threadIdx.x;
   const size_t nn = (size_t)n * n;
   if (!ok) {
@@ -138,6 +153,8 @@ __device__ void finish(const T* A, const T* E, T* L, T* Linv, int n, bool ok,
       L[idx] = nan;
       Linv[idx] = nan;
     }
+    for (size_t idx = tid; idx < (size_t)n * q; idx += kBankThreads)
+      alpha[idx] = nan;
     return;
   }
   for (size_t idx = tid; idx < nn; idx += kBankThreads) {
@@ -154,11 +171,49 @@ __device__ void finish(const T* A, const T* E, T* L, T* Linv, int n, bool ok,
   }
 }
 
+// alpha = E^T (E y_hat) for one member from its final E = L^{-1} (shared or
+// global memory), y_hat = y with the rows where mask is 0 zeroed (mask may
+// be null: no row masked). w = E y_hat goes to alpha's own storage: one
+// warp a row, its lanes over the row's columns, then a fixed-order xor
+// butterfly (every lane ends with the same bits). alpha = E^T w then in
+// chunks of the block's threads, ascending: chunk [c0, c0 + 256) reads w_i
+// for i >= c0 only, so it overwrites w there once every thread has read.
+template <typename T>
+__device__ void alpha_from_inverse(const T* E, const T* __restrict__ y,
+                                   const unsigned char* __restrict__ mask,
+                                   T* alpha, int n, int q) {
+  const int tid = threadIdx.y * kBankTx + threadIdx.x;
+  const int lane = threadIdx.x;
+  for (int col = 0; col < q; ++col) {
+    for (int r = threadIdx.y; r < n; r += kBankTy) {
+      T s = T(0);
+      for (int c = lane; c <= r; c += kBankTx)
+        if (!mask || mask[c])
+          s = fma_(E[(size_t)r * n + c], y[(size_t)c * q + col], s);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+      if (lane == 0) alpha[(size_t)r * q + col] = s;
+    }
+    __syncthreads();
+    for (int c0 = 0; c0 < n; c0 += kBankThreads) {
+      const int c = c0 + tid;
+      T s = T(0);
+      if (c < n)
+        for (int i = c; i < n; ++i)
+          s = fma_(E[(size_t)i * n + c], alpha[(size_t)i * q + col], s);
+      __syncthreads();
+      if (c < n) alpha[(size_t)c * q + col] = s;
+      __syncthreads();
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kBankThreads)
     bank_fit_kernel(const T* __restrict__ x, const T* __restrict__ var,
-                    const unsigned char* __restrict__ mask, T* L, T* Linv,
-                    int n, int d, FamilyArgs fa, T scale, bool in_smem) {
+                    const unsigned char* __restrict__ mask,
+                    const T* __restrict__ y, T* L, T* Linv, T* alpha, int n,
+                    int d, int q, FamilyArgs fa, T scale, bool in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const size_t b = blockIdx.x;
   const size_t nn = (size_t)n * n;
@@ -189,13 +244,17 @@ __global__ void __launch_bounds__(kBankThreads)
   __syncthreads();
   const bool ok = eliminate<T>(A, E, n);
   __syncthreads();
-  finish<T>(A, E, Lb, Linvb, n, ok, in_smem);
+  T* ab = alpha + b * n * q;
+  finish<T>(A, E, Lb, Linvb, ab, n, q, ok, in_smem);
+  if (!ok) return;
+  __syncthreads();
+  alpha_from_inverse<T>(E, y + b * n * q, mb, ab, n, q);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kBankThreads)
-    bank_chol_kernel(const T* __restrict__ K, T* L, T* Linv, int n,
-                     bool in_smem) {
+    bank_chol_kernel(const T* __restrict__ K, const T* __restrict__ y, T* L,
+                     T* Linv, T* alpha, int n, int q, bool in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const size_t b = blockIdx.x;
   const size_t nn = (size_t)n * n;
@@ -215,10 +274,14 @@ __global__ void __launch_bounds__(kBankThreads)
   __syncthreads();
   const bool ok = eliminate<T>(A, E, n);
   __syncthreads();
-  finish<T>(A, E, Lb, Linvb, n, ok, in_smem);
+  T* ab = alpha + b * n * q;
+  finish<T>(A, E, Lb, Linvb, ab, n, q, ok, in_smem);
+  if (!ok) return;
+  __syncthreads();
+  alpha_from_inverse<T>(E, y + b * n * q, nullptr, ab, n, q);
 }
 
-// ---- (2) the blocked float32 bank Cholesky ----
+// ---- (2) the blocked float32 member factorization ----
 
 constexpr int kPt = kSub;  // the panel and tile edge
 constexpr int kPtElems = kPt * kPt;
@@ -377,35 +440,92 @@ __device__ __forceinline__ void pad_identity(float* t, int n, int last) {
   if (lane < kPt && last * kPt + lane >= n) t[swz(lane, lane)] = 1.f;
 }
 
-// One warp per member, blockDim.x / 32 members a block; the slab of warp w
-// is the P (P + 1) / 2 tiles (plus one scratch tile when P = 1) at w x slab
-// tiles. Warps never wait on one another: no block barrier. (A group of two
-// warps per member, sharing each step's tiles at a named barrier, ran no
-// faster at B = 1000, n = 104: PERF.md.)
-__global__ void __launch_bounds__(kMaxMembers * 32)
-    bank_chol_tc_kernel(const float* __restrict__ K, float* __restrict__ L,
-                        float* __restrict__ Linv, int batch, int n, int P,
-                        int slab, bool vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5;
+// The bank Cholesky's tile source: the gram's tiles by cp.async (the caller
+// commits and waits).
+struct TileFromK {
+  const float* K;  // the member's n x n gram
+  int n;
+  bool vec;
+  __device__ __forceinline__ void operator()(float* t, int i, int j) const {
+    load_tile(t, K, n, i, j, vec);
+  }
+};
+
+// The bank fit's tile source: tile (i, j) of the gram built in place.
+// Entry (gr, gc), gr >= gc, is k(x_gr, x_gc) + [gr == gc] var_gr when both
+// rows are unmasked, [gr == gc] when either is masked, and the identity
+// past n; the upper part of a diagonal tile, which the factorization never
+// reads, is 0. Reads x, var and mask of rows < n of this member only (rows
+// past n read row n - 1 and discard it). Lane l builds column l % 16 of
+// the tile, rows l / 16 + 2 k for k = 0 .. 7, the eight entries side by
+// side with no branch around their loads and math (kernel_entry's sums in
+// its order, family.cuh's family_value): one entry at a time behind its
+// mask test left each lane's chain of loads and special functions exposed,
+// and the build took half of a member's time on the card (PERF.md).
+struct TileBuilt {
+  const float* x;  // the member's (n, d)
+  const float* var;
+  const unsigned char* mask;
+  int n;
+  int d;
+  FamilyArgs fa;
+  float scale;
+  __device__ __forceinline__ void operator()(float* t, int i, int j) const {
+    constexpr int kRows = kPtElems / 32;
+    const int lane = threadIdx.x & 31;
+    const int c = lane & 15;
+    const int gc = j * kPt + c;
+    const int cc = gc < n ? gc : n - 1;
+    const bool col = gc < n && __ldg(mask + cc);
+    int rows[kRows];
+    float r2[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int gr = i * kPt + (lane >> 4) + 2 * k;
+      rows[k] = gr < n ? gr : n - 1;
+      r2[k] = 0.f;
+    }
+    for (int e = 0; e < d; ++e) {
+      const float xc = __ldg(x + (size_t)cc * d + e);
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const float diff = __ldg(x + (size_t)rows[k] * d + e) - xc;
+        r2[k] += diff * diff;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int r = (lane >> 4) + 2 * k;
+      const int gr = i * kPt + r;
+      const float kv = family_value<float>(fa, r2[k], scale);
+      const bool both = col && gr < n && __ldg(mask + rows[k]);
+      float a = gr == gc ? 1.f : 0.f;
+      if (both && (i != j || c <= r))
+        a = gr == gc ? kv + __ldg(var + rows[k]) : kv;
+      t[swz(r, c)] = a;
+    }
+  }
+};
+
+// One member's L, L^{-1} and alpha by one warp (design (2) above). S is the
+// member's slab of P (P + 1) / 2 tiles (plus one scratch tile when P = 1),
+// src fills a tile, y (n, q) and mask (n, or null) give y_hat.
+template <typename Src>
+__device__ __forceinline__ void factor_member(
+    const Src src, float* S, float* Lb, float* Xb, const float* yb,
+    const unsigned char* mb, float* ab, int n, int q, int P, bool vec) {
   const int lane = threadIdx.x & 31;
-  const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= batch) return;
-  float* S = reinterpret_cast<float*>(smem_raw) + (size_t)warp * slab * kPtElems;
   auto tile = [&](int i, int j) { return S + tri(i, j) * kPtElems; };
   const size_t nn = (size_t)n * n;
-  const float* Kb = K + b * nn;
-  float* Lb = L + b * nn;
-  float* Xb = Linv + b * nn;
   const int last = P - 1;
   const Frag f;
   auto zero = [](int, int) { return 0.f; };
 
-  // the lower tiles of K; the last diagonal one waits while its slot is
-  // the first panel's scratch
+  // the lower tiles; the last diagonal one waits while its slot is the
+  // first panel's scratch
   for (int i = 0; i < P; ++i)
     for (int j = 0; j <= i; ++j)
-      if (P == 1 || j != last) load_tile(tile(i, j), Kb, n, i, j, vec);
+      if (P == 1 || j != last) src(tile(i, j), i, j);
   cp_commit();
   cp_wait<0>();
   __syncwarp();
@@ -429,7 +549,7 @@ __global__ void __launch_bounds__(kMaxMembers * 32)
     for (int e = lane; e < kPtElems; e += 32) Dk[e] = scratch[e];  // Inv_kk
     __syncwarp();
     if (k == 0 && P > 1) {
-      load_tile(tile(last, last), Kb, n, last, last, vec);
+      src(tile(last, last), last, last);
       cp_commit();
     }
     // the panel: L[i, k] = A[i, k] Inv_kk^T
@@ -485,6 +605,7 @@ __global__ void __launch_bounds__(kMaxMembers * 32)
       Lb[idx] = nan;
       Xb[idx] = nan;
     }
+    for (size_t idx = lane; idx < (size_t)n * q; idx += 32) ab[idx] = nan;
     return;
   }
 
@@ -528,6 +649,95 @@ __global__ void __launch_bounds__(kMaxMembers * 32)
     }
     for (int k = 0; k <= i; ++k) store_x(i, k);
   }
+  __syncwarp();
+
+  // alpha = X^T (X y_hat), X = L^{-1} in the slab, column by column. Lane
+  // 16 h + r works on row (or column) r of a 16-block over the tiles of
+  // parity h; the two halves' sums meet by one xor shuffle (both orders of
+  // one addition: the same bits). w = X y_hat goes to alpha's storage; then
+  // alpha's block j, ascending, reads w's blocks i >= j and overwrites w_j.
+  const int h = lane >> 4;
+  const int r = lane & 15;
+  for (int col = 0; col < q; ++col) {
+    for (int i = 0; i < P; ++i) {
+      float s = 0.f;
+      for (int k0 = 0; k0 <= i; k0 += 2) {
+        const int k = k0 + h;
+        const int gc = k * kPt + r;
+        const float yv = k <= i && gc < n && (!mb || mb[gc])
+                             ? yb[(size_t)gc * q + col] : 0.f;
+        const float* T = tile(i, k <= i ? k : i);
+#pragma unroll
+        for (int c = 0; c < kPt; ++c) {
+          const float yc = __shfl_sync(kFull, yv, (lane & 16) + c);
+          if (k <= i) s = fmaf(T[swz(r, c)], yc, s);
+        }
+      }
+      s += __shfl_xor_sync(kFull, s, 16);
+      const int gr = i * kPt + r;
+      if (h == 0 && gr < n) ab[(size_t)gr * q + col] = s;
+    }
+    __syncwarp();
+    for (int j = 0; j < P; ++j) {
+      float s = 0.f;
+      for (int i0 = j; i0 < P; i0 += 2) {
+        const int i = i0 + h;
+        const int gr = i * kPt + r;
+        const float wv = i < P && gr < n ? __ldcg(ab + (size_t)gr * q + col)
+                                         : 0.f;
+        const float* T = tile(i < P ? i : j, j);
+#pragma unroll
+        for (int rr = 0; rr < kPt; ++rr) {
+          const float wr = __shfl_sync(kFull, wv, (lane & 16) + rr);
+          if (i < P) s = fmaf(T[swz(rr, r)], wr, s);
+        }
+      }
+      s += __shfl_xor_sync(kFull, s, 16);
+      __syncwarp();
+      const int gc = j * kPt + r;
+      if (h == 0 && gc < n) ab[(size_t)gc * q + col] = s;
+      __syncwarp();
+    }
+  }
+}
+
+// One warp per member, blockDim.x / 32 members a block; the slab of warp w
+// is at w x slab tiles. Warps never wait on one another: no block barrier.
+// (A group of two warps per member, sharing each step's tiles at a named
+// barrier, ran no faster at B = 1000, n = 104: PERF.md.)
+__global__ void __launch_bounds__(kMaxMembers * 32)
+    bank_chol_tc_kernel(const float* __restrict__ K,
+                        const float* __restrict__ y, float* __restrict__ L,
+                        float* __restrict__ Linv, float* alpha, int batch,
+                        int n, int q, bool vec, int P, int slab) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
+  const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= batch) return;
+  float* S = reinterpret_cast<float*>(smem_raw) + (size_t)warp * slab * kPtElems;
+  const size_t nn = (size_t)n * n;
+  factor_member(TileFromK{K + b * nn, n, vec}, S, L + b * nn, Linv + b * nn,
+                y + b * n * q, nullptr, alpha + b * n * q, n, q, P, vec);
+}
+
+__global__ void __launch_bounds__(kMaxMembers * 32)
+    bank_fit_tc_kernel(const float* __restrict__ x,
+                       const float* __restrict__ var,
+                       const unsigned char* __restrict__ mask,
+                       const float* __restrict__ y, float* __restrict__ L,
+                       float* __restrict__ Linv, float* alpha, int batch,
+                       int n, int d, int q, FamilyArgs fa, float scale,
+                       bool vec, int P, int slab) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
+  const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= batch) return;
+  float* S = reinterpret_cast<float*>(smem_raw) + (size_t)warp * slab * kPtElems;
+  const size_t nn = (size_t)n * n;
+  const TileBuilt src{x + b * n * d, var + b * n, mask + b * n, n, d, fa,
+                      scale};
+  factor_member(src, S, L + b * nn, Linv + b * nn, y + b * n * q,
+                mask + b * n, alpha + b * n * q, n, q, P, vec);
 }
 
 // Shared memory of one member's slab if it fits the card's opt-in per-block
@@ -549,43 +759,90 @@ static int slab_smem(Kernel kernel, int n, int device, size_t* bytes) {
   return 0;
 }
 
-template <typename T>
-static int launch_bank_fit(const T* x, const T* var, const unsigned char* mask,
-                           T* L, T* Linv, int batch, int n, int d, int family,
-                           int ncomp, const double* ratios,
-                           const double* weights, double scale, int device,
-                           cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  FamilyArgs fa;
-  if (batch <= 0 || n <= 0 || d <= 0 ||
-      !make_family_args(family, ncomp, ratios, weights, &fa))
-    return (int)cudaErrorInvalidValue;
-  size_t bytes = 0;
-  const int code = slab_smem<T>(bank_fit_kernel<T>, n, device, &bytes);
-  if (code != 0) return code;
-  bank_fit_kernel<T><<<batch, dim3(kBankTx, kBankTy), bytes, stream>>>(
-      x, var, mask, L, Linv, n, d, fa, (T)scale, bytes > 0);
-  return (int)cudaGetLastError();
-}
-
 // Tiles of one member's slab on the blocked path (ops/bank.py mirrors it)
 static int member_tiles(int n) {
   const int P = (n + kPt - 1) / kPt;
   return P * (P + 1) / 2 + (P == 1 ? 1 : 0);
 }
 
+// The blocked kernel's launch: members_per_block warps a block, refused
+// unless their slabs fit the card's opt-in shared memory (opted into once
+// per device and kernel, in opted[]); the kernel takes args then P and the
+// slab's tiles.
+template <typename Kernel, typename... Args>
+static int launch_blocked(Kernel kernel, bool* opted, int batch, int n,
+                          int members_per_block, int device,
+                          cudaStream_t stream, Args... args) {
+  int limit = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  const int slab = member_tiles(n);
+  const size_t bytes =
+      (size_t)members_per_block * slab * kPtElems * sizeof(float);
+  if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[device]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               limit);
+    if (err != cudaSuccess) return (int)err;
+    opted[device] = true;
+  }
+  const int grid = (batch + members_per_block - 1) / members_per_block;
+  kernel<<<grid, members_per_block * 32, bytes, stream>>>(
+      args..., (n + kPt - 1) / kPt, slab);
+  return (int)cudaGetLastError();
+}
+
+static bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 // The plan (ops/bank.py::bank_chol_plan): members_per_block 0 takes the
 // augmented elimination, one block per member; m > 0 the blocked float32
-// kernel with m members (warps) a block, refused unless they fit shared
-// memory.
+// kernel with m members (warps) a block.
 template <typename T>
-static int launch_bank_chol(const T* K, T* L, T* Linv, int batch, int n,
-                            int members_per_block, int device,
-                            cudaStream_t stream) {
+static int launch_bank_fit(const T* x, const T* var, const unsigned char* mask,
+                           const T* y, T* L, T* Linv, T* alpha, int batch,
+                           int n, int d, int q, int family, int ncomp,
+                           const double* ratios, const double* weights,
+                           double scale, int members_per_block, int device,
+                           cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (batch <= 0 || n <= 0 || members_per_block < 0 ||
+  FamilyArgs fa;
+  if (batch <= 0 || n <= 0 || d <= 0 || q <= 0 || members_per_block < 0 ||
+      members_per_block > kMaxMembers ||
+      !make_family_args(family, ncomp, ratios, weights, &fa))
+    return (int)cudaErrorInvalidValue;
+  if (members_per_block == 0) {
+    size_t bytes = 0;
+    const int code = slab_smem<T>(bank_fit_kernel<T>, n, device, &bytes);
+    if (code != 0) return code;
+    bank_fit_kernel<T><<<batch, dim3(kBankTx, kBankTy), bytes, stream>>>(
+        x, var, mask, y, L, Linv, alpha, n, d, q, fa, (T)scale, bytes > 0);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (sizeof(T) != sizeof(float)) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    static bool opted[64];
+    const bool vec = n % 4 == 0 && aligned16(L) && aligned16(Linv);
+    return launch_blocked(bank_fit_tc_kernel, opted, batch, n,
+                          members_per_block, device, stream, x, var, mask, y,
+                          L, Linv, alpha, batch, n, d, q, fa, (float)scale,
+                          vec);
+  }
+}
+
+template <typename T>
+static int launch_bank_chol(const T* K, const T* y, T* L, T* Linv, T* alpha,
+                            int batch, int n, int q, int members_per_block,
+                            int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (batch <= 0 || n <= 0 || q <= 0 || members_per_block < 0 ||
       members_per_block > kMaxMembers)
     return (int)cudaErrorInvalidValue;
   if (members_per_block == 0) {
@@ -593,77 +850,66 @@ static int launch_bank_chol(const T* K, T* L, T* Linv, int batch, int n,
     const int code = slab_smem<T>(bank_chol_kernel<T>, n, device, &bytes);
     if (code != 0) return code;
     bank_chol_kernel<T><<<batch, dim3(kBankTx, kBankTy), bytes, stream>>>(
-        K, L, Linv, n, bytes > 0);
+        K, y, L, Linv, alpha, n, q, bytes > 0);
     return (int)cudaGetLastError();
   }
   if constexpr (sizeof(T) != sizeof(float)) {
     return (int)cudaErrorInvalidValue;
   } else {
-    int limit = 0;
-    err = cudaDeviceGetAttribute(&limit,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 device);
-    if (err != cudaSuccess) return (int)err;
-    const int slab = member_tiles(n);
-    const size_t bytes =
-        (size_t)members_per_block * slab * kPtElems * sizeof(float);
-    if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
-    static bool opted[64];  // the opt-in limit, once per device
-    if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-    if (!opted[device]) {
-      err = cudaFuncSetAttribute(bank_chol_tc_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 limit);
-      if (err != cudaSuccess) return (int)err;
-      opted[device] = true;
-    }
-    const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(K) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(L) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(Linv) % 16 == 0;
-    const int grid = (batch + members_per_block - 1) / members_per_block;
-    bank_chol_tc_kernel<<<grid, members_per_block * 32, bytes, stream>>>(
-        K, L, Linv, batch, n, (n + kPt - 1) / kPt, slab, vec);
-    return (int)cudaGetLastError();
+    static bool opted[64];
+    const bool vec = n % 4 == 0 && aligned16(K) && aligned16(L) &&
+                     aligned16(Linv);
+    return launch_blocked(bank_chol_tc_kernel, opted, batch, n,
+                          members_per_block, device, stream, K, y, L, Linv,
+                          alpha, batch, n, q, vec);
   }
 }
 
 }  // namespace egp
 
+// members_per_block: 0 for the augmented elimination, else the blocked
+// float32 kernel's members (warps) per block (ops/bank.py::bank_chol_plan)
 extern "C" int egp_bank_fit_f32(const float* x, const float* var,
-                                const unsigned char* mask, float* L,
-                                float* Linv, int batch, int n, int d,
-                                int family, int ncomp, const double* ratios,
-                                const double* weights, double scale,
+                                const unsigned char* mask, const float* y,
+                                float* L, float* Linv, float* alpha, int batch,
+                                int n, int d, int q, int family, int ncomp,
+                                const double* ratios, const double* weights,
+                                double scale, int members_per_block,
                                 int device, void* stream) {
-  return egp::launch_bank_fit<float>(x, var, mask, L, Linv, batch, n, d,
-                                     family, ncomp, ratios, weights, scale,
-                                     device, (cudaStream_t)stream);
+  return egp::launch_bank_fit<float>(x, var, mask, y, L, Linv, alpha, batch,
+                                     n, d, q, family, ncomp, ratios, weights,
+                                     scale, members_per_block, device,
+                                     (cudaStream_t)stream);
 }
 
 extern "C" int egp_bank_fit_f64(const double* x, const double* var,
-                                const unsigned char* mask, double* L,
-                                double* Linv, int batch, int n, int d,
-                                int family, int ncomp, const double* ratios,
+                                const unsigned char* mask, const double* y,
+                                double* L, double* Linv, double* alpha,
+                                int batch, int n, int d, int q, int family,
+                                int ncomp, const double* ratios,
                                 const double* weights, double scale,
-                                int device, void* stream) {
-  return egp::launch_bank_fit<double>(x, var, mask, L, Linv, batch, n, d,
-                                      family, ncomp, ratios, weights, scale,
-                                      device, (cudaStream_t)stream);
+                                int members_per_block, int device,
+                                void* stream) {
+  return egp::launch_bank_fit<double>(x, var, mask, y, L, Linv, alpha, batch,
+                                      n, d, q, family, ncomp, ratios, weights,
+                                      scale, members_per_block, device,
+                                      (cudaStream_t)stream);
 }
 
-// members_per_block: 0 for the augmented elimination, else the blocked
-// float32 kernel's members (warps) per block (ops/bank.py::bank_chol_plan)
-extern "C" int egp_bank_chol_f32(const float* K, float* L, float* Linv,
-                                 int batch, int n, int members_per_block,
-                                 int device, void* stream) {
-  return egp::launch_bank_chol<float>(K, L, Linv, batch, n, members_per_block,
-                                      device, (cudaStream_t)stream);
+extern "C" int egp_bank_chol_f32(const float* K, const float* y, float* L,
+                                 float* Linv, float* alpha, int batch, int n,
+                                 int q, int members_per_block, int device,
+                                 void* stream) {
+  return egp::launch_bank_chol<float>(K, y, L, Linv, alpha, batch, n, q,
+                                      members_per_block, device,
+                                      (cudaStream_t)stream);
 }
 
-extern "C" int egp_bank_chol_f64(const double* K, double* L, double* Linv,
-                                 int batch, int n, int members_per_block,
-                                 int device, void* stream) {
-  return egp::launch_bank_chol<double>(K, L, Linv, batch, n,
+extern "C" int egp_bank_chol_f64(const double* K, const double* y, double* L,
+                                 double* Linv, double* alpha, int batch, int n,
+                                 int q, int members_per_block, int device,
+                                 void* stream) {
+  return egp::launch_bank_chol<double>(K, y, L, Linv, alpha, batch, n, q,
                                        members_per_block, device,
                                        (cudaStream_t)stream);
 }

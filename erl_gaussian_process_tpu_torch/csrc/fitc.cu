@@ -29,10 +29,11 @@
 //       row + 1 (L_inv is lower triangular: half the products of a full
 //       GEMM), the longest row blocks launched first. Each block writes the
 //       sum of squares of its 64 beta rows per column to partial[row block,
-//       j]; the last of a column block's row blocks to arrive (an integer
-//       counter decides which, never the order of a sum) sums the column's
-//       partials in row-block order and writes w_j: the weight pass of the
-//       first design, folded in.
+//       j] (float64); the last of a column block's row blocks to arrive (an
+//       integer counter decides which, never the order of a sum) sums the
+//       column's partials in row-block order and writes w_j, lam and the
+//       division in float64: the weight pass of the first design, folded
+//       in.
 //   (3) SYRK: the lower 64 x 64 tiles of dQ, each split over S fixed
 //       N-chunks (ops/fitc.py::fitc_plan: up to 3 blocks per SM, 342 blocks
 //       at the hotel-0 shape where one block per tile gave 171 on 132
@@ -46,19 +47,25 @@
 //       warp per (row, output column) with a fixed-order shuffle reduction
 //       over N.
 //
-// Float32 runs both products on the tensor cores in 3xTF32 (mma.sync
-// m16n8k8, csrc/mma_tf32.cuh; operands through a 3-stage cp.async ring,
-// csrc/async_copy.cuh). Each 64-deep panel is summed into a fresh partial
-// and then folded into the running sum (the two-level sum that brought the
-// hotel-0 drift from 0.34 to 0.076 with the first, SIMT kernel); the SYRK's
-// split partials are a third level. The weights scale the SYRK's left
-// operand as it is read, rounding kmn * w to float32 as the plain version
-// does. Float64 keeps SIMT FMAs in the same three launches, with a fresh
-// partial per 16-deep step. The TPU kernel's bf16x3 split was its MXU's
-// counterpart of 3xTF32. Masked samples are dropped by the explicit mask
-// rather than by var = +inf, so the result does not depend on IEEE inf
-// arithmetic. Any M and N (ragged edges masked here, f64 states are not
-// padded).
+// Float32 reads its operands through a 3-stage cp.async ring
+// (csrc/async_copy.cuh). beta takes float64 products and sums of the
+// float32 operands on the FP64 tensor cores (mma.sync m8n8k4): the weight
+// 1 / (lam + var) amplifies beta's rounding by up to 1/var (1e4 on the
+// map), and with 3xTF32 products (the tensor cores' FP32 accumulation
+// aligns and truncates each step's terms) or SIMT FP32 sums, the map's
+// float32 weights were 2-7x further from the float64 update than the
+// float32 plain version's (PERF.md). The SYRK runs in 3xTF32 (mma.sync
+// m16n8k8, csrc/mma_tf32.cuh), each 64-deep panel summed into a fresh
+// partial and then folded into the running sum (the two-level sum that
+// brought the hotel-0 drift from 0.34 to 0.076 with the first, SIMT
+// kernel); its split partials are a third level. The weights scale the
+// SYRK's left operand as it is read, rounding kmn * w to float32 as the
+// plain version does. Float64 keeps SIMT FMAs in the same three launches,
+// with a fresh partial per 16-deep step. The TPU kernel's bf16x3 split was
+// its MXU's counterpart of 3xTF32. Masked samples are dropped by the
+// explicit mask rather than by var = +inf, so the result does not depend
+// on IEEE inf arithmetic. Any M and N (ragged edges masked here, f64
+// states are not padded).
 #include <cstddef>
 #include <cstdint>
 
@@ -116,9 +123,11 @@ __global__ void __launch_bounds__(256)
 
 // The block's column sums are in partial[row block][c0 ..]: the last of the
 // column block's row blocks to arrive sums the column's partials in
-// row-block order and writes w for its columns.
+// row-block order and writes w for its columns. The sums, lam and the
+// division are float64 at both dtypes.
 template <typename T>
-__device__ void weights_if_last(const T* partial, const T* __restrict__ var,
+__device__ void weights_if_last(const double* partial,
+                                const T* __restrict__ var,
                                 const unsigned char* __restrict__ mask,
                                 T* __restrict__ w, int* counter, int n,
                                 int row_blocks, int c0, int* last) {
@@ -130,17 +139,30 @@ __device__ void weights_if_last(const T* partial, const T* __restrict__ var,
   __threadfence();
   const int j = c0 + threadIdx.x;
   if (threadIdx.x >= kTile || j >= n) return;
-  T s = T(0);
+  double s = 0.0;
   for (int b = 0; b < row_blocks; ++b) s += __ldcg(partial + (size_t)b * n + j);
-  T lam = T(1) - s;
-  lam = lam < T(0) ? T(0) : lam;  // clamp to the math, NaN passes through
-  w[j] = mask[j] ? T(1) / (lam + var[j]) : T(0);
+  double lam = 1.0 - s;
+  lam = lam < 0.0 ? 0.0 : lam;  // clamp to the math, NaN passes through
+  w[j] = mask[j] ? T(1.0 / (lam + (double)var[j])) : T(0);
 }
 
-// grid (ceil(n / 64), ceil(m / 64)); row block gridDim.y - 1 - blockIdx.y
+// c (8 x 8) += a (8 x 4) b (4 x 8) on the FP64 tensor cores; lane 4 g + t
+// holds a (g, t), b (t, g) and c (g, 2 t), (g, 2 t + 1)
+__device__ __forceinline__ void mma_f64(double c[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
+}
+
+// grid (ceil(n / 64), ceil(m / 64)); row block gridDim.y - 1 - blockIdx.y.
+// float32 operands, each product exact in float64 and summed in float64 on
+// the FP64 tensor cores (m8n8k4): the weights' 1 / (lam + var) amplifies
+// beta's rounding by up to 1e4 at the map's variance, and float64 sums keep
+// lam to the float32 inputs' own accuracy.
 __global__ void __launch_bounds__(kTcThreads)
     beta_tc_kernel(const float* __restrict__ linv,
-                   const float* __restrict__ kmn, float* partial,
+                   const float* __restrict__ kmn, double* partial,
                    const float* __restrict__ var,
                    const unsigned char* __restrict__ mask,
                    float* __restrict__ w, int* counters, int m, int n,
@@ -170,13 +192,13 @@ __global__ void __launch_bounds__(kTcThreads)
     cp_tile<float, kTcK, kTile, kBLd, kTcThreads>(Bs, kmn, n, k0, c0, kend, n,
                                                   vec_n != 0);
   };
-  float acc[2][4][4], part[2][4][4];
+  // the warp's 32 x 32 outputs: rows wr + 8 ri + g, columns wc + 8 ci +
+  // 2 tq + e
+  double acc[4][4][2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int ri = 0; ri < 4; ++ri)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = part[mi][ni][e] = 0.f;
+    for (int ci = 0; ci < 4; ++ci) acc[ri][ci][0] = acc[ri][ci][1] = 0.0;
 #pragma unroll
   for (int st = 0; st < kTcStages - 1; ++st) {
     if (st < nch) load(st);
@@ -190,45 +212,18 @@ __global__ void __launch_bounds__(kTcThreads)
     const float* As = ring + (ch % kTcStages) * kBetaStage;
     const float* Bs = As + kTile * kALd;
 #pragma unroll
-    for (int kk = 0; kk < kTcK; kk += 8) {
-      unsigned ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
+    for (int kk = 0; kk < kTcK; kk += 4) {
+      double a[4], b[4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* a = As + (wr + mi * 16 + g) * kALd + kk + tq;
-        split_tf32(a[0], ahi[mi][0], alo[mi][0]);
-        split_tf32(a[8 * kALd], ahi[mi][1], alo[mi][1]);
-        split_tf32(a[4], ahi[mi][2], alo[mi][2]);
-        split_tf32(a[8 * kALd + 4], ahi[mi][3], alo[mi][3]);
-      }
+      for (int ri = 0; ri < 4; ++ri)
+        a[ri] = As[(wr + 8 * ri + g) * kALd + kk + tq];
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float* b = Bs + (kk + tq) * kBLd + wc + ni * 8 + g;
-        split_tf32(b[0], bhi[ni][0], blo[ni][0]);
-        split_tf32(b[4 * kBLd], bhi[ni][1], blo[ni][1]);
-      }
+      for (int ci = 0; ci < 4; ++ci)
+        b[ci] = Bs[(kk + tq) * kBLd + wc + 8 * ci + g];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int ri = 0; ri < 4; ++ri)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_tf32(part[mi][ni], alo[mi], bhi[ni]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_tf32(part[mi][ni], ahi[mi], blo[ni]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_tf32(part[mi][ni], ahi[mi], bhi[ni]);
-    }
-    if ((ch & 1) || ch == nch - 1) {  // a 64-deep panel ends: fold it in
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[mi][ni][e] += part[mi][ni][e];
-            part[mi][ni][e] = 0.f;
-          }
+        for (int ci = 0; ci < 4; ++ci) mma_f64(acc[ri][ci], a[ri], b[ci]);
     }
   }
   cp_wait<0>();
@@ -236,23 +231,18 @@ __global__ void __launch_bounds__(kTcThreads)
   // per column: the sum of squares of the thread's four rows, then over the
   // eight row groups g of the warp (an xor butterfly gives every lane the
   // same bits), then over the two row halves of the tile
-  float* red = ring;  // [2][64]
+  double* red = reinterpret_cast<double*>(ring);  // [2][64]
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
+  for (int ci = 0; ci < 4; ++ci)
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      float s = 0.f;
+    for (int e = 0; e < 2; ++e) {
+      double s = 0.0;
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float v = acc[mi][ni][2 * h + p];
-          s += v * v;
-        }
+      for (int ri = 0; ri < 4; ++ri) s += acc[ri][ci][e] * acc[ri][ci][e];
       s += __shfl_xor_sync(0xffffffffu, s, 4);
       s += __shfl_xor_sync(0xffffffffu, s, 8);
       s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (g == 0) red[(warp & 1) * kTile + wc + ni * 8 + 2 * tq + p] = s;
+      if (g == 0) red[(warp & 1) * kTile + wc + ci * 8 + 2 * tq + e] = s;
     }
   __syncthreads();
   if (threadIdx.x < kTile && c0 + threadIdx.x < n)
@@ -628,7 +618,7 @@ static cudaError_t opt_in(int device) {
 }
 
 static cudaError_t launch_beta(const float* linv, const float* kmn,
-                               float* partial, const float* var,
+                               double* partial, const float* var,
                                const unsigned char* mask, float* w,
                                int* counters, int m, int n, dim3 grid,
                                cudaStream_t stream) {
@@ -677,13 +667,13 @@ static cudaError_t launch_syrk(const double* kmn, const double* w,
 }
 
 // Scratch from the caller (ops/fitc.py): kmn (m, n); partial (ceil(m/64),
-// n); w (n); ws (tiles * splits * 64^2); counters (ceil(n/64) + tiles
+// n, float64 at both dtypes); w (n); ws (tiles * splits * 64^2); counters (ceil(n/64) + tiles
 // ints). splits and chunk: the plan's N-split of the SYRK
 // (ops/fitc.py::fitc_plan), (splits - 1) * chunk < n <= splits * chunk.
 template <typename T>
 static int launch_fitc(const T* pseudo, const T* linv, const T* x, const T* y,
                        const T* var, const unsigned char* mask, T* kmn,
-                       T* partial, T* w, T* dq, T* da, T* ws, int* counters,
+                       double* partial, T* w, T* dq, T* da, T* ws, int* counters,
                        int m, int n, int d, int q, int splits, int chunk,
                        int family, int ncomp, const double* ratios,
                        const double* weights, double scale, int device,
@@ -719,7 +709,7 @@ static int launch_fitc(const T* pseudo, const T* linv, const T* x, const T* y,
 extern "C" int egp_fitc_f32(const float* pseudo, const float* linv,
                             const float* x, const float* y, const float* var,
                             const unsigned char* mask, float* kmn,
-                            float* partial, float* w, float* dq, float* da,
+                            double* partial, float* w, float* dq, float* da,
                             float* ws, int* counters, int m, int n, int d,
                             int q, int splits, int chunk, int family,
                             int ncomp, const double* ratios,

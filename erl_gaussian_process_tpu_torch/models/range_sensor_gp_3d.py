@@ -10,9 +10,8 @@ on the host and answers all partitions in one batched predict
 (``models/batch_gp.bank_predict_assigned``). Frames and partition search
 are host numpy, as in the JAX package.
 
-Not ported yet: reduced-rank kernel types (ROADMAP.md, Queue 1 item 11),
-the sharded bank fit ``mesh=`` (item 14) and the ``gps`` view of
-per-partition ``VanillaGaussianProcess`` objects (item 9).
+Not ported yet: reduced-rank kernel types (ROADMAP.md, Queue 1 item 11)
+and the sharded bank fit ``mesh=`` (item 14).
 """
 
 from __future__ import annotations
@@ -50,8 +49,12 @@ from erl_gaussian_process_tpu_torch.models.mapping import (
 from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     torch_dtype,
 )
-from erl_gaussian_process_tpu_torch.models.vanilla_gp import VanillaGPSetting
-from erl_gaussian_process_tpu_torch.ops.bank import solve_alpha
+from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
+    VanillaGaussianProcess,
+    VanillaGPSetting,
+    VanillaGPState,
+    VanillaTrainSet,
+)
 from erl_gaussian_process_tpu_torch.utils.serialization import (
     eq_state,
     load_pytree,
@@ -60,8 +63,6 @@ from erl_gaussian_process_tpu_torch.utils.serialization import (
 
 MESH_TODO = ("the sharded bank fit (mesh=) is not ported yet (ROADMAP.md, "
              "Queue 1 item 14)")
-GPS_TODO = ("the gps view builds VanillaGaussianProcess objects, which are "
-            "not ported yet (ROADMAP.md, Queue 1 item 9)")
 
 
 def _grid_partitions(coords: np.ndarray, group_size: int, overlap: int,
@@ -250,7 +251,34 @@ class RangeSensorGaussianProcess3D:
 
     @property
     def gps(self):
-        raise NotImplementedError(GPS_TODO)
+        """Row-major R x C grid of per-partition ``VanillaGaussianProcess``
+        views of the bank (the reference's ``gps``): each view's state is
+        its member's slice of the bank, on the bank's device, and its train
+        set the stored scan's partition. ``[]`` when untrained. The routed
+        predict of :meth:`test` does not use them."""
+        if not self._trained or self.bank is None:
+            return []
+        xs, ys, vs, ms = self._assemble_bank_arrays()
+        bank = self.bank
+        trained = bank.trained.cpu().numpy()
+        R, C = self.num_partitions
+        grid = []
+        for i in range(R):
+            row = []
+            for j in range(C):
+                b = i * C + j
+                g = VanillaGaussianProcess(self.setting.gp, dtype=self.dtype,
+                                           device=self.device)
+                n_b = int(ms[b].sum())
+                g._train_set = VanillaTrainSet(xs[b], ys[b], vs[b], n_b)
+                g.state = VanillaGPState(x=bank.x[b], mask=bank.mask[b],
+                                         L=bank.L[b], alpha=bank.alpha[b])
+                g._trained = bool(trained[b])
+                g._n = n_b
+                g._x_dim, g._y_dim = 2, 1
+                row.append(g)
+            grid.append(row)
+        return grid
 
     def reset(self):
         """Drop the trained state; frame, settings and partition tables
@@ -363,21 +391,12 @@ class RangeSensorGaussianProcess3D:
 
     def _fit_scans(self, ranges_batch: np.ndarray) -> BankState:
         """S range images -> one BankState of S*B members: the gather and
-        ONE bank fit. A member's L and L_inv do not depend on the bank it
-        is fit in, but cuBLAS picks its batched GEMM by the batch count, so
-        a replay's alpha is recomputed scan by scan: each scan's slice then
-        equals its own train bit for bit."""
+        ONE bank fit. A member's L, L_inv and alpha do not depend on the
+        bank it is fit in (``ops/bank.py``), so each scan's slice of a
+        replay equals its own train bit for bit."""
         x, y, var, mask = self._gather_scans(ranges_batch)
-        state = bank_fit_core(x, y, var, mask, self._scale,
-                              kernel=self._kernel)
-        R, C = self.num_partitions
-        B = R * C
-        if x.shape[0] == B:
-            return state
-        # the gather zeroes y outside the mask, as the bank fit does
-        return state._replace(alpha=torch.cat([
-            solve_alpha(state.L_inv[i:i + B], y[i:i + B])
-            for i in range(0, x.shape[0], B)]))
+        return bank_fit_core(x, y, var, mask, self._scale,
+                             kernel=self._kernel)
 
     def train_scan_batch(self, ranges_batch) -> BankState:
         """Offline trajectory replay: S range images' partition banks in ONE

@@ -28,6 +28,7 @@ import torch
 from erl_gaussian_process_tpu_torch.kernels import (
     KernelSetting,
     cross_gram,
+    cross_gram_with_gradient,
     kernel_fn,
     resolve_kernel_setting,
 )
@@ -49,10 +50,6 @@ from erl_gaussian_process_tpu_torch.utils.serialization import (
 )
 
 _LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
-
-GRADIENT_TODO = ("predict with gradients needs kernels/gradient.py::"
-                 "cross_gram_with_gradient, which is not ported yet "
-                 "(ROADMAP.md, Queue 1: 'Gradient predict')")
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -89,9 +86,13 @@ class SpGpState(NamedTuple):
 
 def state_from_numpy(d, device) -> SpGpState:
     """An SpGpState on ``device`` from a dict of arrays (a ``state`` entry
-    of a checkpoint). Missing compensation buffers start at zero."""
+    of a checkpoint). Missing compensation buffers start at zero. L_inv,
+    the inverse of the lower-triangular L_km, is lower triangular by
+    definition; it is stored as its lower triangle, since the FITC kernel
+    reads its diagonal tiles whole (``ops/fitc.py``)."""
     st = {k: torch.tensor(np.ascontiguousarray(v), device=device)
           for k, v in d.items()}
+    st["L_inv"] = torch.tril(st["L_inv"])
     st.setdefault("qm_c", torch.zeros_like(st["qm"]))
     st.setdefault("alpha_c", torch.zeros_like(st["alpha"]))
     return SpGpState(**{k: st[k] for k in SpGpState._fields})
@@ -254,20 +255,33 @@ def spgp_prepare_exact_host(state: SpGpState, *, diagonal_qm: bool = False):
 def spgp_predict(state: SpGpState, L_qm, alpha_solved, xq, scale, *,
                  kernel: str, with_grad: bool = False, with_var: bool = True,
                  zero_threshold: float = 0.0, li_qm=None):
-    """mean (m_q, q), grad (always None here), var (m_q,) | None.
+    """mean (m_q, q), grad (m_q, d, q) | None, var (m_q,) | None.
 
-    ``li_qm``: optional chol(Q_M)^{-1}, which turns the variance whitening
-    into a product (see :func:`fitc_variance`)."""
+    ``with_grad``: the cross gram takes the queries' gradient columns too
+    (``kernels/gradient.py``; a family without a gradient gram, OU, raises
+    there). ``li_qm``: optional chol(Q_M)^{-1}, which turns the variance
+    whitening into a product (see :func:`fitc_variance`)."""
+    mq, d = xq.shape
     if with_grad:
-        raise NotImplementedError(GRADIENT_TODO)
-    kt = cross_gram(kernel, state.pseudo, xq, scale)
+        m = state.pseudo.shape[0]
+        kt = cross_gram_with_gradient(
+            kernel, state.pseudo, xq, scale,
+            torch.ones(m, dtype=torch.bool, device=xq.device),
+            torch.zeros(m, dtype=torch.bool, device=xq.device),
+            with_test_grad=True, with_train_grad=False)
+    else:
+        kt = cross_gram(kernel, state.pseudo, xq, scale)
     if zero_threshold:
         kt = torch.where(torch.abs(kt) >= zero_threshold, kt,
                          torch.zeros_like(kt))
-    mean = kt.T @ alpha_solved
-    var = fitc_variance(state.L_inv, L_qm, kt, li_qm=li_qm) if with_var \
-        else None
-    return mean, None, var
+    mean = kt[:, :mq].T @ alpha_solved
+    grad = None
+    if with_grad:
+        g = kt[:, mq:].T @ alpha_solved                       # (d mq, q)
+        grad = g.reshape(d, mq, -1).permute(1, 0, 2)          # (mq, d, q)
+    var = fitc_variance(state.L_inv, L_qm, kt[:, :mq], li_qm=li_qm) \
+        if with_var else None
+    return mean, grad, var
 
 
 def fitc_variance(L_inv, L_qm, kmean, li_qm=None):
@@ -314,19 +328,26 @@ class SpGpTestResult:
 
     def __init__(self, gp: "SparsePseudoInputGaussianProcess", xq,
                  will_predict_gradient: bool):
-        if will_predict_gradient:
-            raise NotImplementedError(GRADIENT_TODO)
         L_qm, a = gp._prepared()
         # float32 serving whitens the variance against the cached
         # chol(Q_M)^{-1}; float64 keeps the exact solve
         li = gp._prepared_inv() if gp.dtype == torch.float32 else None
-        self._mean, _, self._var = spgp_predict(
+        self._mean, self._grad, self._var = spgp_predict(
             gp.state, L_qm, a, xq, gp._scale, kernel=gp._kernel,
-            with_var=True, zero_threshold=gp._zero_threshold, li_qm=li)
+            with_grad=will_predict_gradient, with_var=True,
+            zero_threshold=gp._zero_threshold, li_qm=li)
         self.num_test = xq.shape[0]
 
     def get_mean(self, y_index: int = 0) -> torch.Tensor:
         return self._mean[:, y_index]
+
+    def get_gradient(self, y_index: int = 0) -> torch.Tensor:
+        """The mean's gradient at each query, (d, m); needs
+        ``predict_gradient=True`` at ``test``."""
+        if self._grad is None:
+            raise ValueError("get_gradient: test(..., predict_gradient=True) "
+                             "computes the gradient")
+        return self._grad[:, :, y_index].T
 
     def get_variance(self) -> torch.Tensor:
         return self._var

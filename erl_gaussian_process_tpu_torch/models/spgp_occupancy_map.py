@@ -34,7 +34,6 @@ from erl_gaussian_process_tpu_torch.models.gp_core import (
     resolve_device,
 )
 from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
-    GRADIENT_TODO,
     SparsePseudoInputGaussianProcess,
     SpGpSetting,
     SpGpState,
@@ -298,20 +297,19 @@ class SpGpOccupancyMap:
         return out[1:] if collect_datasets else out[1]
 
     def predict(self, points, compute_gradient: bool = False):
-        """logodd (n,) as a device tensor, and None in place of the
-        gradient (reference Predict)."""
-        if compute_gradient:
-            raise NotImplementedError(GRADIENT_TODO)
+        """logodd (n,) and its gradient (n, d) | None, as device tensors
+        (reference Predict)."""
         self.flush_online()
         L_qm, a = self.sp_gp._prepared()
-        mean, _, _ = spgp_predict(
+        mean, grad, _ = spgp_predict(
             self.sp_gp.state, L_qm, a, self._tensor(self._points(points)),
-            self.sp_gp._scale, kernel=self.sp_gp._kernel, with_var=False,
+            self.sp_gp._scale, kernel=self.sp_gp._kernel,
+            with_grad=compute_gradient, with_var=False,
             zero_threshold=self.sp_gp._zero_threshold)
-        return mean[:, 0], None
+        return mean[:, 0], None if grad is None else grad[:, :, 0]
 
     def predict_gradient(self, points):
-        raise NotImplementedError(GRADIENT_TODO)
+        return self.predict(points, compute_gradient=True)[1]
 
     def generate_dataset(self, sensor_position, points, seed=None):
         """Host numpy dataset sampler with the reference's

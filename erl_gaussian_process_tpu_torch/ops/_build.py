@@ -107,14 +107,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = _I
     for name in ("egp_bank_fit_f32", "egp_bank_fit_f64"):
         fn = getattr(lib, name)
-        # x, var, mask, L, L_inv, batch, n, d, family, ncomp, ratios,
-        # weights, scale, device, stream
-        fn.argtypes = [_P] * 5 + [_I] * 5 + [_PD, _PD, _D, _I, _P]
+        # x, var, mask, y, L, L_inv, alpha, batch, n, d, q, family, ncomp,
+        # ratios, weights, scale, members_per_block, device, stream
+        fn.argtypes = [_P] * 7 + [_I] * 6 + [_PD, _PD, _D, _I, _I, _P]
         fn.restype = _I
     for name in ("egp_bank_chol_f32", "egp_bank_chol_f64"):
         fn = getattr(lib, name)
-        # K, L, L_inv, batch, n, members_per_block, device, stream
-        fn.argtypes = [_P, _P, _P] + [_I] * 4 + [_P]
+        # K, y, L, L_inv, alpha, batch, n, q, members_per_block, device,
+        # stream
+        fn.argtypes = [_P] * 5 + [_I] * 5 + [_P]
         fn.restype = _I
     # device -> opt-in shared memory per block in bytes (or -error)
     lib.egp_smem_optin.argtypes = [_I]

@@ -9,11 +9,14 @@ factors a bank of B small exact GPs of n samples:
 - :func:`bank_cholesky_solve_cuda`: ``L`` and ``L^{-1}`` of a given gram
   batch (``_chol_kernel``).
 
-Both return ``(L, L_inv, alpha)`` with ``alpha = K^{-1} y`` computed outside
-the kernel as two batched products against ``L^{-1}``, as in the JAX
-package. The JAX package took its kernel on a TPU in float32 above n = 96
-only; here every CUDA call launches the kernel, at any n and both dtypes. A
-member whose factorization fails comes out all NaN in both versions.
+Both return ``(L, L_inv, alpha)`` with ``alpha = K^{-1} y``. The kernels
+form alpha themselves from each member's ``L^{-1}`` (one launch, no other
+kernel), so a member's three results are bit for bit the same whatever
+bank it is computed in; the plain versions, like the JAX package, take two
+batched products against ``L^{-1}`` (:func:`solve_alpha`). The JAX package
+took its kernel on a TPU in float32 above n = 96 only; here every CUDA call
+launches the kernel, at any n and both dtypes. A member whose factorization
+fails comes out all NaN in both versions.
 """
 
 from __future__ import annotations
@@ -68,15 +71,19 @@ def bank_cholesky_solve_plain(K, y):
     return L, L_inv, solve_alpha(L_inv, y)
 
 
-def bank_fit_cuda(name: str, x, y, var, mask, scale):
+def bank_fit_cuda(name: str, x, y, var, mask, scale,
+                  members_per_block: int | None = None):
     """(L, L_inv, alpha) of B GPs. x (B, n, d); y (B, n, q); var (B, n);
     mask (B, n) bool, False rows padding (identity rows of the gram, zero
-    rows of alpha). A member's L and L_inv do not depend on the bank it is
-    fit in; its alpha may differ in the last bits, as cuBLAS picks its
-    batched GEMM by the batch count.
+    rows of alpha; any rows, not only a suffix). On the card a member's L,
+    L_inv and alpha do not depend on the bank it is fit in.
 
     CPU tensors take :func:`bank_fit_plain`; CUDA tensors launch
-    ``csrc/bank.cu`` (counted in ``bank_fit_cuda.launches``) or raise."""
+    ``csrc/bank.cu`` once, on the path :func:`bank_chol_plan` picks
+    (counted in ``bank_fit_cuda.launches``), or raise.
+    ``members_per_block`` overrides the plan's (a float32 member count to
+    measure, or 0 for the elimination); the C entry refuses counts whose
+    slabs do not fit a block."""
     tensors = (x, y, var, mask)
     if all(t.device.type == "cpu" for t in tensors):
         return bank_fit_plain(name, x, y, var, mask, scale)
@@ -94,22 +101,26 @@ def bank_fit_cuda(name: str, x, y, var, mask, scale):
         raise ValueError(
             f"bank_fit_cuda: shapes x {tuple(x.shape)} y {tuple(y.shape)} "
             f"var {tuple(var.shape)} mask {tuple(mask.shape)}")
-    if b == 0 or n == 0 or d == 0:
-        raise ValueError(f"bank_fit_cuda: empty operand, B={b} n={n} d={d}")
+    if b == 0 or n == 0 or d == 0 or y.shape[2] == 0:
+        raise ValueError(f"bank_fit_cuda: empty operand, B={b} n={n} d={d} "
+                         f"q={y.shape[2]}")
     fam, ratios, weights = family_args(name)
-    L = torch.empty((b, n, n), dtype=dt, device=x.device)
-    L_inv = torch.empty_like(L)
+    q = y.shape[2]
+    L, L_inv = torch.empty((2, b, n, n), dtype=dt, device=x.device)
+    alpha = torch.empty((b, n, q), dtype=dt, device=x.device)
     kl = load_library()
     fn = kl.lib.egp_bank_fit_f32 if dt == torch.float32 else \
         kl.lib.egp_bank_fit_f64
+    if members_per_block is None:
+        members_per_block = _plan(n, dt, b, x.device.index).members_per_block
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = fn(x.data_ptr(), var.data_ptr(), mask.data_ptr(), L.data_ptr(),
-              L_inv.data_ptr(), b, n, d, fam, len(ratios),
-              double_array(ratios), double_array(weights), float(scale),
-              x.device.index, stream)
+    code = fn(x.data_ptr(), var.data_ptr(), mask.data_ptr(), y.data_ptr(),
+              L.data_ptr(), L_inv.data_ptr(), alpha.data_ptr(), b, n, d, q,
+              fam, len(ratios), double_array(ratios), double_array(weights),
+              float(scale), members_per_block, x.device.index, stream)
     kl.check(code, "bank fit kernel launch")
     bank_fit_cuda.launches += 1
-    return L, L_inv, solve_alpha(L_inv, _masked_y(y, mask))
+    return L, L_inv, alpha
 
 
 bank_fit_cuda.launches = 0
@@ -121,10 +132,11 @@ MAX_MEMBERS_PER_BLOCK = 8  # csrc/bank.cu kMaxMembers
 
 @dataclasses.dataclass(frozen=True)
 class BankCholPlan:
-    """How ``csrc/bank.cu`` factors a (B, n, n) batch: ``path`` is
-    ``"blocked"`` (float32: one warp per member, ``members_per_block`` of
-    them a block, each holding its :func:`member_tiles` in shared memory)
-    or ``"eliminate"`` (the augmented elimination, one block per member;
+    """How ``csrc/bank.cu`` factors a bank of B members of size n (the bank
+    fit's and the bank Cholesky's one plan): ``path`` is ``"blocked"``
+    (float32: one warp per member, ``members_per_block`` of them a block,
+    each holding its :func:`member_tiles` in shared memory) or
+    ``"eliminate"`` (the augmented elimination, one block per member;
     ``members_per_block`` 0, the code the C entry takes for it)."""
 
     path: str
@@ -139,19 +151,24 @@ def member_tiles(n: int) -> int:
     return p * (p + 1) // 2 + (1 if p == 1 else 0)
 
 
-@functools.lru_cache(maxsize=None)
-def bank_chol_plan(n: int, dtype: torch.dtype, smem_limit: int) -> BankCholPlan:
-    """The bank Cholesky's path at member size n: float32 members whose
-    tiles fit ``smem_limit`` (the card's opt-in shared memory per block)
-    take the blocked tensor-core kernel with as many members per block as
-    fit, at most :data:`MAX_MEMBERS_PER_BLOCK`; float64, and float32 members
-    too large for it (n > 320 on an H100), take the augmented
-    elimination."""
+@functools.lru_cache(maxsize=1024)
+def bank_chol_plan(n: int, dtype: torch.dtype, smem_limit: int, batch: int,
+                   sms: int) -> BankCholPlan:
+    """The path of a bank of ``batch`` members of size n on a card with
+    ``sms`` SMs and ``smem_limit`` bytes of opt-in shared memory per block:
+    float32 members whose tiles fit take the blocked tensor-core kernel
+    with min(:data:`MAX_MEMBERS_PER_BLOCK`, as many as fit, ceil(batch /
+    sms)) members a block, so that a bank smaller than 8 members an SM
+    still spreads over every SM (B = 736 at n = 100: 6 a block, 123 blocks
+    on an H100's 132 SMs, where 8 a block left 40 SMs idle). float64, and
+    float32 members too large for a block (n > 320 on an H100), take the
+    augmented elimination."""
     member = member_tiles(n) * PANEL * PANEL * 4
     if dtype != torch.float32 or member > smem_limit:
         return BankCholPlan("eliminate", 0)
-    return BankCholPlan("blocked",
-                        min(MAX_MEMBERS_PER_BLOCK, smem_limit // member))
+    return BankCholPlan("blocked", min(MAX_MEMBERS_PER_BLOCK,
+                                       smem_limit // member,
+                                       max(1, -(-batch // sms))))
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,13 +180,19 @@ def smem_optin(device_index: int) -> int:
     return limit
 
 
+def _plan(n: int, dtype: torch.dtype, batch: int,
+          device_index: int) -> BankCholPlan:
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return bank_chol_plan(n, dtype, smem_optin(device_index), batch, sms)
+
+
 def bank_cholesky_solve_cuda(K, y):
     """(L, L_inv, alpha = K^{-1} y) for a gram batch K (B, n, n), read from
     its lower triangle; y (B, n, q).
 
     CPU tensors take :func:`bank_cholesky_solve_plain`; CUDA tensors launch
-    ``csrc/bank.cu`` on the path :func:`bank_chol_plan` picks (counted in
-    ``bank_cholesky_solve_cuda.launches``) or raise."""
+    ``csrc/bank.cu`` once, on the path :func:`bank_chol_plan` picks (counted
+    in ``bank_cholesky_solve_cuda.launches``), or raise."""
     if K.device.type == "cpu" and y.device.type == "cpu":
         return bank_cholesky_solve_plain(K, y)
     check_cuda_operands("bank_cholesky_solve_cuda", K.dtype, K, y)
@@ -178,20 +201,23 @@ def bank_cholesky_solve_cuda(K, y):
         raise ValueError(f"bank_cholesky_solve_cuda: shapes K "
                          f"{tuple(K.shape)} y {tuple(y.shape)}")
     b, n, _ = K.shape
-    if b == 0 or n == 0:
+    q = y.shape[2]
+    if b == 0 or n == 0 or q == 0:
         raise ValueError(f"bank_cholesky_solve_cuda: empty operand, B={b} "
-                         f"n={n}")
+                         f"n={n} q={q}")
     L, L_inv = torch.empty((2, b, n, n), dtype=K.dtype, device=K.device)
+    alpha = torch.empty((b, n, q), dtype=K.dtype, device=K.device)
     kl = load_library()
     fn = kl.lib.egp_bank_chol_f32 if K.dtype == torch.float32 else \
         kl.lib.egp_bank_chol_f64
-    plan = bank_chol_plan(n, K.dtype, smem_optin(K.device.index))
+    plan = _plan(n, K.dtype, b, K.device.index)
     stream = torch.cuda.current_stream(K.device).cuda_stream
-    code = fn(K.data_ptr(), L.data_ptr(), L_inv.data_ptr(), b, n,
-              plan.members_per_block, K.device.index, stream)
+    code = fn(K.data_ptr(), y.data_ptr(), L.data_ptr(), L_inv.data_ptr(),
+              alpha.data_ptr(), b, n, q, plan.members_per_block,
+              K.device.index, stream)
     kl.check(code, "bank Cholesky kernel launch")
     bank_cholesky_solve_cuda.launches += 1
-    return L, L_inv, solve_alpha(L_inv, y)
+    return L, L_inv, alpha
 
 
 bank_cholesky_solve_cuda.launches = 0

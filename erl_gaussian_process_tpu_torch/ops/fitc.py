@@ -139,10 +139,12 @@ def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
     plan = fitc_plan(m, n, _sms(dev.index))
     dq = torch.empty((m, m), dtype=dt, device=dev)
     da = torch.empty((m, q), dtype=dt, device=dev)
-    # scratch: kmn, the beta partials, the weights, the SYRK's partial
-    # tiles and the int32 arrival counters (zeroed by the first launch)
+    # scratch: kmn, the beta partials (float64 at both dtypes), the
+    # weights, the SYRK's partial tiles and the int32 arrival counters
+    # (zeroed by the first launch)
     kmn = torch.empty((m, n), dtype=dt, device=dev)
-    partial = torch.empty((plan.row_blocks, n), dtype=dt, device=dev)
+    partial = torch.empty((plan.row_blocks, n), dtype=torch.float64,
+                          device=dev)
     w = torch.empty((n,), dtype=dt, device=dev)
     ws = torch.empty((plan.tiles * plan.splits, TILE, TILE), dtype=dt,
                      device=dev)

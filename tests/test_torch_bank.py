@@ -356,14 +356,15 @@ def test_reduced_rank_banks_are_deferred():
 # -- the bank Cholesky's plan (csrc/bank.cu's two paths) ---------------------
 
 H100_SMEM_OPTIN = 232448  # bytes of shared memory a block may opt into
+BIG_BANK = 10 ** 6  # a bank with more than 8 members an SM
 
 
 @pytest.mark.parametrize("n", [1, 12, 16, 17, 24, 100, 104, 112, 300, 320])
 def test_bank_chol_plan_takes_the_blocked_path_where_members_fit(n):
     """float32 members up to n = 320 take the blocked kernel on an H100,
-    as many a block as fit (at most 8), each a slab of its lower 16 x 16
-    tiles, one warp each; n = 104 fits 8 members a block, so B = 1000 is
-    one wave of 125 blocks."""
+    in a large bank as many a block as fit (at most 8), each a slab of its
+    lower 16 x 16 tiles, one warp each; n = 104 fits 8 members a block, so
+    B = 1000 is one wave of 125 blocks."""
     from erl_gaussian_process_tpu_torch.ops.bank import (
         MAX_MEMBERS_PER_BLOCK,
         PANEL,
@@ -371,7 +372,7 @@ def test_bank_chol_plan_takes_the_blocked_path_where_members_fit(n):
         member_tiles,
     )
 
-    plan = bank_chol_plan(n, torch.float32, H100_SMEM_OPTIN)
+    plan = bank_chol_plan(n, torch.float32, H100_SMEM_OPTIN, BIG_BANK, 132)
     p = -(-n // PANEL)
     member = member_tiles(n) * PANEL * PANEL * 4
     assert member_tiles(n) == p * (p + 1) // 2 + (p == 1)
@@ -392,8 +393,41 @@ def test_bank_chol_plan_keeps_the_elimination_elsewhere(n, dtype):
     augmented elimination (members_per_block 0 in the C entry)."""
     from erl_gaussian_process_tpu_torch.ops.bank import bank_chol_plan
 
-    plan = bank_chol_plan(n, dtype, H100_SMEM_OPTIN)
+    plan = bank_chol_plan(n, dtype, H100_SMEM_OPTIN, BIG_BANK, 132)
     assert (plan.path, plan.members_per_block) == ("eliminate", 0)
+
+
+@pytest.mark.parametrize("n,batch,sms,expect", [
+    (100, 736, 132, 6),      # the lidar protocol: 123 blocks, not 92
+    (144, 408, 132, 4),      # the default-grouped scan: 102 blocks, not 82
+    (100, 47104, 132, 8),    # a 64-scan replay: as many as fit
+    (104, 1000, 132, 8),     # BatchGPBank's (1000, 104): one wave
+    (100, 1, 132, 1),
+    (100, 736, 16, 8),       # few SMs: as many as fit
+    (320, 736, 132, 1),      # one member fills a block
+])
+def test_bank_plan_spreads_the_bank_over_the_sms(n, batch, sms, expect):
+    """The plan as a pure function of (n, dtype, shared memory, B, SMs):
+    members a block = min(8, as many as fit, ceil(B / SMs)), so a bank of
+    fewer than 8 members an SM still reaches every SM; a member's results
+    do not depend on the count (one warp a member, no block barrier)."""
+    from erl_gaussian_process_tpu_torch.ops.bank import (
+        MAX_MEMBERS_PER_BLOCK,
+        bank_chol_plan,
+        member_tiles,
+    )
+
+    plan = bank_chol_plan(n, torch.float32, H100_SMEM_OPTIN, batch, sms)
+    assert (plan.path, plan.members_per_block) == ("blocked", expect)
+    fit = H100_SMEM_OPTIN // (member_tiles(n) * 1024)
+    assert expect == min(MAX_MEMBERS_PER_BLOCK, fit, -(-batch // sms))
+    if expect < min(MAX_MEMBERS_PER_BLOCK, fit):
+        # fewer members a block than fit: one wave of blocks, and one member
+        # fewer a block would need more blocks than SMs
+        assert -(-batch // expect) <= sms
+        assert expect == 1 or -(-batch // (expect - 1)) > sms
+    assert bank_chol_plan(n, torch.float64, H100_SMEM_OPTIN, batch,
+                          sms).path == "eliminate"
 
 
 def test_bank_chol_plan_follows_the_cards_shared_memory():
@@ -402,8 +436,10 @@ def test_bank_chol_plan_follows_the_cards_shared_memory():
     from erl_gaussian_process_tpu_torch.ops.bank import bank_chol_plan
 
     small = 101376
-    assert bank_chol_plan(104, torch.float32, small).members_per_block == 3
-    assert bank_chol_plan(240, torch.float32, small).path == "eliminate"
+    assert bank_chol_plan(104, torch.float32, small, BIG_BANK,
+                          132).members_per_block == 3
+    assert bank_chol_plan(240, torch.float32, small, BIG_BANK,
+                          132).path == "eliminate"
 
 
 @pytest.mark.parametrize("n", [5, 17, 100, 104])

@@ -35,7 +35,6 @@ from erl_gaussian_process_tpu_torch.ops import (
     fitc_update_cuda,
     fitc_update_plain,
     launch_counts,
-    solve_alpha,
 )
 
 pytestmark = pytest.mark.cuda
@@ -149,6 +148,24 @@ def test_fitc_kernel_far_point_rows_are_zero(cuda, dtype):
     assert float((dq - dq_ref).abs().max() / dq_ref.abs().max()) <= tol
 
 
+def test_fitc_kernel_f32_at_the_map_variance_against_f64(cuda):
+    """At the main path's variance (1e-4), where 1/(lambda + var) amplifies
+    float32 rounding: the float32 kernel's relative errors in dQ and
+    dalpha against the float64 update of the same inputs are no worse than
+    2x the float32 plain version's."""
+    args = _fitc_args(cuda, torch.float32, 1152, 2048, 1e-4)
+    st64 = spgp_init(args[1].double(), 0.6, kernel="matern32")
+    truth = fitc_update_plain("matern32", st64.pseudo, st64.L_inv,
+                              *(t.double() for t in args[3:6]), args[6], 0.6)
+
+    def rel(got):
+        return [float((g.double() - t).abs().max() / t.abs().max())
+                for g, t in zip(got, truth)]
+
+    kernel, plain = rel(fitc_update_cuda(*args)), rel(fitc_update_plain(*args))
+    assert all(k <= 2 * p for k, p in zip(kernel, plain)), (kernel, plain)
+
+
 def _device_kernels(fn):
     """{kernel name: launches} of ``fn()`` on the card, by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -256,13 +273,15 @@ def _bank_errors(got, ref):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.float64, 1e-10)])
-@pytest.mark.parametrize("n", [12, 100, 144, 512])
+@pytest.mark.parametrize("n", [1, 12, 15, 16, 17, 100, 144, 320, 321, 512])
 @pytest.mark.parametrize("fam", FAMILIES)
 def test_bank_fit_kernel_matches_plain(cuda, fam, n, dtype, tol):
-    """Both slab placements (shared memory up to n = 144 in float32, the
-    outputs beyond), masked rows, B off any grid; one launch counted; L
-    exactly lower triangular."""
-    b = 37 if n < 512 else 5
+    """float32 up to n = 320 on the blocked tensor-core kernel (sizes on
+    and off its 16-grid), the elimination beyond and at float64 (both slab
+    placements); masks that are not prefixes, B off any grid; one launch
+    counted; L, alpha and L^{-1} L against the plain version; L exactly
+    lower triangular."""
+    b = 37 if n < 320 else 5
     args = _bank_args(cuda, dtype, b, n)
     before = launch_counts()["bank_fit"]
     got = bank_fit_cuda(_name(fam), *args, 0.7)
@@ -273,11 +292,13 @@ def test_bank_fit_kernel_matches_plain(cuda, fam, n, dtype, tol):
     assert (torch.triu(got[0], 1) == 0).all()
 
 
+@pytest.mark.parametrize("n", [100, 144, 321])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_bank_fit_non_spd_member_is_nan(cuda, dtype):
+def test_bank_fit_non_spd_member_is_nan(cuda, dtype, n):
     """A negative variance makes one member indefinite: it comes out all
-    NaN (never clamped), its neighbours bit for bit unchanged."""
-    x, y, v, m = _bank_args(cuda, dtype, 7, 100)
+    NaN in L, L^{-1} and alpha (never clamped), its neighbours bit for bit
+    unchanged."""
+    x, y, v, m = _bank_args(cuda, dtype, 7, n)
     ok = bank_fit_cuda("ou", x, y, v, m, 0.7)
     v[3, m[3].nonzero()[0]] = -50.0
     bad = bank_fit_cuda("ou", x, y, v, m, 0.7)
@@ -288,25 +309,67 @@ def test_bank_fit_non_spd_member_is_nan(cuda, dtype):
 
 
 def test_bank_fit_kernel_is_deterministic_and_batch_independent(cuda):
-    """Two launches agree bit for bit; a member's factor fit alone equals
-    the same member's inside the bank, and so does its alpha once solved
-    per 736 members, the size of the lone bank (cuBLAS picks its batched
-    GEMM by the batch count)."""
-    x, y, v, m = _bank_args(cuda, torch.float32, 3 * 736, 100)
-    a = bank_fit_cuda("ou", x, y, v, m, 0.3)
-    b = bank_fit_cuda("ou", x, y, v, m, 0.3)
-    alone = bank_fit_cuda("ou", *(t[736:1472].contiguous()
-                                  for t in (x, y, v, m)), 0.3)
-    for p, q in zip(a, b):
-        assert torch.equal(p, q)
-    assert torch.equal(alone[0], a[0][736:1472])
-    assert torch.equal(alone[1], a[1][736:1472])
-    ym = torch.where(m[..., None], y, 0.0)
-    assert torch.equal(alone[2], solve_alpha(a[1][736:1472], ym[736:1472]))
-    single = bank_fit_cuda("ou", *(t[800:801].contiguous()
-                                   for t in (x, y, v, m)), 0.3)
-    assert torch.equal(single[0][0], a[0][800])
-    assert torch.equal(single[1][0], a[1][800])
+    """Two launches agree bit for bit; a member fit alone, or in a bank of
+    736 (6 members a block instead of 8), equals the same member inside a
+    bank of 2208: L, L^{-1} and alpha, which the kernel forms itself with
+    no solve outside it; float32 (blocked) and float64 (elimination)."""
+    for dtype in (torch.float32, torch.float64):
+        x, y, v, m = _bank_args(cuda, dtype, 3 * 736, 100)
+        a = bank_fit_cuda("ou", x, y, v, m, 0.3)
+        b = bank_fit_cuda("ou", x, y, v, m, 0.3)
+        alone = bank_fit_cuda("ou", *(t[736:1472].contiguous()
+                                      for t in (x, y, v, m)), 0.3)
+        single = bank_fit_cuda("ou", *(t[800:801].contiguous()
+                                       for t in (x, y, v, m)), 0.3)
+        for p, q, r, s in zip(a, b, alone, single):
+            assert torch.equal(p, q)
+            assert torch.equal(r, p[736:1472])
+            assert torch.equal(s[0], p[800])
+
+
+@pytest.mark.parametrize("n", [17, 100, 144, 321])
+def test_bank_fit_all_masked_member_is_identity(cuda, n):
+    """A member with every row masked comes out L = I, L^{-1} = I and
+    alpha = 0 exactly, beside members masked elsewhere than a suffix."""
+    x, y, v, m = _bank_args(cuda, torch.float32, 9, n)
+    m[4] = False
+    m[5, ::3] = False
+    L, Li, a = bank_fit_cuda("matern32", x, y, v, m, 0.7)
+    eye = torch.eye(n, device=cuda)
+    assert torch.equal(L[4], eye) and torch.equal(Li[4], eye)
+    assert not a[4].any()
+    assert not a[5, ::3].any()
+    ref = bank_fit_plain("matern32", x, y, v, m, 0.7)
+    assert max(_bank_errors((L, Li, a), ref)) <= 1e-4
+
+
+def test_bank_fit_plan_on_the_card(cuda):
+    """The plan at the sensor GP's shapes spreads the bank over the SMs (6
+    members of n = 100 a block for 736, 4 of n = 144 for 408, 8 for a
+    64-scan replay), and the C entry's shared-memory arithmetic matches
+    member_tiles: the plan's largest count that fits launches, one more is
+    refused."""
+    from erl_gaussian_process_tpu_torch.ops.bank import (
+        MAX_MEMBERS_PER_BLOCK,
+        bank_chol_plan,
+        member_tiles,
+        smem_optin,
+    )
+
+    dev = cuda.index or 0
+    smem = smem_optin(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, b, expect in ((100, 736, 6), (144, 408, 4), (100, 47104, 8)):
+        plan = bank_chol_plan(n, torch.float32, smem, b, sms)
+        assert (plan.path, plan.members_per_block) == ("blocked", expect)
+    for n in (100, 144, 320):
+        fit = smem // (member_tiles(n) * 1024)
+        args = _bank_args(cuda, torch.float32, 3, n)
+        if fit <= MAX_MEMBERS_PER_BLOCK:
+            bank_fit_cuda("rbf", *args, 0.7, members_per_block=fit)
+        if fit + 1 <= MAX_MEMBERS_PER_BLOCK:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                bank_fit_cuda("rbf", *args, 0.7, members_per_block=fit + 1)
 
 
 def _chol_bank(cuda, b, n, dtype, seed=1):
@@ -345,7 +408,9 @@ def test_bank_chol_plan_on_the_card(cuda):
         smem_optin,
     )
 
-    plan = bank_chol_plan(104, torch.float32, smem_optin(cuda.index or 0))
+    plan = bank_chol_plan(104, torch.float32, smem_optin(cuda.index or 0),
+                          1000, torch.cuda.get_device_properties(
+                              cuda).multi_processor_count)
     assert (plan.path, plan.members_per_block) == ("blocked", 8)
 
 
@@ -387,8 +452,8 @@ def test_bank_chol_non_spd_member_is_nan(cuda, dtype, n):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_bank_chol_member_alone_equals_it_in_the_bank(cuda, dtype):
     """A member factored alone equals, bit for bit, the same member inside
-    a 1000-member bank (L and L^{-1}; whichever warp or block it lands
-    on), and two launches agree."""
+    a 1000-member bank (L, L^{-1} and alpha, which the kernel forms itself;
+    whichever warp or block it lands on), and two launches agree."""
     K, y = _chol_bank(cuda, 1000, 104, dtype, seed=3)
     a = bank_cholesky_solve_cuda(K, y)
     b = bank_cholesky_solve_cuda(K, y)
@@ -396,8 +461,8 @@ def test_bank_chol_member_alone_equals_it_in_the_bank(cuda, dtype):
     for i in (0, 7, 8, 517, 999):
         alone = bank_cholesky_solve_cuda(K[i:i + 1].contiguous(),
                                          y[i:i + 1].contiguous())
-        assert torch.equal(alone[0][0], a[0][i])
-        assert torch.equal(alone[1][0], a[1][i])
+        for got, bank in zip(alone, a):
+            assert torch.equal(got[0], bank[i])
 
 
 @pytest.mark.parametrize("c", [1, 3, 19, 128])

@@ -396,5 +396,33 @@ def test_paths_not_ported_yet_raise():
     sensors, pts, masks = _sphere_scans(np.random.default_rng(8), 2, 50)
     with pytest.raises(NotImplementedError, match="poses_per_step"):
         m.update_batch(sensors, pts, masks, poses_per_step=2)
-    with pytest.raises(NotImplementedError, match="Gradient predict"):
+    # gradient predict is ported: only a family without a gradient gram
+    # raises, in both packages
+    _, ts_ou = _settings()
+    ts_ou.sp_gp.kernel_type = "ou"
+    m = SpGpOccupancyMap(ts_ou, _pseudo(), box, free_slots_per_ray=FREE_SLOTS,
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="no gradient gram"):
         m.predict(pts[0], compute_gradient=True)
+
+
+def test_predict_gradient_matches_jax_f64():
+    """A small 3D map (5x5x5 pseudo grid, 3 poses of 160 rays) updated by
+    the JAX package and carried into the port: predict(compute_gradient=
+    True) and predict_gradient against JAX at float64 to 1e-12."""
+    jm, _ = _maps()
+    rng = np.random.default_rng(14)
+    sensors, pts, masks = _sphere_scans(rng, 3, 160)
+    jm.update_batch(sensors, pts, masks)
+    tm = occupancy_map_from_numpy(jm.state_dict(), device="cpu",
+                                  free_slots_per_ray=FREE_SLOTS)
+    q = rng.uniform(-1.8, 1.8, (64, 3))
+    jlo, jg = jm.predict(q, compute_gradient=True)
+    lo, g = tm.predict(q, compute_gradient=True)
+    assert g.shape == (64, 3) == np.asarray(jg).shape
+    for got, ref in ((lo, jlo), (g, jg), (tm.predict_gradient(q),
+                                          jm.predict_gradient(q))):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-12 * np.abs(ref).max())
+    assert tm.predict(q)[1] is None

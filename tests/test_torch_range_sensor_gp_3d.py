@@ -230,6 +230,23 @@ def test_train_scan_batch_equals_per_scan_train(dtype):
         gp.train_scan_batch(rb[:, :10, :])
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_train_scan_batch_matches_jax(dtype):
+    """The replay as one bank fit with no per-scan alpha solve against the
+    JAX package's replay of the same 3 scans: mask, L (lower triangle) and
+    alpha of every member."""
+    s, _, _, rb = _replay(3)
+    gp = RangeSensorGaussianProcess3D(s, dtype=dtype, device="cpu")
+    stacked = gp.train_scan_batch(rb)
+    jstacked = _jax_gp(s, dtype).train_scan_batch(rb)
+    np.testing.assert_array_equal(_np(stacked.mask), np.asarray(jstacked.mask))
+    tri = np.tril(np.ones(stacked.L.shape[1:], bool))
+    tol = TOL[dtype]
+    _close(np.where(tri, _np(stacked.L), 0),
+           np.where(tri, np.asarray(jstacked.L), 0), tol)
+    _close(stacked.alpha, jstacked.alpha, tol)
+
+
 @functools.lru_cache(maxsize=None)
 def _replay(n):
     return lidar3d_replay_workload(n)
@@ -308,6 +325,36 @@ def test_deferred_features_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 14"):
         RangeSensorGaussianProcess3D(_setting(), mesh=object(), device="cpu")
     gp = RangeSensorGaussianProcess3D(_setting(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        gp.gps
+    assert gp.gps == []            # item 9 is ported: untrained, no views
     assert not gp.using_reduced_rank_kernel()
+
+
+def test_gps_views_match_jax():
+    """The R x C grid of per-partition VanillaGaussianProcess views of a
+    float64 model trained on one scan: the JAX grid's shape, each view's
+    x, mask, L and alpha its member's slice of the bank, and two views'
+    test means equal to the JAX views' to 1e-12."""
+    s = _setting()
+    gp = RangeSensorGaussianProcess3D(s, dtype=np.float64, device="cpu")
+    jgp = _jax_gp(s, np.float64)
+    ranges = _holed_scan(gp)
+    assert gp.train(*_POSE, ranges) and jgp.train(*_POSE, ranges)
+    grid, jgrid = gp.gps, jgp.gps
+    R, C = gp.num_partitions
+    assert len(grid) == len(jgrid) == R
+    assert all(len(r) == len(jr) == C for r, jr in zip(grid, jgrid))
+    for i in range(R):
+        for j in range(C):
+            b, v = i * C + j, grid[i][j]
+            for name in ("x", "mask", "L", "alpha"):
+                assert torch.equal(getattr(v.state, name),
+                                   getattr(gp.bank, name)[b])
+            assert v.is_trained == bool(gp.bank.trained[b])
+    rng = np.random.default_rng(11)
+    trained = [(i, j) for i in range(R) for j in range(C)
+               if grid[i][j].is_trained]
+    for i, j in (trained[0], trained[len(trained) // 2]):
+        xq = grid[i][j].get_train_set().x[:, :5] \
+            + rng.normal(scale=0.01, size=(2, 5))
+        _close(grid[i][j].test(xq).get_mean(0),
+               np.asarray(jgrid[i][j].test(xq).get_mean(0)), 1e-12)

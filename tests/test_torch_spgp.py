@@ -282,6 +282,35 @@ def test_convert_round_trip_predicts_the_same():
     _close(tgp.test(xq).get_variance(), jgp.test(xq).get_variance(), 1e-12)
 
 
+def test_loaded_l_inv_is_exactly_lower_triangular():
+    """A state whose L_inv carries 1e-9 noise above the diagonal (a
+    checkpoint or a converted JAX state) loads with exact zeros there, and
+    its FITC plain update equals the clean state's bit for bit."""
+    from erl_gaussian_process_tpu_torch.ops import fitc_update_plain
+
+    rng = np.random.default_rng(13)
+    st = spgp_init(torch.tensor(rng.uniform(-2, 2, (40, 3))), SCALE,
+                   kernel="matern32")
+    clean = {k: v.numpy() for k, v in st._asdict().items()}
+    noisy = dict(clean)
+    noisy["L_inv"] = clean["L_inv"] + np.triu(
+        1e-9 * rng.standard_normal(clean["L_inv"].shape), 1)
+    assert np.triu(noisy["L_inv"], 1).any()
+    loaded = spgp_state_from_numpy(noisy, device="cpu")
+    assert not torch.triu(loaded.L_inv, 1).any()
+    assert torch.equal(loaded.L_inv, st.L_inv)
+    gp = SparsePseudoInputGaussianProcess(
+        _settings()[1], clean["pseudo"].T, dtype=np.float64, device="cpu")
+    gp.load_state_dict({**gp.state_dict(), "state": noisy})
+    assert torch.equal(gp.state.L_inv, st.L_inv)
+    x, y, var, mask = (torch.tensor(a) for a in _batches(rng, 1, 70)[0])
+    for a, b in zip(fitc_update_plain("matern32", loaded.pseudo, loaded.L_inv,
+                                      x, y, var, mask, SCALE),
+                    fitc_update_plain("matern32", st.pseudo, st.L_inv, x, y,
+                                      var, mask, SCALE)):
+        assert torch.equal(a, b)
+
+
 def test_save_load_round_trip(tmp_path):
     _, ts = _settings()
     rng = np.random.default_rng(6)
@@ -302,13 +331,138 @@ def test_save_load_round_trip(tmp_path):
 
 
 def test_gradient_predict_is_not_ported_yet():
-    _, ts = _settings()
-    gp = SparsePseudoInputGaussianProcess(ts, np.zeros((3, 4)), device="cpu")
-    with pytest.raises(NotImplementedError, match="Gradient predict"):
-        gp.test(np.zeros((3, 2)), predict_gradient=True)
-    with pytest.raises(NotImplementedError, match="Gradient predict"):
-        spgp_predict(gp.state, None, None, torch.zeros(2, 3), SCALE,
-                     kernel="matern32", with_grad=True)
+    """Gradient predict is ported; what still raises is what raises in the
+    JAX package too: a family without a gradient gram (OU). A result
+    tested without gradients has none to give."""
+    js, ts = _settings(kernel_type="ou")
+    pseudo = np.random.default_rng(8).uniform(-2, 2, (3, 4))
+    gp = SparsePseudoInputGaussianProcess(ts, pseudo, device="cpu")
+    jgp = jsp.SparsePseudoInputGaussianProcess(js, pseudo, dtype=np.float64)
+    for model in (gp, jgp):
+        with pytest.raises(NotImplementedError, match="no gradient gram"):
+            model.test(np.zeros((3, 2)), predict_gradient=True)
+    with pytest.raises(NotImplementedError, match="no gradient gram"):
+        spgp_predict(gp.state, *gp._prepared(), torch.zeros(2, 3), SCALE,
+                     kernel="ou", with_grad=True)
+    with pytest.raises(ValueError, match="predict_gradient"):
+        gp.test(np.zeros((3, 2))).get_gradient()
+
+
+@pytest.mark.parametrize("zero_threshold", [0.0, 1e-3])
+def test_gradient_predict_matches_jax_f64(zero_threshold):
+    """spgp_predict(with_grad=True) after 3 updates: mean, gradient (m, d,
+    q) and variance against JAX at float64 to 1e-12, with and without the
+    sparse threshold; the class's get_gradient (d, m) too."""
+    rng = np.random.default_rng(12)
+    pseudo = rng.uniform(-2, 2, (60, 3))
+    jst = jsp.spgp_init(jnp.asarray(pseudo), np.float64(SCALE),
+                        kernel="matern32")
+    tst = spgp_init(torch.tensor(pseudo), SCALE, kernel="matern32")
+    for x, y, var, mask in _batches(rng, 3, 100, q=2):
+        jst = jsp.spgp_update(jst, *map(jnp.asarray, (x, y, var, mask)),
+                              np.float64(SCALE), kernel="matern32",
+                              zero_threshold=zero_threshold)
+        tst = spgp_update(tst, *[torch.tensor(a) for a in (x, y, var, mask)],
+                          SCALE, kernel="matern32",
+                          zero_threshold=zero_threshold)
+    jL, ja = jsp.spgp_prepare(jst)
+    tL, ta = spgp_prepare(tst)
+    xq = rng.uniform(-2, 2, (50, 3))
+    kw = dict(kernel="matern32", with_grad=True,
+              zero_threshold=zero_threshold)
+    jm, jg, jv = jsp.spgp_predict(jst, jL, ja, jnp.asarray(xq),
+                                  np.float64(SCALE), **kw)
+    tm, tg, tv = spgp_predict(tst, tL, ta, torch.tensor(xq), SCALE, **kw)
+    assert tg.shape == (50, 3, 2)
+    _close(tm, jm, 1e-12)
+    _close(tg, jg, 1e-12)
+    _close(tv, jv, 1e-12)
+    js, ts = _settings(**({"use_sparse": True,
+                           "sparse_zero_threshold": zero_threshold}
+                          if zero_threshold else {}))
+    jgp = jsp.SparsePseudoInputGaussianProcess(js, pseudo.T, dtype=np.float64)
+    tgp = SparsePseudoInputGaussianProcess(ts, pseudo.T, dtype=np.float64,
+                                           device="cpu")
+    for x, y, var, _ in _batches(rng, 2, 90):
+        jgp.update(x.T, y, var)
+        tgp.update(x.T, y, var)
+    jr = jgp.test(xq.T, predict_gradient=True)
+    tr = tgp.test(xq.T, predict_gradient=True)
+    assert tr.get_gradient(0).shape == (3, 50)
+    _close(tr.get_gradient(0), jr.get_gradient(0), 1e-12)
+    _close(tr.get_mean(0), jr.get_mean(0), 1e-12)
+    _close(tr.get_variance(), jr.get_variance(), 1e-12)
+
+
+def test_amortized_inverse_variance_matches_trsm():
+    """Port of the JAX suite's test of the same name (with_grad=True,
+    float32, at its tolerances): the variance whitened against the cached
+    chol(Q_M)^{-1} agrees with the triangular solve, and each of the
+    port's results agrees with the JAX package's predict on the same
+    state and prepared factor (the two packages' float32 updates round
+    differently, and this Q_M amplifies that in the mean)."""
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        pad_pseudo_points,
+    )
+
+    rng = np.random.default_rng(7)
+    ps = pad_pseudo_points(rng.uniform(-1, 1, (100, 2)).astype(np.float32))
+    x = rng.uniform(-1, 1, (300, 2)).astype(np.float32)
+    y = rng.uniform(-1, 1, (300, 1)).astype(np.float32)
+    var = np.full((300,), 1e-3, np.float32)
+    mask = np.ones((300,), bool)
+    xq = rng.uniform(-1, 1, (50, 2)).astype(np.float32)
+    tst = spgp_init(torch.tensor(ps), 0.4, kernel="matern32")
+    tst = spgp_update(tst, *[torch.tensor(a) for a in (x, y, var, mask)],
+                      0.4, kernel="matern32")
+    L, a = spgp_prepare(tst)
+    kw = dict(kernel="matern32", with_grad=True, with_var=True)
+    jst = jsp.SpGpState(**{k: jnp.asarray(v.numpy())
+                           for k, v in tst._asdict().items()})
+    jref = jsp.spgp_predict(jst, jnp.asarray(L.numpy()),
+                            jnp.asarray(a.numpy()), jnp.asarray(xq),
+                            np.float32(0.4), **kw)
+    m1, g1, v1 = spgp_predict(tst, L, a, torch.tensor(xq), 0.4, **kw)
+    m2, g2, v2 = spgp_predict(tst, L, a, torch.tensor(xq), 0.4,
+                              li_qm=tri_inv(L), **kw)
+    assert g1.shape == (50, 2, 1)
+    for (p, q, r), atol in zip(((m1, m2, jref[0]), (g1, g2, jref[1]),
+                                (v1, v2, jref[2])), (2e-5, 2e-4, 5e-5)):
+        np.testing.assert_allclose(p.numpy(), q.numpy(), atol=atol)
+        np.testing.assert_allclose(q.numpy(), np.asarray(r), atol=atol)
+
+
+def test_li_qm_variance_on_an_ill_conditioned_state():
+    """The float32 variance through the cached chol(Q_M)^{-1} (``li_qm``)
+    on a state whose Q_M is past 1/eps_f32 (the exact host tier's factor):
+    the port's against JAX's on the same state to the JAX f32 suite's 5e-5,
+    and the port's error against the float64 exact solve of the same state
+    no worse than 2x JAX's plus 1e-6."""
+    from erl_gaussian_process_tpu.models.sparse_pseudo_input_gp import (
+        _tri_inv,
+    )
+
+    gp, rng = _ill_conditioned_gp()
+    xq = rng.uniform(-1, 1, (64, 2)).astype(np.float32)
+    var = gp.test(xq.T).get_variance().numpy()          # li_qm at float32
+    assert gp._li is not None
+    arrays = {k: np.asarray(v) for k, v in gp.state_dict()["state"].items()}
+    jst = jsp.SpGpState(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    jL, ja = jsp.spgp_prepare_exact_host(jst)
+    _, _, jvar = jsp.spgp_predict(jst, jL, ja, jnp.asarray(xq),
+                                  np.float32(0.6), kernel="matern32",
+                                  li_qm=_tri_inv(jL))
+    jvar = np.asarray(jvar)
+    np.testing.assert_allclose(var, jvar, atol=5e-5)
+    st64 = spgp_state_from_numpy(
+        {k: v.astype(np.float64) for k, v in arrays.items()}, device="cpu")
+    L64, a64 = spgp_prepare_exact_host(st64)
+    _, _, truth = spgp_predict(st64, L64, a64,
+                               torch.tensor(xq.astype(np.float64)), 0.6,
+                               kernel="matern32")
+    truth = truth.numpy()
+    err, jerr = np.abs(var - truth).max(), np.abs(jvar - truth).max()
+    assert err <= 2 * jerr + 1e-6, (err, jerr)
 
 
 def test_robust_cholesky_escalates_jitter_like_jax():
