@@ -135,9 +135,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=REPS) -> float:
-    """Median milliseconds of ``fn()`` on the card, each rep between two
-    CUDA events, after three warm-up calls."""
+def event_times(fn, reps=REPS) -> list:
+    """Milliseconds of ``fn()`` on the card, each rep between two CUDA
+    events, after three warm-up calls."""
     for _ in range(3):
         fn()
     times = []
@@ -149,7 +149,27 @@ def cuda_ms(fn, reps=REPS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps=REPS) -> float:
+    """Median of :func:`event_times`."""
+    return statistics.median(event_times(fn, reps))
+
+
+def host_ms(fn, calls=200) -> float:
+    """Milliseconds of the host a call of ``fn()`` takes to enqueue its
+    work: ``calls`` calls with no synchronize between them (few enough that
+    the launch queue never fills), then one synchronize outside the
+    window."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / calls
 
 
 def check(cond: bool, what: str) -> None:
@@ -669,7 +689,7 @@ def check_bank_kernels(dev, lidar, depth):
             gp, p / np.where(dist > 0, dist, 1.0)[:, None])))
     gram_err32 = 0.0
     for dt in (torch.float32, torch.float64):
-        for label, model, (x1, x2) in ops:
+        for label, model, (x1, x2, _) in ops:
             x1, x2 = x1.to(dt), x2.to(dt)
             kern, scale = model._kernel, model._scale
             k = cross_gram_batched_cuda(kern, x1, x2, scale)
@@ -682,7 +702,7 @@ def check_bank_kernels(dev, lidar, depth):
             check(err <= GRAM_TOL[dt], f"gram_batched {label} {dt}: {err}")
             if dt == torch.float32:
                 gram_err32 = max(gram_err32, err)
-    _, model, (x1, x2) = ops[0]
+    _, model, (x1, x2, _) = ops[0]
     kern, scale = model._kernel, model._scale
     out["gram_batched"] = {
         "max_abs_err": gram_err32,
@@ -712,17 +732,20 @@ def bank_fit_bound(B, n, d, q):
 
 
 def routed_gram_operands(gp, dirs_local):
-    """The batched gram's operands (x1, x2) as ``bank_predict_assigned``
-    builds them for these sensor-frame directions: the active members'
-    samples and their bucketed queries."""
+    """The batched gram's operands (x1, x2, row mask) as
+    ``bank_predict_assigned`` builds them for these sensor-frame
+    directions: the active members' samples, their bucketed queries and
+    the members' sample masks."""
     from erl_gaussian_process_tpu_torch.models.batch_gp import group_queries
 
     coords, idx = gp.route_directions(dirs_local)
     _, slots, _, member_ids = group_queries(idx,
                                             gp.bank.trained.cpu().numpy())
     x = gp.bank.x
-    return (x[torch.as_tensor(member_ids, device=x.device)],
-            torch.as_tensor(coords[slots], dtype=x.dtype, device=x.device))
+    ids = torch.as_tensor(member_ids, device=x.device)
+    return (x[ids],
+            torch.as_tensor(coords[slots], dtype=x.dtype, device=x.device),
+            gp.bank.mask[ids])
 
 
 def occ_points(gp, ranges, fraction):
@@ -969,6 +992,153 @@ def bound(nbytes: float, flops: float, dtype=torch.float32):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+SFU_PER_SM_CLOCK = 16      # special-function results an SM issues a clock
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock's maximum that ``nvidia-smi`` reports, in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def gram_work(kern):
+    """(FP32 operations, special-function results) of one gram element
+    past its squared distance: each component's multiply and exp (and
+    matern32's FMA), the square root of ou and matern32, a mixture's
+    weighted sum."""
+    from erl_gaussian_process_tpu_torch.kernels.base import mixture_params
+
+    mix = mixture_params(kern)
+    base, ncomp = (kern, 1) if mix is None else (mix[0], len(mix[1]))
+    root = 0 if base == "rbf" else 1
+    per = {"rbf": 2, "ou": 2, "matern32": 4}[base]
+    ops = ncomp * per + root + (2 * ncomp if ncomp > 1 else 0)
+    return ops, ncomp + root
+
+
+def gram_bound(kern, dtype, batch, m, n, d, rows, masked, sms, mhz):
+    """(ms, by, {by: ms}) of a gram of ``batch`` members: x1, x2 (and the
+    row mask) read once and the output written once; the distance (3
+    operations a coordinate) and the family of the ``rows`` rows that are
+    computed (a masked row is written, not computed), at FP32 (FP64) SIMT
+    and, at float32, the special-function units' issue rate."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = es * batch * (m * n + (m + n) * d) + (batch * m if masked else 0)
+    ops, sfu = gram_work(kern)
+    t = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+         "operations": 1e3 * rows * n * (3 * d + ops) / PEAK_FLOPS[dtype],
+         "special functions": (1e3 * rows * n * sfu
+                               / (SFU_PER_SM_CLOCK * sms * mhz * 1e6)
+                               if dtype == torch.float32 else 0.0)}
+    by = max(t, key=t.get)
+    return t[by], by, t
+
+
+def gram_cases(dev, setting, pseudo, lo, hi, lidar):
+    """The gram's three shapes on its paths, float32: (a) the SPGP
+    predict's k(P, x*), 1152 x 2048 matern32 d = 3; (b) the exact GP's
+    test, k(X, X*) of the fitted state's 8192 samples (and train mask)
+    against 4096 queries, rbf d = 2; (c) the lidar test's bucket of the
+    routed predict, 688 members x 100 x 128, ou d = 2, with the member
+    masks. Returns [(key, label, kernel, scale, x1, x2, mask or None)]."""
+    from erl_gaussian_process_tpu_torch.kernels import KernelSetting
+    from erl_gaussian_process_tpu_torch.models import (
+        RangeSensorGaussianProcess3D,
+        VanillaGaussianProcess,
+        VanillaGPSetting,
+    )
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        pad_pseudo_points,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import exact_gp_workload
+
+    f32 = torch.float32
+    p_pad = pad_pseudo_points(np.ascontiguousarray(pseudo.T))
+    xq = np.random.default_rng(0).uniform(lo, hi, (2048, 3))
+    cases = [("gram", "(a) SPGP predict", "matern32",
+              float(setting.sp_gp.kernel.scale),
+              torch.as_tensor(p_pad, device=dev, dtype=f32),
+              torch.as_tensor(xq, device=dev, dtype=f32), None)]
+    x, y, var, q, scale, kern = exact_gp_workload()
+    gp = VanillaGaussianProcess(VanillaGPSetting(
+        kernel_type=kern, kernel=KernelSetting(x_dim=2, scale=scale),
+        max_num_samples=x.shape[0]), dtype=np.float32, device=dev)
+    check(gp.train(x.T, y, var), "exact GP train for the gram operands")
+    cases.append(("gram_exact", "(b) exact-GP test", kern, scale,
+                  gp.state.x, torch.as_tensor(q, device=dev),
+                  gp.state.mask))
+    sgp = RangeSensorGaussianProcess3D(lidar[0], dtype=np.float32,
+                                       device=dev)
+    check(sgp.train(*lidar[1:4]), "lidar train for the gram operands")
+    x1, x2, ms = routed_gram_operands(
+        sgp, sgp.global_to_local_so3(lidar[4].astype(np.float32)))
+    cases.append(("gram_batched", "(c) lidar test bucket", sgp._kernel,
+                  sgp._scale, x1, x2, ms))
+    return cases
+
+
+def masked_gram(kern, x1, x2, scale, mask):
+    """The kernel's gram as its path takes it: the row mask applied as the
+    callers apply it."""
+    from erl_gaussian_process_tpu_torch.kernels import cross_gram
+    from erl_gaussian_process_tpu_torch.ops import cross_gram_batched_cuda
+
+    if x1.dim() == 2:
+        return cross_gram(kern, x1, x2, scale, mask1=mask)
+    k = cross_gram_batched_cuda(kern, x1, x2, scale)
+    return torch.where(mask[:, :, None], k, torch.zeros_like(k))
+
+
+def masked_gram_plain(kern, x1, x2, scale, mask):
+    from erl_gaussian_process_tpu_torch.ops import cross_gram_plain
+
+    k = cross_gram_plain(kern, x1, x2, scale)
+    if mask is None:
+        return k
+    return torch.where(mask[..., :, None], k, torch.zeros_like(k))
+
+
+def time_gram(dev, card, cases) -> dict:
+    """At each of the gram's path shapes: CUDA-event ms (median of 20 and
+    range), device ms a call (torch.profiler over 10 calls, every kernel
+    the call launches), host ms a call (enqueue, :func:`host_ms`), the
+    plain version's event ms, and the bound. Returns {key: {...}}."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = sm_clock_mhz()
+    out = {}
+    for key, label, kern, scale, x1, x2, mask in cases:
+        def fn():
+            return masked_gram(kern, x1, x2, scale, mask)
+
+        ev = event_times(fn)
+        split = device_kernels(lambda: [fn() for _ in range(10)])
+        dev_ms = sum(ms for _, ms in split.values()) / 10
+        h_ms = host_ms(fn)
+        plain_ms = cuda_ms(lambda: masked_gram_plain(kern, x1, x2, scale,
+                                                     mask))
+        batch = x1.shape[0] if x1.dim() == 3 else 1
+        m, n, d = x1.shape[-2], x2.shape[-2], x1.shape[-1]
+        rows = int(mask.sum()) if mask is not None else batch * m
+        b_ms, b_by, b_all = gram_bound(kern, x1.dtype, batch, m, n, d, rows,
+                                       mask is not None, sms, mhz)
+        r = {"shape": [batch, m, n, d], "kernel": kern,
+             "ms": statistics.median(ev), "ms_range": [min(ev), max(ev)],
+             "device_ms": dev_ms, "host_ms": h_ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "launches_per_call": {
+                 k.split("(")[0][:40]: c // 10 for k, (c, _) in split.items()}}
+        log(f"gram {label} {kern} B={batch} {m}x{n} d={d} float32 on {card}: "
+            f"event {r['ms']:.4f} ms (median of {REPS}, range "
+            f"{min(ev):.4f}-{max(ev):.4f}), device {dev_ms:.4f} ms, host "
+            f"{h_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by}; " + ", ".join(f"{k} {v:.4f}" for k, v in b_all.items())
+            + f" at {mhz:g} MHz); kernels a call {r['launches_per_call']}")
+        out[key] = r
+    return out
 
 
 def backward_error(L, K) -> float:
@@ -1475,6 +1645,16 @@ def main() -> int:
     log(f"workload: {len(sensors)} poses, {pts.shape[1]} rays, "
         f"{pseudo.shape[1]} pseudo points, scanned in "
         f"{time.perf_counter() - t0:.2f} s")
+    if sys.argv[1:] == ["--gram"]:
+        # the gram's timings at its three path shapes alone
+        from erl_gaussian_process_tpu_torch.workloads import (
+            lidar3d_reference_workload,
+        )
+        cases = gram_cases(dev, setting, pseudo, lo, hi,
+                           lidar3d_reference_workload())
+        log(json.dumps({"gram_timings": time_gram(dev, card, cases),
+                        "card": card}))
+        return 0
 
     kern = check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks)
     for name, r in kern.items():
