@@ -1129,14 +1129,16 @@ def time_gram(dev, card, cases) -> dict:
         r = {"shape": [batch, m, n, d], "kernel": kern,
              "ms": statistics.median(ev), "ms_range": [min(ev), max(ev)],
              "device_ms": dev_ms, "host_ms": h_ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms, "bound_by": b_by, "launches_per_call": {
-                 k.split("(")[0][:40]: c // 10 for k, (c, _) in split.items()}}
+             "bound_ms": b_ms, "bound_by": b_by, "kernels_per_call": {
+                 k.split("(")[0][:48]: [c / 10, ms / 10]
+                 for k, (c, ms) in split.items()}}
         log(f"gram {label} {kern} B={batch} {m}x{n} d={d} float32 on {card}: "
             f"event {r['ms']:.4f} ms (median of {REPS}, range "
             f"{min(ev):.4f}-{max(ev):.4f}), device {dev_ms:.4f} ms, host "
             f"{h_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
             f"({b_by}; " + ", ".join(f"{k} {v:.4f}" for k, v in b_all.items())
-            + f" at {mhz:g} MHz); kernels a call {r['launches_per_call']}")
+            + f" at {mhz:g} MHz); kernels a call (launches, device ms) "
+            + f"{r['kernels_per_call']}")
         out[key] = r
     return out
 
