@@ -9,8 +9,18 @@ The SPGP occupancy map's path:
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. the build: nvcc compiles ``erl_gaussian_process_tpu_torch/csrc`` into one
    library (first use, into ``erl_gaussian_process_tpu_torch/_build/``);
-3. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with kernel and plain times (CUDA events, median of 20);
+3. the gram kernel at its three path shapes, (a) the SPGP predict's
+   k(P, x*) 1152 x 2048 matern32 d=3, (b) the exact GP's test k(X, X*)
+   8192 x 4096 rbf d=2 with the state's train mask, (c) the lidar test's
+   routed-predict bucket 688 x 100 x 128 ou d=2 with the members' masks:
+   in every family at float32 and float64 against its plain version
+   (masked and far-point rows exactly +0.0, two calls bitwise equal), then
+   timed at float32 (CUDA-event median of 20 and range, device time by
+   ``torch.profiler``, the wrapper's host time, the plain version, the
+   bound, streaming against plain stores); ``--gram`` runs phases 1-3
+   only; every other kernel against its plain PyTorch version on the
+   card, at the main path's shapes, with kernel and plain times (CUDA
+   events, median of 20);
    at the map's variance (1e-4) the float32 FITC kernel and its plain
    version against the float64 update of the same inputs, the kernel's
    errors no worse than 2x the plain version's; FITC's two products alone
@@ -23,7 +33,8 @@ The SPGP occupancy map's path:
    trajectory > 0.95 free);
 5. the launch counts of that run: one FITC launch per pose update and at
    least one gram launch; one more pose under ``torch.profiler``: the FITC
-   kernel's launches per pose equal its plan's (3 per call);
+   kernel's launches per pose equal its plan's (3 per call); the cached
+   predict timed as the median of 5;
 6. the drift check: the collected datasets replayed through the port's
    plain float64 path, posterior drift on the fixed query grid <= 0.2;
    then more replays of each entry for the median and range of ms/pose and
@@ -44,7 +55,8 @@ The 3D range-sensor GP's path:
    queries) through ``RangeSensorGaussianProcess3D.train``/``test`` at
    float32: one ``train`` under ``torch.profiler`` (one bank-fit launch and
    no matrix product), MSE <= 4.2e-4, ``compute_occ`` signs, one bank-fit
-   launch per train; the same scan at the default 12/4 grouping (408 x
+   launch per train; one ``test`` under ``torch.profiler`` (one gram
+   launch, no ``where`` over the gram); the same scan at the default 12/4 grouping (408 x
    144); then the depth protocol: MSE <= 2.2e-4;
 9. offline replay: ``train_scan_batch`` of 64 lidar scans (47 104 members)
    in one bank-fit launch, equal bit for bit to per-scan ``train``, timed
@@ -69,7 +81,9 @@ The exact GPs' paths:
 12. the exact GP: ``VanillaGaussianProcess`` (float32) trains on 8192
     points and tests 4096 queries; mean MAE and variance max error against
     the plain float64 fit on the card no worse than 2x those of the plain
-    float32 fit; then one more ``train`` under ``torch.profiler``: launches
+    float32 fit; ``test`` timed as the median of 5 and once under
+    ``torch.profiler`` (one gram launch, no ``where`` over the gram);
+    then one more ``train`` under ``torch.profiler``: launches
     and device ms of the factorization's update, diagonal and apply kernels
     and of the substitution (one launch per direction);
 13. the noisy-input GP (float32) with gradients on the 7680^2 joint system,
@@ -178,9 +192,9 @@ def check(cond: bool, what: str) -> None:
 
 
 def check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks):
-    """Phase 3: each kernel against its plain version at the main path's
-    shapes. Returns {name: {max_abs_err, ms, plain_ms}}."""
-    from erl_gaussian_process_tpu_torch.kernels import register_scale_mixture
+    """Phase 3: the FITC kernel against its plain version at the main
+    path's shapes (the gram: :func:`check_gram`). Returns {name:
+    {max_abs_err, ms, plain_ms}}."""
     from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
         pad_pseudo_points,
         spgp_init,
@@ -190,7 +204,6 @@ def check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks):
         step_seed,
     )
     from erl_gaussian_process_tpu_torch.ops import (
-        cross_gram_cuda,
         cross_gram_plain,
         fitc_update_cuda,
         fitc_update_plain,
@@ -199,37 +212,7 @@ def check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks):
     scale = float(setting.sp_gp.kernel.scale)
     m_valid = pseudo.shape[1]
     p_pad = pad_pseudo_points(np.ascontiguousarray(pseudo.T))   # (1152, 3)
-    rng = np.random.default_rng(0)
-    xq = rng.uniform(lo, hi, (2048, 3))
-    mix = register_scale_mixture(*MIXTURE)
     out = {}
-
-    # gram: predict's k(P, x*) at (1152, 2048, d=3)
-    gram_err32 = 0.0
-    for dt in (torch.float32, torch.float64):
-        P = torch.as_tensor(p_pad, device=dev, dtype=dt)
-        X = torch.as_tensor(xq, device=dev, dtype=dt)
-        for name in ("rbf", "ou", "matern32", mix):
-            k = cross_gram_cuda(name, P, X, scale)
-            torch.cuda.synchronize()
-            ref = cross_gram_plain(name, P, X, scale)
-            err = float((k - ref).abs().max())
-            tol = GRAM_TOL[dt]
-            log(f"gram {name:28s} {str(dt):14s} shape {tuple(k.shape)} "
-                f"max_abs_err {err:.3e} (tol {tol:g})")
-            check(err <= tol, f"gram {name} {dt} error {err} > {tol}")
-            check(bool((k[m_valid:] == 0).all()),
-                  f"gram {name} {dt}: far-point rows not exactly 0")
-            if dt == torch.float32:
-                gram_err32 = max(gram_err32, err)
-    P32 = torch.as_tensor(p_pad, device=dev, dtype=torch.float32)
-    X32 = torch.as_tensor(xq, device=dev, dtype=torch.float32)
-    out["gram"] = {
-        "max_abs_err": gram_err32,
-        "ms": cuda_ms(lambda: cross_gram_cuda("matern32", P32, X32, scale)),
-        "plain_ms": cuda_ms(
-            lambda: cross_gram_plain("matern32", P32, X32, scale)),
-    }
 
     # FITC at M=1152, N=2048: pose 0's sampled dataset
     s = setting
@@ -440,11 +423,8 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
             f"trajectory free {free:.4f} (gate > 0.95)")
         check(surf > 0.9 and free > 0.95,
               f"hotel-0 quality gate [{tag}]: surf {surf} free {free}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bat.predict(sel.astype(np.float32))
-    torch.cuda.synchronize()
-    t_predict_cached = time.perf_counter() - t0
+    cached_ms = [timed(lambda: bat.predict(sel.astype(np.float32)))[1]
+                 for _ in range(TIMED_RUNS)]
     counts = launch_counts()
     log(f"launch counts of the main-path run: {counts} "
         f"({2 * b} pose updates)")
@@ -514,7 +494,8 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
         "replay_updates_per_s_range": [min(ups), max(ups)],
         "replays": len(ms_pose),
         "predict_ms_first": 1e3 * t_predict["update_batch"],
-        "predict_ms_cached": 1e3 * t_predict_cached,
+        "predict_ms_cached": statistics.median(cached_ms),
+        "predict_ms_cached_range": [min(cached_ms), max(cached_ms)],
         "n_predict": int(len(sel)),
         "fitc_launches_per_pose": fitc_pose,
         "kernel_launches_per_pose": sum(c for c, _ in
@@ -525,7 +506,8 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
         f"updates/s (medians of {len(ms_pose)} replays); predict of "
         f"{len(sel)} points "
         f"{timings['predict_ms_first']:.3f} ms with prepare, "
-        f"{timings['predict_ms_cached']:.3f} ms cached")
+        f"{timings['predict_ms_cached']:.4f} ms cached (median of "
+        f"{TIMED_RUNS}, range {min(cached_ms):.4f}-{max(cached_ms):.4f})")
     return counts, timings, {"drift": drift, "sign_agreement": agree,
                              "quality": fracs}
 
@@ -544,8 +526,9 @@ def bank_errors(L, L_inv, alpha, ref):
 
 def check_bank_kernels(dev, lidar, depth):
     """Phase 7: the bank kernels and the batched gram against their plain
-    versions at the sensor-GP path's shapes. Returns {name: {max_abs_err,
-    ms, plain_ms, library_ms}}."""
+    versions at the sensor-GP path's shapes (the batched gram's times:
+    :func:`time_gram`). Returns {name: {max_abs_err, ms, plain_ms,
+    library_ms}}."""
     from erl_gaussian_process_tpu_torch.kernels import train_gram
     from erl_gaussian_process_tpu_torch.models import (
         RangeSensorGaussianProcess3D,
@@ -687,29 +670,20 @@ def check_bank_kernels(dev, lidar, depth):
         dist = np.linalg.norm(p, axis=-1)         # as compute_occ routes
         ops.append((f"compute_occ x{f}", gp, routed_gram_operands(
             gp, p / np.where(dist > 0, dist, 1.0)[:, None])))
-    gram_err32 = 0.0
     for dt in (torch.float32, torch.float64):
-        for label, model, (x1, x2, _) in ops:
+        for label, model, (x1, x2, ms) in ops:
             x1, x2 = x1.to(dt), x2.to(dt)
             kern, scale = model._kernel, model._scale
-            k = cross_gram_batched_cuda(kern, x1, x2, scale)
+            k = cross_gram_batched_cuda(kern, x1, x2, scale, ms)
             torch.cuda.synchronize()
-            err = float((k - cross_gram_plain(kern, x1, x2, scale)
+            err = float((k - cross_gram_plain(kern, x1, x2, scale, ms)
                          ).abs().max())
             log(f"gram_batched {label:18s} {kern} scale {scale:g} "
                 f"{str(dt):14s} shape {tuple(k.shape)} max_abs_err "
                 f"{err:.3e} (tol {GRAM_TOL[dt]:g})")
             check(err <= GRAM_TOL[dt], f"gram_batched {label} {dt}: {err}")
-            if dt == torch.float32:
-                gram_err32 = max(gram_err32, err)
-    _, model, (x1, x2, _) = ops[0]
-    kern, scale = model._kernel, model._scale
-    out["gram_batched"] = {
-        "max_abs_err": gram_err32,
-        "ms": cuda_ms(lambda: cross_gram_batched_cuda(kern, x1, x2, scale)),
-        "plain_ms": cuda_ms(lambda: cross_gram_plain(kern, x1, x2, scale))}
-    log(f"gram_batched timed at the lidar test's bucket {tuple(x1.shape)} x "
-        f"{tuple(x2.shape)}")
+            check(bool((k[~ms] == 0).all()),
+                  f"gram_batched {label} {dt}: a masked row is not 0")
     return out
 
 
@@ -837,10 +811,24 @@ def run_sensor_gp(dev, card, lidar, depth):
     timings["train_ms"] = statistics.median(train_ms)
     timings["train_ms_range"] = [min(train_ms), max(train_ms)]
     timings["test_ms_10000"] = statistics.median(test_ms)
+    timings["test_ms_10000_range"] = [min(test_ms), max(test_ms)]
+    # one test under torch.profiler: one gram launch, the member masks
+    # applied in it (no where over the gram)
+    x1, x2, _ = routed_gram_operands(
+        gp, gp.global_to_local_so3(q.astype(np.float32)))
+    shape = (x1.shape[0], x1.shape[1], x2.shape[1])
+    g_launches, g_wheres, g_kernels = gram_profile(
+        lambda: gp.test(q, False, True).get_mean(), shape)
+    log(f"lidar test under torch.profiler: {g_launches} gram launch, "
+        f"{g_wheres} where ops over the {shape} gram; kernels {g_kernels}")
+    check(g_launches == 1 and g_wheres == 0,
+          f"lidar test: {g_launches} gram launches, {g_wheres} where ops "
+          "over the gram")
     log(f"lidar launch counts {counts['lidar']}; train "
         f"{timings['train_ms']:.4f} ms (median of {SENSOR_REPS}, range "
         f"{min(train_ms):.4f}-{max(train_ms):.4f}), test of {len(q)} queries "
-        f"{timings['test_ms_10000']:.4f} ms (median of 5) on {card}")
+        f"{timings['test_ms_10000']:.4f} ms (median of 5, range "
+        f"{min(test_ms):.4f}-{max(test_ms):.4f}) on {card}")
 
     # the same scan at the setting's default grouping: 408 members of 144
     ggp = RangeSensorGaussianProcess3D(default_grouped_setting(),
@@ -1082,54 +1070,118 @@ def gram_cases(dev, setting, pseudo, lo, hi, lidar):
     return cases
 
 
-def masked_gram(kern, x1, x2, scale, mask):
-    """The kernel's gram as its path takes it: the row mask applied as the
-    callers apply it."""
+def gram_call(kern, x1, x2, scale, mask):
+    """The gram kernel as its path calls it: the SPGP predict's
+    ``cross_gram_cuda``, the exact GP's ``kernels.cross_gram`` with the
+    train mask, the routed predict's ``cross_gram_batched_cuda`` with the
+    members' masks (the kernel writes the masked rows)."""
     from erl_gaussian_process_tpu_torch.kernels import cross_gram
     from erl_gaussian_process_tpu_torch.ops import cross_gram_batched_cuda
 
-    if x1.dim() == 2:
-        return cross_gram(kern, x1, x2, scale, mask1=mask)
-    k = cross_gram_batched_cuda(kern, x1, x2, scale)
-    return torch.where(mask[:, :, None], k, torch.zeros_like(k))
+    if x1.dim() == 3:
+        return cross_gram_batched_cuda(kern, x1, x2, scale, mask)
+    return cross_gram(kern, x1, x2, scale, mask1=mask)
 
 
-def masked_gram_plain(kern, x1, x2, scale, mask):
+def check_gram(dev, cases, mixture) -> dict:
+    """The gram kernel against its plain version at its three path shapes
+    (:func:`gram_cases`), in every family (rbf, ou, matern32 and a
+    three-component matern32 mixture) at float32 and float64: max abs error
+    <= GRAM_TOL, masked rows and far-point rows (the SPGP predict's padded
+    pseudo points) exactly +0.0, two calls bitwise equal. Returns {key:
+    float32 max abs error over the families}."""
     from erl_gaussian_process_tpu_torch.ops import cross_gram_plain
 
-    k = cross_gram_plain(kern, x1, x2, scale)
-    if mask is None:
-        return k
-    return torch.where(mask[..., :, None], k, torch.zeros_like(k))
+    out = {}
+    for key, label, _, scale, x1, x2, mask in cases:
+        err32 = 0.0
+        for dt in (torch.float32, torch.float64):
+            a, b = x1.to(dt), x2.to(dt)
+            for name in ("rbf", "ou", "matern32", mixture):
+                k = gram_call(name, a, b, scale, mask)
+                k2 = gram_call(name, a, b, scale, mask)
+                torch.cuda.synchronize()
+                ref = cross_gram_plain(name, a, b, scale, mask)
+                err = float((k - ref).abs().max())
+                tol = GRAM_TOL[dt]
+                zero = torch.zeros((), dtype=torch.bool, device=dev)
+                if mask is not None:
+                    off = k[~mask]
+                    zero = (off != 0).any() | torch.signbit(off).any()
+                if key == "gram":     # far-point rows past the 1089 points
+                    far = k[1089:]
+                    zero = zero | (far != 0).any() | torch.signbit(far).any()
+                log(f"gram {label} {name:28s} {str(dt):14s} shape "
+                    f"{tuple(k.shape)} max_abs_err {err:.3e} (tol {tol:g})")
+                check(err <= tol, f"gram {label} {name} {dt}: error {err} > "
+                      f"{tol}")
+                check(not bool(zero), f"gram {label} {name} {dt}: a masked "
+                      "or far-point row is not exactly +0.0")
+                check(bool(torch.equal(k, k2)), f"gram {label} {name} {dt}: "
+                      "two calls differ")
+                if dt == torch.float32:
+                    err32 = max(err32, err)
+        out[key] = err32
+    return out
 
 
 def time_gram(dev, card, cases) -> dict:
     """At each of the gram's path shapes: CUDA-event ms (median of 20 and
     range), device ms a call (torch.profiler over 10 calls, every kernel
     the call launches), host ms a call (enqueue, :func:`host_ms`), the
-    plain version's event ms, and the bound. Returns {key: {...}}."""
+    plain version's event ms, the bound, and the device ms with streaming
+    stores and with plain stores (``ops/gram.py``'s STREAM_STORES_ABOVE
+    forced each way, in turns plain, streaming, streaming, plain), of the
+    gram alone and of the gram and a product that reads it. Returns {key:
+    {...}}."""
+    import erl_gaussian_process_tpu_torch.ops.gram as gram_ops
+    from erl_gaussian_process_tpu_torch.ops import cross_gram_plain
+
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mhz = sm_clock_mhz()
     out = {}
     for key, label, kern, scale, x1, x2, mask in cases:
         def fn():
-            return masked_gram(kern, x1, x2, scale, mask)
+            return gram_call(kern, x1, x2, scale, mask)
 
         ev = event_times(fn)
         split = device_kernels(lambda: [fn() for _ in range(10)])
         dev_ms = sum(ms for _, ms in split.values()) / 10
         h_ms = host_ms(fn)
-        plain_ms = cuda_ms(lambda: masked_gram_plain(kern, x1, x2, scale,
-                                                     mask))
+        plain_ms = cuda_ms(lambda: cross_gram_plain(kern, x1, x2, scale,
+                                                    mask))
+        # the gram alone, and the gram with a product that reads it next
+        # (k^T v, v a column of ones: the mean's product on every path)
+        v = torch.ones(x1.shape[:-1] + (1,), dtype=x1.dtype, device=dev)
+
+        def fn_read():
+            return torch.matmul(fn().mT, v)
+
+        policy = gram_ops.STREAM_STORES_ABOVE
+        stores = {"plain": [], "streaming": [], "plain+read": [],
+                  "streaming+read": []}
+        for kind in ("plain", "streaming", "streaming", "plain"):
+            gram_ops.STREAM_STORES_ABOVE = (float("inf") if kind == "plain"
+                                            else -1)
+            for f, tag in ((fn, kind), (fn_read, kind + "+read")):
+                stores[tag].append(sum(ms for _, ms in device_kernels(
+                    lambda: [f() for _ in range(10)]).values()) / 10)
+        gram_ops.STREAM_STORES_ABOVE = policy
         batch = x1.shape[0] if x1.dim() == 3 else 1
         m, n, d = x1.shape[-2], x2.shape[-2], x1.shape[-1]
         rows = int(mask.sum()) if mask is not None else batch * m
         b_ms, b_by, b_all = gram_bound(kern, x1.dtype, batch, m, n, d, rows,
                                        mask is not None, sms, mhz)
+        out_bytes = torch.finfo(x1.dtype).bits // 8 * batch * m * n
         r = {"shape": [batch, m, n, d], "kernel": kern,
              "ms": statistics.median(ev), "ms_range": [min(ev), max(ev)],
              "device_ms": dev_ms, "host_ms": h_ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms, "bound_by": b_by, "kernels_per_call": {
+             "bound_ms": b_ms, "bound_by": b_by,
+             "streaming": out_bytes > (
+                 torch.cuda.get_device_properties(dev).L2_cache_size
+                 if policy is None else policy),
+             "device_ms_by_stores": stores,
+             "kernels_per_call": {
                  k.split("(")[0][:48]: [c / 10, ms / 10]
                  for k, (c, ms) in split.items()}}
         log(f"gram {label} {kern} B={batch} {m}x{n} d={d} float32 on {card}: "
@@ -1138,9 +1190,69 @@ def time_gram(dev, card, cases) -> dict:
             f"{h_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
             f"({b_by}; " + ", ".join(f"{k} {v:.4f}" for k, v in b_all.items())
             + f" at {mhz:g} MHz); kernels a call (launches, device ms) "
-            + f"{r['kernels_per_call']}")
+            + f"{r['kernels_per_call']}; output {out_bytes / 2 ** 20:.1f} "
+            f"MiB, device ms a call by stores (10 calls each, in turns) "
+            + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in ts)
+                        for k, ts in stores.items())
+            + f" (the policy takes "
+            f"{'streaming' if r['streaming'] else 'plain'})")
+        if key == "gram":
+            r["host_split"] = gram_host_split(kern, x1, x2, scale)
+            log(f"gram {label}: host ms a call by part (200 calls each): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in
+                            r["host_split"].items()))
         out[key] = r
     return out
+
+
+def gram_host_split(kern, x1, x2, scale) -> dict:
+    """Host ms of the parts of one ``cross_gram_cuda`` call (:func:`host_ms`):
+    the whole wrapper, its output's ``torch.empty``, the current-stream
+    lookup, and the C entry alone (the launch, with its arguments built
+    beforehand); the rest is the wrapper's Python (checks, cache lookups,
+    ``data_ptr``)."""
+    import erl_gaussian_process_tpu_torch.ops.gram as gram_ops
+    from erl_gaussian_process_tpu_torch.ops._build import load_library
+
+    m, n = x1.shape[0], x2.shape[0]
+    out = torch.empty((m, n), dtype=x1.dtype, device=x1.device)
+    fam, ncomp, coefs, weights = gram_ops.packed_family(kern, float(scale))
+    stream = torch.cuda.current_stream(x1.device).cuda_stream
+    entry = load_library().lib.egp_gram_f32
+    args = (x1.data_ptr(), x2.data_ptr(), None, out.data_ptr(), 1, m, n,
+            x1.shape[1], fam, ncomp, coefs, weights, 0, x1.device.index,
+            stream)
+    split = {
+        "wrapper": host_ms(lambda: gram_ops.cross_gram_cuda(kern, x1, x2,
+                                                            scale)),
+        "empty": host_ms(lambda: torch.empty((m, n), dtype=x1.dtype,
+                                             device=x1.device)),
+        "stream": host_ms(
+            lambda: torch.cuda.current_stream(x1.device).cuda_stream),
+        "c_entry": host_ms(lambda: entry(*args))}
+    split["python"] = split["wrapper"] - split["empty"] - split["stream"] \
+        - split["c_entry"]
+    return split
+
+
+def gram_profile(fn, gram_shape) -> tuple:
+    """(gram-kernel launches, ``aten::where`` ops with an operand of the
+    gram's shape, {device kernel: launches}) of ``fn()`` under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {e.key.split("(")[0][:60]: e.count
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    launches = sum(c for k, c in kernels.items() if "gram_kernel" in k)
+    wheres = sum(1 for e in prof.events() if e.name == "aten::where" and any(
+        list(sh) == list(gram_shape) for sh in e.input_shapes))
+    return launches, wheres, kernels
 
 
 def backward_error(L, K) -> float:
@@ -1412,8 +1524,28 @@ def run_exact_gp(dev, card):
           f"{ve_p}")
     check(counts["chol_gram"] == 1 and counts["trsv"] == 2
           and counts["gram"] >= 1, f"exact GP launches {counts}")
+
+    def first_test():
+        r = gp.test(xq.T)
+        return r.get_mean(), r.get_variance()
+
+    # 4096 queries whiten by substitution in every query (the L^-1 path
+    # takes batches of at most 512)
+    tests = [test_ms + var_ms] + [timed(first_test)[1]
+                                  for _ in range(TIMED_RUNS - 1)]
+    shape = (x.shape[0], xq.shape[0])
+    g_launches, g_wheres, g_kernels = gram_profile(first_test, shape)
+    log(f"exact GP test (with mean and variance) {statistics.median(tests):.3f}"
+        f" ms (median of {TIMED_RUNS}, range {min(tests):.3f}-"
+        f"{max(tests):.3f}) on {card}; under torch.profiler {g_launches} gram "
+        f"launch, {g_wheres} where ops over the {shape} gram; kernels "
+        f"{g_kernels}")
+    check(g_launches == 1 and g_wheres == 0,
+          f"exact GP test: {g_launches} gram launches, {g_wheres} where ops "
+          "over the gram")
     return counts, {"exact_gp_train_ms": train_ms,
-                    "exact_gp_test_ms": test_ms + var_ms}, \
+                    "exact_gp_test_ms": statistics.median(tests),
+                    "exact_gp_test_ms_range": [min(tests), max(tests)]}, \
         {"mae": float(mae_k), "mae_plain_f32": float(mae_p),
          "var_err": float(ve_k), "var_err_plain_f32": float(ve_p)}
 
@@ -1647,18 +1779,26 @@ def main() -> int:
     log(f"workload: {len(sensors)} poses, {pts.shape[1]} rays, "
         f"{pseudo.shape[1]} pseudo points, scanned in "
         f"{time.perf_counter() - t0:.2f} s")
-    if sys.argv[1:] == ["--gram"]:
-        # the gram's timings at its three path shapes alone
-        from erl_gaussian_process_tpu_torch.workloads import (
-            lidar3d_reference_workload,
-        )
-        cases = gram_cases(dev, setting, pseudo, lo, hi,
-                           lidar3d_reference_workload())
-        log(json.dumps({"gram_timings": time_gram(dev, card, cases),
-                        "card": card}))
+    from erl_gaussian_process_tpu_torch.kernels import register_scale_mixture
+    from erl_gaussian_process_tpu_torch.workloads import (
+        depth3d_reference_workload,
+        lidar3d_reference_workload,
+    )
+    lidar = lidar3d_reference_workload()
+    cases = gram_cases(dev, setting, pseudo, lo, hi, lidar)
+    gram_err = check_gram(dev, cases, register_scale_mixture(*MIXTURE))
+    gram_times = time_gram(dev, card, cases)
+    log(json.dumps({"gram_timings": gram_times, "card": card}))
+    if sys.argv[1:] == ["--gram"]:     # the gram's phase alone
         return 0
+    del cases
 
     kern = check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks)
+    for key, r in gram_times.items():
+        kern[key] = {"max_abs_err": gram_err[key], "library_ms": None,
+                     **{k: r[k] for k in ("ms", "plain_ms", "bound_ms")},
+                     "bound_by": ("bytes" if r["bound_by"] == "bytes"
+                                  else "operations")}
     for name, r in kern.items():
         log(f"time on {card}: {name} kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms (median of {REPS})")
@@ -1669,11 +1809,6 @@ def main() -> int:
                     "sign_agreement": drift["sign_agreement"],
                     "card": card}))
 
-    from erl_gaussian_process_tpu_torch.workloads import (
-        depth3d_reference_workload,
-        lidar3d_reference_workload,
-    )
-    lidar = lidar3d_reference_workload()
     depth = depth3d_reference_workload()
     bank = check_bank_kernels(dev, lidar, depth)
     sensor_counts, sensor_timings = run_sensor_gp(dev, card, lidar, depth)
@@ -1695,37 +1830,36 @@ def main() -> int:
                     "exact_gp_errors": exact_err, "nigp_errors": nigp_err,
                     "nigp_golden": golden, "card": card}))
 
-    # bounds of the SPGP slice's kernels at their timed shapes (FP32
-    # outside the tensor cores, HBM; see bound(); the bank kernels' are
-    # computed in check_bank_kernels): FITC M=1152, N=2048, d=3 (L_inv's
-    # lower triangle read, dQ written; the triangular L_inv product M (M +
-    # 1) N, the lower SYRK M (M + 1) N, kmn ~20 M N); gram 1152 x 2048 (its
-    # write). At float32 FITC's beta runs on the FP64 tensor cores and its
-    # SYRK in 3xTF32: its bound at those rates is logged beside
+    # FITC's bound at its timed shape (FP32 outside the tensor cores, HBM;
+    # see bound(); the bank kernels' are computed in check_bank_kernels,
+    # the gram's in time_gram): M=1152, N=2048, d=3 (L_inv's lower triangle
+    # read, dQ written; the triangular L_inv product M (M + 1) N, the lower
+    # SYRK M (M + 1) N, kmn ~20 M N). At float32 FITC's beta runs on the
+    # FP64 tensor cores and its SYRK in 3xTF32: its bound at those rates is
+    # logged beside
     m_, n_ = 1152, 2048
-    for name, nbytes, flops in (
-            ("fitc", 4 * (m_ * (m_ + 1) // 2 + m_ * m_ + 6 * n_),
-             2 * m_ * (m_ + 1) * n_ + 20 * m_ * n_),
-            ("gram", 4 * (m_ * n_ + 3 * (m_ + n_)), 20 * m_ * n_)):
-        kern[name]["bound_ms"], kern[name]["bound_by"] = bound(nbytes, flops)
-        kern[name].setdefault("library_ms", None)
-        if name == "fitc":
-            half = m_ * (m_ + 1) * n_       # each product's operations
-            tc_ms = max(1e3 * nbytes / HBM_BYTES_PER_S,
-                        1e3 * (half / FP64_TC_FLOPS + half / TF32X3_FLOPS))
-            log(f"{name}: kernel {kern[name]['ms']:.4f} ms, bound "
-                f"{kern[name]['bound_ms']:.4f} ms ({kern[name]['bound_by']}, "
-                f"FP32) and {tc_ms:.4f} ms at the tensor-core rates its "
-                f"products run at (beta FP64, SYRK 3xTF32), on {card}")
+    nbytes = 4 * (m_ * (m_ + 1) // 2 + m_ * m_ + 6 * n_)
+    kern["fitc"]["bound_ms"], kern["fitc"]["bound_by"] = bound(
+        nbytes, 2 * m_ * (m_ + 1) * n_ + 20 * m_ * n_)
+    kern["fitc"]["library_ms"] = None
+    half = m_ * (m_ + 1) * n_       # each product's operations
+    tc_ms = max(1e3 * nbytes / HBM_BYTES_PER_S,
+                1e3 * (half / FP64_TC_FLOPS + half / TF32X3_FLOPS))
+    log(f"fitc: kernel {kern['fitc']['ms']:.4f} ms, bound "
+        f"{kern['fitc']['bound_ms']:.4f} ms ({kern['fitc']['bound_by']}, "
+        f"FP32) and {tc_ms:.4f} ms at the tensor-core rates its products run "
+        f"at (beta FP64, SYRK 3xTF32), on {card}")
 
-    # launches of each kernel in the paths' runs: gram.cu serves the SPGP
-    # predict (cross_gram), the sensor GPs' routed predict (batched) and the
-    # exact GP's test; trsv runs in every exact fit's solve
+    # launches of each kernel in the paths' runs: gram.cuh serves the SPGP
+    # predict (gram), the exact GP's test (gram_exact) and the sensor GPs'
+    # routed predict (gram_batched); trsv runs in every exact fit's solve
     exact_all = [exact_counts, golden_counts, *nigp_counts.values()]
     launches = {
         "fitc": counts["fitc"],
-        "gram": counts["gram"] + exact_counts["gram"] + sum(
-            c["gram_batched"] for c in sensor_counts.values()),
+        "gram": counts["gram"],
+        "gram_exact": exact_counts["gram"],
+        "gram_batched": sum(c["gram_batched"]
+                            for c in sensor_counts.values()),
         "bank_fit": sum(c["bank_fit"] for k, c in sensor_counts.items()
                         if k != "lidar_default_grouping"),
         "bank_fit_408x144":
@@ -1737,8 +1871,9 @@ def main() -> int:
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched by its path: {launches}")
     chol_src = "erl_gaussian_process_tpu_torch/csrc/chol.cu"
-    src = {"gram": ("erl_gaussian_process_tpu_torch/csrc/gram.cu",
-                    "erl_gaussian_process_tpu/ops/pallas_gram.py:92"),
+    gram_src = ("erl_gaussian_process_tpu_torch/csrc/gram.cuh",
+                "erl_gaussian_process_tpu/ops/pallas_gram.py:92")
+    src = {"gram": gram_src, "gram_exact": gram_src, "gram_batched": gram_src,
            "fitc": ("erl_gaussian_process_tpu_torch/csrc/fitc.cu",
                     "erl_gaussian_process_tpu/ops/pallas_fitc.py:145"),
            "bank_fit": ("erl_gaussian_process_tpu_torch/csrc/bank.cu",

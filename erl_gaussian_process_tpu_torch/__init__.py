@@ -9,7 +9,7 @@ other on the same inputs. This package imports ``torch`` and ``numpy`` (and
 
 Hand-written Hopper kernels live in ``csrc/`` and are bound in ``ops/``:
 
-- ``ops/gram.py`` + ``csrc/gram.cu``: the cross-gram k(x1, x2), also over
+- ``ops/gram.py`` + ``csrc/gram.cuh``: the cross-gram k(x1, x2), also over
   a leading member axis;
 - ``ops/fitc.py`` + ``csrc/fitc.cu``: the rank-N FITC update;
 - ``ops/bank.py`` + ``csrc/bank.cu``: the bank fit and bank Cholesky of B

@@ -213,7 +213,7 @@ __global__ void __launch_bounds__(kBankThreads)
     bank_fit_kernel(const T* __restrict__ x, const T* __restrict__ var,
                     const unsigned char* __restrict__ mask,
                     const T* __restrict__ y, T* L, T* Linv, T* alpha, int n,
-                    int d, int q, FamilyArgs fa, T scale, bool in_smem) {
+                    int d, int q, FamilyConsts<T> fc, bool in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const size_t b = blockIdx.x;
   const size_t nn = (size_t)n * n;
@@ -231,8 +231,7 @@ __global__ void __launch_bounds__(kBankThreads)
     if (k >= i) {
       T a;
       if (mb[i] && mb[k]) {
-        a = kernel_entry<T>(fa, xb + (size_t)i * d, xb + (size_t)k * d, d,
-                            scale);
+        a = kernel_entry<T>(fc, xb + (size_t)i * d, xb + (size_t)k * d, d);
         if (i == k) a += vb[i];
       } else {
         a = i == k ? T(1) : T(0);
@@ -468,8 +467,7 @@ struct TileBuilt {
   const unsigned char* mask;
   int n;
   int d;
-  FamilyArgs fa;
-  float scale;
+  FamilyConsts<float> fc;
   __device__ __forceinline__ void operator()(float* t, int i, int j) const {
     constexpr int kRows = kPtElems / 32;
     const int lane = threadIdx.x & 31;
@@ -497,7 +495,7 @@ struct TileBuilt {
     for (int k = 0; k < kRows; ++k) {
       const int r = (lane >> 4) + 2 * k;
       const int gr = i * kPt + r;
-      const float kv = family_value<float>(fa, r2[k], scale);
+      const float kv = family_value<float>(fc, r2[k]);
       const bool both = col && gr < n && __ldg(mask + rows[k]);
       float a = gr == gc ? 1.f : 0.f;
       if (both && (i != j || c <= r))
@@ -726,7 +724,7 @@ __global__ void __launch_bounds__(kMaxMembers * 32)
                        const unsigned char* __restrict__ mask,
                        const float* __restrict__ y, float* __restrict__ L,
                        float* __restrict__ Linv, float* alpha, int batch,
-                       int n, int d, int q, FamilyArgs fa, float scale,
+                       int n, int d, int q, FamilyConsts<float> fc,
                        bool vec, int P, int slab) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5;
@@ -734,8 +732,7 @@ __global__ void __launch_bounds__(kMaxMembers * 32)
   if (b >= batch) return;
   float* S = reinterpret_cast<float*>(smem_raw) + (size_t)warp * slab * kPtElems;
   const size_t nn = (size_t)n * n;
-  const TileBuilt src{x + b * n * d, var + b * n, mask + b * n, n, d, fa,
-                      scale};
+  const TileBuilt src{x + b * n * d, var + b * n, mask + b * n, n, d, fc};
   factor_member(src, S, L + b * nn, Linv + b * nn, y + b * n * q,
                 mask + b * n, alpha + b * n * q, n, q, P, vec);
 }
@@ -806,22 +803,22 @@ template <typename T>
 static int launch_bank_fit(const T* x, const T* var, const unsigned char* mask,
                            const T* y, T* L, T* Linv, T* alpha, int batch,
                            int n, int d, int q, int family, int ncomp,
-                           const double* ratios, const double* weights,
-                           double scale, int members_per_block, int device,
+                           const double* coefs, const double* weights,
+                           int members_per_block, int device,
                            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  FamilyArgs fa;
+  FamilyConsts<T> fc;
   if (batch <= 0 || n <= 0 || d <= 0 || q <= 0 || members_per_block < 0 ||
       members_per_block > kMaxMembers ||
-      !make_family_args(family, ncomp, ratios, weights, &fa))
+      !make_family<T>(family, ncomp, coefs, weights, &fc))
     return (int)cudaErrorInvalidValue;
   if (members_per_block == 0) {
     size_t bytes = 0;
     const int code = slab_smem<T>(bank_fit_kernel<T>, n, device, &bytes);
     if (code != 0) return code;
     bank_fit_kernel<T><<<batch, dim3(kBankTx, kBankTy), bytes, stream>>>(
-        x, var, mask, y, L, Linv, alpha, n, d, q, fa, (T)scale, bytes > 0);
+        x, var, mask, y, L, Linv, alpha, n, d, q, fc, bytes > 0);
     return (int)cudaGetLastError();
   }
   if constexpr (sizeof(T) != sizeof(float)) {
@@ -831,8 +828,7 @@ static int launch_bank_fit(const T* x, const T* var, const unsigned char* mask,
     const bool vec = n % 4 == 0 && aligned16(L) && aligned16(Linv);
     return launch_blocked(bank_fit_tc_kernel, opted, batch, n,
                           members_per_block, device, stream, x, var, mask, y,
-                          L, Linv, alpha, batch, n, d, q, fa, (float)scale,
-                          vec);
+                          L, Linv, alpha, batch, n, d, q, fc, vec);
   }
 }
 
@@ -873,12 +869,12 @@ extern "C" int egp_bank_fit_f32(const float* x, const float* var,
                                 const unsigned char* mask, const float* y,
                                 float* L, float* Linv, float* alpha, int batch,
                                 int n, int d, int q, int family, int ncomp,
-                                const double* ratios, const double* weights,
-                                double scale, int members_per_block,
-                                int device, void* stream) {
+                                const double* coefs, const double* weights,
+                                int members_per_block, int device,
+                                void* stream) {
   return egp::launch_bank_fit<float>(x, var, mask, y, L, Linv, alpha, batch,
-                                     n, d, q, family, ncomp, ratios, weights,
-                                     scale, members_per_block, device,
+                                     n, d, q, family, ncomp, coefs, weights,
+                                     members_per_block, device,
                                      (cudaStream_t)stream);
 }
 
@@ -886,13 +882,12 @@ extern "C" int egp_bank_fit_f64(const double* x, const double* var,
                                 const unsigned char* mask, const double* y,
                                 double* L, double* Linv, double* alpha,
                                 int batch, int n, int d, int q, int family,
-                                int ncomp, const double* ratios,
-                                const double* weights, double scale,
-                                int members_per_block, int device,
-                                void* stream) {
+                                int ncomp, const double* coefs,
+                                const double* weights, int members_per_block,
+                                int device, void* stream) {
   return egp::launch_bank_fit<double>(x, var, mask, y, L, Linv, alpha, batch,
-                                      n, d, q, family, ncomp, ratios, weights,
-                                      scale, members_per_block, device,
+                                      n, d, q, family, ncomp, coefs, weights,
+                                      members_per_block, device,
                                       (cudaStream_t)stream);
 }
 

@@ -117,11 +117,10 @@ struct GramSource {
   const unsigned char* mask;
   int n;
   int d;
-  FamilyArgs fa;
-  T scale;
+  FamilyConsts<T> fc;
   __device__ __forceinline__ T operator()(int r, int c) const {
     if (r >= n || c >= n || !(mask[r] && mask[c])) return r == c ? T(1) : T(0);
-    T a = kernel_entry<T>(fa, x + (size_t)r * d, x + (size_t)c * d, d, scale);
+    T a = kernel_entry<T>(fc, x + (size_t)r * d, x + (size_t)c * d, d);
     if (r == c) a += var[r];
     return a;
   }
@@ -851,18 +850,17 @@ template <typename T>
 static int launch_chol_gram(const T* x, const T* var, const unsigned char* mask,
                             T* L, T* Dinv, T* ws, long long ws_half,
                             const int* pps, int n, int d, int family,
-                            int ncomp, const double* ratios,
-                            const double* weights, double scale, int device,
+                            int ncomp, const double* coefs,
+                            const double* weights, int device,
                             cudaStream_t stream) {
   GramSource<T> src;
-  if (d <= 0 || !make_family_args(family, ncomp, ratios, weights, &src.fa))
+  if (d <= 0 || !make_family<T>(family, ncomp, coefs, weights, &src.fc))
     return (int)cudaErrorInvalidValue;
   src.x = x;
   src.var = var;
   src.mask = mask;
   src.n = n;
   src.d = d;
-  src.scale = (T)scale;
   return run_chol<T>(src, L, Dinv, ws, ws_half, pps, n, device, stream);
 }
 
@@ -905,25 +903,24 @@ extern "C" int egp_chol_gram_f32(const float* x, const float* var,
                                  const unsigned char* mask, float* L,
                                  float* Dinv, float* ws, long long ws_half,
                                  const int* pps, int n, int d, int family,
-                                 int ncomp, const double* ratios,
-                                 const double* weights, double scale,
-                                 int device, void* stream) {
+                                 int ncomp, const double* coefs,
+                                 const double* weights, int device,
+                                 void* stream) {
   return egp::launch_chol_gram<float>(x, var, mask, L, Dinv, ws, ws_half, pps,
-                                      n, d, family, ncomp, ratios, weights,
-                                      scale, device, (cudaStream_t)stream);
+                                      n, d, family, ncomp, coefs, weights,
+                                      device, (cudaStream_t)stream);
 }
 
 extern "C" int egp_chol_gram_f64(const double* x, const double* var,
                                  const unsigned char* mask, double* L,
                                  double* Dinv, double* ws, long long ws_half,
                                  const int* pps, int n, int d, int family,
-                                 int ncomp, const double* ratios,
-                                 const double* weights, double scale,
-                                 int device, void* stream) {
+                                 int ncomp, const double* coefs,
+                                 const double* weights, int device,
+                                 void* stream) {
   return egp::launch_chol_gram<double>(x, var, mask, L, Dinv, ws, ws_half,
-                                       pps, n, d, family, ncomp, ratios,
-                                       weights, scale, device,
-                                       (cudaStream_t)stream);
+                                       pps, n, d, family, ncomp, coefs,
+                                       weights, device, (cudaStream_t)stream);
 }
 
 extern "C" int egp_chol_joint_f32(const float* x, const float* var_v,

@@ -107,7 +107,7 @@ template <typename T>
 __global__ void __launch_bounds__(256)
     kmn_kernel(const T* __restrict__ pseudo, const T* __restrict__ x,
                T* __restrict__ kmn, int* __restrict__ counters, int ncount,
-               int m, int n, int d, FamilyArgs fa, T scale) {
+               int m, int n, int d, FamilyConsts<T> fc) {
   if (blockIdx.x == 0 && blockIdx.y == 0)
     for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < ncount;
          i += blockDim.x * blockDim.y)
@@ -115,8 +115,8 @@ __global__ void __launch_bounds__(256)
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int a = blockIdx.y * blockDim.y + threadIdx.y;
   if (a >= m || j >= n) return;
-  kmn[(size_t)a * n + j] = kernel_entry<T>(fa, pseudo + (size_t)a * d,
-                                           x + (size_t)j * d, d, scale);
+  kmn[(size_t)a * n + j] = kernel_entry<T>(fc, pseudo + (size_t)a * d,
+                                           x + (size_t)j * d, d);
 }
 
 // ---- (2) beta and the weights ----
@@ -675,14 +675,14 @@ static int launch_fitc(const T* pseudo, const T* linv, const T* x, const T* y,
                        const T* var, const unsigned char* mask, T* kmn,
                        double* partial, T* w, T* dq, T* da, T* ws, int* counters,
                        int m, int n, int d, int q, int splits, int chunk,
-                       int family, int ncomp, const double* ratios,
-                       const double* weights, double scale, int device,
+                       int family, int ncomp, const double* coefs,
+                       const double* weights, int device,
                        cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  FamilyArgs fa;
+  FamilyConsts<T> fc;
   if (m <= 0 || n <= 0 || d <= 0 || q <= 0 ||
-      !make_family_args(family, ncomp, ratios, weights, &fa))
+      !make_family<T>(family, ncomp, coefs, weights, &fc))
     return (int)cudaErrorInvalidValue;
   const int row_blocks = (m + kTile - 1) / kTile;
   const int col_blocks = (n + kTile - 1) / kTile;
@@ -694,7 +694,7 @@ static int launch_fitc(const T* pseudo, const T* linv, const T* x, const T* y,
   if ((err = opt_in(device)) != cudaSuccess) return (int)err;
 
   kmn_kernel<T><<<dim3((n + 31) / 32, (m + 7) / 8), dim3(32, 8), 0, stream>>>(
-      pseudo, x, kmn, counters, col_blocks + tiles, m, n, d, fa, (T)scale);
+      pseudo, x, kmn, counters, col_blocks + tiles, m, n, d, fc);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = launch_beta(linv, kmn, partial, var, mask, w, counters, m, n,
                          dim3(col_blocks, row_blocks), stream)) != cudaSuccess)
@@ -712,13 +712,12 @@ extern "C" int egp_fitc_f32(const float* pseudo, const float* linv,
                             double* partial, float* w, float* dq, float* da,
                             float* ws, int* counters, int m, int n, int d,
                             int q, int splits, int chunk, int family,
-                            int ncomp, const double* ratios,
-                            const double* weights, double scale, int device,
-                            void* stream) {
+                            int ncomp, const double* coefs,
+                            const double* weights, int device, void* stream) {
   return egp::launch_fitc<float>(pseudo, linv, x, y, var, mask, kmn, partial,
                                  w, dq, da, ws, counters, m, n, d, q, splits,
-                                 chunk, family, ncomp, ratios, weights, scale,
-                                 device, (cudaStream_t)stream);
+                                 chunk, family, ncomp, coefs, weights, device,
+                                 (cudaStream_t)stream);
 }
 
 extern "C" int egp_fitc_f64(const double* pseudo, const double* linv,
@@ -727,11 +726,10 @@ extern "C" int egp_fitc_f64(const double* pseudo, const double* linv,
                             double* kmn, double* partial, double* w,
                             double* dq, double* da, double* ws, int* counters,
                             int m, int n, int d, int q, int splits, int chunk,
-                            int family, int ncomp, const double* ratios,
-                            const double* weights, double scale, int device,
-                            void* stream) {
+                            int family, int ncomp, const double* coefs,
+                            const double* weights, int device, void* stream) {
   return egp::launch_fitc<double>(pseudo, linv, x, y, var, mask, kmn, partial,
                                   w, dq, da, ws, counters, m, n, d, q, splits,
-                                  chunk, family, ncomp, ratios, weights, scale,
-                                  device, (cudaStream_t)stream);
+                                  chunk, family, ncomp, coefs, weights, device,
+                                  (cudaStream_t)stream);
 }

@@ -64,13 +64,13 @@ def kernel_fn(name: str):
 def cross_gram(name: str, x1, x2, scale, mask1=None) -> torch.Tensor:
     """K[i, j] = k(x1_i, x2_j); rows with mask1 False are zeroed.
 
-    Every registered family and mixture goes through ``cross_gram_cuda``:
-    the gram kernel for CUDA tensors, its plain version for CPU tensors."""
+    Every registered family and mixture goes through ``cross_gram_cuda``,
+    mask included: the gram kernel for CUDA tensors (which writes the
+    masked rows as 0 itself), its plain version for CPU tensors."""
     if x1.dim() == 2 and (name in ("rbf", "ou", "matern32")
                           or mixture_params(name) is not None):
-        k = cross_gram_cuda(name, x1, x2, scale)
-    else:
-        k = kernel_fn(name)(x1, x2, scale)
+        return cross_gram_cuda(name, x1, x2, scale, mask1)
+    k = kernel_fn(name)(x1, x2, scale)
     if mask1 is not None:
         k = torch.where(mask1[:, None], k, torch.zeros_like(k))
     return k

@@ -83,8 +83,8 @@ def _members_predict(xs, ms, W, alphas, qs, scale, *, kernel: str,
     """Member b answers its queries qs[b] (C, d): one batched cross gram
     and one whitening per member. W is L^{-1} when ``fused``, else L.
     Returns mean (B, C, q), var (B, C)."""
-    kt = cross_gram_batched_cuda(kernel, xs, qs.contiguous(), scale)
-    kt = torch.where(ms[:, :, None], kt, torch.zeros_like(kt))  # (B, n, C)
+    kt = cross_gram_batched_cuda(kernel, xs, qs.contiguous(), scale,
+                                 ms.contiguous())               # (B, n, C)
     mean = torch.bmm(kt.mT, alphas)
     at = torch.bmm(W, kt) if fused else whiten(W, kt)
     s = torch.sum(at * at, dim=1)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-``csrc/gram.cu``, ``csrc/fitc.cu``, ``csrc/bank.cu``, ``csrc/chol.cu`` and
-``csrc/trsv.cu`` (with the shared ``csrc/family.cuh``,
+``csrc/gram.cu`` and ``csrc/gram_f64.cu`` (the gram kernel of
+``csrc/gram.cuh`` at each dtype), ``csrc/fitc.cu``, ``csrc/bank.cu``,
+``csrc/chol.cu`` and ``csrc/trsv.cu`` (with the shared ``csrc/family.cuh``,
 ``csrc/async_copy.cuh``, ``csrc/mma_tf32.cuh`` and ``csrc/sub_block.cuh``)
 compile with ``nvcc`` into ONE shared library with a
 plain C interface, loaded with ``ctypes``. Nothing is built when this module is imported: the
@@ -32,8 +33,9 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
-_COMPILED = ("gram.cu", "fitc.cu", "bank.cu", "chol.cu", "trsv.cu")
-_SOURCES = ("family.cuh", "async_copy.cuh", "mma_tf32.cuh",
+_COMPILED = ("gram.cu", "gram_f64.cu", "fitc.cu", "bank.cu", "chol.cu",
+             "trsv.cu")
+_SOURCES = ("family.cuh", "gram.cuh", "async_copy.cuh", "mma_tf32.cuh",
             "sub_block.cuh") + _COMPILED
 # sm_90a: the Hopper target. No --use_fast_math: the kernels need the
 # full-precision exp/sqrt/division (see csrc/family.cuh).
@@ -94,22 +96,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.egp_error_string.restype = ctypes.c_char_p
     for name in ("egp_gram_f32", "egp_gram_f64"):
         fn = getattr(lib, name)
-        # x1, x2, out, batch, m, n, d, family, ncomp, ratios, weights,
-        # scale, device, stream
-        fn.argtypes = [_P, _P, _P] + [_I] * 6 + [_PD, _PD, _D, _I, _P]
+        # x1, x2, mask1, out, batch, m, n, d, family, ncomp, coefs,
+        # weights, streaming, device, stream
+        fn.argtypes = [_P] * 4 + [_I] * 6 + [_PD, _PD, _I, _I, _P]
         fn.restype = _I
     for name in ("egp_fitc_f32", "egp_fitc_f64"):
         fn = getattr(lib, name)
         # pseudo, linv, x, y, var, mask, kmn, partial, w, dq, da, ws,
-        # counters, m, n, d, q, splits, chunk, family, ncomp, ratios,
-        # weights, scale, device, stream
-        fn.argtypes = [_P] * 13 + [_I] * 8 + [_PD, _PD, _D, _I, _P]
+        # counters, m, n, d, q, splits, chunk, family, ncomp, coefs,
+        # weights, device, stream
+        fn.argtypes = [_P] * 13 + [_I] * 8 + [_PD, _PD, _I, _P]
         fn.restype = _I
     for name in ("egp_bank_fit_f32", "egp_bank_fit_f64"):
         fn = getattr(lib, name)
         # x, var, mask, y, L, L_inv, alpha, batch, n, d, q, family, ncomp,
-        # ratios, weights, scale, members_per_block, device, stream
-        fn.argtypes = [_P] * 7 + [_I] * 6 + [_PD, _PD, _D, _I, _I, _P]
+        # coefs, weights, members_per_block, device, stream
+        fn.argtypes = [_P] * 7 + [_I] * 6 + [_PD, _PD, _I, _I, _P]
         fn.restype = _I
     for name in ("egp_bank_chol_f32", "egp_bank_chol_f64"):
         fn = getattr(lib, name)
@@ -130,8 +132,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("egp_chol_gram_f32", "egp_chol_gram_f64"):
         fn = getattr(lib, name)
         # x, var, mask, L, Dinv, ws, ws_half, pps, n, d, family, ncomp,
-        # ratios, weights, scale, device, stream
-        fn.argtypes = [_P] * 6 + plan + [_I] * 4 + [_PD, _PD, _D, _I, _P]
+        # coefs, weights, device, stream
+        fn.argtypes = [_P] * 6 + plan + [_I] * 4 + [_PD, _PD, _I, _P]
         fn.restype = _I
     for name in ("egp_chol_joint_f32", "egp_chol_joint_f64"):
         fn = getattr(lib, name)

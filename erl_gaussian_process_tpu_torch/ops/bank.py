@@ -26,10 +26,10 @@ import functools
 
 import torch
 
-from erl_gaussian_process_tpu_torch.ops._build import double_array, load_library
+from erl_gaussian_process_tpu_torch.ops._build import load_library
 from erl_gaussian_process_tpu_torch.ops.gram import (
     check_cuda_operands,
-    family_args,
+    packed_family,
 )
 
 
@@ -104,7 +104,7 @@ def bank_fit_cuda(name: str, x, y, var, mask, scale,
     if b == 0 or n == 0 or d == 0 or y.shape[2] == 0:
         raise ValueError(f"bank_fit_cuda: empty operand, B={b} n={n} d={d} "
                          f"q={y.shape[2]}")
-    fam, ratios, weights = family_args(name)
+    fam, ncomp, coefs, weights = packed_family(name, float(scale))
     q = y.shape[2]
     L, L_inv = torch.empty((2, b, n, n), dtype=dt, device=x.device)
     alpha = torch.empty((b, n, q), dtype=dt, device=x.device)
@@ -116,8 +116,8 @@ def bank_fit_cuda(name: str, x, y, var, mask, scale,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = fn(x.data_ptr(), var.data_ptr(), mask.data_ptr(), y.data_ptr(),
               L.data_ptr(), L_inv.data_ptr(), alpha.data_ptr(), b, n, d, q,
-              fam, len(ratios), double_array(ratios), double_array(weights),
-              float(scale), members_per_block, x.device.index, stream)
+              fam, ncomp, coefs, weights, members_per_block, x.device.index,
+              stream)
     kl.check(code, "bank fit kernel launch")
     bank_fit_cuda.launches += 1
     return L, L_inv, alpha

@@ -30,11 +30,11 @@ import functools
 
 import torch
 
-from erl_gaussian_process_tpu_torch.ops._build import double_array, load_library
+from erl_gaussian_process_tpu_torch.ops._build import load_library
 from erl_gaussian_process_tpu_torch.ops.gram import (
     FAMILY_IDS,
     check_cuda_operands,
-    family_args,
+    packed_family,
 )
 
 JOINT_FAMILIES = ("rbf", "matern32")
@@ -197,14 +197,14 @@ def chol_blocked_gram(name: str, x, var, mask, scale, *,
                          f"{tuple(var.shape)}")
     _check_mask("chol_blocked_gram", mask, x)
     n, d = x.shape
-    fam, ratios, weights = family_args(name)
+    fam, ncomp, coefs, weights = packed_family(name, float(scale))
     kl, L, dinv, ws, plan = _outputs(n, x.dtype, x.device)
     fn = kl.lib.egp_chol_gram_f32 if x.dtype == torch.float32 else \
         kl.lib.egp_chol_gram_f64
     code = fn(x.data_ptr(), var.data_ptr(), mask.data_ptr(), L.data_ptr(),
-              dinv.data_ptr(), ws.data_ptr(), *plan, n, d, fam, len(ratios),
-              double_array(ratios), double_array(weights), float(scale),
-              x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+              dinv.data_ptr(), ws.data_ptr(), *plan, n, d, fam, ncomp, coefs,
+              weights, x.device.index,
+              torch.cuda.current_stream(x.device).cuda_stream)
     kl.check(code, "chol gram kernel launch")
     chol_blocked_gram.launches += 1
     return _result(L, dinv, return_dinv)

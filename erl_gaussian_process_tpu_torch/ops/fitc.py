@@ -16,11 +16,11 @@ import math
 
 import torch
 
-from erl_gaussian_process_tpu_torch.ops._build import double_array, load_library
+from erl_gaussian_process_tpu_torch.ops._build import load_library
 from erl_gaussian_process_tpu_torch.ops.gram import (
     check_cuda_operands,
     cross_gram_plain,
-    family_args,
+    packed_family,
 )
 
 TILE = 64  # csrc/fitc.cu kTile: the tile edge of beta and of dQ
@@ -80,14 +80,6 @@ def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-@functools.lru_cache(maxsize=None)
-def _family_arrays(name: str) -> tuple:
-    """(family id, component count, ratios, weights) as the C entry takes
-    them; the ctypes arrays are read, never written, by the kernel."""
-    fam, ratios, weights = family_args(name)
-    return fam, len(ratios), double_array(ratios), double_array(weights)
-
-
 def fitc_update_plain(name: str, pseudo, linv, x, y, var, mask, scale):
     """The plain PyTorch version of the FITC kernel, on any device: the
     beta-via-L_inv formulation of ``fitc_delta`` (the one the Pallas kernel
@@ -134,7 +126,7 @@ def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
     if m == 0 or n == 0 or d == 0 or q == 0:
         raise ValueError(f"fitc_update_cuda: empty operand, m={m} n={n} "
                          f"d={d} q={q}")
-    fam, ncomp, ratios, weights = _family_arrays(name)
+    fam, ncomp, coefs, weights = packed_family(name, float(scale))
     dev = pseudo.device
     plan = fitc_plan(m, n, _sms(dev.index))
     dq = torch.empty((m, m), dtype=dt, device=dev)
@@ -157,8 +149,8 @@ def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
               var.data_ptr(), mask.data_ptr(), kmn.data_ptr(),
               partial.data_ptr(), w.data_ptr(), dq.data_ptr(),
               da.data_ptr(), ws.data_ptr(), counters.data_ptr(), m, n, d, q,
-              plan.splits, plan.chunk, fam, ncomp, ratios, weights,
-              float(scale), dev.index, stream)
+              plan.splits, plan.chunk, fam, ncomp, coefs, weights, dev.index,
+              stream)
     kl.check(code, "FITC kernel launch")
     fitc_update_cuda.launches += 1
     return dq, da

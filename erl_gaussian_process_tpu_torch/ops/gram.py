@@ -1,16 +1,25 @@
 """Cross-gram K[i, j] = k(x1_i, x2_j): the hand-written CUDA kernel
-(``csrc/gram.cu``) and its plain PyTorch version.
+(``csrc/gram.cuh``) and its plain PyTorch version.
 
 Counterpart of ``erl_gaussian_process_tpu/ops/pallas_gram.py``. The JAX
 package took its Pallas kernel only above 128x128 outputs; here every CUDA
 ``cross_gram`` of a registered family runs the kernel, whatever its size.
 :func:`cross_gram_batched_cuda` is the same kernel over a leading member
 axis: the JAX package ``vmap``s ``cross_gram`` over bank members in the
-sensor GPs' routed predict.
+sensor GPs' routed predict. Both take an optional row mask ``mask1``: a
+masked row is written as exactly 0 in the kernel itself (the JAX package's
+``where`` after its kernel, fused).
+
+The family constants (one coefficient and one weight per mixture
+component) are computed once on the host in float64
+(:func:`family_components`), by the plain version and for the kernels
+alike, and handed to every kernel that includes ``csrc/family.cuh``
+(:func:`packed_family`, cached per name and scale).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -20,28 +29,60 @@ from erl_gaussian_process_tpu_torch.ops._build import double_array, load_library
 
 FAMILY_IDS = {"rbf": 0, "ou": 1, "matern32": 2}
 MAX_COMPONENTS = 8  # csrc/family.cuh kMaxComponents
+# Outputs larger than this many bytes leave the kernel in streaming stores
+# (st.global.cs); None takes the card's L2 size: a gram that fits stays
+# there for the product that reads it next, one that does not would only
+# evict what that product reads (csrc/gram.cuh; on the H100 streaming was
+# faster at 8192 x 4096 (128 MiB) and slower at 688 x 100 x 128 (34 MiB),
+# PERF.md).
+STREAM_STORES_ABOVE = None
+
+
+def _coefficient(base: str, s: float) -> float:
+    """A component's constant at scale s: rbf -0.5 / s^2, ou 1 / s,
+    matern32 sqrt(3) / s (``csrc/family.cuh``)."""
+    if base == "rbf":
+        return -0.5 / (s * s)
+    if base == "ou":
+        return 1.0 / s
+    return math.sqrt(3.0) / s
+
+
+def family_components(name: str, scale: float) -> tuple:
+    """(base family, coefficients, weights) of a family or registered
+    mixture at ``scale``, in float64: component i has scale s_i = scale *
+    ratio_i and the coefficient :func:`_coefficient` of s_i. The plain
+    version and the kernels' constants both come from here."""
+    mix = mixture_params(name)
+    base, ratios, weights = (name, (1.0,), (1.0,)) if mix is None else mix
+    if base not in FAMILY_IDS:
+        raise KeyError(f"gram: unknown kernel family {name!r}")
+    scale = float(scale)
+    return (base, tuple(_coefficient(base, scale * r) for r in ratios),
+            tuple(float(w) for w in weights))
+
+
+def _component(base: str, r2, r, c: float):
+    if base == "rbf":
+        return torch.exp(r2 * c)
+    if base == "ou":
+        return torch.exp(-(r * c))
+    cr = r * c
+    return (1.0 + cr) * torch.exp(-cr)
 
 
 def apply_family(name: str, r2: torch.Tensor, scale: float) -> torch.Tensor:
     """Kernel value from squared distance (unit variance), for the three
     families and their registered scale mixtures — the plain version of
     ``csrc/family.cuh`` (counterpart of ``pallas_gram._apply_family``)."""
-    mix = mixture_params(name)
-    if mix is not None:
-        base, ratios, weights = mix
-        out = weights[0] * apply_family(base, r2, scale * ratios[0])
-        for w, m in zip(weights[1:], ratios[1:]):
-            out = out + w * apply_family(base, r2, scale * m)
-        return out
-    if name == "rbf":
-        return torch.exp(r2 * (-0.5 / (scale * scale)))
-    r = torch.sqrt(r2)
-    if name == "ou":
-        return torch.exp(-r / scale)
-    if name == "matern32":
-        cr = (math.sqrt(3.0) / scale) * r
-        return (1.0 + cr) * torch.exp(-cr)
-    raise KeyError(f"gram: unknown kernel family {name!r}")
+    base, coefs, weights = family_components(name, scale)
+    r = r2 if base == "rbf" else torch.sqrt(r2)
+    if mixture_params(name) is None:
+        return _component(base, r2, r, coefs[0])
+    out = weights[0] * _component(base, r2, r, coefs[0])
+    for c, w in zip(coefs[1:], weights[1:]):
+        out = out + w * _component(base, r2, r, c)
+    return out
 
 
 def pairwise_sqdist(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -52,27 +93,30 @@ def pairwise_sqdist(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 
 def cross_gram_plain(name: str, x1: torch.Tensor, x2: torch.Tensor,
-                     scale: float) -> torch.Tensor:
+                     scale: float, mask1=None) -> torch.Tensor:
     """The plain PyTorch version of the gram kernel, on any device; leading
     axes of x1 and x2 are member axes (the plain version of
-    :func:`cross_gram_batched_cuda` as well)."""
-    return apply_family(name, pairwise_sqdist(x1, x2), float(scale))
+    :func:`cross_gram_batched_cuda` as well). Rows whose ``mask1`` (x1's
+    shape without d) is False are 0."""
+    k = apply_family(name, pairwise_sqdist(x1, x2), float(scale))
+    if mask1 is not None:
+        k = torch.where(mask1[..., :, None], k, torch.zeros_like(k))
+    return k
 
 
-def family_args(name: str):
-    """(family id, ratios, weights) of a family or registered mixture, as
-    the kernel takes them."""
-    mix = mixture_params(name)
-    if mix is None:
-        if name not in FAMILY_IDS:
-            raise KeyError(f"gram: unknown kernel family {name!r}")
-        return FAMILY_IDS[name], (1.0,), (1.0,)
-    base, ratios, weights = mix
-    if len(ratios) > MAX_COMPONENTS:
+@functools.lru_cache(maxsize=256)
+def packed_family(name: str, scale: float) -> tuple:
+    """(family id, component count, coefficients, weights) as a C entry
+    takes them: the float64 constants of :func:`family_components`, which
+    each launch casts to its dtype once. Built once per name and scale; the
+    ctypes arrays are read, never written, by the kernels."""
+    base, coefs, weights = family_components(name, scale)
+    if len(coefs) > MAX_COMPONENTS:
         raise ValueError(
-            f"gram: mixture {name!r} has {len(ratios)} components; the CUDA "
+            f"gram: mixture {name!r} has {len(coefs)} components; the CUDA "
             f"kernels take at most {MAX_COMPONENTS}")
-    return FAMILY_IDS[base], tuple(ratios), tuple(weights)
+    return (FAMILY_IDS[base], len(coefs), double_array(coefs),
+            double_array(weights))
 
 
 def check_cuda_operands(what: str, dtype, *tensors) -> None:
@@ -92,23 +136,36 @@ def check_cuda_operands(what: str, dtype, *tensors) -> None:
             raise ValueError(f"{what}: operands must be contiguous")
 
 
+def _check_mask(what: str, mask1, x1: torch.Tensor) -> None:
+    if mask1 is None:
+        return
+    if mask1.device != x1.device or mask1.dtype != torch.bool \
+            or not mask1.is_contiguous() or mask1.shape != x1.shape[:-1]:
+        raise ValueError(f"{what}: mask1 must be a contiguous bool tensor of "
+                         f"shape {tuple(x1.shape[:-1])} on the operands' "
+                         f"device, got {mask1.dtype} {tuple(mask1.shape)} on "
+                         f"{mask1.device}")
+
+
 def cross_gram_cuda(name: str, x1: torch.Tensor, x2: torch.Tensor,
-                    scale) -> torch.Tensor:
-    """K[i, j] = k(x1_i, x2_j). x1: (m, d); x2: (n, d) -> (m, n).
+                    scale, mask1=None) -> torch.Tensor:
+    """K[i, j] = k(x1_i, x2_j), 0 on the rows whose ``mask1`` (m,) is
+    False. x1: (m, d); x2: (n, d) -> (m, n).
 
     CPU tensors take :func:`cross_gram_plain`; CUDA tensors launch
-    ``csrc/gram.cu`` (counted in ``cross_gram_cuda.launches``) or raise."""
+    ``csrc/gram.cuh`` (counted in ``cross_gram_cuda.launches``) or raise."""
     if x1.device.type == "cpu" and x2.device.type == "cpu":
-        return cross_gram_plain(name, x1, x2, scale)
+        return cross_gram_plain(name, x1, x2, scale, mask1)
     check_cuda_operands("cross_gram_cuda", x1.dtype, x1, x2)
     if x1.dim() != 2 or x2.dim() != 2 or x1.shape[1] != x2.shape[1]:
         raise ValueError(f"cross_gram_cuda: shapes {tuple(x1.shape)} and "
                          f"{tuple(x2.shape)} (want (m, d) and (n, d))")
+    _check_mask("cross_gram_cuda", mask1, x1)
     m, d = x1.shape
     n = x2.shape[0]
     if m == 0 or n == 0 or d == 0:
         raise ValueError(f"cross_gram_cuda: empty operand, m={m} n={n} d={d}")
-    out = _launch_gram(name, x1, x2, scale, 1, m, n, d)[0]
+    out = _launch_gram(name, x1, x2, mask1, scale, 1, m, n, d)[0]
     cross_gram_cuda.launches += 1
     return out
 
@@ -116,44 +173,55 @@ def cross_gram_cuda(name: str, x1: torch.Tensor, x2: torch.Tensor,
 cross_gram_cuda.launches = 0
 
 
-def _launch_gram(name, x1, x2, scale, batch, m, n, d) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).L2_cache_size
+
+
+def _launch_gram(name, x1, x2, mask1, scale, batch, m, n, d) -> torch.Tensor:
     """One launch of the gram kernel over ``batch`` members -> (batch, m,
     n); the callers have checked the operands."""
-    fam, ratios, weights = family_args(name)
+    fam, ncomp, coefs, weights = packed_family(name, float(scale))
+    dev = x1.device.index
     out = torch.empty((batch, m, n), dtype=x1.dtype, device=x1.device)
+    limit = STREAM_STORES_ABOVE
+    if limit is None:
+        limit = _l2_bytes(dev)
     kl = load_library()
     fn = kl.lib.egp_gram_f32 if x1.dtype == torch.float32 else \
         kl.lib.egp_gram_f64
-    stream = torch.cuda.current_stream(x1.device).cuda_stream
-    code = fn(x1.data_ptr(), x2.data_ptr(), out.data_ptr(), batch, m, n, d,
-              fam, len(ratios), double_array(ratios), double_array(weights),
-              float(scale), x1.device.index, stream)
+    code = fn(x1.data_ptr(), x2.data_ptr(),
+              None if mask1 is None else mask1.data_ptr(), out.data_ptr(),
+              batch, m, n, d, fam, ncomp, coefs, weights,
+              int(out.nbytes > limit), dev,
+              torch.cuda.current_stream(x1.device).cuda_stream)
     kl.check(code, "gram kernel launch")
     return out
 
 
 def cross_gram_batched_cuda(name: str, x1: torch.Tensor, x2: torch.Tensor,
-                            scale) -> torch.Tensor:
-    """K[b, i, j] = k(x1[b, i], x2[b, j]). x1: (B, m, d); x2: (B, n, d) ->
-    (B, m, n).
+                            scale, mask1=None) -> torch.Tensor:
+    """K[b, i, j] = k(x1[b, i], x2[b, j]), 0 on the rows whose ``mask1``
+    (B, m) is False. x1: (B, m, d); x2: (B, n, d) -> (B, m, n).
 
     CPU tensors take :func:`cross_gram_plain`; CUDA tensors launch
-    ``csrc/gram.cu`` once over all members (counted in
+    ``csrc/gram.cuh`` once over all members (counted in
     ``cross_gram_batched_cuda.launches``) or raise."""
     if x1.device.type == "cpu" and x2.device.type == "cpu":
-        return cross_gram_plain(name, x1, x2, scale)
+        return cross_gram_plain(name, x1, x2, scale, mask1)
     check_cuda_operands("cross_gram_batched_cuda", x1.dtype, x1, x2)
     if x1.dim() != 3 or x2.dim() != 3 or x1.shape[0] != x2.shape[0] \
             or x1.shape[2] != x2.shape[2]:
         raise ValueError(f"cross_gram_batched_cuda: shapes {tuple(x1.shape)} "
                          f"and {tuple(x2.shape)} (want (B, m, d) and "
                          "(B, n, d))")
+    _check_mask("cross_gram_batched_cuda", mask1, x1)
     b, m, d = x1.shape
     n = x2.shape[1]
     if b == 0 or m == 0 or n == 0 or d == 0:
         raise ValueError(f"cross_gram_batched_cuda: empty operand, B={b} "
                          f"m={m} n={n} d={d}")
-    out = _launch_gram(name, x1, x2, scale, b, m, n, d)
+    out = _launch_gram(name, x1, x2, mask1, scale, b, m, n, d)
     cross_gram_batched_cuda.launches += 1
     return out
 

@@ -73,6 +73,136 @@ def test_gram_kernel_matches_plain(cuda, fam, dtype, tol):
     assert (k[1089:] == 0).all()
 
 
+GRAM_TOL = [(torch.float32, 1e-6), (torch.float64, 1e-12)]
+
+
+def _gram_operands(cuda, dtype, m, n, d, seed=11, batch=None):
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+    x1 = torch.as_tensor(rng.uniform(-1.5, 1.5, lead + (m, d)), dtype=dtype,
+                         device=cuda)
+    x2 = torch.as_tensor(rng.uniform(-1.5, 1.5, lead + (n, d)), dtype=dtype,
+                         device=cuda)
+    mask = torch.as_tensor(rng.uniform(size=lead + (m,)) < 0.7, device=cuda)
+    return x1, x2, mask
+
+
+def _gram_err(k, ref):
+    return float((k - ref).abs().max())
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 8, 9])
+@pytest.mark.parametrize("dtype,tol", GRAM_TOL)
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_gram_kernel_every_dimension(cuda, fam, dtype, tol, d):
+    """d <= 8 runs the kernel's unrolled instantiation, d = 9 its runtime-d
+    one; a masked and an unmasked call, each against the plain version."""
+    x1, x2, mask = _gram_operands(cuda, dtype, 193, 301, d)
+    for m1 in (None, mask):
+        k = cross_gram_cuda(_name(fam), x1, x2, 0.7, m1)
+        torch.cuda.synchronize()
+        assert _gram_err(k, cross_gram_plain(_name(fam), x1, x2, 0.7, m1)) \
+            <= tol
+
+
+@pytest.mark.parametrize("n", [1, 62, 63, 64, 65, 129])
+@pytest.mark.parametrize("m", [1, 63, 65, 129])
+@pytest.mark.parametrize("dtype,tol", GRAM_TOL)
+def test_gram_kernel_ragged_and_misaligned_rows(cuda, dtype, tol, m, n):
+    """Ragged edges in both directions and every n % 4: rows whose start
+    misses 16-byte alignment take the kernel's shifted store windows. In a
+    batch of 3 members each member's base is misaligned too when m n is
+    odd. Every element is written: a NaN-filled block of the output's size
+    is freed just before the call, for the allocator to hand it out
+    again."""
+    for batch in (None, 3):
+        x1, x2, mask = _gram_operands(cuda, dtype, m, n, 2, batch=batch)
+        fn = cross_gram_cuda if batch is None else cross_gram_batched_cuda
+        for m1 in (None, mask):
+            stale = torch.full((batch or 1, m, n), float("nan"), dtype=dtype,
+                               device=cuda)
+            del stale
+            k = fn("matern32", x1, x2, 0.5, m1)
+            torch.cuda.synchronize()
+            ref = cross_gram_plain("matern32", x1, x2, 0.5, m1)
+            assert bool(torch.isfinite(k).all())
+            assert _gram_err(k, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("masks", ["none", "all_false", "random"])
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_gram_kernel_row_mask(cuda, fam, masks, dtype):
+    """Masked rows are exactly +0.0, NaN coordinates in them included (the
+    semantics of torch.where(mask1[:, None], k, 0)); the other rows match
+    the plain version."""
+    tol = dict(GRAM_TOL)[dtype]
+    x1, x2, mask = _gram_operands(cuda, dtype, 130, 257, 3)
+    if masks == "none":
+        mask = None
+    else:
+        if masks == "all_false":
+            mask = torch.zeros_like(mask)
+        mask[5] = False
+        x1[5, 1] = float("nan")
+    k = cross_gram_cuda(_name(fam), x1, x2, 0.5, mask)
+    torch.cuda.synchronize()
+    if mask is None:
+        ref = cross_gram_plain(_name(fam), x1, x2, 0.5)
+        assert _gram_err(k, ref) <= tol
+        return
+    off = ~mask
+    assert bool((k[off] == 0).all()) and not bool(torch.signbit(k[off]).any())
+    ref = cross_gram_plain(_name(fam), x1, x2, 0.5, mask)
+    if bool(mask.any()):
+        assert _gram_err(k[mask], ref[mask]) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_gram_kernel_far_point_rows_are_zero(cuda, fam, dtype):
+    """Far-point padded pseudo points (~1e17) give exactly +0.0 against data
+    and against each other."""
+    rng = np.random.default_rng(12)
+    P = torch.as_tensor(pad_pseudo_points(rng.uniform(-3, 3, (100, 3))),
+                        dtype=dtype, device=cuda)
+    x = torch.as_tensor(rng.uniform(-5, 5, (67, 3)), dtype=dtype,
+                        device=cuda)
+    k = cross_gram_cuda(_name(fam), P, x, 0.5)
+    kp = cross_gram_cuda(_name(fam), P[100:].contiguous(),
+                         P[100:].contiguous(), 0.5)
+    torch.cuda.synchronize()
+    off = ~torch.eye(28, dtype=torch.bool, device=cuda)
+    assert bool((k[100:] == 0).all()) and not bool(
+        torch.signbit(k[100:]).any())
+    assert bool((kp[off] == 0).all())
+
+
+def test_gram_kernel_batch_over_65535_members(cuda):
+    """More members than a grid's y or z axis takes, in one launch."""
+    x1, x2, mask = _gram_operands(cuda, torch.float32, 3, 5, 2,
+                                  batch=70_001)
+    before = launch_counts()["gram_batched"]
+    k = cross_gram_batched_cuda("ou", x1, x2, 0.4, mask)
+    torch.cuda.synchronize()
+    assert launch_counts()["gram_batched"] == before + 1
+    assert _gram_err(k, cross_gram_plain("ou", x1, x2, 0.4, mask)) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_kernel_is_deterministic(cuda, dtype, monkeypatch):
+    """Two calls agree bit for bit, with plain and with streaming stores
+    (the output's size picks them, ``STREAM_STORES_ABOVE``)."""
+    import erl_gaussian_process_tpu_torch.ops.gram as gram_ops
+
+    x1, x2, mask = _gram_operands(cuda, dtype, 1000, 999, 3)
+    a = cross_gram_cuda(_name("mixture"), x1, x2, 0.6, mask)
+    b = cross_gram_cuda(_name("mixture"), x1, x2, 0.6, mask)
+    monkeypatch.setattr(gram_ops, "STREAM_STORES_ABOVE", 0)
+    c = cross_gram_cuda(_name("mixture"), x1, x2, 0.6, mask)
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def _fitc_args(cuda, dtype, m, n, var, seed=5):
     rng = np.random.default_rng(seed)
     half = 2.0 * (m / 128.0) ** (1 / 3)
