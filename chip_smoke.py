@@ -1237,13 +1237,18 @@ def gram_host_split(kern, x1, x2, scale) -> dict:
 
 def gram_profile(fn, gram_shape) -> tuple:
     """(gram-kernel launches, ``aten::where`` ops with an operand of the
-    gram's shape, {device kernel: launches}) of ``fn()`` under
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    gram's shape, {device kernel: launches}) of one ``fn()`` under
+    torch.profiler, recorded after a warm-up call of its own (without one
+    the trace lost the first kernels of the call in one card run)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+                 record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()            # the warm-up call ends; the recorded one
         fn()
         torch.cuda.synchronize()
     kernels = {e.key.split("(")[0][:60]: e.count
