@@ -17,7 +17,7 @@ The SPGP occupancy map's path:
    (masked and far-point rows exactly +0.0, two calls bitwise equal), then
    timed at float32 (CUDA-event median of 20 and range, device time by
    ``torch.profiler``, the wrapper's host time, the plain version, the
-   bound, streaming against plain stores); ``--gram`` runs phases 1-3
+   bound); ``--gram`` runs phases 1-3
    only; every other kernel against its plain PyTorch version on the
    card, at the main path's shapes, with kernel and plain times (CUDA
    events, median of 20);
@@ -1129,12 +1129,7 @@ def time_gram(dev, card, cases) -> dict:
     """At each of the gram's path shapes: CUDA-event ms (median of 20 and
     range), device ms a call (torch.profiler over 10 calls, every kernel
     the call launches), host ms a call (enqueue, :func:`host_ms`), the
-    plain version's event ms, the bound, and the device ms with streaming
-    stores and with plain stores (``ops/gram.py``'s STREAM_STORES_ABOVE
-    forced each way, in turns plain, streaming, streaming, plain), of the
-    gram alone and of the gram and a product that reads it. Returns {key:
-    {...}}."""
-    import erl_gaussian_process_tpu_torch.ops.gram as gram_ops
+    plain version's event ms and the bound. Returns {key: {...}}."""
     from erl_gaussian_process_tpu_torch.ops import cross_gram_plain
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1150,37 +1145,15 @@ def time_gram(dev, card, cases) -> dict:
         h_ms = host_ms(fn)
         plain_ms = cuda_ms(lambda: cross_gram_plain(kern, x1, x2, scale,
                                                     mask))
-        # the gram alone, and the gram with a product that reads it next
-        # (k^T v, v a column of ones: the mean's product on every path)
-        v = torch.ones(x1.shape[:-1] + (1,), dtype=x1.dtype, device=dev)
-
-        def fn_read():
-            return torch.matmul(fn().mT, v)
-
-        policy = gram_ops.STREAM_STORES_ABOVE
-        stores = {"plain": [], "streaming": [], "plain+read": [],
-                  "streaming+read": []}
-        for kind in ("plain", "streaming", "streaming", "plain"):
-            gram_ops.STREAM_STORES_ABOVE = (float("inf") if kind == "plain"
-                                            else -1)
-            for f, tag in ((fn, kind), (fn_read, kind + "+read")):
-                stores[tag].append(sum(ms for _, ms in device_kernels(
-                    lambda: [f() for _ in range(10)]).values()) / 10)
-        gram_ops.STREAM_STORES_ABOVE = policy
         batch = x1.shape[0] if x1.dim() == 3 else 1
         m, n, d = x1.shape[-2], x2.shape[-2], x1.shape[-1]
         rows = int(mask.sum()) if mask is not None else batch * m
         b_ms, b_by, b_all = gram_bound(kern, x1.dtype, batch, m, n, d, rows,
                                        mask is not None, sms, mhz)
-        out_bytes = torch.finfo(x1.dtype).bits // 8 * batch * m * n
         r = {"shape": [batch, m, n, d], "kernel": kern,
              "ms": statistics.median(ev), "ms_range": [min(ev), max(ev)],
              "device_ms": dev_ms, "host_ms": h_ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by,
-             "streaming": out_bytes > (
-                 torch.cuda.get_device_properties(dev).L2_cache_size
-                 if policy is None else policy),
-             "device_ms_by_stores": stores,
              "kernels_per_call": {
                  k.split("(")[0][:48]: [c / 10, ms / 10]
                  for k, (c, ms) in split.items()}}
@@ -1190,12 +1163,7 @@ def time_gram(dev, card, cases) -> dict:
             f"{h_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
             f"({b_by}; " + ", ".join(f"{k} {v:.4f}" for k, v in b_all.items())
             + f" at {mhz:g} MHz); kernels a call (launches, device ms) "
-            + f"{r['kernels_per_call']}; output {out_bytes / 2 ** 20:.1f} "
-            f"MiB, device ms a call by stores (10 calls each, in turns) "
-            + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in ts)
-                        for k, ts in stores.items())
-            + f" (the policy takes "
-            f"{'streaming' if r['streaming'] else 'plain'})")
+            + f"{r['kernels_per_call']}")
         if key == "gram":
             r["host_split"] = gram_host_split(kern, x1, x2, scale)
             log(f"gram {label}: host ms a call by part (200 calls each): "
@@ -1220,8 +1188,7 @@ def gram_host_split(kern, x1, x2, scale) -> dict:
     stream = torch.cuda.current_stream(x1.device).cuda_stream
     entry = load_library().lib.egp_gram_f32
     args = (x1.data_ptr(), x2.data_ptr(), None, out.data_ptr(), 1, m, n,
-            x1.shape[1], fam, ncomp, coefs, weights, 0, x1.device.index,
-            stream)
+            x1.shape[1], fam, ncomp, coefs, weights, x1.device.index, stream)
     split = {
         "wrapper": host_ms(lambda: gram_ops.cross_gram_cuda(kern, x1, x2,
                                                             scale)),

@@ -2,15 +2,14 @@
 // error strings.
 #include "gram.cuh"
 
-// mask1: (batch, m) bytes, 0 for a row written as 0, or null; streaming:
-// non-zero for st.global.cs stores.
+// mask1: (batch, m) bytes, 0 for a row written as 0, or null.
 extern "C" int egp_gram_f32(const float* x1, const float* x2,
                             const unsigned char* mask1, float* out, int batch,
                             int m, int n, int d, int family, int ncomp,
                             const double* coefs, const double* weights,
-                            int streaming, int device, void* stream) {
+                            int device, void* stream) {
   return egp::launch_gram<float>(x1, x2, mask1, out, batch, m, n, d, family,
-                                 ncomp, coefs, weights, streaming, device,
+                                 ncomp, coefs, weights, device,
                                  (cudaStream_t)stream);
 }
 

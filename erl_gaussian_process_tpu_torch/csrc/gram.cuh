@@ -40,9 +40,10 @@
 //     the values it lacks from the lane before by a shuffle; lane 0's head
 //     and lane 31's tail, and any window past column n, go out as scalar
 //     stores.
-//   - Optional streaming stores (st.global.cs) keep a gram that the next
-//     kernel will not find in L2 anyway from evicting what it will
-//     (ops/gram.py chooses, by the gram's size against the L2).
+//   - Plain stores, not streaming ones (st.global.cs): the next product
+//     reads the gram, and on the card streaming stores made the gram and
+//     that product 3-9% slower at 8192 x 4096 and at 688 x 100 x 128, and
+//     no faster at 1152 x 2048, than plain ones (PERF.md).
 //   - One grid axis flattens (member, row tile, column tile), so a bank of
 //     688 small members fills the 132 SMs and any number of members takes
 //     one launch. No atomics: two launches give the same bits.
@@ -82,30 +83,13 @@ __device__ __forceinline__ void lds4(const double* p, double v[4]) {
 }
 
 // four values to a 16-byte aligned p
-__device__ __forceinline__ void st4(float* p, const float w[4], bool cs) {
-  const float4 q = make_float4(w[0], w[1], w[2], w[3]);
-  if (cs)
-    __stcs(reinterpret_cast<float4*>(p), q);
-  else
-    *reinterpret_cast<float4*>(p) = q;
+__device__ __forceinline__ void st4(float* p, const float w[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(w[0], w[1], w[2], w[3]);
 }
-__device__ __forceinline__ void st4(double* p, const double w[4], bool cs) {
-  const double2 q0 = make_double2(w[0], w[1]);
-  const double2 q1 = make_double2(w[2], w[3]);
+__device__ __forceinline__ void st4(double* p, const double w[4]) {
   double2* p2 = reinterpret_cast<double2*>(p);
-  if (cs) {
-    __stcs(p2, q0);
-    __stcs(p2 + 1, q1);
-  } else {
-    p2[0] = q0;
-    p2[1] = q1;
-  }
-}
-__device__ __forceinline__ void st1(float* p, float v, bool cs) {
-  if (cs) __stcs(p, v); else *p = v;
-}
-__device__ __forceinline__ void st1(double* p, double v, bool cs) {
-  if (cs) __stcs(p, v); else *p = v;
+  p2[0] = make_double2(w[0], w[1]);
+  p2[1] = make_double2(w[2], w[3]);
 }
 
 // Lane l's values v[0..3] are columns j0 + 4l .. j0 + 4l + 3 of a row. The
@@ -116,7 +100,7 @@ __device__ __forceinline__ void st1(double* p, double v, bool cs) {
 // one. Columns >= n are not stored.
 template <typename T>
 __device__ __forceinline__ void store_row(T* row, int j0, int n, int lane,
-                                          const T v[4], bool cs) {
+                                          const T v[4]) {
   constexpr int kVec = 16 / (int)sizeof(T);
   const int s = (int)((reinterpret_cast<uintptr_t>(row + j0) / sizeof(T)) &
                       (kVec - 1));
@@ -138,17 +122,17 @@ __device__ __forceinline__ void store_row(T* row, int j0, int n, int lane,
   }
   const int c0 = j0 + 4 * lane - s;
   if ((lane > 0 || s == 0) && c0 + 4 <= n) {
-    st4(row + c0, w, cs);
+    st4(row + c0, w);
   } else {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      if ((lane > 0 || e >= s) && c0 + e < n) st1(row + c0 + e, w[e], cs);
+      if ((lane > 0 || e >= s) && c0 + e < n) row[c0 + e] = w[e];
   }
   if (lane == 31 && s > 0) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (e >= 4 - s && j0 + 4 * lane + e < n)
-        st1(row + j0 + 4 * lane + e, v[e], cs);
+        row[j0 + 4 * lane + e] = v[e];
   }
 }
 
@@ -160,7 +144,7 @@ __global__ void __launch_bounds__(kGramThreads)
     gram_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
                 const unsigned char* __restrict__ mask1, T* __restrict__ out,
                 int m, int n, int d_runtime, int tiles_m, int tiles_n,
-                FamilyConsts<T> fc, bool cs) {
+                FamilyConsts<T> fc) {
   __shared__ __align__(16) T s1[kPlanes][kLd1];
   __shared__ __align__(16) T s2[kPlanes][kLd2];
   __shared__ unsigned char live[kGramRows];
@@ -232,7 +216,7 @@ __global__ void __launch_bounds__(kGramThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[e] = T(0);
     }
-    store_row(out + (size_t)lr * n, j0, n, lane, v, cs);
+    store_row(out + (size_t)lr * n, j0, n, lane, v);
   }
 }
 
@@ -241,10 +225,10 @@ static cudaError_t launch_tiles(const T* x1, const T* x2,
                                 const unsigned char* mask1, T* out,
                                 long long blocks, int m, int n, int d,
                                 int tiles_m, int tiles_n,
-                                const FamilyConsts<T>& fc, bool cs,
+                                const FamilyConsts<T>& fc,
                                 cudaStream_t stream) {
   gram_kernel<T, F, D><<<(unsigned)blocks, kGramThreads, 0, stream>>>(
-      x1, x2, mask1, out, m, n, d, tiles_m, tiles_n, fc, cs);
+      x1, x2, mask1, out, m, n, d, tiles_m, tiles_n, fc);
   return cudaGetLastError();
 }
 
@@ -253,12 +237,12 @@ static cudaError_t launch_dim(const T* x1, const T* x2,
                               const unsigned char* mask1, T* out,
                               long long blocks, int m, int n, int d,
                               int tiles_m, int tiles_n,
-                              const FamilyConsts<T>& fc, bool cs,
+                              const FamilyConsts<T>& fc,
                               cudaStream_t stream) {
 #define EGP_GRAM_D(DD)                                                    \
   case DD:                                                                \
     return launch_tiles<T, F, DD>(x1, x2, mask1, out, blocks, m, n, d,    \
-                                  tiles_m, tiles_n, fc, cs, stream);
+                                  tiles_m, tiles_n, fc, stream);
   switch (d) {
     EGP_GRAM_D(1)
     EGP_GRAM_D(2)
@@ -270,7 +254,7 @@ static cudaError_t launch_dim(const T* x1, const T* x2,
     EGP_GRAM_D(8)
     default:
       return launch_tiles<T, F, 0>(x1, x2, mask1, out, blocks, m, n, d,
-                                   tiles_m, tiles_n, fc, cs, stream);
+                                   tiles_m, tiles_n, fc, stream);
   }
 #undef EGP_GRAM_D
 }
@@ -279,7 +263,7 @@ template <typename T>
 static int launch_gram(const T* x1, const T* x2, const unsigned char* mask1,
                        T* out, int batch, int m, int n, int d, int family,
                        int ncomp, const double* coefs, const double* weights,
-                       int streaming, int device, cudaStream_t stream) {
+                       int device, cudaStream_t stream) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return (int)err;
@@ -293,19 +277,18 @@ static int launch_gram(const T* x1, const T* x2, const unsigned char* mask1,
   const int tiles_n = (n + kGramCols - 1) / kGramCols;
   const long long blocks = (long long)batch * tiles_m * tiles_n;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool cs = streaming != 0;
   switch (family) {
     case kRbf:
       err = launch_dim<T, kRbf>(x1, x2, mask1, out, blocks, m, n, d, tiles_m,
-                                tiles_n, fc, cs, stream);
+                                tiles_n, fc, stream);
       break;
     case kOu:
       err = launch_dim<T, kOu>(x1, x2, mask1, out, blocks, m, n, d, tiles_m,
-                               tiles_n, fc, cs, stream);
+                               tiles_n, fc, stream);
       break;
     default:
       err = launch_dim<T, kMatern32>(x1, x2, mask1, out, blocks, m, n, d,
-                                     tiles_m, tiles_n, fc, cs, stream);
+                                     tiles_m, tiles_n, fc, stream);
   }
   return (int)err;
 }

@@ -97,8 +97,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("egp_gram_f32", "egp_gram_f64"):
         fn = getattr(lib, name)
         # x1, x2, mask1, out, batch, m, n, d, family, ncomp, coefs,
-        # weights, streaming, device, stream
-        fn.argtypes = [_P] * 4 + [_I] * 6 + [_PD, _PD, _I, _I, _P]
+        # weights, device, stream
+        fn.argtypes = [_P] * 4 + [_I] * 6 + [_PD, _PD, _I, _P]
         fn.restype = _I
     for name in ("egp_fitc_f32", "egp_fitc_f64"):
         fn = getattr(lib, name)

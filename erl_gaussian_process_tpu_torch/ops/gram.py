@@ -29,14 +29,6 @@ from erl_gaussian_process_tpu_torch.ops._build import double_array, load_library
 
 FAMILY_IDS = {"rbf": 0, "ou": 1, "matern32": 2}
 MAX_COMPONENTS = 8  # csrc/family.cuh kMaxComponents
-# Outputs larger than this many bytes leave the kernel in streaming stores
-# (st.global.cs); None takes the card's L2 size: a gram that fits stays
-# there for the product that reads it next, one that does not would only
-# evict what that product reads (csrc/gram.cuh; on the H100 streaming was
-# faster at 8192 x 4096 (128 MiB) and slower at 688 x 100 x 128 (34 MiB),
-# PERF.md).
-STREAM_STORES_ABOVE = None
-
 
 def _coefficient(base: str, s: float) -> float:
     """A component's constant at scale s: rbf -0.5 / s^2, ou 1 / s,
@@ -173,27 +165,17 @@ def cross_gram_cuda(name: str, x1: torch.Tensor, x2: torch.Tensor,
 cross_gram_cuda.launches = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _l2_bytes(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).L2_cache_size
-
-
 def _launch_gram(name, x1, x2, mask1, scale, batch, m, n, d) -> torch.Tensor:
     """One launch of the gram kernel over ``batch`` members -> (batch, m,
     n); the callers have checked the operands."""
     fam, ncomp, coefs, weights = packed_family(name, float(scale))
-    dev = x1.device.index
     out = torch.empty((batch, m, n), dtype=x1.dtype, device=x1.device)
-    limit = STREAM_STORES_ABOVE
-    if limit is None:
-        limit = _l2_bytes(dev)
     kl = load_library()
     fn = kl.lib.egp_gram_f32 if x1.dtype == torch.float32 else \
         kl.lib.egp_gram_f64
     code = fn(x1.data_ptr(), x2.data_ptr(),
               None if mask1 is None else mask1.data_ptr(), out.data_ptr(),
-              batch, m, n, d, fam, ncomp, coefs, weights,
-              int(out.nbytes > limit), dev,
+              batch, m, n, d, fam, ncomp, coefs, weights, x1.device.index,
               torch.cuda.current_stream(x1.device).cuda_stream)
     kl.check(code, "gram kernel launch")
     return out

@@ -190,17 +190,12 @@ def test_gram_kernel_batch_over_65535_members(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_gram_kernel_is_deterministic(cuda, dtype, monkeypatch):
-    """Two calls agree bit for bit, with plain and with streaming stores
-    (the output's size picks them, ``STREAM_STORES_ABOVE``)."""
-    import erl_gaussian_process_tpu_torch.ops.gram as gram_ops
-
+def test_gram_kernel_is_deterministic(cuda, dtype):
+    """Two calls agree bit for bit."""
     x1, x2, mask = _gram_operands(cuda, dtype, 1000, 999, 3)
     a = cross_gram_cuda(_name("mixture"), x1, x2, 0.6, mask)
     b = cross_gram_cuda(_name("mixture"), x1, x2, 0.6, mask)
-    monkeypatch.setattr(gram_ops, "STREAM_STORES_ABOVE", 0)
-    c = cross_gram_cuda(_name("mixture"), x1, x2, 0.6, mask)
-    assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(a, b)
 
 
 def _fitc_args(cuda, dtype, m, n, var, seed=5):
