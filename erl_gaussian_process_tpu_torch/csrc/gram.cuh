@@ -43,7 +43,7 @@
 //   - Plain stores, not streaming ones (st.global.cs): the next product
 //     reads the gram, and on the card streaming stores made the gram and
 //     that product 3-9% slower at 8192 x 4096 and at 688 x 100 x 128, and
-//     no faster at 1152 x 2048, than plain ones (PERF.md).
+//     at most 0.001 ms faster at 1152 x 2048, than plain ones (PERF.md).
 //   - One grid axis flattens (member, row tile, column tile), so a bank of
 //     688 small members fills the 132 SMs and any number of members takes
 //     one launch. No atomics: two launches give the same bits.
