@@ -17,8 +17,7 @@ The SPGP occupancy map's path:
    (masked and far-point rows exactly +0.0, two calls bitwise equal), then
    timed at float32 (CUDA-event median of 20 and range, device time by
    ``torch.profiler``, the wrapper's host time, the plain version, the
-   bound); ``--gram`` runs phases 1-3
-   only; every other kernel against its plain PyTorch version on the
+   bound); every other kernel against its plain PyTorch version on the
    card, at the main path's shapes, with kernel and plain times (CUDA
    events, median of 20);
    at the map's variance (1e-4) the float32 FITC kernel and its plain
@@ -1164,42 +1163,8 @@ def time_gram(dev, card, cases) -> dict:
             f"({b_by}; " + ", ".join(f"{k} {v:.4f}" for k, v in b_all.items())
             + f" at {mhz:g} MHz); kernels a call (launches, device ms) "
             + f"{r['kernels_per_call']}")
-        if key == "gram":
-            r["host_split"] = gram_host_split(kern, x1, x2, scale)
-            log(f"gram {label}: host ms a call by part (200 calls each): "
-                + ", ".join(f"{k} {v:.4f}" for k, v in
-                            r["host_split"].items()))
         out[key] = r
     return out
-
-
-def gram_host_split(kern, x1, x2, scale) -> dict:
-    """Host ms of the parts of one ``cross_gram_cuda`` call (:func:`host_ms`):
-    the whole wrapper, its output's ``torch.empty``, the current-stream
-    lookup, and the C entry alone (the launch, with its arguments built
-    beforehand); the rest is the wrapper's Python (checks, cache lookups,
-    ``data_ptr``)."""
-    import erl_gaussian_process_tpu_torch.ops.gram as gram_ops
-    from erl_gaussian_process_tpu_torch.ops._build import load_library
-
-    m, n = x1.shape[0], x2.shape[0]
-    out = torch.empty((m, n), dtype=x1.dtype, device=x1.device)
-    fam, ncomp, coefs, weights = gram_ops.packed_family(kern, float(scale))
-    stream = torch.cuda.current_stream(x1.device).cuda_stream
-    entry = load_library().lib.egp_gram_f32
-    args = (x1.data_ptr(), x2.data_ptr(), None, out.data_ptr(), 1, m, n,
-            x1.shape[1], fam, ncomp, coefs, weights, x1.device.index, stream)
-    split = {
-        "wrapper": host_ms(lambda: gram_ops.cross_gram_cuda(kern, x1, x2,
-                                                            scale)),
-        "empty": host_ms(lambda: torch.empty((m, n), dtype=x1.dtype,
-                                             device=x1.device)),
-        "stream": host_ms(
-            lambda: torch.cuda.current_stream(x1.device).cuda_stream),
-        "c_entry": host_ms(lambda: entry(*args))}
-    split["python"] = split["wrapper"] - split["empty"] - split["stream"] \
-        - split["c_entry"]
-    return split
 
 
 def gram_profile(fn, gram_shape) -> tuple:
@@ -1761,8 +1726,6 @@ def main() -> int:
     gram_err = check_gram(dev, cases, register_scale_mixture(*MIXTURE))
     gram_times = time_gram(dev, card, cases)
     log(json.dumps({"gram_timings": gram_times, "card": card}))
-    if sys.argv[1:] == ["--gram"]:     # the gram's phase alone
-        return 0
     del cases
 
     kern = check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks)

@@ -13,12 +13,11 @@
 // Constants from the host: a launch takes, per mixture component i, one
 // coefficient (rbf -0.5 / s_i^2, ou 1 / s_i, matern32 sqrt(3) / s_i, with
 // s_i = scale * ratio_i) and the weight w_i, computed in double on the host
-// (ops/gram.py::family_components, which the plain version uses too) and
-// cast to T once, in the launch (make_family). The float32 constants are
-// then the very values a float32 tensor times a Python scalar uses in the
-// plain version, and the device math has no division and no double per
+// (ops/gram.py::family_components) and cast to T once, in the launch
+// (make_family). The device math then has no division and no double per
 // element: rbf one multiply and an exp; ou a square root, a multiply and an
-// exp; matern32 a square root, a multiply, an exp and an FMA.
+// exp; matern32 a square root, a multiply, an exp and an FMA. The plain
+// version (ops/gram.py::apply_family) computes its formulas itself.
 //
 // Precision: full-precision expf/exp and sqrtf/sqrt. The build never uses
 // --use_fast_math: __expf would cost accuracy that the FITC weight
@@ -84,7 +83,11 @@ __device__ __forceinline__ T component(T r2, T r, T c) {
 // a[i] by constant indices only: indexing a kernel parameter's array with
 // a variable makes every thread copy the whole struct to local memory first
 // (a 72-byte stack frame that tripled the one-entry-a-thread kmn kernel's
-// time on the card)
+// time on the H100). The selects cost only mixtures. Unrolling the
+// component loop over kMaxComponents instead (constant indices, no helper,
+// but seven guarded branches an element where a single family had one loop
+// test) doubled the gram's device time at 8192 x 4096 rbf, slowed kmn by
+// 14% and the build by 29 s on the H100.
 template <typename T>
 __device__ __forceinline__ T pick(const T (&a)[kMaxComponents], int i) {
   T v = a[0];

@@ -10,11 +10,13 @@ sensor GPs' routed predict. Both take an optional row mask ``mask1``: a
 masked row is written as exactly 0 in the kernel itself (the JAX package's
 ``where`` after its kernel, fused).
 
-The family constants (one coefficient and one weight per mixture
+The kernels' family constants (one coefficient and one weight per mixture
 component) are computed once on the host in float64
-(:func:`family_components`), by the plain version and for the kernels
-alike, and handed to every kernel that includes ``csrc/family.cuh``
-(:func:`packed_family`, cached per name and scale).
+(:func:`family_components`) and handed to every kernel that includes
+``csrc/family.cuh`` (:func:`packed_family`, cached per name and scale).
+The plain version, :func:`apply_family`, computes its formulas itself, so
+the kernels' constants and the reference they are held to come from
+separate code.
 """
 
 from __future__ import annotations
@@ -30,6 +32,30 @@ from erl_gaussian_process_tpu_torch.ops._build import double_array, load_library
 FAMILY_IDS = {"rbf": 0, "ou": 1, "matern32": 2}
 MAX_COMPONENTS = 8  # csrc/family.cuh kMaxComponents
 
+
+def apply_family(name: str, r2: torch.Tensor, scale: float) -> torch.Tensor:
+    """Kernel value from squared distance (unit variance), for the three
+    families and their registered scale mixtures — the plain version of
+    ``csrc/family.cuh`` (counterpart of ``pallas_gram._apply_family``). It
+    computes its own formulas, independent of :func:`family_components`."""
+    mix = mixture_params(name)
+    if mix is not None:
+        base, ratios, weights = mix
+        out = weights[0] * apply_family(base, r2, scale * ratios[0])
+        for w, m in zip(weights[1:], ratios[1:]):
+            out = out + w * apply_family(base, r2, scale * m)
+        return out
+    if name == "rbf":
+        return torch.exp(r2 * (-0.5 / (scale * scale)))
+    r = torch.sqrt(r2)
+    if name == "ou":
+        return torch.exp(-r / scale)
+    if name == "matern32":
+        cr = (math.sqrt(3.0) / scale) * r
+        return (1.0 + cr) * torch.exp(-cr)
+    raise KeyError(f"gram: unknown kernel family {name!r}")
+
+
 def _coefficient(base: str, s: float) -> float:
     """A component's constant at scale s: rbf -0.5 / s^2, ou 1 / s,
     matern32 sqrt(3) / s (``csrc/family.cuh``)."""
@@ -43,8 +69,8 @@ def _coefficient(base: str, s: float) -> float:
 def family_components(name: str, scale: float) -> tuple:
     """(base family, coefficients, weights) of a family or registered
     mixture at ``scale``, in float64: component i has scale s_i = scale *
-    ratio_i and the coefficient :func:`_coefficient` of s_i. The plain
-    version and the kernels' constants both come from here."""
+    ratio_i and the coefficient :func:`_coefficient` of s_i. The kernels'
+    constants come from here (:func:`packed_family`)."""
     mix = mixture_params(name)
     base, ratios, weights = (name, (1.0,), (1.0,)) if mix is None else mix
     if base not in FAMILY_IDS:
@@ -52,29 +78,6 @@ def family_components(name: str, scale: float) -> tuple:
     scale = float(scale)
     return (base, tuple(_coefficient(base, scale * r) for r in ratios),
             tuple(float(w) for w in weights))
-
-
-def _component(base: str, r2, r, c: float):
-    if base == "rbf":
-        return torch.exp(r2 * c)
-    if base == "ou":
-        return torch.exp(-(r * c))
-    cr = r * c
-    return (1.0 + cr) * torch.exp(-cr)
-
-
-def apply_family(name: str, r2: torch.Tensor, scale: float) -> torch.Tensor:
-    """Kernel value from squared distance (unit variance), for the three
-    families and their registered scale mixtures — the plain version of
-    ``csrc/family.cuh`` (counterpart of ``pallas_gram._apply_family``)."""
-    base, coefs, weights = family_components(name, scale)
-    r = r2 if base == "rbf" else torch.sqrt(r2)
-    if mixture_params(name) is None:
-        return _component(base, r2, r, coefs[0])
-    out = weights[0] * _component(base, r2, r, coefs[0])
-    for c, w in zip(coefs[1:], weights[1:]):
-        out = out + w * _component(base, r2, r, c)
-    return out
 
 
 def pairwise_sqdist(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,18 @@ MIXTURE = ("matern32", 1.5, (1.0, 2.0, 0.5))
 FAMILIES = ["rbf", "ou", "matern32", "mixture"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _warm_torch_exp():
+    """Run torch's CPU exp once over a float32 tensor large enough to be
+    split over every thread before the parity tests. In a fresh process,
+    the first such call of this CPU build of torch was off by up to 1.5e-4
+    (relative) in one thread's chunk in about 3% of processes, with or
+    without JAX loaded, and never with one thread; every later call in the
+    process was exact to float32 rounding. Without this call, whichever f32
+    parity test came first in a worker process failed at that rate."""
+    torch.exp(torch.zeros(1 << 20, dtype=torch.float32))
+
+
 def _names(fam):
     """(jax name, port name) of a family; the mixture registers in both."""
     if fam == "mixture":
