@@ -24,6 +24,9 @@ kernel (built with nvcc at first use, ``ops/_build.py``) for CUDA tensors.
 """
 
 from erl_gaussian_process_tpu_torch import geometry, kernels, models, ops, utils
+from erl_gaussian_process_tpu_torch.init import init
 
-__all__ = ["geometry", "kernels", "models", "ops", "utils"]
+init()  # the setting registry (utils/config.py)
+
+__all__ = ["geometry", "kernels", "models", "ops", "utils", "init"]
 __version__ = "0.1.0"

@@ -1,14 +1,132 @@
-"""Procedural 3D worlds for the hotel-0 replay and the 3D range-sensor GP
-protocols (counterpart of
-``erl_gaussian_process_tpu/geometry/simulators.py:111-219``): a triangle
-soup with a numpy Möller–Trumbore raycaster. Host-side only; it
-synthesizes data. The JAX package's native OpenMP raycaster is not ported
-yet (ROADMAP.md, Queue 1 item 5), so ``cast_rays`` is the vectorized numpy
-version of ``erl_gaussian_process_tpu/utils/native.py:286-339``."""
+"""Procedural worlds and simulated sensors (counterpart of
+``erl_gaussian_process_tpu/geometry/simulators.py``): the 2D polygon world,
+lidar and reference trajectory of the 2D occupancy map, and the 3D triangle
+soups of the hotel-0 replay and the 3D range-sensor GP protocols. Host-side
+numpy only; they synthesize data. The JAX package's native OpenMP
+raycaster is not ported yet (ROADMAP.md, Queue 1 item 6), so both ray
+casters are its numpy versions (the 2D one the JAX module's own numpy
+branch, the 3D one ``erl_gaussian_process_tpu/utils/native.py:286-339``)."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+
+class Space2D:
+    """A set of closed polylines (obstacle boundaries + an enclosing box)."""
+
+    def __init__(self, polygons):
+        """polygons: list of (k_i, 2) vertex arrays, each a closed loop."""
+        self.polygons = [np.asarray(p, float) for p in polygons]
+        self.seg_a = np.concatenate(self.polygons, axis=0)        # (S, 2)
+        self.seg_b = np.concatenate(
+            [np.roll(p, -1, axis=0) for p in self.polygons], axis=0)
+
+    @property
+    def surface_vertices(self):
+        return np.concatenate(self.polygons, axis=0)
+
+    def surface_points(self, spacing: float):
+        """Uniformly resampled points along every boundary."""
+        pts = []
+        for poly in self.polygons:
+            a, b = poly, np.roll(poly, -1, axis=0)
+            for pa, pb in zip(a, b):
+                L = np.linalg.norm(pb - pa)
+                k = max(1, int(L / spacing))
+                t = np.arange(k) / k
+                pts.append(pa + t[:, None] * (pb - pa))
+        return np.concatenate(pts, axis=0)
+
+    def cast_rays(self, origin, directions, max_range=np.inf):
+        """origin (2,), directions (R, 2) unit; returns ranges (R,), inf
+        where no segment is hit within max_range."""
+        o = np.asarray(origin, float)
+        d = np.asarray(directions, float)          # (R, 2)
+        a = self.seg_a[None, :, :]                 # (1, S, 2)
+        ab = (self.seg_b - self.seg_a)[None, :, :]
+        ao = o[None, None, :] - a
+        dd = d[:, None, :]                         # (R, 1, 2)
+        denom = dd[..., 0] * (-ab[..., 1]) + dd[..., 1] * ab[..., 0]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = (ao[..., 0] * (-ab[..., 1]) + ao[..., 1] * ab[..., 0]) / -denom
+            s = (dd[..., 0] * ao[..., 1] - dd[..., 1] * ao[..., 0]) / -denom
+        hit = (np.abs(denom) > 1e-14) & (t > 1e-9) & (s >= 0.0) & (s <= 1.0)
+        t = np.where(hit, t, np.inf)
+        r = t.min(axis=1)
+        return np.where(r <= max_range, r, np.inf)
+
+
+@dataclasses.dataclass
+class Lidar2DSetting:
+    min_angle: float = -np.pi
+    max_angle: float = np.pi
+    num_lines: int = 360
+    max_range: float = np.inf
+
+
+class Lidar2D:
+    """A 2D lidar in a :class:`Space2D`."""
+
+    Setting = Lidar2DSetting
+
+    def __init__(self, setting: Lidar2DSetting, space: Space2D):
+        self.setting = setting
+        self.space = space
+        self.angles = np.linspace(
+            setting.min_angle, setting.max_angle, setting.num_lines)
+
+    def ray_directions_in_frame(self):
+        return np.stack([np.cos(self.angles), np.sin(self.angles)], axis=-1)
+
+    def scan(self, pose_angle: float, position) -> np.ndarray:
+        c, s = np.cos(pose_angle), np.sin(pose_angle)
+        rot = np.array([[c, -s], [s, c]])
+        dirs = self.ray_directions_in_frame() @ rot.T
+        return self.space.cast_rays(position, dirs, self.setting.max_range)
+
+
+def reference_space_2d() -> Space2D:
+    """The reference's 2D map world: two circles inside a 4x4 box."""
+    def circle(r, cx, cy, n):
+        a = np.arange(n) * (2 * np.pi / n)
+        return np.stack([r * np.cos(a) + cx, r * np.sin(a) + cy], axis=-1)
+
+    n = 40
+    half = 2.0
+    v = -half + 2 * half * np.arange(n) / n
+    box = np.concatenate([
+        np.stack([np.full(n, -half), v], axis=-1),
+        np.stack([v, np.full(n, half)], axis=-1),
+        np.stack([np.full(n, half), -v], axis=-1),
+        np.stack([-v, np.full(n, -half)], axis=-1),
+    ], axis=0)
+    return Space2D([circle(0.3, -1.0, 0.2, 50), circle(0.8, 0.3, 0.0, 100),
+                    box])
+
+
+def reference_trajectory_2d(n: int = 50, repeats: int = 1) -> np.ndarray:
+    """The elliptical n-pose trajectory (x, y, heading) of the 2D map."""
+    a, b = 1.6, 1.2
+    ang = 2 * np.pi * np.arange(n) / n
+    xy = np.stack([a * np.cos(ang), b * np.sin(ang)], axis=-1)
+    heading = np.zeros(n)
+    heading[1:] = np.arctan2(np.diff(xy[:, 1]), np.diff(xy[:, 0]))
+    traj = np.concatenate([xy, heading[:, None]], axis=-1)
+    return np.tile(traj, (repeats, 1))
+
+
+def lidar_scan_points_2d(lidar: Lidar2D, pose):
+    """One scan of ``lidar`` from pose (x, y, heading): the ranges (R,),
+    the world end points (R, 2), with misses at the sensor, and the hit
+    mask (R,) — the 2D map's inputs per pose."""
+    r = lidar.scan(pose[2], pose[:2])
+    c, s = np.cos(pose[2]), np.sin(pose[2])
+    dirs = lidar.ray_directions_in_frame() @ np.array([[c, -s], [s, c]]).T
+    hit = np.isfinite(r)
+    return r, pose[:2] + dirs * np.where(hit, r, 0.0)[:, None], hit
 
 
 def raycast_mesh(triangles: np.ndarray, origins: np.ndarray,

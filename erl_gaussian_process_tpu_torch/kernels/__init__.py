@@ -1,7 +1,7 @@
 """Covariance kernels (counterpart of ``erl_gaussian_process_tpu/kernels``:
-registry, the stationary families, scale mixtures and the joint
-value/gradient grams; reduced-rank kernels are not ported yet). All kernels
-are unit-variance (``k(x, x) = 1``)."""
+registry, the stationary families, scale mixtures, the joint
+value/gradient grams and the reduced-rank basis). All kernels are
+unit-variance (``k(x, x) = 1``)."""
 
 from erl_gaussian_process_tpu_torch.kernels.base import (
     KernelSetting,
@@ -10,12 +10,19 @@ from erl_gaussian_process_tpu_torch.kernels.base import (
     register_kernel,
     resolve_kernel_name,
     resolve_kernel_setting,
+    validate_kernel_setting,
 )
 from erl_gaussian_process_tpu_torch.kernels.gradient import (
     cross_gram_with_gradient,
     gradient_prior_variance,
     joint_mask,
     train_gram_with_gradient,
+)
+from erl_gaussian_process_tpu_torch.kernels.reduced_rank import (
+    ReducedRankBasis,
+    ReducedRankSetting,
+    parse_reduced_rank_name,
+    spectral_density,
 )
 from erl_gaussian_process_tpu_torch.kernels.stationary import (
     cross_gram,
@@ -33,6 +40,7 @@ __all__ = [
     "register_scale_mixture",
     "resolve_kernel_name",
     "resolve_kernel_setting",
+    "validate_kernel_setting",
     "cross_gram",
     "cross_gram_with_gradient",
     "gradient_prior_variance",
@@ -41,4 +49,8 @@ __all__ = [
     "pairwise_sqdist",
     "train_gram",
     "train_gram_with_gradient",
+    "ReducedRankBasis",
+    "ReducedRankSetting",
+    "parse_reduced_rank_name",
+    "spectral_density",
 ]

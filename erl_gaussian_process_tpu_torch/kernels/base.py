@@ -1,6 +1,6 @@
 """Kernel registry and settings (counterpart of
-``erl_gaussian_process_tpu/kernels/base.py``, the main path's subset:
-settings, name resolution, scale-mixture resolution; pure Python).
+``erl_gaussian_process_tpu/kernels/base.py``: settings, name resolution,
+scale-mixture resolution and validation; pure Python).
 
 Replaces the reference's string-keyed covariance factory
 (``Covariance::CreateCovariance(kernel_type, setting)``,
@@ -22,16 +22,6 @@ _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 # erl::covariance::RadialBiasFunction<double, 1> -> radial_bias_function
 _CPP_NAME_RE = re.compile(r"^erl::covariance::(\w+)\s*<.*>$")
 _CAMEL_RE = re.compile(r"(?<!^)(?=[A-Z])")
-
-# reduced-rank kernel type names (erl_gaussian_process_tpu/kernels/
-# reduced_rank.py:50); the port does not build them yet
-_RR_NAME_RE = re.compile(
-    r"^(?:erl::covariance::)?(?:ReducedRank|reduced_rank_?|rr_)(\w*?)"
-    r"\s*(?:<.*>)?$", re.IGNORECASE)
-
-REDUCED_RANK_TODO = ("reduced-rank kernels (kernels/reduced_rank.py and the "
-                     "RR bank) are not ported yet (ROADMAP.md, Queue 1 item "
-                     "11)")
 
 _ALIASES = {
     "radial_bias_function": "rbf",
@@ -84,6 +74,25 @@ def _mixture_terms(ks):
     w = [] if w is None else list(np.asarray(w).ravel()) if not isinstance(
         w, (list, tuple)) else list(w)
     return mix, [float(v) for v in w]
+
+
+def validate_kernel_setting(ks, context: str = "") -> None:
+    """For code paths that cannot take a scale mixture (the reduced-rank
+    basis is single-scale): raises on non-empty ``weights``, and on the
+    half-specified ``scale_mix != 1`` with no weights."""
+    mix, w = _mixture_terms(ks)
+    if mix != 1.0 and len(w) == 0:
+        raise ValueError(
+            f"{context or 'kernel'}: scale_mix={mix!r} with empty weights "
+            "specifies no mixture components — set weights (one per "
+            "component) or leave scale_mix at 1")
+    if len(w) > 0:
+        raise NotImplementedError(
+            f"{context or 'kernel'}: scale_mix={mix!r} / weights={w!r} "
+            "request a scale-mixture kernel, which this code path cannot "
+            "consume (reduced-rank bases are single-scale) — use "
+            "scale_mix: 1 and weights: [] here; plain (non-reduced-rank) "
+            "kernel types support mixtures")
 
 
 def resolve_kernel_setting(kernel_type: str, ks, context: str = "") -> str:
@@ -146,11 +155,6 @@ def resolve_kernel_name(name: str) -> str:
     raise KeyError(
         f"unknown kernel {name!r} (normalized {snake!r}); known: {sorted(_REGISTRY)}"
     )
-
-
-def is_reduced_rank_name(name: str) -> bool:
-    """Whether a kernel type names a reduced-rank kernel."""
-    return _RR_NAME_RE.match(name.strip()) is not None
 
 
 def register_kernel(name: str, **fns: Callable) -> None:

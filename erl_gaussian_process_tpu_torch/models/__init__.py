@@ -1,14 +1,19 @@
 """Models: the incremental SPGP and the occupancy map built on it, the
-batched GP bank and the 3D range-sensor GP built on that, the exact
-(vanilla) GP and the noisy-input GP (counterpart of
+batched GP bank and the 2D lidar and 3D range-sensor GPs built on that, the
+exact (vanilla) GP and the noisy-input GP (counterpart of
 ``erl_gaussian_process_tpu/models``)."""
 
 from erl_gaussian_process_tpu_torch.models.batch_gp import (
     BankState,
     BatchGPBank,
     bank_fit,
+    bank_fit_rr,
     bank_predict,
     bank_predict_assigned,
+)
+from erl_gaussian_process_tpu_torch.models.lidar_gp_2d import (
+    LidarGaussianProcess2D,
+    LidarGP2DSetting,
 )
 from erl_gaussian_process_tpu_torch.models.mapping import (
     Mapping,
@@ -42,6 +47,8 @@ from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
 __all__ = [
     "BankState",
     "BatchGPBank",
+    "LidarGP2DSetting",
+    "LidarGaussianProcess2D",
     "Mapping",
     "MappingSetting",
     "MappingType",
@@ -59,6 +66,7 @@ __all__ = [
     "VanillaGPState",
     "VanillaGaussianProcess",
     "bank_fit",
+    "bank_fit_rr",
     "bank_predict",
     "bank_predict_assigned",
 ]

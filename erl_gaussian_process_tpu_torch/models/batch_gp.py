@@ -9,8 +9,12 @@ factorization over (B, n, n) trains the whole bank. The bank fit always
 returns ``L^{-1}`` as well, so predicts whiten with a product; a state
 without it (a loaded checkpoint) whitens with a triangular solve.
 
-Reduced-rank banks and the sharded bank fit are not ported yet (ROADMAP.md,
-Queue 1 items 11 and 14).
+A reduced-rank bank (:func:`bank_fit_rr`) solves each member's (m, m)
+information system over one shared Hilbert basis instead; its L and alpha
+have m = #basis rows, and its predicts take ``+||.||^2`` for the variance.
+Those are batched library products and factorizations, as the JAX package
+leaves them to XLA. The sharded bank fit is not ported yet (ROADMAP.md,
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -21,9 +25,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from erl_gaussian_process_tpu_torch.kernels.base import REDUCED_RANK_TODO
+from erl_gaussian_process_tpu_torch.kernels.reduced_rank import (
+    rr_features,
+    rr_train_system,
+)
 from erl_gaussian_process_tpu_torch.models.gp_core import (
     DEFAULT_DEVICE,
+    cholesky_fit,
     resolve_device,
     whiten,
 )
@@ -70,16 +78,30 @@ def bank_fit_core(x, y, var, mask, scale, *, kernel: str) -> BankState:
 bank_fit = bank_fit_core
 
 
-def bank_fit_rr_core(*args, **kwargs) -> BankState:
-    raise NotImplementedError(REDUCED_RANK_TODO)
+def bank_fit_rr_core(x, y, var, mask, freq, sqrt_s, origin, half,
+                     inv_sqrt_vol) -> BankState:
+    """Reduced-rank bank fit on the basis constants
+    (``ReducedRankBasis.consts``): each member's features, information
+    system and robust Cholesky, batched. The one implementation shared by
+    :func:`bank_fit_rr` and the sensor GPs' scan trains."""
+    phi = rr_features(x, mask, freq, sqrt_s, origin, half, inv_sqrt_vol)
+    A, b = rr_train_system(phi, y, var, mask)
+    L, alpha = cholesky_fit(A, b)
+    return BankState(x=x, mask=mask, L=L, alpha=alpha,
+                     trained=torch.any(mask, dim=1))
 
 
-def bank_fit_rr(*args, **kwargs) -> BankState:
-    raise NotImplementedError(REDUCED_RANK_TODO)
+def bank_fit_rr(x, y, var, mask, basis) -> BankState:
+    """Reduced-rank bank fit: every member solves its own (m, m)
+    information system over the shared ``basis`` (a
+    ``kernels.reduced_rank.ReducedRankBasis``). x (B, n, d); y (B, n, q);
+    var/mask (B, n). L and alpha have m = #basis rows; x and mask are kept
+    for routing and checkpoints."""
+    return bank_fit_rr_core(x, y, var, mask, *basis.consts(x.device))
 
 
 def _members_predict(xs, ms, W, alphas, qs, scale, *, kernel: str,
-                     fused: bool):
+                     fused: bool, reduced_rank: bool = False):
     """Member b answers its queries qs[b] (C, d): one batched cross gram
     and one whitening per member. W is L^{-1} when ``fused``, else L.
     Returns mean (B, C, q), var (B, C)."""
@@ -88,6 +110,8 @@ def _members_predict(xs, ms, W, alphas, qs, scale, *, kernel: str,
     mean = torch.bmm(kt.mT, alphas)
     at = torch.bmm(W, kt) if fused else whiten(W, kt)
     s = torch.sum(at * at, dim=1)
+    if reduced_rank:
+        return mean, s
     # clamp: whitening can overshoot ||at||^2 past 1 by rounding near
     # training points; a negative variance NaNs downstream sqrts
     return mean, torch.clamp(1.0 - s, min=0.0)
@@ -96,24 +120,35 @@ def _members_predict(xs, ms, W, alphas, qs, scale, *, kernel: str,
 def bank_predict(state: BankState, xq, scale, *, kernel: str,
                  reduced_rank: bool = False):
     """Each bank member predicts its own queries. xq (B, m, d).
-    Returns mean (B, m, q), var (B, m)."""
-    if reduced_rank:
-        raise NotImplementedError(REDUCED_RANK_TODO)
+    Returns mean (B, m, q), var (B, m); ``reduced_rank`` takes
+    ``+||.||^2`` for the variance."""
     fused = state.L_inv is not None
     return _members_predict(state.x, state.mask,
                             state.L_inv if fused else state.L, state.alpha,
-                            xq, scale, kernel=kernel, fused=fused)
+                            xq, scale, kernel=kernel, fused=fused,
+                            reduced_rank=reduced_rank)
 
 
 def _predict_segmented(state: BankState, mids, qs, scale, *, kernel: str,
-                       fused: bool):
+                       fused: bool, reduced_rank: bool = False):
     """One active bank member per row of ``mids``: member mids[b'] answers
     its C grouped queries qs[b'], so each member's (n, n) factor is read
     once however many queries routed to it."""
     W = state.L_inv if fused else state.L
     return _members_predict(state.x[mids], state.mask[mids], W[mids],
                             state.alpha[mids], qs, scale, kernel=kernel,
-                            fused=fused)
+                            fused=fused, reduced_rank=reduced_rank)
+
+
+def _predict_segmented_rr(state: BankState, mids, qs, basis):
+    """The reduced-rank routed predict: the query features do not depend
+    on the member (rows = #basis), and each active member whitens them
+    against its own information factor; variance ``+||.||^2``."""
+    ones = torch.ones(qs.shape[:-1], dtype=torch.bool, device=qs.device)
+    kt = basis.features(qs, ones).mT                  # (Bp, m_basis, C)
+    mean = torch.bmm(kt.mT, state.alpha[mids])
+    at = whiten(state.L[mids], kt)
+    return mean, torch.sum(at * at, dim=1)
 
 
 def _next_pow2(v: int) -> int:
@@ -177,12 +212,13 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
     the active members answer their groups in one batched predict on the
     state's device (:func:`_predict_segmented`).
 
+    ``basis`` (a ``ReducedRankBasis``): the reduced-rank predict, queries
+    answered with the basis features and the ``+||.||^2`` variance.
+    ``reduced_rank`` alone takes ``+||.||^2`` with the kernel's gram.
+
     ``profile``: pass a dict to record per-phase wall-clock seconds (keys
     ``host_group``, ``h2d``, ``device``, ``d2h_scatter``, plus the bucket
-    shape ``bucket``). Profiling synchronizes between phases.
-    ``basis`` (reduced rank) is not ported yet."""
-    if basis is not None or reduced_rank:
-        raise NotImplementedError(REDUCED_RANK_TODO)
+    shape ``bucket``). Profiling synchronizes between phases."""
     prof = profile is not None
     if prof:
         t0 = time.perf_counter()
@@ -209,8 +245,12 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
         _sync(dev)
         t2 = time.perf_counter()
         profile["h2d"] = t2 - t1
-    mean_seg, var_seg = _predict_segmented(
-        state, mids, qs, scale, kernel=kernel, fused=state.L_inv is not None)
+    if basis is not None:
+        mean_seg, var_seg = _predict_segmented_rr(state, mids, qs, basis)
+    else:
+        mean_seg, var_seg = _predict_segmented(
+            state, mids, qs, scale, kernel=kernel,
+            fused=state.L_inv is not None, reduced_rank=reduced_rank)
     if prof:
         _sync(dev)
         t3 = time.perf_counter()

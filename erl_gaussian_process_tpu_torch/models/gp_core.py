@@ -68,22 +68,27 @@ def kahan_add(s: torch.Tensor, c: torch.Tensor, d: torch.Tensor):
 
 
 def cholesky_nan(K: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of K, all NaN where the factorization fails."""
+    """Lower Cholesky factor of K (..., n, n), all NaN in each matrix whose
+    factorization fails."""
     L, info = torch.linalg.cholesky_ex(K)
-    return L.masked_fill(info != 0, float("nan"))
+    return L.masked_fill((info != 0)[..., None, None], float("nan"))
 
 
 def robust_cholesky(K: torch.Tensor) -> torch.Tensor:
-    """Cholesky with escalating relative jitter on failure: retries with
-    jitter growing from 1e-14 (f64) or 1e-6 (f32) of the mean diagonal,
-    x100 per step, up to 1. Zero retries, and one host sync, on the
-    well-posed path."""
+    """Cholesky of K (..., n, n) with escalating relative jitter on
+    failure: each failed matrix retries with jitter growing from 1e-14
+    (f64) or 1e-6 (f32) of its mean diagonal, x100 per step, up to 1, as
+    the JAX package's (vmapped) loop does. Zero retries, and one host sync,
+    on the well-posed path."""
     L = cholesky_nan(K)
-    scale = torch.mean(torch.diagonal(K))
-    eye = torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
+    scale = torch.mean(torch.diagonal(K, dim1=-2, dim2=-1), dim=-1)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     j = 1e-14 if K.dtype == torch.float64 else 1e-6
-    while bool(torch.isnan(L).any()) and j < 1.0:
-        L = cholesky_nan(K + (j * scale) * eye)
+    bad = torch.isnan(L).flatten(-2).any(-1)
+    while bool(bad.any()) and j < 1.0:
+        retry = cholesky_nan(K + (j * scale)[..., None, None] * eye)
+        L = torch.where(bad[..., None, None], retry, L)
+        bad = torch.isnan(L).flatten(-2).any(-1)
         j *= 100.0
     return L
 

@@ -22,7 +22,11 @@ Predictive quantities (reference formulas):
 - grad var:      3/s^2 - ||L^{-1} k*_grad||^2  (the 3/s^2 quirk)
 - mean/grad cov: lower triangle of -(L^{-1}k*_j)^T (L^{-1}k*_k)
 
-Reduced-rank kernels are not ported yet (ROADMAP.md, Queue 1 item 11).
+A reduced-rank kernel type fits the joint value/gradient information
+system of its Hilbert basis (:func:`nigp_rr_fit`; gradient observations
+are linear observations of the basis weights) by
+``gp_core.cholesky_fit(robust=False)``'s route, and every variance and
+covariance above takes the opposite sign (``+||.||^2``).
 """
 
 from __future__ import annotations
@@ -38,14 +42,17 @@ from erl_gaussian_process_tpu_torch.kernels import (
     KernelSetting,
     resolve_kernel_setting,
 )
-from erl_gaussian_process_tpu_torch.kernels.base import (
-    REDUCED_RANK_TODO,
-    is_reduced_rank_name,
-)
 from erl_gaussian_process_tpu_torch.kernels.gradient import (
     cross_gram_with_gradient,
     gradient_prior_variance,
     train_gram_with_gradient,
+)
+from erl_gaussian_process_tpu_torch.kernels.reduced_rank import (
+    rr_features,
+    rr_features_with_grad,
+    rr_joint_train_system,
+    rr_ktest_joint,
+    rr_train_system,
 )
 from erl_gaussian_process_tpu_torch.models.gp_core import (
     DEFAULT_DEVICE,
@@ -61,6 +68,10 @@ from erl_gaussian_process_tpu_torch.ops.chol import (
     chol_blocked,
     chol_blocked_gram,
     chol_blocked_gram_joint,
+)
+from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
+    kernel_setting_from_dict,
+    setup_reduced_rank,
 )
 from erl_gaussian_process_tpu_torch.utils.serialization import (
     eq_state,
@@ -128,6 +139,36 @@ def nigp_fit_nograd(x, y, var_x, var_y, sample_mask, scale, *, kernel: str
                                 return_dinv=True)
     return NoisyInputGPState(x, sample_mask, torch.zeros_like(sample_mask), L,
                              solve_with_L(L, yv, chol_dinv=dinv), dinv)
+
+
+def _rr_solve(x, A, b, sample_mask, grad_mask) -> NoisyInputGPState:
+    L, dinv = chol_blocked(A, return_dinv=True)
+    return NoisyInputGPState(x, sample_mask, grad_mask, L,
+                             solve_with_L(L, b, chol_dinv=dinv), dinv)
+
+
+def nigp_rr_fit(x, y, grad, var_x, var_y, var_grad, sample_mask, grad_mask,
+                freq, sqrt_s, origin, half, inv_sqrt_vol
+                ) -> NoisyInputGPState:
+    """Reduced-rank train with gradient observations: the joint
+    value/gradient information system
+    (``kernels.reduced_rank.rr_joint_train_system``), L (m, m) with m =
+    #basis."""
+    phi, dphi = rr_features_with_grad(x, freq, sqrt_s, origin, half,
+                                      inv_sqrt_vol)
+    A, b = rr_joint_train_system(phi, dphi, y, grad, var_x + var_y,
+                                 var_grad, sample_mask, grad_mask)
+    return _rr_solve(x, A, b, sample_mask, grad_mask)
+
+
+def nigp_rr_fit_nograd(x, y, var_x, var_y, sample_mask, freq, sqrt_s,
+                       origin, half, inv_sqrt_vol) -> NoisyInputGPState:
+    """Reduced-rank train without gradient observations: the plain
+    information system with the value noise var_x + var_y."""
+    phi = rr_features(x, sample_mask, freq, sqrt_s, origin, half,
+                      inv_sqrt_vol)
+    A, b = rr_train_system(phi, y, var_x + var_y, sample_mask)
+    return _rr_solve(x, A, b, sample_mask, torch.zeros_like(sample_mask))
 
 
 def nigp_ktest(state: NoisyInputGPState, xq, scale, *, kernel: str,
@@ -267,7 +308,8 @@ class NoisyInputGPSetting:
         d = dict(d or {})
         d.pop("kernel_setting_type", None)
         if "kernel" in d:
-            d["kernel"] = KernelSetting.from_dict(d["kernel"] or {})
+            d["kernel"] = kernel_setting_from_dict(d.get("kernel_type", ""),
+                                                   d["kernel"])
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
 
@@ -281,10 +323,16 @@ class NigpTestResult:
         self._gp = gp
         self._xq = xq
         self._with_grad = will_predict_gradient
-        self._ktest = nigp_ktest(
-            gp.state, xq, gp._scale, kernel=gp._kernel,
-            with_test_grad=will_predict_gradient,
-            with_train_grad=not gp.setting.no_gradient_observation)
+        if gp._basis is not None:
+            # rows = #basis, columns in the same joint layout
+            self._ktest = rr_ktest_joint(
+                xq, *gp._basis.consts(xq.device),
+                with_test_grad=will_predict_gradient)
+        else:
+            self._ktest = nigp_ktest(
+                gp.state, xq, gp._scale, kernel=gp._kernel,
+                with_test_grad=will_predict_gradient,
+                with_train_grad=not gp.setting.no_gradient_observation)
         self._varcov = None
 
     @property
@@ -318,10 +366,12 @@ class NigpTestResult:
                 if gp._L_inv is None:
                     gp._L_inv = nigp_l_inv(gp.state)
                 self._varcov = nigp_variance_cov_fast(
-                    gp._L_inv, self._ktest, gp._scale, d=d)
+                    gp._L_inv, self._ktest, gp._scale, d=d,
+                    reduced_rank=gp.reduced_rank_kernel)
             else:
-                self._varcov = nigp_variance_cov(gp.state, self._ktest,
-                                                 gp._scale, d=d)
+                self._varcov = nigp_variance_cov(
+                    gp.state, self._ktest, gp._scale, d=d,
+                    reduced_rank=gp.reduced_rank_kernel)
         return self._varcov
 
     def get_mean_variance(self, parallel: bool = True):
@@ -365,13 +415,19 @@ class NoisyInputGaussianProcess:
         self._train_set: Optional[NigpTrainSet] = None
 
     def _setup_kernel(self):
-        if is_reduced_rank_name(self.setting.kernel_type):
-            raise NotImplementedError(REDUCED_RANK_TODO)
+        """Resolve the kernel family; a reduced-rank kernel type builds its
+        basis."""
         self._scale = float(self.setting.kernel.scale)
-        self._kernel = resolve_kernel_setting(
-            self.setting.kernel_type, self.setting.kernel,
+        self.setting.kernel, self._basis = setup_reduced_rank(
+            self.setting.kernel_type, self.setting.kernel, self.dtype,
             "NoisyInputGaussianProcess")
-        self.reduced_rank_kernel = False
+        if self._basis is not None:
+            self._kernel = self.setting.kernel.base_kernel
+        else:
+            self._kernel = resolve_kernel_setting(
+                self.setting.kernel_type, self.setting.kernel,
+                "NoisyInputGaussianProcess")
+        self.reduced_rank_kernel = self._basis is not None
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.tensor(np.ascontiguousarray(a), device=self.device)
@@ -380,10 +436,12 @@ class NoisyInputGaussianProcess:
         return self.reduced_rank_kernel
 
     def get_kernel_coord_origin(self):
-        raise NotImplementedError(REDUCED_RANK_TODO)
+        assert self._basis is not None, "not a reduced-rank kernel"
+        return self._basis.coord_origin
 
     def set_kernel_coord_origin(self, origin):
-        raise NotImplementedError(REDUCED_RANK_TODO)
+        assert self._basis is not None, "not a reduced-rank kernel"
+        self._basis.set_coord_origin(origin)
 
     @property
     def is_trained(self):
@@ -460,10 +518,24 @@ class NoisyInputGaussianProcess:
         t = self._tensor
         x, y, smask, vx = t(ts.xp), t(ts.yp), t(ts.sample_mask), t(ts.vx)
         jit = self.dtype.type
+        rr = None if self._basis is None else self._basis.consts(self.device)
         if self.setting.no_gradient_observation:
+            if rr is not None:
+                self.state = host_jitter_retry(
+                    lambda j: nigp_rr_fit_nograd(x, y, vx, t(ts.vy + jit(j)),
+                                                 smask, *rr),
+                    lambda st: (st.alpha,))
+            else:
+                self.state = host_jitter_retry(
+                    lambda j: nigp_fit_nograd(x, y, vx, t(ts.vy + jit(j)),
+                                              smask, self._scale,
+                                              kernel=self._kernel),
+                    lambda st: (st.alpha,))
+        elif rr is not None:
+            grad, gmask = t(ts.gradp), t(ts.gmask)
             self.state = host_jitter_retry(
-                lambda j: nigp_fit_nograd(x, y, vx, t(ts.vy + jit(j)), smask,
-                                          self._scale, kernel=self._kernel),
+                lambda j: nigp_rr_fit(x, y, grad, vx, t(ts.vy + jit(j)),
+                                      t(ts.vg + jit(j)), smask, gmask, *rr),
                 lambda st: (st.alpha,))
         else:
             grad, gmask = t(ts.gradp), t(ts.gmask)

@@ -8,10 +8,12 @@ partition gather on the model's device followed by ONE launch of the bank
 fit kernel (``ops/bank.py``); a test routes each query to its partition
 on the host and answers all partitions in one batched predict
 (``models/batch_gp.bank_predict_assigned``). Frames and partition search
-are host numpy, as in the JAX package.
+are host numpy, as in the JAX package. A reduced-rank ``gp.kernel_type``
+fits each partition's basis information system instead
+(``models/batch_gp.bank_fit_rr_core``) and predicts with ``+||.||^2``.
 
-Not ported yet: reduced-rank kernel types (ROADMAP.md, Queue 1 item 11)
-and the sharded bank fit ``mesh=`` (item 14).
+Not ported yet: the sharded bank fit ``mesh=`` (ROADMAP.md, Queue 1 item
+9).
 """
 
 from __future__ import annotations
@@ -27,13 +29,10 @@ from erl_gaussian_process_tpu_torch.geometry.frames_3d import (
     create_range_sensor_frame_3d,
 )
 from erl_gaussian_process_tpu_torch.kernels import resolve_kernel_setting
-from erl_gaussian_process_tpu_torch.kernels.base import (
-    REDUCED_RANK_TODO,
-    is_reduced_rank_name,
-)
 from erl_gaussian_process_tpu_torch.models.batch_gp import (
     BankState,
     bank_fit_core,
+    bank_fit_rr_core,
     bank_predict_assigned,
     bank_state_from_numpy,
 )
@@ -54,6 +53,7 @@ from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
     VanillaGPSetting,
     VanillaGPState,
     VanillaTrainSet,
+    setup_reduced_rank,
 )
 from erl_gaussian_process_tpu_torch.utils.serialization import (
     eq_state,
@@ -62,7 +62,7 @@ from erl_gaussian_process_tpu_torch.utils.serialization import (
 )
 
 MESH_TODO = ("the sharded bank fit (mesh=) is not ported yet (ROADMAP.md, "
-             "Queue 1 item 14)")
+             "Queue 1 item 9)")
 
 
 def _grid_partitions(coords: np.ndarray, group_size: int, overlap: int,
@@ -164,7 +164,8 @@ class RangeSensorGP3DTestResult:
             d = gp.sensor_frame.dir_world_to_frame(d)
         coords, idx = gp.route_directions(d)
         mean, var, valid = bank_predict_assigned(
-            gp.bank, coords, idx, gp._scale, kernel=gp._kernel)
+            gp.bank, coords, idx, gp._scale, kernel=gp._kernel,
+            reduced_rank=gp.reduced_rank_kernel, basis=gp._basis)
         self._gp = gp
         self._mean = mean[:, 0]
         self._var = var
@@ -211,13 +212,7 @@ class RangeSensorGaussianProcess3D:
             self.setting.sensor_frame_type, self.setting.sensor_frame,
             dtype=dtype)
         self.mapping = Mapping(self.setting.mapping)
-        if is_reduced_rank_name(self.setting.gp.kernel_type):
-            raise NotImplementedError(REDUCED_RANK_TODO)
-        self._scale = float(self.setting.gp.kernel.scale)
-        self._kernel = resolve_kernel_setting(
-            self.setting.gp.kernel_type, self.setting.gp.kernel,
-            "RangeSensorGaussianProcess3D.gp")
-        self.reduced_rank_kernel = False
+        self._setup_kernel()
         fc = self.sensor_frame.frame_coords()
         self.row_partitions = _grid_partitions(
             fc[:, 0, 0], self.setting.row_group_size,
@@ -233,6 +228,36 @@ class RangeSensorGaussianProcess3D:
         self.bank: Optional[BankState] = None
         self.mapped_distances = None
         self._scan_fit_cache = None
+
+    def _setup_kernel(self):
+        """Resolve the partition GPs' kernel. A reduced-rank kernel type
+        gets a 2D basis over the frame coords; only the fields the user
+        left unset (num_basis of length 1, boundary None or of the wrong
+        length, coord_origin [0.0]) take the frame-derived defaults: the
+        box is the (az, el) domain plus 3 length scales a side."""
+        gp = self.setting.gp
+        self._scale = float(gp.kernel.scale)
+
+        def frame_defaults(ks):
+            if len(ks.num_basis) != 2:
+                nb = ks.num_basis[0] if ks.num_basis else 16
+                ks.num_basis = [nb, nb]
+            if ks.boundary is None or len(ks.boundary) != 2:
+                fc = self.sensor_frame.frame_coords()
+                ks.boundary = [float(np.abs(fc[..., k]).max()
+                                     + 3.0 * ks.scale) for k in range(2)]
+            if len(ks.coord_origin) != 2 or list(ks.coord_origin) == [0.0]:
+                ks.coord_origin = [0.0, 0.0]
+
+        gp.kernel, self._basis = setup_reduced_rank(
+            gp.kernel_type, gp.kernel, self.dtype,
+            "RangeSensorGaussianProcess3D.gp", defaults=frame_defaults)
+        if self._basis is not None:
+            self._kernel = gp.kernel.base_kernel
+        else:
+            self._kernel = resolve_kernel_setting(
+                gp.kernel_type, gp.kernel, "RangeSensorGaussianProcess3D.gp")
+        self.reduced_rank_kernel = self._basis is not None
 
     def using_reduced_rank_kernel(self) -> bool:
         return self.reduced_rank_kernel
@@ -393,8 +418,12 @@ class RangeSensorGaussianProcess3D:
         """S range images -> one BankState of S*B members: the gather and
         ONE bank fit. A member's L, L_inv and alpha do not depend on the
         bank it is fit in (``ops/bank.py``), so each scan's slice of a
-        replay equals its own train bit for bit."""
+        replay equals its own train bit for bit. A reduced-rank model
+        fits the members' basis information systems instead."""
         x, y, var, mask = self._gather_scans(ranges_batch)
+        if self._basis is not None:
+            return bank_fit_rr_core(x, y, var, mask,
+                                    *self._basis.consts(self.device))
         return bank_fit_core(x, y, var, mask, self._scale,
                              kernel=self._kernel)
 
@@ -403,7 +432,10 @@ class RangeSensorGaussianProcess3D:
         bank fit. ranges_batch (S, n_az, n_el), or (S, H, W) for a depth
         frame. Returns a BankState with S*B members, scan-major; use
         :meth:`use_scan_bank` to route queries at one scan's slice. Does
-        not change this instance's trained state."""
+        not change this instance's trained state. Plain kernels only."""
+        if self._basis is not None:
+            raise NotImplementedError(
+                "train_scan_batch needs plain kernels on a single chip")
         rb = np.asarray(ranges_batch, self.dtype)
         fc = self.sensor_frame.frame_coords()
         if rb.ndim != 3 or rb.shape[1:] != fc.shape[:2]:
@@ -473,7 +505,8 @@ class RangeSensorGaussianProcess3D:
         dirs = p / np.where(dist > 0, dist, 1.0)[:, None]
         coords, idx = self.route_directions(dirs)
         mean, var, valid = bank_predict_assigned(
-            self.bank, coords, idx, self._scale, kernel=self._kernel)
+            self.bank, coords, idx, self._scale, kernel=self._kernel,
+            reduced_rank=self.reduced_rank_kernel, basis=self._basis)
         mean = mean[:, 0]
         valid = valid & (var <= self.setting.max_valid_range_var)
         a = dist * self.setting.occ_test_temperature

@@ -56,8 +56,8 @@ POSES_PER_STEP_TODO = ("poses_per_step > 1 (several poses fused into one "
 
 @dataclasses.dataclass
 class SpGpOccupancyMapSetting:
-    """Mirror of SpGpOccupancyMap::Setting. Built in code; this package
-    reads no YAML."""
+    """Mirror of SpGpOccupancyMap::Setting; loads the reference's YAML
+    (``config/spgp_occupancy_map_2d.yaml``) unchanged."""
 
     sp_gp: SpGpSetting = dataclasses.field(default_factory=SpGpSetting)
     min_distance: float = 0.5
@@ -79,6 +79,15 @@ class SpGpOccupancyMapSetting:
             d["sp_gp"] = SpGpSetting.from_dict(d["sp_gp"])
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+    @classmethod
+    def from_yaml_file(cls, path: str):
+        from erl_gaussian_process_tpu_torch.utils.config import from_yaml_file
+        return from_yaml_file(cls, path)
+
+    def as_yaml_file(self, path: str):
+        from erl_gaussian_process_tpu_torch.utils.config import as_yaml_file
+        as_yaml_file(self, path)
 
 
 def step_seed(seed: int, step: int) -> int:

@@ -7,7 +7,10 @@ the blocked substitution, ``ops/chol.py`` + ``ops/trsv.py``),
 :func:`vanilla_ktest` (the gram kernel), mean and variance. The
 :class:`VanillaGaussianProcess` class mirrors the reference's Python API
 (train/test/TestResult) over padded fixed-shape buffers on ``device``.
-Reduced-rank kernels are not ported yet (ROADMAP.md, Queue 1 item 11).
+A reduced-rank kernel type (``reduced_rank_*``) fits the (m, m)
+information system of its Hilbert basis instead (:func:`rr_fit`: the
+blocked Cholesky and the blocked substitution, as the exact fit), and its
+variance is ``+||.||^2``.
 """
 
 from __future__ import annotations
@@ -23,10 +26,14 @@ from erl_gaussian_process_tpu_torch.kernels import (
     KernelSetting,
     cross_gram,
     resolve_kernel_setting,
+    validate_kernel_setting,
 )
-from erl_gaussian_process_tpu_torch.kernels.base import (
-    REDUCED_RANK_TODO,
-    is_reduced_rank_name,
+from erl_gaussian_process_tpu_torch.kernels.reduced_rank import (
+    ReducedRankBasis,
+    ReducedRankSetting,
+    parse_reduced_rank_name,
+    rr_features,
+    rr_train_system,
 )
 from erl_gaussian_process_tpu_torch.models.gp_core import (
     DEFAULT_DEVICE,
@@ -39,7 +46,10 @@ from erl_gaussian_process_tpu_torch.models.gp_core import (
     whiten,
     with_tile_inverses,
 )
-from erl_gaussian_process_tpu_torch.ops.chol import chol_blocked_gram
+from erl_gaussian_process_tpu_torch.ops.chol import (
+    chol_blocked,
+    chol_blocked_gram,
+)
 from erl_gaussian_process_tpu_torch.utils.serialization import (
     eq_state,
     load_pytree,
@@ -109,9 +119,18 @@ def vanilla_predict(state: VanillaGPState, xq, scale, *, kernel: str,
                                    reduced_rank))
 
 
-def rr_fit(*args, **kwargs):
-    """The reduced-rank fit, not ported yet."""
-    raise NotImplementedError(REDUCED_RANK_TODO)
+def rr_fit(x, y, var, mask, freq, sqrt_s, origin, half, inv_sqrt_vol
+           ) -> VanillaGPState:
+    """Reduced-rank train: features -> (m, m) information matrix ->
+    Cholesky, by ``gp_core.cholesky_fit(robust=False)``'s route (the
+    blocked Cholesky and the blocked substitution), keeping the factor's
+    Dinv for :func:`gp_core.whiten`. L is (m, m) and alpha (m, y_dim),
+    m = #basis."""
+    phi = rr_features(x, mask, freq, sqrt_s, origin, half, inv_sqrt_vol)
+    A, b = rr_train_system(phi, y, var, mask)
+    L, dinv = chol_blocked(A, return_dinv=True)
+    return VanillaGPState(x=x, mask=mask, L=L,
+                          alpha=solve_with_L(L, b, chol_dinv=dinv), dinv=dinv)
 
 
 class VanillaTrainSet:
@@ -167,20 +186,57 @@ class VanillaGPSetting:
         d = dict(d or {})
         d.pop("kernel_setting_type", None)  # reference YAML field, implied
         if "kernel" in d:
-            d["kernel"] = KernelSetting.from_dict(d["kernel"])
+            d["kernel"] = kernel_setting_from_dict(d.get("kernel_type", ""),
+                                                   d["kernel"])
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
+def kernel_setting_from_dict(kernel_type, d) -> KernelSetting:
+    """A model setting's ``kernel`` entry: a ``ReducedRankSetting`` for a
+    reduced-rank kernel type (whose family, when it names one, wins over
+    ``base_kernel``), else a ``KernelSetting``."""
+    rr = parse_reduced_rank_name(str(kernel_type))
+    ks = (ReducedRankSetting if rr is not None else KernelSetting).from_dict(
+        d or {})
+    if rr:
+        ks.base_kernel = rr
+    return ks
+
+
+def setup_reduced_rank(kernel_type, ks, dtype, context: str, defaults=None):
+    """(setting, basis) of a model's kernel: for a reduced-rank kernel type
+    the setting ``ks`` as a ``ReducedRankSetting`` (converted from a plain
+    one), its ``base_kernel`` set from the type's family, ``defaults(ks)``
+    applied (a sensor GP fills the fields left unset from its frame), and
+    its basis; else (ks, None)."""
+    rr_base = parse_reduced_rank_name(kernel_type)
+    if rr_base is None:
+        return ks, None
+    validate_kernel_setting(ks, context)
+    if not isinstance(ks, ReducedRankSetting):
+        ks = ReducedRankSetting.from_dict(ks.to_dict())
+    if rr_base:
+        ks.base_kernel = rr_base
+    if defaults is not None:
+        defaults(ks)
+    return ks, ReducedRankBasis(ks, dtype=dtype)
+
+
 class VanillaTestResult:
     """Lazy test result (the reference's TestResult): ktest at
-    construction, the whitening deferred to the first variance query."""
+    construction, the whitening deferred to the first variance query. A
+    reduced-rank model's ktest is the whitened feature matrix, rows =
+    #basis."""
 
     def __init__(self, gp: "VanillaGaussianProcess", xq: torch.Tensor):
         self._gp = gp
         self._xq = xq
-        self._ktest = vanilla_ktest(gp.state, xq, gp._scale,
-                                    kernel=gp._kernel)
+        if gp._basis is not None:
+            self._ktest = gp._basis.features(xq).mT
+        else:
+            self._ktest = vanilla_ktest(gp.state, xq, gp._scale,
+                                        kernel=gp._kernel)
         self._mean = None
         self._var = None
 
@@ -208,9 +264,13 @@ class VanillaTestResult:
             if gp._var_queries >= 2 and self._ktest.shape[1] <= 512:
                 if gp._L_inv is None:
                     gp._L_inv = vanilla_l_inv(gp.state)
-                self._var = vanilla_variance_fast(gp._L_inv, self._ktest)
+                self._var = vanilla_variance_fast(
+                    gp._L_inv, self._ktest,
+                    reduced_rank=gp.reduced_rank_kernel)
             else:
-                self._var = vanilla_variance(gp.state, self._ktest)
+                self._var = vanilla_variance(
+                    gp.state, self._ktest,
+                    reduced_rank=gp.reduced_rank_kernel)
         return self._var.cpu().numpy()
 
 
@@ -240,13 +300,27 @@ class VanillaGaussianProcess:
         self._train_set: Optional[VanillaTrainSet] = None
 
     def _setup_kernel(self):
-        if is_reduced_rank_name(self.setting.kernel_type):
-            raise NotImplementedError(REDUCED_RANK_TODO)
+        """Resolve the kernel family; a reduced-rank kernel type builds its
+        basis (the reference's BuildSpectralDensities after create/load)."""
         self._scale = float(self.setting.kernel.scale)
-        self._kernel = resolve_kernel_setting(
-            self.setting.kernel_type, self.setting.kernel,
+        self.setting.kernel, self._basis = setup_reduced_rank(
+            self.setting.kernel_type, self.setting.kernel, self.dtype,
             "VanillaGaussianProcess")
-        self.reduced_rank_kernel = False
+        if self._basis is not None:
+            self._kernel = self.setting.kernel.base_kernel
+        else:
+            self._kernel = resolve_kernel_setting(
+                self.setting.kernel_type, self.setting.kernel,
+                "VanillaGaussianProcess")
+        self.reduced_rank_kernel = self._basis is not None
+
+    def get_coord_origin(self):
+        assert self._basis is not None, "not a reduced-rank kernel"
+        return self._basis.coord_origin
+
+    def set_coord_origin(self, origin):
+        assert self._basis is not None, "not a reduced-rank kernel"
+        self._basis.set_coord_origin(origin)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.tensor(np.ascontiguousarray(a), device=self.device)
@@ -279,10 +353,18 @@ class VanillaGaussianProcess:
             return False
         x, y, mask = self._tensor(ts.xp), self._tensor(ts.yp), \
             self._tensor(ts.mask)
-        self.state = host_jitter_retry(
-            lambda j: vanilla_fit(x, y, self._tensor(ts.vp + self.dtype.type(j)),
-                                  mask, self._scale, kernel=self._kernel),
-            lambda st: (st.alpha,))
+        if self._basis is not None:
+            consts = self._basis.consts(self.device)
+            self.state = host_jitter_retry(
+                lambda j: rr_fit(x, y, self._tensor(ts.vp + self.dtype.type(j)),
+                                 mask, *consts),
+                lambda st: (st.alpha,))
+        else:
+            self.state = host_jitter_retry(
+                lambda j: vanilla_fit(
+                    x, y, self._tensor(ts.vp + self.dtype.type(j)), mask,
+                    self._scale, kernel=self._kernel),
+                lambda st: (st.alpha,))
         self._n = ts.num_samples
         self._trained = True
         self._L_inv = None

@@ -2,9 +2,11 @@
 
 The JAX package's checkpoints (``state_dict()`` of
 ``SparsePseudoInputGaussianProcess``, ``SpGpOccupancyMap``,
-``RangeSensorGaussianProcess3D``, ``VanillaGaussianProcess`` and
-``NoisyInputGaussianProcess``, as numpy arrays) load here and compute the
-same thing from the same state. The one
+``LidarGaussianProcess2D``, ``RangeSensorGaussianProcess3D``,
+``VanillaGaussianProcess`` and ``NoisyInputGaussianProcess``, as numpy
+arrays) load here and compute the same thing from the same state; a
+reduced-rank model's setting rebuilds its basis, and its (m, m) state
+carries over as it is. The one
 piece that cannot carry over is the JAX PRNG key: the map gets a fresh
 ``torch.Generator`` seed derived from it (:func:`seed_from_key`), so its
 future free-space samples differ from the JAX map's.
@@ -17,6 +19,9 @@ import numpy as np
 from erl_gaussian_process_tpu_torch.geometry.aabb import Aabb
 from erl_gaussian_process_tpu_torch.models.batch_gp import (  # noqa: F401
     bank_state_from_numpy,
+)
+from erl_gaussian_process_tpu_torch.models.lidar_gp_2d import (
+    LidarGaussianProcess2D,
 )
 from erl_gaussian_process_tpu_torch.models.gp_core import (
     DEFAULT_DEVICE,
@@ -89,6 +94,15 @@ def range_sensor_gp_3d_from_numpy(d, device=DEFAULT_DEVICE
     ``RangeSensorGaussianProcess3D.state_dict()``, at the checkpoint's
     dtype."""
     gp = RangeSensorGaussianProcess3D(device=device)
+    gp.load_state_dict(d)
+    return gp
+
+
+def lidar_gp_2d_from_numpy(d, device=DEFAULT_DEVICE
+                           ) -> LidarGaussianProcess2D:
+    """A port ``LidarGaussianProcess2D`` on ``device`` from a JAX
+    ``LidarGaussianProcess2D.state_dict()``, at the checkpoint's dtype."""
+    gp = LidarGaussianProcess2D(device=device)
     gp.load_state_dict(d)
     return gp
 

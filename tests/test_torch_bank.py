@@ -306,9 +306,13 @@ def test_bank_predict_matches_jax():
     m2, v2 = bank_predict(loaded, torch.as_tensor(xq), 0.4, kernel="matern32")
     _close(m2, jm, 1e-12)
     _close(v2, jv, 1e-12)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bank_predict(state, torch.as_tensor(xq), 0.4, kernel="matern32",
-                     reduced_rank=True)
+    # reduced_rank: the same gram, the +||.||^2 variance
+    mr, vr = bank_predict(state, torch.as_tensor(xq), 0.4, kernel="matern32",
+                          reduced_rank=True)
+    jmr, jvr = jbg.bank_predict(jstate, jnp.asarray(xq), 0.4,
+                                kernel="matern32", reduced_rank=True)
+    _close(mr, jmr, 1e-12)
+    _close(vr, jvr, 1e-12)
 
 
 @pytest.mark.parametrize("from_jax_state", [False, True])
@@ -343,14 +347,45 @@ def test_bank_predict_assigned_matches_jax(from_jax_state):
     assert not none_ok.any() and (none_v == 1.0).all()
 
 
-def test_reduced_rank_banks_are_deferred():
-    xs, ys, vs, ms = _routed_bank()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bank_fit_rr(*_t(xs, ys, vs, ms), None)
-    state = bank_fit(*_t(xs, ys, vs, ms), 0.4, kernel="rbf")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bank_predict_assigned(state, xs[0], np.zeros(24, np.int32), 0.4,
-                              kernel="rbf", basis=object())
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_reduced_rank_banks_match_jax(dtype):
+    """bank_fit_rr over a shared 2D basis and the routed reduced-rank
+    predict (-1 indices, an untrained member) against JAX: the (m, m)
+    factors, alpha, means and +||.||^2 variances."""
+    from erl_gaussian_process_tpu.kernels import (
+        ReducedRankBasis as JaxBasis,
+        ReducedRankSetting as JaxRRSetting,
+    )
+    from erl_gaussian_process_tpu_torch.kernels import (
+        ReducedRankBasis,
+        ReducedRankSetting,
+    )
+
+    xs, ys, vs, ms = (a.astype(dtype) if a.dtype != bool else a
+                      for a in _routed_bank())
+    kw = dict(x_dim=2, scale=0.4, num_basis=[7, 6], boundary=[1.6, 1.7],
+              coord_origin=[0.1, 0.0])
+    basis = ReducedRankBasis(ReducedRankSetting(**kw), dtype=dtype)
+    jbasis = JaxBasis(JaxRRSetting(**kw), dtype=dtype)
+    state = bank_fit_rr(*_t(xs, ys, vs, ms), basis)
+    jstate = jbg.bank_fit_rr(*map(jnp.asarray, (xs, ys, vs, ms)), jbasis)
+    assert tuple(state.L.shape) == (6, 42, 42) and state.L_inv is None
+    np.testing.assert_array_equal(_np(state.trained),
+                                  np.asarray(jstate.trained))
+    _close(state.L, jstate.L, TOL[dtype])
+    _close(state.alpha, jstate.alpha, TOL[dtype])
+    rng = np.random.default_rng(10)
+    q = rng.uniform(-1, 1, (150, 2)).astype(dtype)
+    idx = rng.integers(-1, 6, 150).astype(np.int32)
+    mean, var, valid = bank_predict_assigned(state, q, idx, 0.4,
+                                             kernel="rbf", reduced_rank=True,
+                                             basis=basis)
+    jm, jv, jvalid = jbg.bank_predict_assigned(
+        jstate, q, idx, 0.4, kernel="rbf", reduced_rank=True, basis=jbasis)
+    np.testing.assert_array_equal(valid, np.asarray(jvalid))
+    assert valid.any() and (var[valid] > 0).all()
+    _close(mean, jm, TOL[dtype])
+    _close(var, jv, TOL[dtype])
 
 
 # -- the bank Cholesky's plan (csrc/bank.cu's two paths) ---------------------

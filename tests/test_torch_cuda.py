@@ -913,3 +913,191 @@ def test_exact_gps_on_the_card_match_the_cpu(cuda, dtype, monkeypatch):
     tol = 1e-3 if dtype == np.float32 else 1e-9
     for a, b in zip(*outs.values()):
         assert np.abs(a - b).max() < tol
+
+
+# -- the 2D path and reduced rank --------------------------------------------
+
+def _fitc_args_2d(cuda, dtype, m, n, d, var, seed=8):
+    """FITC operands at the 2D map's shapes: m - 63 pseudo points on a grid
+    of the map's spacing (0.2) in d dims, far-point padded to m, samples
+    inside it, matern32 at the production scale 0.18."""
+    rng = np.random.default_rng(seed)
+    k = round((m - 63) ** (1 / d))
+    half = 0.1 * (k - 1)
+    c = np.linspace(-half, half, k)
+    grid = np.stack([a.ravel() for a in np.meshgrid(*[c] * d,
+                                                    indexing="ij")], -1)
+    pseudo = pad_pseudo_points(grid)
+    assert pseudo.shape == (m, d)
+    st = spgp_init(torch.as_tensor(pseudo, dtype=dtype, device=cuda), 0.18,
+                   kernel="matern32")
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    return ("matern32", st.pseudo, st.L_inv,
+            t(rng.uniform(-half, half, (n, d))),
+            t(rng.choice([-1.0, 1.0], (n, 1))), t(np.full(n, var)),
+            torch.as_tensor(rng.uniform(size=n) < 0.9, device=cuda), 0.18)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("m", [1024, 1152])
+def test_fitc_kernel_at_the_2d_map_shapes(cuda, m, d, dtype):
+    """FITC at M in {1024, 1152} (the 2D map's 961 pseudo points pad to
+    1024), N = 2048, d in {1, 2}: against the plain version (float32 at var
+    0.1 to 1e-4, float64 at var 1e-4 to 1e-10), dQ exactly symmetric, the
+    plan's launches; and at float32 at the map's variance 1e-4, the
+    kernel's errors against the float64 update no worse than 2x the plain
+    version's."""
+    var, tol = (0.1, 1e-4) if dtype == torch.float32 else (1e-4, 1e-10)
+    args = _fitc_args_2d(cuda, dtype, m, 2048, d, var)
+    assert args[1].shape == (m, d)
+    before = launch_counts()["fitc"]
+    dq, da = fitc_update_cuda(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["fitc"] == before + 1
+    dq_ref, da_ref = fitc_update_plain(*args)
+    assert float((dq - dq_ref).abs().max() / dq_ref.abs().max()) <= tol
+    assert float((da - da_ref).abs().max() / da_ref.abs().max()) <= tol
+    assert torch.equal(dq, dq.T)
+    if dtype == torch.float64:
+        return
+    args = _fitc_args_2d(cuda, dtype, m, 2048, d, 1e-4)
+    st64 = spgp_init(args[1].double(), 0.18, kernel="matern32")
+    truth = fitc_update_plain("matern32", st64.pseudo, st64.L_inv,
+                              *(t.double() for t in args[3:6]), args[6],
+                              0.18)
+
+    def rel(got):
+        return [float((g.double() - t).abs().max() / t.abs().max())
+                for g, t in zip(got, truth)]
+
+    kernel, plain = rel(fitc_update_cuda(*args)), rel(fitc_update_plain(*args))
+    assert all(k <= 2 * p for k, p in zip(kernel, plain)), (kernel, plain)
+
+
+def _lidar_log_gp(cuda, dtype):
+    """The lidar GP of tests/test_lidar_gp_2d.py:25-50 on the card, and the
+    28 logged scans."""
+    import os
+
+    from erl_gaussian_process_tpu_torch.models import (
+        LidarGaussianProcess2D,
+        LidarGP2DSetting,
+    )
+    from erl_gaussian_process_tpu_torch.utils.loaders import load_lidar_log
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    frames = load_lidar_log(os.path.join(root, "data", "double",
+                                         "train.dat"))
+    f = frames[0]
+    s = LidarGP2DSetting.from_dict(dict(
+        group_size=26, overlap_size=6, margin=1, sensor_range_var=0.01,
+        discontinuity_var=100.0,
+        sensor_frame=dict(valid_range_min=0.1, valid_range_max=30.0,
+                          angle_min=float(f.angles[0]),
+                          angle_max=float(f.angles[-1]), num_rays=270,
+                          discontinuity_detection=True),
+        gp=dict(kernel_type="ou", kernel=dict(x_dim=1, scale=0.05)),
+        mapping=dict(type="identity")))
+    return (LidarGaussianProcess2D(s, dtype=dtype, device=cuda),
+            LidarGaussianProcess2D(s, dtype=dtype, device="cpu"),
+            np.stack([fr.ranges for fr in frames]))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lidar_gp_2d_replay_on_the_card_is_bitwise_per_scan_train(cuda,
+                                                                 dtype):
+    """The 28 logged scans (392 members of 26) in one bank-fit launch: each
+    scan's slice equals its own train bit for bit; the routed test is one
+    batched gram launch and agrees with the CPU model."""
+    gp, cpu, rb = _lidar_log_gp(cuda, dtype)
+    before = launch_counts()
+    stacked = gp.train_scan_batch(rb)
+    torch.cuda.synchronize()
+    assert launch_counts()["bank_fit"] == before["bank_fit"] + 1
+    assert tuple(stacked.L.shape) == (392, 26, 26)
+    for s in (0, 13, 27):
+        assert gp.train(np.eye(2), np.zeros(2), rb[s])
+        for a, b in zip(stacked, gp.bank):
+            assert torch.equal(a[s * 14:(s + 1) * 14], b)
+    angles = gp.sensor_frame.angles_in_frame
+    before = launch_counts()
+    pred, valid = gp.test(angles, True, True).get_mean()
+    assert launch_counts()["gram_batched"] == before["gram_batched"] + 1
+    assert cpu.train(np.eye(2), np.zeros(2), rb[27])
+    cpred, cvalid = cpu.test(angles, True, True).get_mean()
+    np.testing.assert_array_equal(valid, cvalid)
+    tol = 1e-4 if dtype == np.float32 else 1e-10
+    assert np.abs(pred[valid] - cpred[valid]).max() <= \
+        tol * np.abs(cpred[valid]).max()
+
+
+@pytest.mark.parametrize("m", [1, 17, 48, 64, 96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_kernel_at_the_rr_fit_sizes(cuda, dtype, m):
+    """The reduced-rank fit's (m, m) information systems are small: the
+    blocked Cholesky at m in {1, ..., 256} against its plain version, and
+    an indefinite one NaN, so the host retry escalates."""
+    from erl_gaussian_process_tpu_torch.ops import (
+        chol_blocked,
+        chol_blocked_plain,
+    )
+
+    A = _spd(cuda, m, dtype, seed=m)
+    L = chol_blocked(A)
+    assert _berr_ok(_berr(L, A), _berr(chol_blocked_plain(A), A), dtype)
+    A[m - 1, m - 1] = -1.0
+    assert bool(torch.isnan(chol_blocked(A)[m - 1, m - 1]))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_rr_fits_on_the_card_run_the_chol_and_trsv_kernels(cuda, dtype,
+                                                           monkeypatch):
+    """The vanilla and noisy-input reduced-rank GPs on the card: their
+    (m, m) fits launch the blocked Cholesky and the substitution (the plain
+    Cholesky patched to raise) and predict as on the CPU."""
+    import erl_gaussian_process_tpu_torch.ops.chol as chol_ops
+    from erl_gaussian_process_tpu_torch.kernels import ReducedRankSetting
+    from erl_gaussian_process_tpu_torch.models import (
+        NoisyInputGaussianProcess,
+        NoisyInputGPSetting,
+        VanillaGaussianProcess,
+        VanillaGPSetting,
+    )
+
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-0.8, 0.8, (2, 400))
+    y = np.sin(2 * x[0]) * np.cos(2 * x[1])
+    g = np.stack([2 * np.cos(2 * x[0]) * np.cos(2 * x[1]),
+                  -2 * np.sin(2 * x[0]) * np.sin(2 * x[1])])
+    xt = rng.uniform(-0.6, 0.6, (2, 64))
+    ks = dict(x_dim=2, scale=0.6, num_basis=[16, 16], boundary=[2.0, 2.0],
+              coord_origin=[0.0, 0.0])
+    outs = {}
+    for dev in ("cpu", cuda):
+        if dev != "cpu":
+            def boom(*args, **kwargs):
+                raise AssertionError("plain version on the CUDA path")
+            monkeypatch.setattr(chol_ops, "chol_blocked_plain", boom)
+            before = launch_counts()
+        vgp = VanillaGaussianProcess(VanillaGPSetting(
+            kernel_type="rr_matern32", kernel=ReducedRankSetting(**ks)),
+            dtype=dtype, device=dev)
+        assert vgp.train(x, y, 1e-4)
+        vr = vgp.test(xt)
+        ngp = NoisyInputGaussianProcess(NoisyInputGPSetting(
+            kernel_type="rr_rbf", kernel=ReducedRankSetting(**ks)),
+            dtype=dtype, device=dev)
+        assert ngp.train(x, y, g, 1e-4, 1e-4, 1e-4)
+        nr = ngp.test(xt, True)
+        outs[str(dev)] = (vr.get_mean(), vr.get_variance(), nr.get_mean(),
+                          nr.get_gradient(), nr.get_mean_variance())
+    after = launch_counts()
+    assert after["chol"] == before["chol"] + 2
+    assert after["trsv"] >= before["trsv"] + 4
+    tol = 1e-3 if dtype == np.float32 else 1e-9
+    for a, b in zip(*outs.values()):
+        assert np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1.0)

@@ -13,8 +13,10 @@ from erl_gaussian_process_tpu_torch.ops.fitc import (
     lower_tile,
 )
 
-SHAPES = [(1152, 2048), (1089, 1500), (70, 33), (1152, 2000), (64, 64),
-          (1, 1), (300, 4992), (2500, 100)]
+# the 3D map's (1152, 2048) and the 2D map's (1024, 2048: 961 pseudo
+# points padded), ragged and small shapes
+SHAPES = [(1152, 2048), (1024, 2048), (1089, 1500), (70, 33), (1152, 2000),
+          (64, 64), (1, 1), (300, 4992), (2500, 100)]
 
 
 @pytest.mark.parametrize("sms", [132, 20])

@@ -2,7 +2,9 @@
 fresh interpreter, importing it and driving a tiny occupancy map (a few CPU
 updates and a predict), a small 3D range-sensor GP (train, replay, test,
 compute_occ, save/load), a BatchGPBank, an exact GP and a noisy-input GP
-with gradients must not import ``jax``, ``yaml`` or the JAX package."""
+with gradients, the 2D lidar GP on a logged scan (with the setting
+registry), the 2D simulators and a reduced-rank GP must not import
+``jax``, ``yaml`` or the JAX package."""
 
 import os
 import subprocess
@@ -86,6 +88,30 @@ q = x[:-1] + 0.05
 nres = ngp.test(q[None], predict_gradient=True)
 assert np.abs(nres.get_gradient()[0] - np.cos(q)).max() < 0.1
 assert nres.get_covariance().shape == (1, 39)
+from erl_gaussian_process_tpu_torch.geometry import (
+    Lidar2D, reference_space_2d, reference_trajectory_2d)
+from erl_gaussian_process_tpu_torch.models import (
+    LidarGaussianProcess2D, LidarGP2DSetting)
+from erl_gaussian_process_tpu_torch.kernels import ReducedRankSetting
+from erl_gaussian_process_tpu_torch.utils import create_setting
+from erl_gaussian_process_tpu_torch.utils.loaders import load_lidar_log
+f = load_lidar_log(os.path.join("data", "double", "train.dat"))[0]
+ls = create_setting("erl::gaussian_process::LidarGaussianProcess2D<double>"
+                    "::Setting", {"sensor_frame": {
+                        "angle_min": float(f.angles[0]),
+                        "angle_max": float(f.angles[-1]), "num_rays": 270}})
+assert isinstance(ls, LidarGP2DSetting)
+lgp = LidarGaussianProcess2D(ls, device="cpu")
+assert lgp.train(np.eye(2), np.zeros(2), f.ranges)
+assert lgp.test(f.angles, True, True).get_mean()[1].any()
+scan = Lidar2D(Lidar2D.Setting(num_lines=16), reference_space_2d()).scan(
+    0.0, reference_trajectory_2d(4)[1, :2])
+assert np.isfinite(scan).all()
+rr = VanillaGaussianProcess(VanillaGPSetting(
+    kernel_type="rr_rbf", kernel=ReducedRankSetting(
+        x_dim=1, scale=0.5, num_basis=[32], boundary=[8.0])), device="cpu")
+assert rr.train(x[None], np.sin(x), 1e-3)
+assert (rr.test(x[None]).get_variance() > 0).all()
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "yaml",
                                     "erl_gaussian_process_tpu"))

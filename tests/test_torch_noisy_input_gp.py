@@ -400,5 +400,24 @@ def test_conversion_from_a_jax_checkpoint(dtype):
     gp.reset(40, 2, 1)
     assert gp.update_ktrain() and gp.k_train.shape == (120, 120)
     assert gp.get_train_set().num_samples_with_grad == 40
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gp.kernel_origin
+    # a plain kernel has no coord origin, in both packages
+    for m in (gp, jgp):
+        with pytest.raises(AssertionError, match="not a reduced-rank"):
+            m.kernel_origin
+    # a reduced-rank checkpoint: its basis rebuilt from the setting, the
+    # (m, m) state carried, the same predictions
+    from erl_gaussian_process_tpu.kernels import ReducedRankSetting
+    jrr = JaxNIGP(JaxNIGP.Setting(
+        kernel_type="rr_matern32", max_num_samples=40,
+        kernel=ReducedRankSetting(x_dim=2, scale=0.5, num_basis=[9, 8],
+                                  boundary=[2.0, 2.0],
+                                  coord_origin=[0.0, 0.1])), dtype=dtype)
+    jrr.train(x, y, grad, var_x=1e-4, var_y=1e-2, var_grad=1e-2)
+    rr = noisy_input_gp_from_numpy(jrr.state_dict(), device="cpu")
+    assert rr.using_reduced_rank_kernel() and rr.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(rr.kernel_origin, jrr.kernel_origin)
+    assert rr.cholesky_k_train.shape == (72, 72)
+    for a, b in zip(_outputs(rr.test(xt, True)),
+                    _outputs(jrr.test(xt, True))):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=tol * max(np.abs(b).max(), 1.0))

@@ -232,7 +232,8 @@ def test_host_jitter_retry_escalates_on_a_failed_fit(caplog):
 
 def test_train_guards_and_reduced_rank_kernels():
     """train() without data or twice warns and returns False; a
-    reduced-rank kernel type raises, naming its ROADMAP item."""
+    reduced-rank kernel type named by its C++-style name builds its basis
+    and predicts as JAX's does (float64, 1e-12)."""
     gp, _ = _pair()
     assert gp.test(np.zeros((1, 3))) is None
     assert not gp.train()
@@ -241,6 +242,20 @@ def test_train_guards_and_reduced_rank_kernels():
     assert not gp.train()
     gp.reset(10, 1, 1)
     assert gp.train() and gp.get_memory_usage() > 0
-    with pytest.raises(NotImplementedError, match="item 11"):
-        VanillaGaussianProcess(VanillaGPSetting(
-            kernel_type="ReducedRankRbf"), device="cpu")
+    rr = VanillaGaussianProcess(VanillaGPSetting(
+        kernel_type="ReducedRankRbf"), device="cpu")
+    jrr = JaxVanillaGP(JaxVanillaGP.Setting(kernel_type="ReducedRankRbf"))
+    assert rr.reduced_rank_kernel and rr._kernel == "rbf"
+    xr = np.linspace(-0.8, 0.8, 40)
+    for m in (rr, jrr):
+        assert m.train(xr[None], np.sin(3 * xr), 1e-2)
+    assert tuple(rr.state.L.shape) == (32, 32)
+    xq = np.linspace(-0.7, 0.7, 21)[None]
+    a, b = rr.test(xq), jrr.test(xq)
+    ref = b.get_mean(0)
+    np.testing.assert_allclose(a.get_mean(0), ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
+    ref = b.get_variance()
+    np.testing.assert_allclose(a.get_variance(), ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
+    assert (a.get_variance() > 0).all()
