@@ -126,6 +126,36 @@ The 2D paths and reduced rank:
     versions and the library calls; the reduced-rank lidar GP of
     tests/test_lidar_gp_2d.py:155-210 at its MAE gate (< 0.02).
 
+The modules ported last (the native host runtime, ``poses_per_step``,
+deployment, scale selection, the ops):
+
+18. the native host runtime built with the host's C++ compiler (its build
+    time), hotel-0's scans raycast natively (``main``'s workload) and
+    again by the numpy raycaster, both timed, the scans equal; an ``.egpt``
+    checkpoint of the hotel-0 map of phase 19 loaded with the state equal;
+19. hotel-0 at ``poses_per_step`` = 4 (983 poses padded to 984, 246 FITC
+    updates of N = 8192): the quality gates, Q_M and alpha against the
+    c = 1 replay of the same seeds (rtol 1e-3, atol 1e-4), FITC at (1152,
+    8192, d = 3) against its plain version and the float32 2x gate at var
+    1e-4 against float64, FITC's launches per 4 poses by
+    ``torch.profiler``, ms/pose beside c = 1 (medians of alternated
+    replays);
+20. the 2D map's update and predict artifacts (``utils/deploy.py``,
+    ``torch.export``) exported on the card, through bytes: 10 updates and
+    a predict equal bit for bit to the eager step, the FITC and gram
+    launches counted from the artifacts, an artifact call timed against
+    the eager step;
+21. ``select_scale_spgp`` on the 2D map's 50-pose datasets with the
+    production pseudo grid through the gram kernel, its float32 NLML
+    within 3e-3 (relative) of the plain float64 sweep, the chosen scale
+    beside the YAML's 0.18 (reported); ``select_scale`` at the exact-GP
+    cell (n = 8192, 24 candidates batched); ``fit_scale_spgp``, 80 steps;
+22. the registered ops' dispatch: rows 1 and 2a beside their event
+    times before the wrappers went through the ops (PERF.md §6), each op
+    against its CUDA implementation called directly (event and host ms,
+    alternated), and hotel-0's first 256 poses with FITC through the op
+    and called directly (ms/pose, alternated replays).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero before doing anything.
@@ -1839,10 +1869,16 @@ def long_horizon_batches():
 def fitc_bound(m, n, d):
     """(ms, by) of one float32 FITC update at M = m, N = n, d: L_inv's
     lower triangle and the samples (x, y, var, mask) read, dQ written; the
-    triangular L_inv product M (M + 1) N, the lower SYRK M (M + 1) N, kmn
-    ~20 M N."""
+    triangular L_inv product M (M + 1) N at the FP64 tensor cores' rate
+    (the float32 beta runs there), the lower SYRK M (M + 1) N at the
+    3xTF32 rate, kmn ~20 M N at the FP32 rate outside the tensor cores,
+    one after the other."""
     nbytes = 4 * (m * (m + 1) // 2 + m * m + (d + 3) * n)
-    return bound(nbytes, 2 * m * (m + 1) * n + 20 * m * n)
+    half = m * (m + 1) * n
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * (half / FP64_TC_FLOPS + half / TF32X3_FLOPS
+                   + 20 * m * n / PEAK_FLOPS[torch.float32])
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_map2d_kernels(dev, card) -> dict:
@@ -2580,6 +2616,581 @@ def run_reduced_rank(dev, card):
     return counts, out
 
 
+# -- phases 18-22: the native runtime, poses_per_step, deployment
+# -- artifacts, scale selection, the ops' dispatch -------------------------
+
+PPS = 4                  # poses fused into one FITC update (hotel-0)
+PPS_REPLAYS = 3          # more replays of each of c = 1 and c = PPS
+PPS_TOL = dict(rtol=1e-3, atol=1e-4)   # tests/test_spgp_occupancy_map.py
+DEPLOY_POSES = 10        # 2D map poses through the artifact and the eager step
+# the f32 SPGP sweep's NLML against the plain float64 sweep, relative, where
+# both are finite: 3.3x the 9.06e-4 that three runs on an H100 read
+SWEEP_TOL = 3e-3
+FIT_STEPS = 80
+# rows 1 and 2a's event times when the wrappers called the kernels without
+# the registered ops (PERF.md §6, same card and script)
+EVENT_MS_BEFORE_OPS = {"fitc": 0.3446, "gram": 0.0403}
+# hotel-0's first poses, replayed with FITC through the op and through its
+# CUDA implementation called directly, alternated
+DISPATCH_POSES = 256
+DISPATCH_ROUNDS = 3
+
+
+def allclose_excess(a, b, rtol, atol) -> float:
+    """max(|a - b| - (atol + rtol |b|)): <= 0 where ``torch.allclose``
+    holds."""
+    return float(((a - b).abs() - (atol + rtol * b.abs())).max())
+
+
+def run_native(t_build: float, t_scan_native: float):
+    """Phase 18a: the native host runtime was built and loaded before
+    ``main``'s hotel-0 workload (``t_build`` s), whose scans it raycast
+    (``t_scan_native`` s); the numpy raycaster's pass over the same scans
+    is timed beside it and the scans compared."""
+    from erl_gaussian_process_tpu_torch.utils import native as nat
+    from erl_gaussian_process_tpu_torch.workloads import hotel0_workload
+
+    check(nat.native_available(), "the native host runtime did not build")
+    nat_scans = hotel0_workload()
+    os.environ["ERL_GP_NO_NATIVE"] = "1"
+    nat._lib, nat._tried = None, False
+    try:
+        t0 = time.perf_counter()
+        np_scans = hotel0_workload()
+        t_numpy = time.perf_counter() - t0
+    finally:
+        del os.environ["ERL_GP_NO_NATIVE"]
+        nat._lib, nat._tried = None, False
+    check(nat.native_available(), "native runtime after the numpy pass")
+    same = all(np.array_equal(a, b) for a, b in zip(nat_scans[:3],
+                                                    np_scans[:3]))
+    log(f"native host runtime {nat.get_lib()._name}: built and loaded in "
+        f"{t_build:.2f} s; hotel-0 setup with the native raycaster "
+        f"{t_scan_native:.2f} s, with numpy {t_numpy:.2f} s; scans equal "
+        f"{same}")
+    check(same, "native and numpy raycasts of hotel-0 differ")
+    return {"host_build_s": t_build, "hotel0_setup_native_s": t_scan_native,
+            "hotel0_setup_numpy_s": t_numpy, "scans_equal": same}
+
+
+def check_egpt(omap, new_map) -> None:
+    """Phase 18b: an ``.egpt`` checkpoint of ``omap`` loads into a fresh
+    map with the state equal."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "hotel0.egpt")
+        t0 = time.perf_counter()
+        omap.save(path)
+        t_save = time.perf_counter() - t0
+        back = new_map()
+        back.load(path)
+        size = os.path.getsize(path)
+    check(back == omap, ".egpt checkpoint of the hotel-0 map differs")
+    check(all(torch.equal(a, b) for a, b in zip(back.state, omap.state)),
+          ".egpt checkpoint: state tensors differ")
+    log(f".egpt checkpoint of the hotel-0 map: {size} bytes, saved in "
+        f"{1e3 * t_save:.1f} ms, loaded with the state equal")
+
+
+def run_poses_per_step(dev, card, setting, pseudo, lo, hi, sensors, pts,
+                       masks, hits, traj):
+    """Phase 19: hotel-0 with ``poses_per_step`` = PPS (983 poses padded to
+    984, one FITC update of N = PPS x 2048 a chunk): the quality gates, Q_M
+    and alpha against the c = 1 replay of the same seeds, FITC at (1152,
+    8192, d = 3) against its plain version and the float32 2x gate at var
+    1e-4 against the float64 update, FITC's launches a chunk, ms/pose
+    beside c = 1 (medians of replays, alternated). Returns (launches,
+    kernel row, timings, the c = PPS map, new_map)."""
+    from erl_gaussian_process_tpu_torch.geometry import Aabb
+    from erl_gaussian_process_tpu_torch.models import SpGpOccupancyMap
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        spgp_init,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        fitc_update_cuda,
+        fitc_update_plain,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from erl_gaussian_process_tpu_torch.ops.fitc import fitc_plan
+    from erl_gaussian_process_tpu_torch.workloads import FREE_SLOTS_PER_RAY
+
+    box = Aabb.from_min_max(lo, hi)
+
+    def new_map():
+        return SpGpOccupancyMap(setting, pseudo, box, seed=0,
+                                dtype=torch.float32,
+                                free_slots_per_ray=FREE_SLOTS_PER_RAY,
+                                device=dev)
+
+    def replay(c, collect=False):
+        m = new_map()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.update_batch(sensors, pts, masks, poses_per_step=c,
+                             collect_datasets=collect)
+        torch.cuda.synchronize()
+        return m, out, 1e3 * (time.perf_counter() - t0) / b
+
+    b = len(sensors)
+    warm = new_map()
+    warm.update_batch(sensors[:2 * PPS], pts[:2 * PPS], masks[:2 * PPS],
+                      poses_per_step=PPS)
+    reset_launch_counts()
+    m4, n4, first4 = replay(PPS)
+    counts = launch_counts()
+    chunks = -(-b // PPS)
+    check(counts["fitc"] == chunks,
+          f"poses_per_step={PPS}: FITC launches {counts['fitc']} != {chunks}")
+    # the one replay that keeps its datasets (the FITC check below); the
+    # timed replays run c = 1 and c = PPS under the same flags
+    m1, (n1, (dx, dy, dm)), _ = replay(1, collect=True)
+    check(bool(torch.equal(n4, n1)), "poses_per_step: n_used differs")
+    rng = np.random.default_rng(0)
+    sel = hits[rng.choice(len(hits), min(2000, len(hits)), replace=False)]
+    surf = float((m4.predict(sel.astype(np.float32))[0] > 0).float().mean())
+    free = float((m4.predict(traj)[0] < 0).float().mean())
+    log(f"hotel-0 poses_per_step={PPS} ({b} poses, {chunks} FITC updates of "
+        f"N = {PPS * dx.shape[1]}): surface occupied {surf:.4f} (gate > "
+        f"0.9), trajectory free {free:.4f} (gate > 0.95)")
+    check(surf > 0.9 and free > 0.95,
+          f"poses_per_step quality: surface {surf}, trajectory {free}")
+    excess = {k: allclose_excess(getattr(m4.state, k), getattr(m1.state, k),
+                                 **PPS_TOL) for k in ("qm", "alpha")}
+    rel = {k: float((getattr(m4.state, k) - getattr(m1.state, k)).abs().max()
+                    / getattr(m1.state, k).abs().max()) for k in excess}
+    log(f"poses_per_step={PPS} vs the c = 1 replay of the same seeds: max "
+        f"relative difference Q_M {rel['qm']:.3e} alpha {rel['alpha']:.3e}; "
+        f"allclose(rtol 1e-3, atol 1e-4) excess {excess}")
+    check(all(v <= 0 for v in excess.values()),
+          f"poses_per_step state vs c = 1: {excess}")
+
+    # FITC at (1152, 8192, d=3): poses 0-3's datasets concatenated
+    scale = float(setting.sp_gp.kernel.scale)
+    x32 = dx[:PPS].reshape(-1, 3).contiguous()
+    y32 = dy[:PPS].reshape(-1, 1).contiguous()
+    mask = dm[:PPS].reshape(-1).contiguous()
+    n = x32.shape[0]
+    m_valid = pseudo.shape[1]
+    err32 = 0.0
+    for dt in (torch.float64, torch.float32):
+        st = spgp_init(m4.state.pseudo.to(dt), scale, kernel="matern32")
+        var = torch.full((n,), FITC_VAR[dt], device=dev, dtype=dt)
+        args = ("matern32", st.pseudo, st.L_inv, x32.to(dt), y32.to(dt),
+                var, mask, scale)
+        dq, da = fitc_update_cuda(*args)
+        dq_ref, da_ref = fitc_update_plain(*args)
+        rq = float((dq - dq_ref).abs().max() / dq_ref.abs().max())
+        ra = float((da - da_ref).abs().max() / da_ref.abs().max())
+        log(f"fitc M={dq.shape[0]} N={n} active {int(mask.sum())} {dt} var "
+            f"{FITC_VAR[dt]:g}: rel_err dQ {rq:.3e} dalpha {ra:.3e} (tol "
+            f"{FITC_TOL[dt]:g})")
+        check(bool(torch.equal(dq, dq.T)), f"fitc N={n} {dt}: dQ asymmetric")
+        check(bool((dq[m_valid:] == 0).all()),
+              f"fitc N={n} {dt}: far-point rows not 0")
+        check(rq <= FITC_TOL[dt] and ra <= FITC_TOL[dt],
+              f"fitc N={n} {dt}: rel err {rq}, {ra}")
+        if dt == torch.float32:
+            err32 = float((dq - dq_ref).abs().max())
+    var4 = torch.full((n,), setting.logodd_variance, device=dev)
+    args = ("matern32", m4.state.pseudo, m4.state.L_inv, x32, y32, var4, mask,
+            scale)
+    fitc_against_truth(args)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fitc_plan(m4.state.pseudo.shape[0], n, sms)
+    bound_ms, bound_by = fitc_bound(m4.state.pseudo.shape[0], n, 3)
+    row = {"max_abs_err": err32,
+           "ms": cuda_ms(lambda: fitc_update_cuda(*args)),
+           "plain_ms": cuda_ms(lambda: fitc_update_plain(*args)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    log(f"fitc M=1152 N={n} d=3 float32 on {card}: kernel {row['ms']:.4f} "
+        f"ms, plain {row['plain_ms']:.4f} ms (median of {REPS}), bound "
+        f"{bound_ms:.4f} ms ({bound_by}); plan {plan.tiles} dQ tiles x "
+        f"{plan.splits} splits of {plan.chunk}")
+    log_device_split(f"fitc M=1152 N={n} float32",
+                     lambda: fitc_update_cuda(*args))
+    chunk_kernels = device_kernels(lambda: m4.update_batch(
+        sensors[:PPS], pts[:PPS], masks[:PPS], poses_per_step=PPS))
+    fitc_chunk = sum(c for k, (c, _) in chunk_kernels.items()
+                     if any(f in k for f in FITC_KERNELS))
+    log(f"poses_per_step={PPS}: FITC kernel launches per {PPS} poses "
+        f"{fitc_chunk} by torch.profiler (plan {plan.launches}), of "
+        f"{sum(c for c, _ in chunk_kernels.values())} kernel launches")
+    check(fitc_chunk == plan.launches,
+          f"FITC launches per chunk {fitc_chunk} != {plan.launches}")
+
+    ms1, ms4 = [], [first4]
+    for _ in range(PPS_REPLAYS):
+        ms4.append(replay(PPS)[2])
+        ms1.append(replay(1)[2])
+    timings = {"pps": PPS,
+               "pps_ms_per_pose": statistics.median(ms4),
+               "pps_ms_per_pose_range": [min(ms4), max(ms4)],
+               "c1_ms_per_pose": statistics.median(ms1),
+               "c1_ms_per_pose_range": [min(ms1), max(ms1)],
+               "fitc_launches_per_chunk": fitc_chunk,
+               "kernel_launches_per_chunk": sum(
+                   c for c, _ in chunk_kernels.values()),
+               "pps_rel_diff": rel}
+    log(f"hotel-0 update_batch on {card}: poses_per_step={PPS} "
+        f"{timings['pps_ms_per_pose']:.4f} ms/pose (median of {len(ms4)}, "
+        f"range {min(ms4):.4f}-{max(ms4):.4f}), c = 1 "
+        f"{timings['c1_ms_per_pose']:.4f} ms/pose (median of {len(ms1)}, "
+        f"range {min(ms1):.4f}-{max(ms1):.4f})")
+    return counts["fitc"], row, timings, m4, new_map
+
+
+def run_deploy(dev, card):
+    """Phase 20: the update and predict artifacts at the 2D map's config
+    (M = 1024, 135 rays, 20 free slots, float32) exported on the card and
+    round-tripped through bytes; DEPLOY_POSES updates through the loaded
+    artifact and through the eager step with the same draws equal bit for
+    bit, and the predict on the surface points; the artifacts' FITC and
+    gram launches by the launch counters; one artifact call timed against
+    the eager step. Returns (launch counts, timings)."""
+    from erl_gaussian_process_tpu_torch.geometry import (
+        Aabb,
+        free_sample_fractions,
+    )
+    from erl_gaussian_process_tpu_torch.geometry.simulators import (
+        reference_space_2d,
+    )
+    from erl_gaussian_process_tpu_torch.models import SpGpOccupancyMap
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        spgp_prepare,
+    )
+    from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
+        predict_prepared_step,
+        step_seed,
+        update_step,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from erl_gaussian_process_tpu_torch.utils.deploy import (
+        export_map_predict_step,
+        export_map_update_step,
+        load_fn,
+        load_program,
+    )
+
+    setting = map2d_setting()
+    m = SpGpOccupancyMap(setting, map2d_pseudo(),
+                         Aabb.from_min_max([-3.0, -3.0], [3.0, 3.0]),
+                         seed=0, dtype=torch.float32,
+                         free_slots_per_ray=MAP2D_FREE_SLOTS, device=dev)
+    n_pseudo = m.state.pseudo.shape[0]
+    scale = float(setting.sp_gp.kernel.scale)
+    t0 = time.perf_counter()
+    ublob = export_map_update_step(setting, n_pseudo=n_pseudo,
+                                   n_rays=MAP2D_RAYS,
+                                   free_slots=MAP2D_FREE_SLOTS, device=dev)
+    pblob = export_map_predict_step(n_pseudo=n_pseudo, scale=scale,
+                                    kernel=m.sp_gp._kernel, device=dev)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, predict = load_fn(ublob), load_fn(pblob)
+    t_load = time.perf_counter() - t0
+    ops = sorted({str(nd.target) for blob in (ublob, pblob)
+                  for nd in load_program(blob).graph.nodes
+                  if str(nd.target).startswith("egp.")})
+    log(f"artifacts at the 2D map's config (M={n_pseudo}, {MAP2D_RAYS} rays, "
+        f"{MAP2D_FREE_SLOTS} free slots, float32): update {len(ublob)} bytes,"
+        f" predict {len(pblob)} bytes (dynamic queries); exported in "
+        f"{t_export:.2f} s, loaded in {t_load:.2f} s; ops {ops}")
+    check(ops == ["egp.cross_gram.default", "egp.fitc_update.default"],
+          f"artifact ops {ops}")
+
+    sensors, pts, masks = map2d_scans(DEPLOY_POSES)
+    kw = m._step_kw()
+    g = torch.Generator(device=dev)
+    inputs = []
+    for i in range(DEPLOY_POSES):
+        g.manual_seed(step_seed(0, i + 1))
+        u = free_sample_fractions(MAP2D_RAYS, MAP2D_FREE_SLOTS,
+                                  setting.free_sampling_margin, g,
+                                  torch.float32, dev)
+        p = np.where(masks[i][:, None], pts[i], 0.0).astype(np.float32)
+        inputs.append((u, torch.as_tensor(sensors[i], device=dev),
+                       torch.as_tensor(p, device=dev),
+                       torch.as_tensor(masks[i], device=dev),
+                       m._aabb_min, m._aabb_max))
+    st_e = m.state
+    for u, *args in inputs:
+        st_e, _, _ = update_step(st_e, *args, scale, u=u, **kw)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    st_a = m.state
+    for u, *args in inputs:
+        st_a, n_a = step(st_a, u, *args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    same = all(torch.equal(a, b) for a, b in zip(st_a, st_e))
+    surf = torch.as_tensor(reference_space_2d().surface_points(0.05),
+                           dtype=torch.float32, device=dev)
+    L_qm, alpha = spgp_prepare(st_a)
+    reset_launch_counts()
+    mean_a, _ = predict(st_a, L_qm, alpha, surf)
+    torch.cuda.synchronize()
+    pcounts = launch_counts()
+    mean_e, _ = predict_prepared_step(st_a, L_qm, alpha, surf, scale,
+                                      kernel=m.sp_gp._kernel, with_grad=False)
+    occ = float((mean_a[:, 0] > 0).float().mean())
+    log(f"artifact vs eager: {DEPLOY_POSES} updates equal bit for bit "
+        f"{same}, predict of {surf.shape[0]} points equal "
+        f"{bool(torch.equal(mean_a, mean_e))} (surface occupied {occ:.4f});"
+        f" launches by the artifacts: update {counts}, predict {pcounts}")
+    check(same and bool(torch.equal(mean_a, mean_e)),
+          "artifact results differ from the eager step")
+    check(counts["fitc"] == DEPLOY_POSES and pcounts["gram"] == 1,
+          f"artifact launches: update {counts}, predict {pcounts}")
+    u, *args = inputs[0]
+    st0 = m.state
+    times = {
+        "update_artifact_ms": cuda_ms(lambda: step(st0, u, *args)),
+        "update_eager_ms": cuda_ms(lambda: update_step(st0, *args, scale,
+                                                       u=u, **kw)),
+        "predict_artifact_ms": cuda_ms(lambda: predict(st_a, L_qm, alpha,
+                                                       surf)),
+        "predict_eager_ms": cuda_ms(lambda: predict_prepared_step(
+            st_a, L_qm, alpha, surf, scale, kernel=m.sp_gp._kernel,
+            with_grad=False)),
+        "predict_artifact_host_ms": host_ms(lambda: predict(
+            st_a, L_qm, alpha, surf)),
+        "predict_eager_host_ms": host_ms(lambda: predict_prepared_step(
+            st_a, L_qm, alpha, surf, scale, kernel=m.sp_gp._kernel,
+            with_grad=False)),
+        "export_s": t_export, "load_s": t_load}
+    log(f"artifact times on {card} (CUDA events, median of {REPS}): update "
+        f"{times['update_artifact_ms']:.4f} ms vs eager "
+        f"{times['update_eager_ms']:.4f} ms; predict "
+        f"{times['predict_artifact_ms']:.4f} ms vs eager "
+        f"{times['predict_eager_ms']:.4f} ms (host a call "
+        f"{times['predict_artifact_host_ms']:.4f} vs "
+        f"{times['predict_eager_host_ms']:.4f} ms)")
+    return {"fitc": counts["fitc"], "gram": pcounts["gram"]}, times
+
+
+class _PlainGram:
+    """``GramScale`` replaced by the plain gram: the float64 reference
+    sweep runs no kernel."""
+
+    @staticmethod
+    def apply(name, x1, x2, scale, mask1=None):
+        from erl_gaussian_process_tpu_torch.ops import cross_gram_plain
+
+        return cross_gram_plain(name, x1, x2, float(scale), mask1)
+
+
+def run_model_selection(dev, card):
+    """Phase 21: ``select_scale_spgp`` on the 2D map's 50-pose datasets
+    (the actives of each pose's 2048-slot budget) with the production 31 x
+    31 pseudo grid, through the gram kernel, its float32 NLML against the
+    plain float64 sweep of the same candidates on the card; the chosen
+    scale beside the YAML's 0.18 (reported); ``select_scale`` at the exact
+    GP's cell (n = 8192, 24 candidates batched); ``fit_scale_spgp``, 80
+    steps. Returns (gram launches, the gram row at the sweep's shape,
+    timings)."""
+    from unittest import mock
+
+    from erl_gaussian_process_tpu_torch.geometry import Aabb
+    from erl_gaussian_process_tpu_torch.models import SpGpOccupancyMap
+    from erl_gaussian_process_tpu_torch.ops import (
+        cross_gram_cuda,
+        cross_gram_plain,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from erl_gaussian_process_tpu_torch.utils import model_selection as ms
+    from erl_gaussian_process_tpu_torch.workloads import exact_gp_workload
+
+    setting = map2d_setting()
+    m = SpGpOccupancyMap(setting, map2d_pseudo(),
+                         Aabb.from_min_max([-3.0, -3.0], [3.0, 3.0]),
+                         seed=0, dtype=torch.float32,
+                         free_slots_per_ray=MAP2D_FREE_SLOTS, device=dev)
+    sensors, pts, masks = map2d_scans(MAP2D_POSES)
+    _, (dx, dy, dm) = m.update_batch(sensors, pts, masks,
+                                     collect_datasets=True)
+    x, y = dx[dm].contiguous(), dy[dm].contiguous()
+    n = x.shape[0]
+    var = torch.full((n,), setting.logodd_variance, device=dev)
+    P = torch.as_tensor(map2d_pseudo().T.copy(), dtype=torch.float32,
+                        device=dev)
+    reset_launch_counts()
+    (best, scales, vals), t_sel = timed(lambda: ms.select_scale_spgp(
+        P, x, y, var, kernel="matern32", refine=1, device=dev))
+    counts = launch_counts()
+    check(counts["gram"] == 2 * len(scales),
+          f"select_scale_spgp gram launches {counts['gram']}")
+    ref = []
+    with mock.patch.object(ms, "GramScale", _PlainGram):
+        for s in scales:
+            ref.append(float(ms.nlml_sweep_spgp(
+                P.double(), x.double(), y.double(), var.double(),
+                torch.ones(n, dtype=torch.bool, device=dev),
+                torch.tensor([s], dtype=torch.float64, device=dev),
+                kernel="matern32")[0]))
+    ref = np.asarray(ref)
+    both = np.isfinite(vals) & np.isfinite(ref)
+    rel = np.abs(vals[both] - ref[both]) / np.abs(ref[both])
+    best64 = float(scales[np.argmin(np.where(np.isfinite(ref), ref, np.inf))])
+    log(f"select_scale_spgp on the 2D map's {MAP2D_POSES}-pose datasets (n = "
+        f"{n}, M = {P.shape[0]}, {len(scales)} candidates, refine 1, "
+        f"float32): {t_sel:.1f} ms; chosen scale {best:.6g} (the YAML's "
+        f"0.18; the float64 sweep's pick on the final grid {best64:.6g}); "
+        f"finite f32 {int(np.isfinite(vals).sum())}, f64 "
+        f"{int(np.isfinite(ref).sum())}; max relative NLML difference "
+        f"{rel.max() if rel.size else float('nan'):.3e} (gate <= "
+        f"{SWEEP_TOL:g})")
+    check(both.any() and np.isfinite(best) and rel.max() <= SWEEP_TOL,
+          f"select_scale_spgp: f32 vs f64 NLML {rel}")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b_ms, b_by, _ = gram_bound("matern32", torch.float32, 1, P.shape[0], n, 2,
+                               P.shape[0], False, sms, sm_clock_mhz())
+    k = cross_gram_cuda("matern32", P, x, best)
+    err = float((k - cross_gram_plain("matern32", P, x, best)).abs().max())
+    check(err <= GRAM_TOL[torch.float32], f"gram at the sweep's shape {err}")
+    row = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: cross_gram_cuda("matern32", P, x, best)),
+           "plain_ms": cuda_ms(lambda: cross_gram_plain("matern32", P, x,
+                                                        best)),
+           "bound_ms": b_ms, "bound_by": "bytes" if b_by == "bytes"
+           else "operations", "library_ms": None}
+    log(f"gram at the sweep's shape {P.shape[0]}x{n} matern32 d=2 float32 on "
+        f"{card}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), max abs err {err:.2e}")
+
+    xe, ye, ve, _, scale_e, kern_e = exact_gp_workload()
+    (best_e, sc_e, v_e), t_exact = timed(lambda: ms.select_scale(
+        xe, ye, ve, kernel=kern_e, refine=1, device=dev))
+    log(f"select_scale at the exact-GP cell (n = {xe.shape[0]}, "
+        f"{len(sc_e)} candidates batched, float32): {t_exact:.1f} ms; "
+        f"chosen {best_e:.6g} (the workload's scale {scale_e:g}); "
+        f"finite {int(np.isfinite(v_e).sum())} of {len(v_e)}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    check(np.isfinite(best_e) and np.isfinite(v_e).any(),
+          "select_scale at the exact-GP cell")
+
+    (bf, fs, fv), t_fit = timed(lambda: ms.fit_scale_spgp(
+        P, x, y, var, kernel="matern32", init=best, steps=FIT_STEPS,
+        device=dev))
+    fin = fv[np.isfinite(fv)]
+    log(f"fit_scale_spgp ({FIT_STEPS} steps from {best:.6g}): {t_fit:.1f} ms "
+        f"({t_fit / FIT_STEPS:.2f} ms a step); best {bf:.6g}, NLML "
+        f"{fin[0]:.6g} -> {fin.min():.6g}")
+    check(fin.size > 0 and fin.min() <= fin[0], "fit_scale_spgp")
+    return counts["gram"], row, {
+        "spgp_n": n, "spgp_best": best, "spgp_best_f64": best64,
+        "spgp_select_ms": t_sel, "spgp_nlml_rel_diff": float(rel.max()),
+        "exact_best": best_e, "exact_select_ms": t_exact,
+        "fit_best": bf, "fit_ms": t_fit}
+
+
+def run_dispatch(dev, card, gram_times, kern, hotel0):
+    """Phase 22: rows 1 and 2a through the registered ops beside their
+    event times before the ops (EVENT_MS_BEFORE_OPS); then at their shapes
+    each op against its CUDA implementation called directly (no
+    dispatcher), event ms (median of 20) in the order op, direct, direct,
+    op, and host ms a call; then the map's ms/pose on hotel-0's first
+    DISPATCH_POSES poses (``hotel0`` = (setting, pseudo, lo, hi, sensors,
+    pts, masks)) with FITC through the op and called directly, in
+    DISPATCH_ROUNDS rounds of op, direct, direct, op."""
+    import erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp as spgp
+    from erl_gaussian_process_tpu_torch.geometry import Aabb
+    from erl_gaussian_process_tpu_torch.models import SpGpOccupancyMap
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        pad_pseudo_points,
+        spgp_init,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import FREE_SLOTS_PER_RAY
+    from erl_gaussian_process_tpu_torch.ops import (
+        cross_gram_cuda,
+        fitc_update_cuda,
+    )
+    from erl_gaussian_process_tpu_torch.ops.fitc import _fitc_cuda
+    from erl_gaussian_process_tpu_torch.ops.gram import _gram_cuda, family_spec
+
+    rng = np.random.default_rng(0)
+    axes = [np.linspace(-1.5, 1.5, 11)] * 2 + [np.linspace(-1.2, 1.2, 9)]
+    grid = np.stack([a.ravel() for a in np.meshgrid(*axes, indexing="ij")],
+                    -1)
+    st = spgp_init(torch.as_tensor(pad_pseudo_points(grid),
+                                   dtype=torch.float32, device=dev), 0.6,
+                   kernel="matern32")
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    x = t(rng.uniform(-1.5, 1.5, (2048, 3)))
+    fitc_args = (st.pseudo, st.L_inv, x, t(rng.choice([-1.0, 1.0],
+                                                      (2048, 1))),
+                 t(np.full(2048, 1e-4)), t(rng.uniform(size=2048) < 0.9,
+                                           torch.bool))
+    spec = family_spec("matern32")
+    pairs = {
+        "gram": (lambda: cross_gram_cuda("matern32", st.pseudo, x, 0.6),
+                 lambda: _gram_cuda(st.pseudo, x, None, *spec, 0.6)),
+        "fitc": (lambda: fitc_update_cuda("matern32", *fitc_args, 0.6),
+                 lambda: _fitc_cuda(*fitc_args, *spec, 0.6))}
+    out = {"fitc_ms": kern["fitc"]["ms"], "gram_ms": gram_times["gram"]["ms"],
+           "gram_device_ms": gram_times["gram"]["device_ms"]}
+    for name, (op, direct) in pairs.items():
+        ev = [cuda_ms(f) for f in (op, direct, direct, op)]
+        out[name] = {"op_event_ms": [ev[0], ev[3]],
+                     "direct_event_ms": [ev[1], ev[2]],
+                     "op_host_ms": host_ms(op),
+                     "direct_host_ms": host_ms(direct)}
+    setting, pseudo, lo, hi, sensors, pts, masks = hotel0
+    box = Aabb.from_min_max(lo, hi)
+
+    def replay():
+        m = SpGpOccupancyMap(setting, pseudo, box, seed=0,
+                             dtype=torch.float32,
+                             free_slots_per_ray=FREE_SLOTS_PER_RAY,
+                             device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DISPATCH_POSES):
+            m.update(sensors[i], pts[i], masks[i])
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / DISPATCH_POSES
+
+    def fitc_direct(name, *args):
+        return _fitc_cuda(*args[:-1], *family_spec(name), float(args[-1]))
+
+    through_op = spgp.fitc_update_cuda
+    pose_ms = {"op": [], "direct": []}
+    try:
+        for way in ("op", "direct", "direct", "op") * DISPATCH_ROUNDS:
+            spgp.fitc_update_cuda = through_op if way == "op" else \
+                fitc_direct
+            pose_ms[way].append(replay())
+    finally:
+        spgp.fitc_update_cuda = through_op
+    out["hotel0_ms_per_pose"] = {
+        way: {"median": statistics.median(v), "range": [min(v), max(v)]}
+        for way, v in pose_ms.items()}
+    log(f"op dispatch on {card}: hotel-0's first {DISPATCH_POSES} poses, "
+        "FITC through the op vs called directly: " + "; ".join(
+            f"{way} {statistics.median(v):.4f} ms/pose (median of {len(v)}, "
+            f"range {min(v):.4f}-{max(v):.4f})" for way, v in pose_ms.items()))
+    log(f"op dispatch on {card}: row 1 (FITC 1152x2048) {out['fitc_ms']:.4f} "
+        f"ms event (before the ops {EVENT_MS_BEFORE_OPS['fitc']}), row 2a "
+        f"(gram 1152x2048) {out['gram_ms']:.4f} ms event, "
+        f"{out['gram_device_ms']:.4f} ms device (before the ops "
+        f"{EVENT_MS_BEFORE_OPS['gram']} event); through the op vs the CUDA "
+        "implementation called directly: " + "; ".join(
+            f"{k} event op {v['op_event_ms'][0]:.4f}/"
+            f"{v['op_event_ms'][1]:.4f} direct {v['direct_event_ms'][0]:.4f}/"
+            f"{v['direct_event_ms'][1]:.4f} ms, host op "
+            f"{v['op_host_ms']:.4f} direct {v['direct_host_ms']:.4f} ms"
+            for k, v in out.items() if k in pairs))
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -2607,12 +3218,18 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
+    from erl_gaussian_process_tpu_torch.utils import native as host_native
+
+    t0 = time.perf_counter()
+    check(host_native.native_available(),
+          "the native host runtime did not build")
+    t_host_build = time.perf_counter() - t0
     t0 = time.perf_counter()
     sensors, pts, masks, hits, traj, setting, pseudo, lo, hi = \
         hotel0_workload()
+    t_scan = time.perf_counter() - t0
     log(f"workload: {len(sensors)} poses, {pts.shape[1]} rays, "
-        f"{pseudo.shape[1]} pseudo points, scanned in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{pseudo.shape[1]} pseudo points, scanned in {t_scan:.2f} s")
     from erl_gaussian_process_tpu_torch.kernels import register_scale_mixture
     from erl_gaussian_process_tpu_torch.workloads import (
         depth3d_reference_workload,
@@ -2639,6 +3256,14 @@ def main() -> int:
                                        sensors, pts, masks, hits, traj)
     log(json.dumps({"timings": timings, "drift": drift["drift"],
                     "sign_agreement": drift["sign_agreement"],
+                    "card": card}))
+    native = run_native(t_host_build, t_scan)
+    pps_fitc, kern["fitc_8192"], pps_timings, pps_map, pps_new_map = \
+        run_poses_per_step(dev, card, setting, pseudo, lo, hi, sensors, pts,
+                           masks, hits, traj)
+    check_egpt(pps_map, pps_new_map)
+    del pps_map
+    log(json.dumps({"native": native, "poses_per_step": pps_timings,
                     "card": card}))
 
     depth = depth3d_reference_workload()
@@ -2670,28 +3295,29 @@ def main() -> int:
                                                    frames32)
     rr_counts, rr_kern = run_reduced_rank(dev, card)
     kern.update(rr_kern)
+    deploy_counts, deploy_timings = run_deploy(dev, card)
+    sweep_grams, kern["gram_sweep"], select_timings = run_model_selection(
+        dev, card)
+    dispatch = run_dispatch(dev, card, gram_times, kern,
+                            (setting, pseudo, lo, hi, sensors, pts, masks))
+    log(json.dumps({"deploy_timings": deploy_timings,
+                    "deploy_launch_counts": deploy_counts,
+                    "model_selection": select_timings,
+                    "op_dispatch": dispatch, "card": card}))
     log(json.dumps({"map2d_timings": map2d_timings,
                     "lidar2d_timings": lidar2d_timings,
                     "lidar2d_launch_counts": lidar2d_counts,
                     "reduced_rank_launch_counts": rr_counts, "card": card}))
 
-    # FITC's bound at its timed shape, M=1152, N=2048, d=3 (FP32 outside
-    # the tensor cores, HBM; see fitc_bound(); the bank kernels' are
-    # computed in check_bank_kernels, the gram's in time_gram). At float32
-    # FITC's beta runs on the FP64 tensor cores and its SYRK in 3xTF32: its
-    # bound at those rates is logged beside
-    m_, n_ = 1152, 2048
-    nbytes = 4 * (m_ * (m_ + 1) // 2 + m_ * m_ + 6 * n_)
-    kern["fitc"]["bound_ms"], kern["fitc"]["bound_by"] = fitc_bound(m_, n_,
-                                                                   3)
+    # FITC's bound at its timed shape, M=1152, N=2048, d=3 (fitc_bound();
+    # the bank kernels' are computed in check_bank_kernels, the gram's in
+    # time_gram)
+    kern["fitc"]["bound_ms"], kern["fitc"]["bound_by"] = fitc_bound(1152,
+                                                                   2048, 3)
     kern["fitc"]["library_ms"] = None
-    half = m_ * (m_ + 1) * n_       # each product's operations
-    tc_ms = max(1e3 * nbytes / HBM_BYTES_PER_S,
-                1e3 * (half / FP64_TC_FLOPS + half / TF32X3_FLOPS))
     log(f"fitc: kernel {kern['fitc']['ms']:.4f} ms, bound "
-        f"{kern['fitc']['bound_ms']:.4f} ms ({kern['fitc']['bound_by']}, "
-        f"FP32) and {tc_ms:.4f} ms at the tensor-core rates its products run "
-        f"at (beta FP64, SYRK 3xTF32), on {card}")
+        f"{kern['fitc']['bound_ms']:.4f} ms ({kern['fitc']['bound_by']}: "
+        f"beta at the FP64 tensor-core rate, the SYRK at 3xTF32), on {card}")
 
     # launches of each kernel in the paths' runs: gram.cuh serves the SPGP
     # predict (gram), the exact GP's test (gram_exact) and the sensor GPs'
@@ -2720,7 +3346,10 @@ def main() -> int:
         "bank_fit_2d": sum(c["bank_fit"] for c in lidar_runs),
         "gram_batched_d1": sum(c["gram_batched"] for c in lidar_runs),
         "chol_rr": sum(c["chol"] for c in rr_fits),
-        "trsv_rr": sum(c["trsv"] for c in rr_fits)})
+        "trsv_rr": sum(c["trsv"] for c in rr_fits),
+        # hotel-0 at poses_per_step = PPS (N = PPS x 2048),
+        # the SPGP scale sweep's K_MN
+        "fitc_8192": pps_fitc, "gram_sweep": sweep_grams})
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched by its path: {launches}")
     chol_src = "erl_gaussian_process_tpu_torch/csrc/chol.cu"
@@ -2751,7 +3380,10 @@ def main() -> int:
            "chol_rr": (chol_src,
                        "erl_gaussian_process_tpu/ops/pallas_chol.py:454"),
            "trsv_rr": ("erl_gaussian_process_tpu_torch/csrc/trsv.cu",
-                       "erl_gaussian_process_tpu/ops/pallas_trsv.py:99")}
+                       "erl_gaussian_process_tpu/ops/pallas_trsv.py:99"),
+           "fitc_8192": ("erl_gaussian_process_tpu_torch/csrc/fitc.cu",
+                         "erl_gaussian_process_tpu/ops/pallas_fitc.py:145"),
+           "gram_sweep": gram_src}
     log(f"launch counts of the paths' runs: {launches}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],

@@ -21,12 +21,24 @@ Hand-written Hopper kernels live in ``csrc/`` and are bound in ``ops/``:
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel (built with nvcc at first use, ``ops/_build.py``) for CUDA tensors.
+The gram and FITC wrappers do so through the ``torch.library`` ops
+``egp::cross_gram``, ``egp::cross_gram_batched`` and ``egp::fitc_update``
+(``ops/_library.py``), which ``torch.export`` artifacts
+(``utils/deploy.py``) record; importing this package registers them.
+``api`` holds the reference's D/F-suffixed class names.
 """
 
-from erl_gaussian_process_tpu_torch import geometry, kernels, models, ops, utils
+from erl_gaussian_process_tpu_torch import (
+    api,
+    geometry,
+    kernels,
+    models,
+    ops,
+    utils,
+)
 from erl_gaussian_process_tpu_torch.init import init
 
 init()  # the setting registry (utils/config.py)
 
-__all__ = ["geometry", "kernels", "models", "ops", "utils", "init"]
+__all__ = ["api", "geometry", "kernels", "models", "ops", "utils", "init"]
 __version__ = "0.1.0"

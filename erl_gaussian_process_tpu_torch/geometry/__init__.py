@@ -21,6 +21,7 @@ from erl_gaussian_process_tpu_torch.geometry.lidar_frame_2d import (
 )
 from erl_gaussian_process_tpu_torch.geometry.occupancy_dataset import (
     compact_slots,
+    free_sample_fractions,
     generate_dataset_fixed,
     generate_dataset_np,
 )
@@ -49,6 +50,7 @@ __all__ = [
     "Space2D",
     "TriangleMesh",
     "compact_slots",
+    "free_sample_fractions",
     "create_range_sensor_frame_3d",
     "generate_dataset_fixed",
     "generate_dataset_np",

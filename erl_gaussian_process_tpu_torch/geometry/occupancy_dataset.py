@@ -115,9 +115,8 @@ def generate_dataset_fixed(
     free_ray = finite & (dist >= min_distance)
 
     if u is None:
-        lo, hi = free_sampling_margin, 1.0 - free_sampling_margin
-        u = torch.rand((n, F), generator=generator, device=p.device,
-                       dtype=p.dtype) * (hi - lo) + lo
+        u = free_sample_fractions(n, F, free_sampling_margin, generator,
+                                  p.dtype, p.device)
     elif u.shape != (n, F):
         raise ValueError(f"u must have shape {(n, F)}, got {tuple(u.shape)}")
     t = u * (free_len * inv_safe)[:, None]                 # (n, F) ray params
@@ -136,6 +135,18 @@ def generate_dataset_fixed(
     mask = torch.cat([hit_ok, free_ok.reshape(n * F)])
     pts = torch.where(mask[:, None], pts, torch.zeros_like(pts))
     return pts, lbl, mask
+
+
+def free_sample_fractions(n: int, free_slots: int, margin: float,
+                          generator: Optional[torch.Generator], dtype,
+                          device) -> torch.Tensor:
+    """The (n, free_slots) fractions of each ray at which
+    :func:`generate_dataset_fixed` places its free samples, uniform in
+    [margin, 1 - margin), drawn from ``generator``: what the sampler draws
+    when it is given no ``u``."""
+    lo, hi = margin, 1.0 - margin
+    return torch.rand((n, free_slots), generator=generator, device=device,
+                      dtype=dtype) * (hi - lo) + lo
 
 
 def compact_slots(pts, lbl, mask, budget: int):

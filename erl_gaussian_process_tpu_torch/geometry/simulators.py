@@ -1,11 +1,10 @@
 """Procedural worlds and simulated sensors (counterpart of
 ``erl_gaussian_process_tpu/geometry/simulators.py``): the 2D polygon world,
 lidar and reference trajectory of the 2D occupancy map, and the 3D triangle
-soups of the hotel-0 replay and the 3D range-sensor GP protocols. Host-side
-numpy only; they synthesize data. The JAX package's native OpenMP
-raycaster is not ported yet (ROADMAP.md, Queue 1 item 6), so both ray
-casters are its numpy versions (the 2D one the JAX module's own numpy
-branch, the 3D one ``erl_gaussian_process_tpu/utils/native.py:286-339``)."""
+soups of the hotel-0 replay and the 3D range-sensor GP protocols. Host-side;
+they synthesize data. Both ray casters run the native OpenMP raycasters of
+``utils/native.py`` when that library is available, as the JAX module does,
+and numpy otherwise."""
 
 from __future__ import annotations
 
@@ -42,9 +41,21 @@ class Space2D:
 
     def cast_rays(self, origin, directions, max_range=np.inf):
         """origin (2,), directions (R, 2) unit; returns ranges (R,), inf
-        where no segment is hit within max_range."""
+        where no segment is hit within max_range. The native raycaster
+        when it is available, numpy otherwise."""
+        from erl_gaussian_process_tpu_torch.utils.native import (
+            native_available,
+            raycast_2d,
+        )
+
         o = np.asarray(origin, float)
         d = np.asarray(directions, float)          # (R, 2)
+        if native_available():
+            segs = np.concatenate([self.seg_a, self.seg_b], axis=1)
+            ang = np.arctan2(d[:, 1], d[:, 0])
+            mr = float(min(max_range, 1e30))
+            r = raycast_2d(segs, np.broadcast_to(o, (len(d), 2)), ang, mr)
+            return np.where(r >= 1e30, np.inf, r)
         a = self.seg_a[None, :, :]                 # (1, S, 2)
         ab = (self.seg_b - self.seg_a)[None, :, :]
         ao = o[None, None, :] - a
@@ -129,47 +140,6 @@ def lidar_scan_points_2d(lidar: Lidar2D, pose):
     return r, pose[:2] + dirs * np.where(hit, r, 0.0)[:, None], hit
 
 
-def raycast_mesh(triangles: np.ndarray, origins: np.ndarray,
-                 directions: np.ndarray,
-                 max_range: float = np.inf) -> np.ndarray:
-    """Nearest-hit distances for rays vs a triangle soup; misses are +inf.
-
-    triangles: (t, 3, 3) or (t, 9) [v0 v1 v2]; origins: (n, 3) or (3,);
-    directions: (n, 3) unit. Chunked over rays to bound the (chunk, t)
-    temporaries."""
-    tris = np.ascontiguousarray(
-        np.asarray(triangles, np.float64).reshape(-1, 9))
-    dirs = np.ascontiguousarray(np.asarray(directions, np.float64)
-                                .reshape(-1, 3))
-    orig = np.ascontiguousarray(np.broadcast_to(
-        np.asarray(origins, np.float64).reshape(-1, 3), (len(dirs), 3)))
-    mr = float(min(max_range, 1e300))
-    if len(tris) == 0:
-        return np.full(len(dirs), np.inf)
-    v0 = tris[:, 0:3]
-    e1 = tris[:, 3:6] - v0
-    e2 = tris[:, 6:9] - v0
-    out = np.empty(len(dirs), np.float64)
-    chunk = max(1, int(4e6 // len(tris)))
-    for s in range(0, len(dirs), chunk):
-        d = dirs[s:s + chunk]                         # (c, 3)
-        o = orig[s:s + chunk]
-        p = np.cross(d[:, None, :], e2[None, :, :])   # (c, T, 3)
-        det = np.einsum("tj,ctj->ct", e1, p)
-        sv = o[:, None, :] - v0[None, :, :]
-        with np.errstate(divide="ignore", invalid="ignore"):
-            inv = 1.0 / det
-            u = np.einsum("ctj,ctj->ct", sv, p) * inv
-            q = np.cross(sv, e1[None, :, :])
-            w = np.einsum("ctj,ctj->ct", q * inv[..., None], d[:, None, :])
-            t = np.einsum("tj,ctj->ct", e2, q) * inv
-        ok = (np.abs(det) > 1e-14) & (u >= 0) & (u <= 1) & (w >= 0) \
-            & (u + w <= 1) & (t > 1e-9) & (t < mr)
-        t = np.where(ok, t, np.inf)
-        out[s:s + chunk] = t.min(axis=1)
-    return out
-
-
 class TriangleMesh:
     """3D triangle-soup world with a host raycaster."""
 
@@ -188,6 +158,8 @@ class TriangleMesh:
 
     def cast_rays(self, origin, directions, max_range=np.inf) -> np.ndarray:
         """origin (3,) or (n, 3); directions (n, 3) unit. Misses -> +inf."""
+        from erl_gaussian_process_tpu_torch.utils.native import raycast_mesh
+
         return raycast_mesh(self.triangles, origin, directions, max_range)
 
     @staticmethod

@@ -523,6 +523,12 @@ class SparsePseudoInputGaussianProcess:
             self, torch.as_tensor(np.ascontiguousarray(xq.T),
                                   device=self.device), predict_gradient)
 
+    def get_memory_usage(self) -> int:
+        """Bytes held by the state's tensors."""
+        from erl_gaussian_process_tpu_torch.utils.timing import memory_usage
+
+        return memory_usage(self.state)
+
     # -- checkpoint ---------------------------------------------------------
     def state_dict(self):
         """Checkpoint dict; the state arrays are host numpy copies."""

@@ -49,9 +49,6 @@ from erl_gaussian_process_tpu_torch.utils.serialization import (
 
 MESH_TODO = ("mesh= (the sharded map over several cards) is not ported yet "
              "(ROADMAP.md, Queue 1: 'Multi-card map, mesh=')")
-POSES_PER_STEP_TODO = ("poses_per_step > 1 (several poses fused into one "
-                       "FITC call) is not ported yet (ROADMAP.md, Queue 1: "
-                       "'poses_per_step > 1')")
 
 
 @dataclasses.dataclass
@@ -146,32 +143,67 @@ def update_step(state: SpGpState, sensor_position, points, point_mask,
 
 def update_batch_steps(state: SpGpState, seed: int, step0: int,
                        sensor_positions, points, point_masks, aabb_min,
-                       aabb_max, scale, *, generator: torch.Generator,
+                       aabb_max, scale, *, generator: torch.Generator, kernel,
+                       diagonal_qm, zero_threshold: float = 0.0,
                        poses_per_step: int = 1,
-                       collect_datasets: bool = False, **step_kw):
+                       collect_datasets: bool = False, **sample_kw):
     """B map updates in order, pose i drawing from ``generator`` seeded
-    with ``step_seed(seed, step0 + i)``: identical to B ``update_step``
-    calls. Returns (state, n_used (B,)), plus the stacked datasets
-    (pts (B, budget, d), y (B, budget, 1), mask (B, budget)) exactly as the
-    FITC updates consumed them when ``collect_datasets``.
+    with ``step_seed(seed, step0 + i)``. Returns (state, n_used (B,)),
+    plus the stacked datasets (pts (B, budget, d), y (B, budget, 1),
+    mask (B, budget)) exactly as the FITC updates consumed them when
+    ``collect_datasets``.
+
+    Every ``poses_per_step`` c consecutive poses are sampled (each from its
+    own seed, so the datasets are those of c == 1) and their datasets
+    concatenated into ONE rank-N FITC update of N = c * budget samples; at
+    c == 1 this is B ``update_step`` calls. The FITC increment is a sum of
+    independent per-column terms, so (Q_M, alpha) equal the sequential
+    result up to the sums' rounding order. B must be a multiple of c (the
+    class wrapper pads with all-masked poses, exact no-ops);
+    ``collect_datasets`` needs c == 1.
 
     sensor_positions (B, d); points (B, n, d); point_masks (B, n)."""
-    if int(poses_per_step) != 1:
-        raise NotImplementedError(POSES_PER_STEP_TODO)
+    c = int(poses_per_step)
+    b = sensor_positions.shape[0]
+    if c < 1:
+        raise ValueError(f"poses_per_step must be >= 1, got {c}")
+    if collect_datasets and c != 1:
+        raise ValueError("collect_datasets requires poses_per_step == 1")
+    if b % c:
+        raise ValueError(f"B={b} not a multiple of poses_per_step={c}")
     used, data = [], []
-    for i in range(sensor_positions.shape[0]):
-        generator.manual_seed(step_seed(seed, step0 + i))
-        state, n_used, d = update_step(
-            state, sensor_positions[i], points[i], point_masks[i], aabb_min,
-            aabb_max, scale, generator=generator, **step_kw)
-        used.append(n_used)
+    for lo in range(0, b, c):
+        chunk = []
+        for i in range(lo, lo + c):
+            generator.manual_seed(step_seed(seed, step0 + i))
+            chunk.append(sample_pose(
+                sensor_positions[i], points[i], point_masks[i], aabb_min,
+                aabb_max, generator=generator, **sample_kw))
+        pts, y, var, mask = (chunk[0] if c == 1 else
+                             tuple(torch.cat(t) for t in zip(*chunk)))
+        state = spgp_update(state, pts, y, var, mask, scale, kernel=kernel,
+                            diagonal_qm=diagonal_qm,
+                            zero_threshold=zero_threshold)
+        used.extend(torch.sum(m) for *_, m in chunk)
         if collect_datasets:
-            data.append(d)
+            data.append((pts, y, mask))
     n_used = torch.stack(used) if used else torch.zeros(
         0, dtype=torch.int64, device=sensor_positions.device)
     if collect_datasets:
         return state, n_used, tuple(torch.stack(t) for t in zip(*data))
     return state, n_used
+
+
+def predict_prepared_step(state: SpGpState, L_qm, alpha_solved, xq, scale, *,
+                          kernel, with_grad, zero_threshold: float = 0.0):
+    """Queries against a prepared posterior (``(L_qm, alpha_solved)`` of
+    the class's cached prepare): (mean (m, q), grad (m, d, q) | None), the
+    serving step ``utils/deploy.export_map_predict_step`` exports."""
+    mean, grad, _ = spgp_predict(state, L_qm, alpha_solved, xq, scale,
+                                 kernel=kernel, with_grad=with_grad,
+                                 with_var=False,
+                                 zero_threshold=zero_threshold)
+    return mean, grad
 
 
 class SpGpOccupancyMap:
@@ -285,8 +317,12 @@ class SpGpOccupancyMap:
                      poses_per_step: int = 1, collect_datasets: bool = False):
         """B scans in order (``update_batch_steps``), with results identical
         to B ``update`` calls. The batch moves to the device in one copy per
-        array. ``collect_datasets`` also returns the per-pose datasets the
-        FITC updates consumed — the drift check's replay input.
+        array. ``poses_per_step`` c > 1 fuses every c poses into one FITC
+        update (equal to the sequential result up to rounding order); the
+        pose axis is padded with all-masked poses, exact no-ops, up to a
+        multiple of c. ``collect_datasets`` (c == 1) also returns the
+        per-pose datasets the FITC updates consumed — the drift check's
+        replay input.
 
         sensor_positions (B, d); points (B, n, d); point_masks (B, n)."""
         self.flush_online()
@@ -295,6 +331,14 @@ class SpGpOccupancyMap:
         if point_masks is None:
             point_masks = np.isfinite(p).all(axis=-1)
         point_masks = np.asarray(point_masks, bool)
+        b = sp.shape[0]
+        pad = -b % int(poses_per_step)
+        if pad:
+            sp = np.concatenate([sp, np.zeros((pad,) + sp.shape[1:],
+                                              sp.dtype)])
+            p = np.concatenate([p, np.zeros((pad,) + p.shape[1:], p.dtype)])
+            point_masks = np.concatenate(
+                [point_masks, np.zeros((pad,) + point_masks.shape[1:], bool)])
         out = update_batch_steps(
             self.sp_gp.state, self.seed, self.step + 1, self._tensor(sp),
             self._tensor(np.where(point_masks[..., None], p, 0.0)),
@@ -302,8 +346,8 @@ class SpGpOccupancyMap:
             self._aabb_max, self.sp_gp._scale, generator=self._generator,
             poses_per_step=poses_per_step, collect_datasets=collect_datasets,
             **self._step_kw())
-        self._commit(out[0], sp.shape[0])
-        return out[1:] if collect_datasets else out[1]
+        self._commit(out[0], b)
+        return (out[1], out[2]) if collect_datasets else out[1][:b]
 
     def predict(self, points, compute_gradient: bool = False):
         """logodd (n,) and its gradient (n, d) | None, as device tensors

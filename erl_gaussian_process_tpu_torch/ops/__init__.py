@@ -3,6 +3,9 @@
 Each wrapper takes the plain version for CPU tensors and launches its
 CUDA kernel for CUDA tensors; every launch adds one to the wrapper's
 ``launches`` count, so a run can show that it went through the kernels.
+The gram and FITC wrappers call the ``torch.library`` ops of
+``ops/_library.py`` (``egp::cross_gram``, ``egp::cross_gram_batched``,
+``egp::fitc_update``), registered when this package is imported.
 """
 
 from erl_gaussian_process_tpu_torch.ops.bank import (
@@ -27,6 +30,7 @@ from erl_gaussian_process_tpu_torch.ops.fitc import (
     fitc_update_plain,
 )
 from erl_gaussian_process_tpu_torch.ops.gram import (
+    GramScale,
     cross_gram_batched_cuda,
     cross_gram_cuda,
     cross_gram_plain,
@@ -59,6 +63,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "GramScale",
     "TILE",
     "bank_cholesky_solve_cuda",
     "bank_cholesky_solve_plain",

@@ -6,6 +6,9 @@ product, the weighted SYRK and the ``y`` product all run inside the kernel's
 three launches; the Kahan accumulation of the result stays with the caller
 (``models/sparse_pseudo_input_gp.spgp_update``). :func:`fitc_plan` is the
 host side of the kernel's grid: its tiles and the N-split of the SYRK.
+The wrapper calls the registered op ``egp::fitc_update``
+(``ops/_library.py``): its CPU implementation is the plain version, its
+CUDA implementation the kernel's launch.
 """
 
 from __future__ import annotations
@@ -17,10 +20,13 @@ import math
 import torch
 
 from erl_gaussian_process_tpu_torch.ops._build import load_library
+from erl_gaussian_process_tpu_torch.ops._library import define
 from erl_gaussian_process_tpu_torch.ops.gram import (
+    _plain_spec,
     check_cuda_operands,
-    cross_gram_plain,
-    packed_family,
+    check_devices,
+    family_spec,
+    packed_spec,
 )
 
 TILE = 64  # csrc/fitc.cu kTile: the tile edge of beta and of dQ
@@ -84,7 +90,12 @@ def fitc_update_plain(name: str, pseudo, linv, x, y, var, mask, scale):
     """The plain PyTorch version of the FITC kernel, on any device: the
     beta-via-L_inv formulation of ``fitc_delta`` (the one the Pallas kernel
     also computes)."""
-    kmn = cross_gram_plain(name, pseudo, x, scale)            # (M, n)
+    return _fitc_plain(pseudo, linv, x, y, var, mask, *family_spec(name),
+                       float(scale))
+
+
+def _fitc_plain(pseudo, linv, x, y, var, mask, base, ratios, weights, scale):
+    kmn = _plain_spec(pseudo, x, None, base, ratios, weights, scale)
     beta = linv @ kmn                                         # (M, n)
     lam = torch.clamp(1.0 - torch.sum(beta * beta, dim=0), min=0.0)
     inv = torch.where(mask, 1.0 / (lam + var), torch.zeros_like(lam))
@@ -100,13 +111,19 @@ def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
     exact zeros above the diagonal, as ``solve_triangular`` writes them (the
     kernel reads only the 64 x 64 tiles on and below the diagonal, the
     plain version all of it); x: (n, d); y: (n, q); var: (n,);
-    mask: (n,) bool. Any M and n. CPU tensors take
-    :func:`fitc_update_plain`; CUDA tensors launch ``csrc/fitc.cu``, the
-    :data:`LAUNCHES` kernels of :func:`fitc_plan`'s grid (one call counted
-    in ``fitc_update_cuda.launches``), or raise."""
-    tensors = (pseudo, linv, x, y, var, mask)
-    if all(t.device.type == "cpu" for t in tensors):
-        return fitc_update_plain(name, pseudo, linv, x, y, var, mask, scale)
+    mask: (n,) bool. Any M and n. The op ``egp::fitc_update``: CPU tensors
+    take :func:`fitc_update_plain`; CUDA tensors launch ``csrc/fitc.cu``,
+    the :data:`LAUNCHES` kernels of :func:`fitc_plan`'s grid (one call
+    counted in ``fitc_update_cuda.launches``), or raise."""
+    check_devices("fitc_update_cuda", pseudo, linv, x, y, var)
+    return torch.ops.egp.fitc_update(pseudo, linv, x, y, var, mask,
+                                     *family_spec(name), float(scale))
+
+
+fitc_update_cuda.launches = 0
+
+
+def _fitc_cuda(pseudo, linv, x, y, var, mask, base, ratios, weights, scale):
     dt = pseudo.dtype
     check_cuda_operands("fitc_update_cuda", dt, pseudo, linv, x, y, var)
     if mask.device != pseudo.device or mask.dtype != torch.bool \
@@ -126,7 +143,8 @@ def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
     if m == 0 or n == 0 or d == 0 or q == 0:
         raise ValueError(f"fitc_update_cuda: empty operand, m={m} n={n} "
                          f"d={d} q={q}")
-    fam, ncomp, coefs, weights = packed_family(name, float(scale))
+    fam, ncomp, coefs, weights = packed_spec(base, tuple(ratios),
+                                             tuple(weights), float(scale))
     dev = pseudo.device
     plan = fitc_plan(m, n, _sms(dev.index))
     dq = torch.empty((m, m), dtype=dt, device=dev)
@@ -156,4 +174,10 @@ def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
     return dq, da
 
 
-fitc_update_cuda.launches = 0
+define("fitc_update(Tensor pseudo, Tensor linv, Tensor x, Tensor y, "
+       "Tensor var, Tensor mask, str family, float[] ratios, "
+       "float[] weights, float scale) -> (Tensor, Tensor)",
+       _fitc_plain, _fitc_cuda,
+       lambda pseudo, linv, x, y, *_: (
+           pseudo.new_empty((pseudo.shape[0], pseudo.shape[0])),
+           pseudo.new_empty((pseudo.shape[0], y.shape[1]))))

@@ -5,8 +5,9 @@
 ``data/double/train.dat`` (float64) and ``data/float/train.dat``
 (float32): repeated frames of ``int32 numel | T angles[numel] |
 T ranges[numel] | uint64 pose_size | T pose[pose_size]``, where pose is a
-column-major 2x3 ``[t | R]`` matrix. The JAX package's native loader is
-not ported yet (ROADMAP.md, Queue 1 item 6); both give the same frames.
+column-major 2x3 ``[t | R]`` matrix. The native parser of
+``utils/native.py`` reads it when that library is available, numpy
+otherwise; both give the same frames.
 """
 
 from __future__ import annotations
@@ -27,6 +28,21 @@ class LidarLogFrame:
 
 def load_lidar_log(path: str, dtype=np.float64) -> List[LidarLogFrame]:
     """Every frame of the log at ``path``, whose values are ``dtype``."""
+    from erl_gaussian_process_tpu_torch.utils.native import (
+        load_lidar_log_native,
+    )
+
+    native = load_lidar_log_native(path, dtype)
+    if native is not None:
+        frames = []
+        for angles, ranges, pose in native:
+            # the native parser fills float64 buffers; cast back to the
+            # log's dtype so both paths return identical frames
+            p = pose.astype(dtype).reshape(3, 2).T
+            frames.append(LidarLogFrame(
+                angles=angles.astype(dtype), ranges=ranges.astype(dtype),
+                position=p[:, 0].copy(), rotation=p[:, 1:3].copy()))
+        return frames
     raw = np.fromfile(path, dtype=np.uint8)
     frames = []
     off = 0

@@ -1,7 +1,10 @@
-"""Checkpoint / resume: flat-key .npz serialization of nested state dicts
-with exact round-trip equality (counterpart of
-``erl_gaussian_process_tpu/utils/serialization.py``, npz only; numpy only —
-the models' ``state_dict`` hands over host numpy copies)."""
+"""Checkpoint / resume: flat-key serialization of nested state dicts with
+exact round-trip equality (counterpart of
+``erl_gaussian_process_tpu/utils/serialization.py``). A path ending in
+``.egpt`` is written as the token stream of ``utils/native.py`` (the JAX
+package's ``.egpt`` format, byte for byte), any other as compressed
+``.npz``. Numpy only: the models' ``state_dict`` hands over host numpy
+copies."""
 
 from __future__ import annotations
 
@@ -41,33 +44,54 @@ def save_pytree(path: str, state: Dict[str, Any]) -> None:
     _flatten("", state, arrays, meta)
     arrays[_META_KEY] = np.frombuffer(
         json.dumps(meta).encode("utf-8"), dtype=np.uint8)
+    if str(path).endswith(".egpt"):
+        from erl_gaussian_process_tpu_torch.utils.native import save_tokens
+
+        save_tokens(str(path), {k: np.asarray(v) for k, v in arrays.items()})
+        return
     np.savez_compressed(path, **arrays)
 
 
 def load_pytree(path: str) -> Dict[str, Any]:
+    if str(path).endswith(".egpt"):
+        from erl_gaussian_process_tpu_torch.utils.native import load_tokens
+
+        return _build_from(load_tokens(str(path)))
     with np.load(path, allow_pickle=False) as z:
-        meta = json.loads(bytes(z[_META_KEY].tobytes()).decode("utf-8"))
+        return _build_from(z)
 
-        def build(prefix: str):
-            info = meta[prefix]
-            t = info["type"]
-            if t == "dict":
-                return {k: build(f"{prefix}{_SEP}{k}" if prefix else str(k))
-                        for k in info["keys"]}
-            if t == "none":
-                return None
-            if t in ("bool", "int", "float", "str"):
-                return info["value"]
-            if t == "json":
-                return json.loads(info["value"])
-            arr = z[prefix]
-            if t == "list":
-                return arr.tolist() if arr.dtype.kind in "OU" else arr
-            if t == "tuple":
-                return tuple(arr.tolist())
-            return arr
 
-        return build("")
+def _build_from(z) -> Dict[str, Any]:
+    """The nested state of a flat archive ``z`` (token dict or npz)."""
+    meta = json.loads(bytes(z[_META_KEY].tobytes()).decode("utf-8"))
+
+    def build(prefix: str):
+        info = meta[prefix]
+        t = info["type"]
+        if t == "dict":
+            return {k: build(f"{prefix}{_SEP}{k}" if prefix else str(k))
+                    for k in info["keys"]}
+        if t == "none":
+            return None
+        if t in ("bool", "int", "float", "str"):
+            return info["value"]
+        if t == "json":
+            return json.loads(info["value"])
+        arr = z[prefix]
+        if t == "list":
+            return arr.tolist() if arr.dtype.kind in "OU" else arr
+        if t == "tuple":
+            return tuple(arr.tolist())
+        return arr
+
+    return build("")
+
+
+def save_pytree_tokens(path: str, state: Dict[str, Any]) -> None:
+    """Token-format save; the path must end in ``.egpt``."""
+    if not str(path).endswith(".egpt"):
+        raise ValueError(f"token checkpoints use the .egpt suffix: {path}")
+    save_pytree(path, state)
 
 
 def eq_state(a: Any, b: Any) -> bool:

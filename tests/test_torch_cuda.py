@@ -1101,3 +1101,210 @@ def test_rr_fits_on_the_card_run_the_chol_and_trsv_kernels(cuda, dtype,
     tol = 1e-3 if dtype == np.float32 else 1e-9
     for a, b in zip(*outs.values()):
         assert np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1.0)
+
+
+@pytest.mark.parametrize("dtype,tol", GRAM_TOL)
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_registered_ops_match_plain(cuda, fam, dtype, tol):
+    """The ``egp`` ops called directly: CUDA tensors launch the kernels
+    (one count each), CPU tensors give the plain versions bit for bit;
+    the gram plain, masked and batched, and FITC."""
+    from erl_gaussian_process_tpu_torch.ops.gram import family_spec
+
+    spec = family_spec(_name(fam))
+    rng = np.random.default_rng(21)
+
+    def both(*shape):
+        a = rng.uniform(-2, 2, shape)
+        return (torch.as_tensor(a, dtype=dtype, device=cuda),
+                torch.as_tensor(a, dtype=dtype))
+
+    (x1, c1), (x2, c2) = both(300, 3), both(517, 3)
+    mask_c = torch.as_tensor(rng.uniform(size=300) < 0.7)
+    mask = mask_c.to(cuda)
+    counts = launch_counts()
+    k = torch.ops.egp.cross_gram(x1, x2, mask, *spec, 0.6)
+    kb = torch.ops.egp.cross_gram_batched(x1[None].repeat(2, 1, 1),
+                                          x2[None].repeat(2, 1, 1),
+                                          mask[None].repeat(2, 1), *spec, 0.6)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["gram"] == counts["gram"] + 1
+    assert after["gram_batched"] == counts["gram_batched"] + 1
+    ref = torch.ops.egp.cross_gram(c1, c2, mask_c, *spec, 0.6)
+    assert torch.equal(ref, cross_gram_plain(_name(fam), c1, c2, 0.6,
+                                             mask_c))
+    assert float((k.cpu() - ref).abs().max()) <= tol
+    assert torch.equal(kb[0], k) and torch.equal(kb[1], k)
+    if fam == "ou":
+        return
+    st = spgp_init(x1, 0.6, kernel=_name(fam))
+    y = torch.as_tensor(rng.choice([-1.0, 1.0], (517, 1)), dtype=dtype,
+                        device=cuda)
+    var = torch.full((517,), 0.1, dtype=dtype, device=cuda)
+    m2 = torch.as_tensor(rng.uniform(size=517) < 0.9, device=cuda)
+    args = (st.pseudo, st.L_inv, x2, y, var, m2)
+    dq, da = torch.ops.egp.fitc_update(*args, *spec, 0.6)
+    torch.cuda.synchronize()
+    assert launch_counts()["fitc"] == after["fitc"] + 1
+    rq, ra = torch.ops.egp.fitc_update(*(a.cpu() for a in args), *spec, 0.6)
+    ftol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert float((dq.cpu() - rq).abs().max() / rq.abs().max()) <= ftol
+    assert float((da.cpu() - ra).abs().max() / ra.abs().max()) <= ftol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_autograd_gram_backward_on_the_card(cuda, fam, dtype):
+    """``GramScale`` on CUDA tensors: the forward is the gram kernel (one
+    launch), the scale's gradient equals autograd through the plain gram
+    with a tensor scale on the same card."""
+    from erl_gaussian_process_tpu_torch.ops import GramScale
+    from erl_gaussian_process_tpu_torch.ops.gram import (
+        apply_family,
+        pairwise_sqdist,
+    )
+
+    rng = np.random.default_rng(5)
+    x1 = torch.as_tensor(rng.uniform(-1, 1, (257, 2)), dtype=dtype,
+                         device=cuda)
+    x2 = torch.as_tensor(rng.uniform(-1, 1, (1031, 2)), dtype=dtype,
+                         device=cuda)
+    w = torch.as_tensor(rng.standard_normal((257, 1031)), dtype=dtype,
+                        device=cuda)
+    s = torch.tensor(0.4, dtype=dtype, device=cuda, requires_grad=True)
+    before = launch_counts()["gram"]
+    k = GramScale.apply(_name(fam), x1, x2, s)
+    (g,) = torch.autograd.grad(torch.sum(w * k), s)
+    torch.cuda.synchronize()
+    assert launch_counts()["gram"] == before + 1
+    s2 = torch.tensor(0.4, dtype=dtype, device=cuda, requires_grad=True)
+    kp = apply_family(_name(fam), pairwise_sqdist(x1, x2), s2)
+    (g2,) = torch.autograd.grad(torch.sum(w * kp), s2)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    ktol = 1e-6 if dtype == torch.float32 else 1e-12
+    assert float((k - kp).detach().abs().max()) <= ktol
+    assert abs(float(g - g2)) <= tol * max(1.0, abs(float(g2)))
+
+
+def _fitc_args_3d(cuda, dtype, n, var, seed=9):
+    """FITC operands at hotel-0's pseudo shape: an 11 x 11 x 9 grid (1089
+    points, spacing 0.3) far-point padded to 1152, n samples inside it,
+    matern32 at 0.6, d = 3."""
+    rng = np.random.default_rng(seed)
+    axes = [np.linspace(-1.5, 1.5, 11)] * 2 + [np.linspace(-1.2, 1.2, 9)]
+    grid = np.stack([a.ravel() for a in np.meshgrid(*axes, indexing="ij")],
+                    -1)
+    st = spgp_init(torch.as_tensor(pad_pseudo_points(grid), dtype=dtype,
+                                   device=cuda), 0.6, kernel="matern32")
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    return ("matern32", st.pseudo, st.L_inv,
+            t(rng.uniform(-1.5, 1.5, (n, 3))),
+            t(rng.choice([-1.0, 1.0], (n, 1))), t(np.full(n, var)),
+            torch.as_tensor(rng.uniform(size=n) < 0.9, device=cuda), 0.6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fitc_kernel_at_four_poses(cuda, dtype):
+    """FITC at (1152, 8192, d = 3), the hotel-0 update at poses_per_step =
+    4 (2 splits of 4096 samples): against the plain version (float32 at
+    var 0.1 to 1e-4, float64 at var 1e-4 to 1e-10), dQ exactly symmetric,
+    one launch counted; at float32 at var 1e-4 the kernel's errors
+    against the float64 update no worse than 2x the plain version's."""
+    from erl_gaussian_process_tpu_torch.ops.fitc import fitc_plan
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fitc_plan(1152, 8192, sms).splits >= 2
+    var, tol = (0.1, 1e-4) if dtype == torch.float32 else (1e-4, 1e-10)
+    args = _fitc_args_3d(cuda, dtype, 8192, var)
+    before = launch_counts()["fitc"]
+    dq, da = fitc_update_cuda(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["fitc"] == before + 1
+    dq_ref, da_ref = fitc_update_plain(*args)
+    assert float((dq - dq_ref).abs().max() / dq_ref.abs().max()) <= tol
+    assert float((da - da_ref).abs().max() / da_ref.abs().max()) <= tol
+    assert torch.equal(dq, dq.T)
+    if dtype == torch.float64:
+        return
+    args = _fitc_args_3d(cuda, dtype, 8192, 1e-4)
+    st64 = spgp_init(args[1].double(), 0.6, kernel="matern32")
+    truth = fitc_update_plain("matern32", st64.pseudo, st64.L_inv,
+                              *(t.double() for t in args[3:6]), args[6], 0.6)
+
+    def rel(got):
+        return [float((g.double() - t).abs().max() / t.abs().max())
+                for g, t in zip(got, truth)]
+
+    kernel, plain = rel(fitc_update_cuda(*args)), rel(fitc_update_plain(*args))
+    assert all(k <= 2 * p for k, p in zip(kernel, plain)), (kernel, plain)
+
+
+def test_artifact_round_trip_on_the_card(cuda):
+    """The map's update and predict artifacts exported on the card,
+    through bytes, equal the eager step bit for bit and launch the FITC and
+    gram kernels (the launch counts)."""
+    from erl_gaussian_process_tpu_torch.geometry import free_sample_fractions
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        spgp_prepare,
+    )
+    from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
+        predict_prepared_step,
+        step_seed,
+        update_step,
+    )
+    from erl_gaussian_process_tpu_torch.utils.deploy import (
+        export_map_predict_step,
+        export_map_update_step,
+        load_fn,
+    )
+
+    s = SpGpOccupancyMapSetting(
+        sp_gp=SpGpSetting(kernel_type="matern32",
+                          kernel=KernelSetting(x_dim=2, scale=0.3),
+                          max_num_samples=256),
+        min_distance=0.0, max_distance=30.0, free_points_per_meter=2.0,
+        free_sampling_margin=0.02, logodd_free=-1.0, logodd_occupied=1.0,
+        logodd_variance=1e-4)
+    c = np.linspace(-1, 1, 8)
+    pseudo = np.stack([a.ravel() for a in np.meshgrid(c, c, indexing="ij")],
+                      -1)
+    st = spgp_init(torch.as_tensor(pseudo, dtype=torch.float32, device=cuda),
+                   0.3, kernel="matern32")
+    step = load_fn(export_map_update_step(s, n_pseudo=64, n_rays=32,
+                                          free_slots=4, device=cuda))
+    predict = load_fn(export_map_predict_step(n_pseudo=64, scale=0.3,
+                                              device=cuda))
+    ang = np.linspace(-2.0, 2.0, 32)
+    pts = torch.as_tensor(np.stack([2 * np.cos(ang), 2 * np.sin(ang)], -1),
+                          dtype=torch.float32, device=cuda)
+    lo = torch.full((2,), -3.0, device=cuda)
+    hi = torch.full((2,), 3.0, device=cuda)
+    scan = (torch.zeros(2, device=cuda), pts,
+            torch.ones(32, dtype=torch.bool, device=cuda), lo, hi)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(step_seed(0, 1))
+    u = free_sample_fractions(32, 4, 0.02, g, torch.float32, cuda)
+    before = launch_counts()
+    got, n_used = step(st, u, *scan)
+    torch.cuda.synchronize()
+    assert launch_counts()["fitc"] == before["fitc"] + 1
+    ref, ref_n, _ = update_step(
+        st, *scan, 0.3, kernel="matern32", diagonal_qm=False, free_slots=4,
+        max_samples=256, min_distance=0.0, max_distance=30.0,
+        free_sampling_margin=0.02, free_points_per_meter=2.0,
+        logodd_occupied=1.0, logodd_free=-1.0, logodd_variance=1e-4, u=u)
+    assert int(n_used) == int(ref_n) > 0
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    L_qm, a = spgp_prepare(got)
+    q = torch.rand(100, 2, device=cuda) * 2 - 1
+    before = launch_counts()["gram"]
+    mean, _ = predict(got, L_qm, a, q)
+    torch.cuda.synchronize()
+    assert launch_counts()["gram"] == before + 1
+    ref_mean, _ = predict_prepared_step(got, L_qm, a, q, 0.3,
+                                        kernel="matern32", with_grad=False)
+    assert torch.equal(mean, ref_mean)

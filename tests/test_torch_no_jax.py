@@ -3,12 +3,18 @@ fresh interpreter, importing it and driving a tiny occupancy map (a few CPU
 updates and a predict), a small 3D range-sensor GP (train, replay, test,
 compute_occ, save/load), a BatchGPBank, an exact GP and a noisy-input GP
 with gradients, the 2D lidar GP on a logged scan (with the setting
-registry), the 2D simulators and a reduced-rank GP must not import
-``jax``, ``yaml`` or the JAX package."""
+registry), the 2D simulators, a reduced-rank GP, the native host runtime
+(an ``.egpt`` checkpoint, the raycasters), the timers, scale selection and
+fitting, a ``torch.export`` artifact, the D/F API and ``poses_per_step``
+must not import ``jax``, ``yaml`` or the JAX package; and the host
+runtime's C++ source is the port's own copy."""
 
+import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 _SCRIPT = r"""
 import sys
@@ -112,6 +118,37 @@ rr = VanillaGaussianProcess(VanillaGPSetting(
         x_dim=1, scale=0.5, num_basis=[32], boundary=[8.0])), device="cpu")
 assert rr.train(x[None], np.sin(x), 1e-3)
 assert (rr.test(x[None]).get_variance() > 0).all()
+import torch
+from erl_gaussian_process_tpu_torch import api
+from erl_gaussian_process_tpu_torch.utils import (
+    BlockTimer, memory_usage, native, report_time, select_scale_spgp, trace)
+from erl_gaussian_process_tpu_torch.utils.deploy import (
+    export_map_predict_step, load_fn)
+from erl_gaussian_process_tpu_torch.utils.model_selection import fit_scale
+assert native.native_available()
+assert os.sep.join(["erl_gaussian_process_tpu_torch", "csrc", "host"]) \
+    in native.SRC
+ck = os.path.join(tempfile.mkdtemp(), "map.egpt")
+m.save(ck)
+m2 = SpGpOccupancyMap(setting, g, Aabb.from_min_max([-2, -2], [2, 2]),
+                      dtype=np.float32, free_slots_per_ray=4, device="cpu")
+m2.load(ck)
+assert m2 == m
+m.update_batch(np.zeros((3, 2)), np.stack([ring] * 3), poses_per_step=2)
+with BlockTimer("t", log=False), trace(None):
+    report_time("r", 1, lambda: m.predict(ring[:2]), warmup=0)
+assert memory_usage(m.state) > 0
+best, _, _ = select_scale_spgp(g.T, ring, np.sign(ring[:, 0]),
+                               np.full(60, 1e-2), kernel="matern32",
+                               scales=[0.3, 0.6], refine=0, device="cpu")
+fit_scale(x[:, None], np.sin(x), np.full(40, 1e-3), kernel="rbf", steps=2,
+          device="cpu")
+blob = export_map_predict_step(n_pseudo=m.state.pseudo.shape[0], scale=0.4,
+                               kernel="matern32", device="cpu")
+L, a = m.sp_gp._prepared()
+mean, _ = load_fn(blob)(m.state, L, a, torch.zeros(5, 2))
+assert mean.shape == (5, 1)
+assert api.VanillaGaussianProcessF(device="cpu").dtype == np.float32
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "yaml",
                                     "erl_gaussian_process_tpu"))
@@ -126,3 +163,21 @@ def test_port_runs_without_jax_or_yaml():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "main_path_ab.py"])
+def test_card_scripts_import_no_jax(script):
+    """The scripts run on the card's machine (no JAX, no PyYAML) name
+    neither, nor the JAX package, in any import statement."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, script)) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert "erl_gaussian_process_tpu_torch" in names, names
+    assert not names & {"jax", "jaxlib", "yaml", "erl_gaussian_process_tpu"}, \
+        names

@@ -394,8 +394,10 @@ def test_paths_not_ported_yet_raise():
     m = SpGpOccupancyMap(ts, _pseudo(), box, free_slots_per_ray=FREE_SLOTS,
                          device="cpu")
     sensors, pts, masks = _sphere_scans(np.random.default_rng(8), 2, 50)
-    with pytest.raises(NotImplementedError, match="poses_per_step"):
-        m.update_batch(sensors, pts, masks, poses_per_step=2)
+    # poses_per_step > 1 is ported; as in JAX it cannot collect datasets
+    with pytest.raises(ValueError, match="poses_per_step == 1"):
+        m.update_batch(sensors, pts, masks, poses_per_step=2,
+                       collect_datasets=True)
     # gradient predict is ported: only a family without a gradient gram
     # raises, in both packages
     _, ts_ou = _settings()
@@ -426,3 +428,62 @@ def test_predict_gradient_matches_jax_f64():
         np.testing.assert_allclose(got.numpy(), ref, rtol=0,
                                    atol=1e-12 * np.abs(ref).max())
     assert tm.predict(q)[1] is None
+
+
+@pytest.mark.parametrize("dtype,c", [(np.float32, 3), (np.float64, 4)])
+def test_update_batch_chunked_matches_sequential(dtype, c):
+    """poses_per_step = c fuses c poses into one FITC update; each pose
+    still draws from its own seed, so the datasets are the sequential
+    replay's and (Q_M, alpha) match it to reduction-order rounding, at the
+    tolerances of tests/test_spgp_occupancy_map.py (f32 rtol 1e-3 / atol
+    1e-4, f64 rtol 1e-9 / atol 1e-10). B = 7 pads to a multiple of c with
+    all-masked poses, exact no-ops. The chunked (Q_M, alpha) also match
+    JAX's ``spgp_update`` run on the same datasets, concatenated c at a
+    time as JAX's ``update_batch_steps(poses_per_step=c)`` fuses them."""
+    from erl_gaussian_process_tpu.models.sparse_pseudo_input_gp import (
+        spgp_update as jax_spgp_update,
+    )
+
+    js, ts = _settings()
+    box = ([-2.0] * 3, [2.0] * 3)
+    rng = np.random.default_rng(12)
+    B = 7
+    sensors, pts, masks = _sphere_scans(rng, B, 120)
+    sensors, pts = sensors.astype(dtype), pts.astype(dtype)
+
+    def make():
+        return SpGpOccupancyMap(ts, _pseudo(), Aabb.from_min_max(*box),
+                                seed=5, dtype=dtype,
+                                free_slots_per_ray=FREE_SLOTS, device="cpu")
+
+    seq = make()
+    used, (dx, dy, dm) = seq.update_batch(sensors, pts, masks,
+                                          collect_datasets=True)
+    chk = make()
+    n_used = chk.update_batch(sensors, pts, masks, poses_per_step=c)
+    assert n_used.tolist() == used.tolist()
+    assert chk.step == seq.step == B
+    tol = dict(rtol=1e-3, atol=1e-4) if dtype == np.float32 else \
+        dict(rtol=1e-9, atol=1e-10)
+    for name in ("qm", "alpha"):
+        np.testing.assert_allclose(getattr(chk.state, name).numpy(),
+                                   getattr(seq.state, name).numpy(), **tol)
+
+    jm = jmap.SpGpOccupancyMap(js, _pseudo(), JaxAabb.from_min_max(*box),
+                               seed=5, dtype=dtype,
+                               free_slots_per_ray=FREE_SLOTS)
+    jst = jm.state
+    pad = -B % c
+    x = np.concatenate([dx.numpy(), np.zeros((pad,) + dx.shape[1:], dtype)])
+    y = np.concatenate([dy.numpy(), np.zeros((pad,) + dy.shape[1:], dtype)])
+    mk = np.concatenate([dm.numpy(), np.zeros((pad,) + dm.shape[1:], bool)])
+    var = np.full(c * x.shape[1], ts.logodd_variance, dtype)
+    for lo in range(0, B + pad, c):
+        jst = jax_spgp_update(
+            jst, jnp.asarray(x[lo:lo + c].reshape(-1, 3)),
+            jnp.asarray(y[lo:lo + c].reshape(-1, 1)), jnp.asarray(var),
+            jnp.asarray(mk[lo:lo + c].reshape(-1)), dtype(0.6),
+            kernel=jm.sp_gp._kernel)
+    for name in ("qm", "alpha"):
+        np.testing.assert_allclose(getattr(chk.state, name).numpy(),
+                                   np.asarray(getattr(jst, name)), **tol)

@@ -51,11 +51,18 @@ def _warm_torch_exp():
     torch.exp(torch.zeros(1 << 20, dtype=torch.float32))
 
 
-@pytest.fixture
-def jax_numpy_raycast(monkeypatch):
-    """The JAX simulators with their numpy ray caster (the port's), not
-    the native one."""
-    monkeypatch.setattr(jnative, "native_available", lambda: False)
+@pytest.fixture(params=["numpy", "native"])
+def jax_numpy_raycast(request, monkeypatch):
+    """Both packages' simulators on the same ray caster: each one's numpy
+    branch, or each one's native OpenMP raycaster (the port's own copy of
+    the C++ source)."""
+    import erl_gaussian_process_tpu_torch.utils.native as tnative
+
+    if request.param == "numpy":
+        monkeypatch.setattr(jnative, "native_available", lambda: False)
+        monkeypatch.setattr(tnative, "native_available", lambda: False)
+    else:
+        assert jnative.native_available() and tnative.native_available()
 
 
 def _production_setting():
