@@ -156,6 +156,25 @@ deployment, scale selection, the ops):
     alternated), and hotel-0's first 256 poses with FITC through the op
     and called directly (ms/pose, alternated replays).
 
+The mesh (``parallel/mesh.py``), ranks spawned by this script, each joined
+within a limit (a dead rank fails the phase; its traceback is printed):
+
+23. the kernels the mesh reaches at one rank's shapes (FITC at (1152,
+    4096, d = 3) with 3 masked pad samples bit for bit the unpadded update,
+    the bank fit at 368 x 100, the gram at 1152 x 1024) against their plain
+    versions with times and bounds; (a) NCCL, one rank: hotel-0 pose by
+    pose through ``update(mesh=)``, bit for bit phase 4's replay; (b) gloo,
+    two ranks on ``cuda:0``: hotel-0 through ``update_batch(
+    poses_per_step=4)`` against phase 19 (samples used equal, Q_M and
+    alpha within 5e-6 relative Frobenius, the quality gates, the sharded
+    predict of the drift grid within 1e-4 of the maximum of the one-rank
+    predict of the same state with sign agreement > 0.999, its drift
+    against phase 4's float64 replay <= 0.2); (c) gloo: the 3D lidar protocol and the 2D lidar GP with
+    ``mesh=``, banks bit for bit the one-card trains', the MSE and MAE
+    gates; launches a gloo rank by ``torch.profiler`` (FITC a chunk, a bank
+    fit a train, grams a predict); ms/pose beside phases 4 and 19, the
+    all_reduce's ms an update, the time to spawn and initialise.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero before doing anything.
@@ -433,7 +452,9 @@ FITC_KERNELS = ("kmn_kernel", "beta_tc_kernel", "syrk_tc_kernel")
 
 def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
               traj):
-    """Phases 4-6. Returns (launch counts, timings, drift results)."""
+    """Phases 4-6. Returns (launch counts, timings, drift results, the
+    pose-by-pose replay's state and samples used with the drift grid's
+    float32 and float64 posteriors)."""
     from erl_gaussian_process_tpu_torch.geometry import Aabb
     from erl_gaussian_process_tpu_torch.models import SpGpOccupancyMap
     from erl_gaussian_process_tpu_torch.ops import (
@@ -470,10 +491,10 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
     seq = new_map()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(b):
-        seq.update(sensors[i], pts[i], masks[i])
+    seq_used = [seq.update(sensors[i], pts[i], masks[i]) for i in range(b)]
     torch.cuda.synchronize()
     t_seq = time.perf_counter() - t0
+    seq_ref = {"state": seq.state, "n_used": torch.stack(seq_used)}
 
     bat = new_map()
     torch.cuda.synchronize()
@@ -547,6 +568,7 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
         f"agreement {agree:.6f}; f64 replay {t_replay64:.3f} s")
     check(np.isfinite(lo32).all() and drift <= DRIFT_GATE_MAX,
           f"drift {drift} > {DRIFT_GATE_MAX}")
+    seq_ref.update(lo32=lo32, lo64=lo64)
 
     t_seqs, t_bats = [t_seq], [t_bat]
     for _ in range(TIMING_REPLAYS):
@@ -590,7 +612,7 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
         f"{timings['predict_ms_cached']:.4f} ms cached (median of "
         f"{TIMED_RUNS}, range {min(cached_ms):.4f}-{max(cached_ms):.4f})")
     return counts, timings, {"drift": drift, "sign_agreement": agree,
-                             "quality": fracs}
+                             "quality": fracs}, seq_ref
 
 
 def bank_errors(L, L_inv, alpha, ref):
@@ -2701,7 +2723,8 @@ def run_poses_per_step(dev, card, setting, pseudo, lo, hi, sensors, pts,
     8192, d = 3) against its plain version and the float32 2x gate at var
     1e-4 against the float64 update, FITC's launches a chunk, ms/pose
     beside c = 1 (medians of replays, alternated). Returns (launches,
-    kernel row, timings, the c = PPS map, new_map)."""
+    kernel row, timings, the c = PPS map, new_map, the c = PPS replay's
+    state, samples used and drift-grid predict)."""
     from erl_gaussian_process_tpu_torch.geometry import Aabb
     from erl_gaussian_process_tpu_torch.models import SpGpOccupancyMap
     from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
@@ -2714,7 +2737,10 @@ def run_poses_per_step(dev, card, setting, pseudo, lo, hi, sensors, pts,
         reset_launch_counts,
     )
     from erl_gaussian_process_tpu_torch.ops.fitc import fitc_plan
-    from erl_gaussian_process_tpu_torch.workloads import FREE_SLOTS_PER_RAY
+    from erl_gaussian_process_tpu_torch.workloads import (
+        FREE_SLOTS_PER_RAY,
+        hotel0_query_grid,
+    )
 
     box = Aabb.from_min_max(lo, hi)
 
@@ -2740,6 +2766,8 @@ def run_poses_per_step(dev, card, setting, pseudo, lo, hi, sensors, pts,
     reset_launch_counts()
     m4, n4, first4 = replay(PPS)
     counts = launch_counts()
+    pps_ref = {"state": m4.state, "n_used": n4,
+               "lo_grid": m4.predict(hotel0_query_grid(lo, hi))[0]}
     chunks = -(-b // PPS)
     check(counts["fitc"] == chunks,
           f"poses_per_step={PPS}: FITC launches {counts['fitc']} != {chunks}")
@@ -2838,7 +2866,7 @@ def run_poses_per_step(dev, card, setting, pseudo, lo, hi, sensors, pts,
         f"range {min(ms4):.4f}-{max(ms4):.4f}), c = 1 "
         f"{timings['c1_ms_per_pose']:.4f} ms/pose (median of {len(ms1)}, "
         f"range {min(ms1):.4f}-{max(ms1):.4f})")
-    return counts["fitc"], row, timings, m4, new_map
+    return counts["fitc"], row, timings, m4, new_map, pps_ref
 
 
 def run_deploy(dev, card):
@@ -3191,6 +3219,580 @@ def run_dispatch(dev, card, gram_times, kern, hotel0):
             for k, v in out.items() if k in pairs))
     return out
 
+# -- phase 23: the mesh (parallel/mesh.py) on the card ----------------------
+
+MESH_TIMEOUT_S = 60      # init_process_group: a dead rank ends the others'
+MESH_JOIN_S = 300        # a world, spawn to exit
+MESH_DRIFT = 5e-6        # tests/test_parallel.py:190 and :397
+MESH_PREDICT_TOL = 1e-4  # tests/test_parallel.py:197-198
+MESH_SIGNS = 0.999
+MESH_TRAINS = 5          # timed sensor-GP trains a rank
+MESH_SHARD = 4093        # FITC's padding check: samples before the pad
+
+
+def mesh_map(mesh_or_dev, hotel0):
+    """A hotel-0 map (float32) on a mesh (``Mesh``) or one device."""
+    from erl_gaussian_process_tpu_torch.geometry import Aabb
+    from erl_gaussian_process_tpu_torch.models import SpGpOccupancyMap
+    from erl_gaussian_process_tpu_torch.parallel.mesh import Mesh
+    from erl_gaussian_process_tpu_torch.workloads import FREE_SLOTS_PER_RAY
+
+    on_mesh = isinstance(mesh_or_dev, Mesh)
+    return SpGpOccupancyMap(
+        hotel0["setting"], hotel0["pseudo"],
+        Aabb.from_min_max(hotel0["lo"], hotel0["hi"]), seed=0,
+        dtype=torch.float32, free_slots_per_ray=FREE_SLOTS_PER_RAY,
+        mesh=mesh_or_dev if on_mesh else None,
+        device=mesh_or_dev.device if on_mesh else mesh_or_dev)
+
+
+def fitc_count(kernels: dict) -> int:
+    return sum(c for k, (c, _) in kernels.items()
+               if any(f in k for f in FITC_KERNELS))
+
+
+def allreduce_ms(mesh, state) -> float:
+    """Event ms of one update's collectives: the all_reduce of a (M, M)
+    dQ and a (M, 1) dalpha (median of REPS)."""
+    from erl_gaussian_process_tpu_torch.parallel.mesh import all_reduce
+
+    dq, da = torch.zeros_like(state.qm), torch.zeros_like(state.alpha)
+    return cuda_ms(lambda: (all_reduce(mesh, dq), all_reduce(mesh, da)))
+
+
+def mesh_job_update(mesh, w):
+    """(a) hotel-0 pose by pose through ``update`` on the mesh: the
+    replay's state, samples used, wrapper counts and ms/pose, the
+    all_reduce's ms. (FITC's launches a pose by torch.profiler are phase
+    5's; the profiler's first session costs a fresh process ~10 s.)"""
+    from erl_gaussian_process_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    h = w["hotel0"]
+    sensors, pts, masks = h["sensors"], h["pts"], h["masks"]
+    warm = mesh_map(mesh, h)
+    for i in range(2):
+        warm.update(sensors[i], pts[i], masks[i])
+    reset_launch_counts()
+    m = mesh_map(mesh, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    used = [m.update(sensors[i], pts[i], masks[i])
+            for i in range(len(sensors))]
+    torch.cuda.synchronize()
+    out = {"ms_per_pose": 1e3 * (time.perf_counter() - t0) / len(sensors),
+           "counts": launch_counts(), "n_used": torch.stack(used).cpu(),
+           "state": {k: getattr(m.state, k).cpu()
+                     for k in ("qm", "alpha", "qm_c", "alpha_c")}}
+    out["allreduce_ms"] = allreduce_ms(mesh, m.state)
+    return out
+
+
+def mesh_job_batch(mesh, w):
+    """(b) hotel-0 through ``update_batch(poses_per_step=PPS)`` on the mesh
+    and the sharded predicts of the quality points and the drift grid: the
+    replay's state, samples used and ms/pose, the predictions, the wrapper
+    counts of replay and predicts, the drift grid's predict of the same
+    state and prepare unsharded (``spgp_predict``), FITC's launches a chunk
+    and the gram's a predict by torch.profiler, the all_reduce's ms."""
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        spgp_predict,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    h = w["hotel0"]
+    sensors, pts, masks = h["sensors"], h["pts"], h["masks"]
+    warm = mesh_map(mesh, h)
+    warm.update_batch(sensors[:2 * PPS], pts[:2 * PPS], masks[:2 * PPS],
+                      poses_per_step=PPS)
+    warm.predict(h["grid"])
+    reset_launch_counts()
+    m = mesh_map(mesh, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_used = m.update_batch(sensors, pts, masks, poses_per_step=PPS)
+    torch.cuda.synchronize()
+    out = {"ms_per_pose": 1e3 * (time.perf_counter() - t0) / len(sensors),
+           "lo": {k: m.predict(h[k])[0].cpu()
+                  for k in ("sel", "traj", "grid")}}
+    L_qm, a = m.sp_gp._prepared()
+    out["lo_one"] = spgp_predict(
+        m.state, L_qm, a, m._tensor(h["grid"]), m.sp_gp._scale,
+        kernel=m.sp_gp._kernel, with_var=False)[0][:, 0].cpu()
+    out.update(counts=launch_counts(), n_used=n_used.cpu(),
+               state={k: getattr(m.state, k).cpu() for k in ("qm", "alpha")})
+    kernels = device_kernels(lambda: (
+        m.update_batch(sensors[:PPS], pts[:PPS], masks[:PPS],
+                       poses_per_step=PPS), m.predict(h["grid"])))
+    out["fitc_per_chunk"] = fitc_count(kernels)
+    out["gram_per_predict"] = sum(c for k, (c, _) in kernels.items()
+                                  if "gram_kernel" in k)
+    out["allreduce_ms"] = allreduce_ms(mesh, m.state)
+    return out
+
+
+def mesh_job_sensor(mesh, w):
+    """(c) the 3D lidar protocol through ``RangeSensorGaussianProcess3D``
+    and frame 0 of data/double/train.dat through ``LidarGaussianProcess2D``
+    on the mesh: each GP's gathered bank, its test, its wrapper counts for
+    one train and one test, its bank fits a train and grams a test by
+    torch.profiler, its train's ms (median of MESH_TRAINS)."""
+    from erl_gaussian_process_tpu_torch.models import (
+        LidarGaussianProcess2D,
+        RangeSensorGaussianProcess3D,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    setting, R, t, ranges, q, gt, _ = w["lidar"]
+    f = w["frame2d"]
+    gps = {"gp3d": (RangeSensorGaussianProcess3D(
+                        setting, dtype=np.float32, mesh=mesh,
+                        device=mesh.device), (R, t, ranges), q),
+           "gp2d": (LidarGaussianProcess2D(
+                        lidar2d_setting(f.angles, False), dtype=np.float64,
+                        mesh=mesh, device=mesh.device),
+                    (np.eye(2), np.zeros(2), f.ranges), f.angles)}
+    out = {}
+    for name, (gp, scan, queries) in gps.items():
+        gp.train(*scan)                         # warm-up, not counted
+        gp.test(queries, False, True).get_mean()
+        reset_launch_counts()
+        ok = gp.train(*scan)
+        pred, valid = gp.test(queries, False, True).get_mean()
+        r = {"ok": ok, "counts": launch_counts(), "pred": pred,
+             "valid": valid,
+             "bank": {k: getattr(gp.bank, k).cpu()
+                      for k in ("L", "L_inv", "alpha")}}
+        kernels = device_kernels(lambda: (
+            gp.train(*scan), gp.test(queries, False, True).get_mean()))
+        r["fits_per_train"] = sum(c for k, (c, _) in kernels.items()
+                                  if "bank_fit" in k)
+        r["grams_per_test"] = sum(c for k, (c, _) in kernels.items()
+                                  if "gram_kernel" in k)
+        r["train_ms"] = statistics.median(
+            timed(lambda: gp.train(*scan))[1] for _ in range(MESH_TRAINS))
+        out[name] = r
+    return out
+
+
+MESH_JOBS = {"update": mesh_job_update, "batch": mesh_job_batch,
+             "sensor": mesh_job_sensor}
+
+
+def mesh_rank(rank, size, work):
+    """One rank of a phase-23 world (``parallel/spawn.spawn_world``, which
+    has initialised its process group with MESH_TIMEOUT_S): the mesh on
+    ``work["device"]`` (``cuda:{rank % count}``), every float32 product in
+    full FP32, then ``work["jobs"]``. Returns the jobs' results."""
+    from erl_gaussian_process_tpu_torch.models.gp_core import (
+        use_full_fp32_matmul,
+    )
+    from erl_gaussian_process_tpu_torch.parallel import make_mesh
+
+    use_full_fp32_matmul()
+    mesh = make_mesh(size, device=work["device"])
+    out = {"init_s": time.time() - work["t_spawn"],
+           "device": str(mesh.device), "host_staging": mesh.host_staging}
+    for job in work["jobs"]:
+        t0 = time.perf_counter()
+        out[job] = MESH_JOBS[job](mesh, work)
+        out[f"{job}_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_world(size, backend, out_dir, work) -> tuple:
+    """Spawn ``size`` ranks of :func:`mesh_rank` on ``backend``, joined
+    within MESH_JOIN_S; any rank's failure fails the phase. Returns (each
+    rank's results, seconds from the spawn to the last exit)."""
+    from erl_gaussian_process_tpu_torch.parallel.spawn import spawn_world
+
+    return spawn_world(mesh_rank, size, out_dir, backend=backend,
+                       timeout_s=MESH_TIMEOUT_S, join_s=MESH_JOIN_S,
+                       args=(dict(work, t_spawn=time.time()),))
+
+
+def same_bits(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and bool(torch.equal(a, b.to(a.device)))
+    return bool(np.array_equal(a, b))
+
+
+def predict_gap(lo, ref) -> tuple:
+    """(max |lo - ref| / max |ref|, sign agreement) of two log-odds."""
+    lo, ref = torch.as_tensor(lo).cpu(), torch.as_tensor(ref).cpu()
+    return (float((lo - ref).abs().max() / ref.abs().max()),
+            float((torch.sign(lo) == torch.sign(ref)).double().mean()))
+
+
+def rel_frobenius(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def exact_prepare(dev, hotel0, states: dict) -> tuple:
+    """The float32 hotel-0 states' sensitivity (ROADMAP Queue 3): for
+    each state, cond(Q_M - Q_M_c) in float64 and the drift-grid posterior
+    of its exact float64 host prepare (``spgp_prepare_exact_host``, the
+    map's second tier). Returns ({name: cond}, {name: log-odds})."""
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        spgp_predict,
+        spgp_prepare_exact_host,
+    )
+
+    m = mesh_map(dev, hotel0)
+    grid = m._tensor(hotel0["grid"])
+    conds, lo = {}, {}
+    for name, st in states.items():
+        w = np.linalg.eigvalsh((st.qm.double() - st.qm_c.double()).cpu()
+                               .numpy())
+        conds[name] = float(w[-1] / w[0])
+        L, a = spgp_prepare_exact_host(st)
+        lo[name] = spgp_predict(st, L, a, grid, m.sp_gp._scale,
+                                kernel=m.sp_gp._kernel,
+                                with_var=False)[0][:, 0].cpu()
+    return conds, lo
+
+
+def mesh_kernel_rows(dev, card, hotel0, lidar) -> dict:
+    """The rows of the kernels the mesh reaches, at one rank's shapes of
+    the gloo world of two: FITC at (1152, 4096, d = 3) (rank 0's half of
+    hotel-0's first chunk of PPS poses, sampled as the map samples them),
+    with its padding checked (the first MESH_SHARD samples padded to 4096
+    with masked zeros: dQ and dalpha bit for bit the unpadded ones); the
+    bank fit at the lidar protocol's 368 x 100 (rank 0's members); the
+    gram at 1152 x 1024 (rank 0's half of the drift grid). Each against
+    its plain version, with event and plain ms and the bound."""
+    from erl_gaussian_process_tpu_torch.models import (
+        RangeSensorGaussianProcess3D,
+    )
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        spgp_init,
+    )
+    from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
+        sample_pose,
+        step_seed,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        bank_fit_cuda,
+        bank_fit_plain,
+        cross_gram_cuda,
+        cross_gram_plain,
+        fitc_update_cuda,
+        fitc_update_plain,
+    )
+    from erl_gaussian_process_tpu_torch.parallel.mesh import _pad_axis
+
+    rows = {}
+    m = mesh_map(dev, hotel0)
+    kw = {k: v for k, v in m._step_kw().items()
+          if k not in ("kernel", "diagonal_qm", "zero_threshold")}
+    ds = []
+    for i in range(PPS // 2):
+        m._generator.manual_seed(step_seed(0, 1 + i))
+        ds.append(sample_pose(
+            m._tensor(hotel0["sensors"][i]),
+            m._tensor(np.where(hotel0["masks"][i][:, None],
+                               hotel0["pts"][i], 0.0)),
+            torch.as_tensor(hotel0["masks"][i], device=dev), m._aabb_min,
+            m._aabb_max, generator=m._generator, **kw))
+    x, y, var, mask = (torch.cat(t) for t in zip(*ds))
+    st, scale, kern = m.state, m.sp_gp._scale, m.sp_gp._kernel
+    n = x.shape[0]
+    err32 = 0.0
+    for dt in (torch.float64, torch.float32):
+        s_dt = spgp_init(st.pseudo.to(dt), scale, kernel=kern)
+        a_dt = (kern, s_dt.pseudo, s_dt.L_inv, x.to(dt), y.to(dt),
+                torch.full((n,), FITC_VAR[dt], device=dev, dtype=dt), mask,
+                scale)
+        dq, da = fitc_update_cuda(*a_dt)
+        torch.cuda.synchronize()
+        dq_ref, da_ref = fitc_update_plain(*a_dt)
+        rq = float((dq - dq_ref).abs().max() / dq_ref.abs().max())
+        ra = float((da - da_ref).abs().max() / da_ref.abs().max())
+        log(f"fitc one rank's shard M={st.pseudo.shape[0]} N={n} {dt} var "
+            f"{FITC_VAR[dt]:g}: rel_err dQ {rq:.3e} dalpha {ra:.3e} (tol "
+            f"{FITC_TOL[dt]:g})")
+        check(rq <= FITC_TOL[dt] and ra <= FITC_TOL[dt],
+              f"fitc one rank's shard {dt}: rel err {rq}, {ra}")
+        if dt == torch.float32:
+            err32 = float((dq - dq_ref).abs().max())
+    args = (kern, st.pseudo, st.L_inv, x, y, var, mask, scale)
+    fitc_against_truth(args)
+    short = [t[:MESH_SHARD] for t in (x, y, var, mask)]
+    padded, _ = _pad_axis(short, 0, n)
+    got = fitc_update_cuda(kern, st.pseudo, st.L_inv, *padded, scale)
+    ref = fitc_update_cuda(kern, st.pseudo, st.L_inv, *short, scale)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(got, ref)),
+          f"fitc: {n - MESH_SHARD} masked pad samples changed dQ or dalpha")
+    b_ms, b_by = fitc_bound(st.pseudo.shape[0], n, 3)
+    rows["fitc_mesh"] = {
+        "max_abs_err": err32,
+        "ms": cuda_ms(lambda: fitc_update_cuda(*args)),
+        "plain_ms": cuda_ms(lambda: fitc_update_plain(*args)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    log(f"fitc one rank's shard: {MESH_SHARD} samples padded to {n} with "
+        "masked zeros give dQ and dalpha bit for bit")
+
+    setting, R, t, ranges = lidar[:4]
+    gp = RangeSensorGaussianProcess3D(setting, dtype=np.float32, device=dev)
+    xb, yb, vb, mb = gp._gather_scans(ranges[None])
+    half = xb.shape[0] // 2
+    xb, yb, vb, mb = (u[:half].contiguous() for u in (xb, yb, vb, mb))
+    got = bank_fit_cuda(gp._kernel, xb, yb, vb, mb, gp._scale)
+    torch.cuda.synchronize()
+    eL, ea, eI = bank_errors(*got, bank_fit_plain(gp._kernel, xb, yb, vb, mb,
+                                                  gp._scale))
+    check(max(eL, ea, eI) <= BANK_TOL[torch.float32],
+          f"bank_fit one rank's members: errors {eL}, {ea}, {eI}")
+    b_ms, b_by = bank_fit_bound(half, xb.shape[1], xb.shape[2], yb.shape[2])
+    rows["bank_fit_mesh"] = {
+        "max_abs_err": eL,
+        "ms": cuda_ms(lambda: bank_fit_cuda(gp._kernel, xb, yb, vb, mb,
+                                            gp._scale)),
+        "plain_ms": cuda_ms(lambda: bank_fit_plain(gp._kernel, xb, yb, vb, mb,
+                                                   gp._scale)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    xq = torch.as_tensor(hotel0["grid"], device=dev)
+    xq = xq[:xq.shape[0] // 2].contiguous()
+    k = cross_gram_cuda(kern, st.pseudo, xq, scale)
+    torch.cuda.synchronize()
+    err = float((k - cross_gram_plain(kern, st.pseudo, xq, scale)).abs().max())
+    check(err <= GRAM_TOL[torch.float32], f"gram one rank's queries: {err}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g_ms, g_by, _ = gram_bound(kern, torch.float32, 1, st.pseudo.shape[0],
+                               xq.shape[0], 3, st.pseudo.shape[0], False,
+                               sms, sm_clock_mhz())
+    rows["gram_mesh"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: cross_gram_cuda(kern, st.pseudo, xq, scale)),
+        "plain_ms": cuda_ms(lambda: cross_gram_plain(kern, st.pseudo, xq,
+                                                     scale)),
+        "bound_ms": g_ms,
+        "bound_by": "bytes" if g_by == "bytes" else "operations",
+        "library_ms": None}
+    for name, r in rows.items():
+        log(f"time on {card}: {name} kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms (median of {REPS}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def run_mesh(dev, card, hotel0, slice_ref, pps_ref, lidar, frame2d,
+             ref_ms) -> tuple:
+    """Phase 23: the mesh. (a) NCCL, one rank on the card: hotel-0 pose by
+    pose through ``update(mesh=)``, Q_M, alpha, their compensations and
+    the samples used bit for bit phase 4's pose-by-pose replay
+    (``slice_ref``); (b) gloo, two ranks on ``cuda:0`` (their collectives
+    staged through the host): hotel-0 through ``update_batch
+    (poses_per_step=PPS)`` (FITC at 1152 x 4096 a rank), the samples used
+    equal to phase 19's (``pps_ref``: its replay's state, samples used and
+    drift-grid predict), Q_M and alpha within MESH_DRIFT relative Frobenius
+    of its state, the quality gates, the sharded predict of the drift grid
+    within MESH_PREDICT_TOL of the maximum of the one-rank predict of the
+    same state (sign agreement > MESH_SIGNS) and within the drift gate of
+    phase 4's float64 replay; its gap to phase 19's float32 posterior is
+    reported beside phase 19's to phase 4's; (c) gloo, the 3D lidar
+    protocol (368 members a rank) and the 2D lidar GP: L, L^-1 and alpha
+    bit for bit the one-card train's, the MSE and MAE gates. Launches a
+    gloo rank by torch.profiler: a PPS-pose chunk 3 FITC, a train 1 bank
+    fit, a predict >= 1 gram. Reported: ms/pose beside phases 4 and
+    19 (``ref_ms``), the all_reduce's ms an update, the spawn-and-init
+    time. Returns (launches by row, timings)."""
+    import tempfile
+
+    from erl_gaussian_process_tpu_torch.models import (
+        LidarGaussianProcess2D,
+        RangeSensorGaussianProcess3D,
+    )
+    from erl_gaussian_process_tpu_torch.ops.fitc import LAUNCHES
+    from erl_gaussian_process_tpu_torch.utils.drift import (
+        drift_metric,
+        sign_agreement,
+    )
+
+    torch.cuda.empty_cache()
+    timings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl, timings["nccl_wall_s"] = mesh_world(
+            1, "nccl", os.path.join(tmp, "nccl"),
+            {"device": "cuda", "jobs": ["update"], "hotel0": hotel0})
+        gloo, timings["gloo_wall_s"] = mesh_world(
+            2, "gloo", os.path.join(tmp, "gloo"),
+            {"device": "cuda", "jobs": ["batch", "sensor"], "hotel0": hotel0,
+             "lidar": lidar, "frame2d": frame2d})
+
+    # (a) NCCL, world of one
+    a = nccl[0]["update"]
+    b = len(hotel0["sensors"])
+    check(nccl[0]["device"] == "cuda:0" and not nccl[0]["host_staging"],
+          f"NCCL rank: {nccl[0]['device']}")
+    check(same_bits(a["n_used"], slice_ref["n_used"]),
+          "mesh NCCL D=1: samples used differ from phase 4's replay")
+    check(same_bits(a["state"], {k: getattr(slice_ref["state"], k)
+                                 for k in a["state"]}),
+          "mesh NCCL D=1: Q_M, alpha or their compensations differ from "
+          "phase 4's replay")
+    check(a["counts"]["fitc"] == b,
+          f"mesh NCCL D=1: FITC launches {a['counts']['fitc']} != {b}")
+    log(f"mesh (a) NCCL, 1 rank: {b} poses through update(mesh=), Q_M, "
+        "alpha, compensations and samples used bit for bit phase 4's; FITC "
+        f"{a['counts']['fitc']} launches")
+
+    # (b) gloo, two ranks on one card
+    chunks = -(-b // PPS)
+    r0 = gloo[0]["batch"]
+    for r, res in enumerate(gloo):
+        check(res["device"] == "cuda:0" and res["host_staging"],
+              f"gloo rank {r}: {res['device']}, staging "
+              f"{res['host_staging']}")
+        c = res["batch"]
+        check(same_bits(c["state"], r0["state"])
+              and same_bits(c["lo"], r0["lo"]),
+              f"mesh gloo D=2: rank {r}'s state or predictions differ from "
+              "rank 0's")
+        check(c["counts"]["fitc"] == chunks and c["counts"]["gram"] > 0,
+              f"mesh gloo D=2 rank {r}: launch counts {c['counts']}")
+        check(c["fitc_per_chunk"] == LAUNCHES
+              and c["gram_per_predict"] >= 1,
+              f"mesh gloo D=2 rank {r}: FITC a chunk {c['fitc_per_chunk']}, "
+              f"gram a predict {c['gram_per_predict']}")
+    check(same_bits(r0["n_used"], pps_ref["n_used"]),
+          "mesh gloo D=2: samples used differ from phase 19's")
+    drift = {k: rel_frobenius(r0["state"][k], getattr(pps_ref["state"], k))
+             for k in ("qm", "alpha")}
+    surf = float((r0["lo"]["sel"] > 0).float().mean())
+    free = float((r0["lo"]["traj"] < 0).float().mean())
+    lo = r0["lo"]["grid"]
+    # the query sharding: the sharded predict against the one-rank predict
+    # of the same state and prepare; the posterior: against phase 4's
+    # float64 replay (the datasets are phase 4's, and the sum is order
+    # free); reported: against phase 19's one-card float32 posterior, and
+    # phase 19's against phase 4's (two float32 states a rounding order
+    # apart, ROADMAP Queue 3), each map's prepare against the exact float64
+    # prepare of its state, and the two states under that prepare
+    conds, lo_exact = exact_prepare(dev, hotel0,
+                                    {"phase4": slice_ref["state"],
+                                     "phase19": pps_ref["state"]})
+    pred = {"sharded_vs_one_rank": predict_gap(lo, r0["lo_one"]),
+            "vs_phase19": predict_gap(lo, pps_ref["lo_grid"]),
+            "phase19_vs_phase4": predict_gap(pps_ref["lo_grid"],
+                                             slice_ref["lo32"]),
+            "phase4_vs_exact_f64_prepare": predict_gap(slice_ref["lo32"],
+                                                       lo_exact["phase4"]),
+            "phase19_vs_exact_f64_prepare": predict_gap(
+                pps_ref["lo_grid"], lo_exact["phase19"]),
+            "phase19_vs_phase4_exact_f64_prepares": predict_gap(
+                lo_exact["phase19"], lo_exact["phase4"])}
+    lo64 = slice_ref["lo64"]
+    drift64_19 = drift_metric(pps_ref["lo_grid"].cpu().numpy(), lo64)
+    drift64 = drift_metric(lo.numpy(), lo64)
+    signs64 = sign_agreement(lo.numpy(), lo64)
+    log(f"mesh (b) gloo, 2 ranks on one card, poses_per_step={PPS}: {chunks} "
+        f"sharded FITC updates of {PPS} poses; vs phase 19's map: Q_M "
+        f"{drift['qm']:.3e} alpha {drift['alpha']:.3e} relative Frobenius "
+        f"(gate < {MESH_DRIFT:g}); quality surface {surf:.4f} trajectory "
+        f"{free:.4f}; grid predict (max |diff| / max, sign agreement): "
+        f"{pred} (gate on sharded_vs_one_rank < {MESH_PREDICT_TOL:g}, > "
+        f"{MESH_SIGNS}); drift vs phase 4's float64 replay {drift64:.6e} "
+        f"(gate <= {DRIFT_GATE_MAX}), confident-cell sign agreement "
+        f"{signs64:.6f}; phase 19's drift vs phase 4's float64 replay "
+        f"{drift64_19:.6e}; cond(Q_M - Q_M_c) in float64 {conds}")
+    check(max(drift.values()) < MESH_DRIFT, f"mesh gloo D=2 drift {drift}")
+    check(surf > 0.9 and free > 0.95,
+          f"mesh gloo D=2 quality: surface {surf}, trajectory {free}")
+    gap, signs = pred["sharded_vs_one_rank"]
+    check(gap < MESH_PREDICT_TOL and signs > MESH_SIGNS,
+          f"mesh gloo D=2 sharded predict: {gap}, signs {signs}")
+    check(np.isfinite(lo.numpy()).all() and drift64 <= DRIFT_GATE_MAX,
+          f"mesh gloo D=2 drift vs float64 {drift64}")
+
+    # (c) gloo, the sensor GPs
+    setting, R, t, ranges, q, gt, _ = lidar
+    one = {"gp3d": RangeSensorGaussianProcess3D(setting, dtype=np.float32,
+                                                device=dev),
+           "gp2d": LidarGaussianProcess2D(lidar2d_setting(frame2d.angles,
+                                                          False),
+                                          dtype=np.float64, device=dev)}
+    check(one["gp3d"].train(R, t, ranges)
+          and one["gp2d"].train(np.eye(2), np.zeros(2), frame2d.ranges),
+          "one-card sensor GP trains")
+    s0 = gloo[0]["sensor"]
+    for r, res in enumerate(gloo):
+        for name, c in res["sensor"].items():
+            check(c["ok"] and same_bits(
+                c["bank"], {k: getattr(one[name].bank, k)
+                            for k in c["bank"]}),
+                  f"mesh gloo D=2 rank {r} {name}: L, L^-1 or alpha differ "
+                  "from the one-card train")
+            check(c["counts"]["bank_fit"] == 1
+                  and c["counts"]["gram_batched"] >= 1
+                  and c["fits_per_train"] == 1 and c["grams_per_test"] >= 1,
+                  f"mesh gloo D=2 rank {r} {name}: counts {c['counts']}, "
+                  f"bank fits a train {c['fits_per_train']}, grams a test "
+                  f"{c['grams_per_test']}")
+    g3 = s0["gp3d"]
+    mse = float(np.mean((g3["pred"][g3["valid"]] - gt[g3["valid"]]) ** 2))
+    g2 = s0["gp2d"]
+    mae = float(np.abs(g2["pred"][g2["valid"]]
+                       - frame2d.ranges[g2["valid"]]).mean())
+    log(f"mesh (c) gloo, 2 ranks: 3D lidar protocol "
+        f"{one['gp3d'].bank.x.shape[0]} members, banks bit for bit the "
+        f"one-card train's, MSE {mse:.6e} (gate <= {LIDAR_MSE_GATE:g}); 2D "
+        f"lidar GP {one['gp2d'].bank.x.shape[0]} members, bit for bit, MAE "
+        f"{mae:.6e} (gate < {LIDAR2D_MAE['float64']:g})")
+    check(g3["valid"].any() and mse <= LIDAR_MSE_GATE, f"mesh MSE {mse}")
+    check(g2["valid"].any() and mae < LIDAR2D_MAE["float64"],
+          f"mesh 2D MAE {mae}")
+
+    timings.update({
+        "nccl_d1_update_ms_per_pose": a["ms_per_pose"],
+        "phase4_update_ms_per_pose": ref_ms["update"],
+        "gloo_d2_pps_ms_per_pose": [res["batch"]["ms_per_pose"]
+                                    for res in gloo],
+        "phase19_pps_ms_per_pose": ref_ms["pps"],
+        "nccl_d1_allreduce_ms": a["allreduce_ms"],
+        "gloo_d2_allreduce_ms": [res["batch"]["allreduce_ms"]
+                                 for res in gloo],
+        "spawn_init_s": {"nccl": [res["init_s"] for res in nccl],
+                         "gloo": [res["init_s"] for res in gloo]},
+        "job_s": {"nccl": [res["update_s"] for res in nccl],
+                  "gloo": [[res["batch_s"], res["sensor_s"]]
+                           for res in gloo]},
+        "train_ms": {name: [res["sensor"][name]["train_ms"]
+                            for res in gloo] for name in s0},
+        "drift": drift, "predict": pred, "drift_f64": drift64,
+        "phase19_drift_f64": drift64_19, "cond_qm_f64": conds,
+        "sign_agreement_f64": signs64,
+        "mse": mse, "mae_2d": mae})
+    log(f"mesh on {card}: NCCL D=1 update {a['ms_per_pose']:.4f} ms/pose "
+        f"(phase 4: {ref_ms['update']:.4f}, median), gloo D=2 "
+        f"poses_per_step={PPS} {timings['gloo_d2_pps_ms_per_pose']} ms/pose "
+        f"a rank (phase 19: {ref_ms['pps']:.4f}, median), one replay a "
+        "world; all_reduce "
+        f"of an update's dQ and dalpha: NCCL D=1 {a['allreduce_ms']:.4f} ms, "
+        f"gloo D=2 {timings['gloo_d2_allreduce_ms']} ms (median of {REPS}); "
+        f"spawn to mesh {timings['spawn_init_s']} s, jobs "
+        f"{timings['job_s']} s; worlds "
+        f"{timings['nccl_wall_s']:.2f} / {timings['gloo_wall_s']:.2f} s")
+    launches = {
+        "fitc_mesh": sum(res["batch"]["counts"]["fitc"] for res in gloo),
+        "bank_fit_mesh": sum(res["sensor"]["gp3d"]["counts"]["bank_fit"]
+                             for res in gloo),
+        "gram_mesh": sum(res["batch"]["counts"]["gram"] for res in gloo)}
+    return launches, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -3203,6 +3805,7 @@ def main() -> int:
     from erl_gaussian_process_tpu_torch.ops._build import load_library
     from erl_gaussian_process_tpu_torch.workloads import hotel0_workload
 
+    t_script = time.perf_counter()
     use_full_fp32_matmul()
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -3252,15 +3855,15 @@ def main() -> int:
         log(f"time on {card}: {name} kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms (median of {REPS})")
 
-    counts, timings, drift = run_slice(dev, card, setting, pseudo, lo, hi,
-                                       sensors, pts, masks, hits, traj)
+    counts, timings, drift, slice_ref = run_slice(
+        dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits, traj)
     log(json.dumps({"timings": timings, "drift": drift["drift"],
                     "sign_agreement": drift["sign_agreement"],
                     "card": card}))
     native = run_native(t_host_build, t_scan)
-    pps_fitc, kern["fitc_8192"], pps_timings, pps_map, pps_new_map = \
-        run_poses_per_step(dev, card, setting, pseudo, lo, hi, sensors, pts,
-                           masks, hits, traj)
+    pps_fitc, kern["fitc_8192"], pps_timings, pps_map, pps_new_map, \
+        pps_ref = run_poses_per_step(dev, card, setting, pseudo, lo, hi,
+                                     sensors, pts, masks, hits, traj)
     check_egpt(pps_map, pps_new_map)
     del pps_map
     log(json.dumps({"native": native, "poses_per_step": pps_timings,
@@ -3309,6 +3912,21 @@ def main() -> int:
                     "lidar2d_launch_counts": lidar2d_counts,
                     "reduced_rank_launch_counts": rr_counts, "card": card}))
 
+    from erl_gaussian_process_tpu_torch.workloads import hotel0_query_grid
+
+    rng = np.random.default_rng(0)
+    hotel0 = {"setting": setting, "pseudo": pseudo, "lo": lo, "hi": hi,
+              "sensors": sensors, "pts": pts, "masks": masks,
+              "grid": hotel0_query_grid(lo, hi), "traj": traj,
+              "sel": hits[rng.choice(len(hits), min(2000, len(hits)),
+                                     replace=False)].astype(np.float32)}
+    kern.update(mesh_kernel_rows(dev, card, hotel0, lidar))
+    mesh_launches, mesh_timings = run_mesh(
+        dev, card, hotel0, slice_ref, pps_ref, lidar, frames[0],
+        {"update": timings["update_ms_per_pose"],
+         "pps": pps_timings["pps_ms_per_pose"]})
+    log(json.dumps({"mesh_timings": mesh_timings, "card": card}))
+
     # FITC's bound at its timed shape, M=1152, N=2048, d=3 (fitc_bound();
     # the bank kernels' are computed in check_bank_kernels, the gram's in
     # time_gram)
@@ -3349,7 +3967,9 @@ def main() -> int:
         "trsv_rr": sum(c["trsv"] for c in rr_fits),
         # hotel-0 at poses_per_step = PPS (N = PPS x 2048),
         # the SPGP scale sweep's K_MN
-        "fitc_8192": pps_fitc, "gram_sweep": sweep_grams})
+        "fitc_8192": pps_fitc, "gram_sweep": sweep_grams,
+        # the mesh's ranks (phase 23, gloo, two ranks)
+        **mesh_launches})
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched by its path: {launches}")
     chol_src = "erl_gaussian_process_tpu_torch/csrc/chol.cu"
@@ -3383,8 +4003,16 @@ def main() -> int:
                        "erl_gaussian_process_tpu/ops/pallas_trsv.py:99"),
            "fitc_8192": ("erl_gaussian_process_tpu_torch/csrc/fitc.cu",
                          "erl_gaussian_process_tpu/ops/pallas_fitc.py:145"),
-           "gram_sweep": gram_src}
+           "gram_sweep": gram_src,
+           "fitc_mesh": ("erl_gaussian_process_tpu_torch/csrc/fitc.cu",
+                         "erl_gaussian_process_tpu/ops/pallas_fitc.py:145"),
+           "bank_fit_mesh": (
+               "erl_gaussian_process_tpu_torch/csrc/bank.cu",
+               "erl_gaussian_process_tpu/ops/pallas_bank.py:249"),
+           "gram_mesh": gram_src}
     log(f"launch counts of the paths' runs: {launches}")
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the start "
+        f"of main to the result on {card}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],

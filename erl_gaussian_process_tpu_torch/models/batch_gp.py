@@ -13,8 +13,8 @@ A reduced-rank bank (:func:`bank_fit_rr`) solves each member's (m, m)
 information system over one shared Hilbert basis instead; its L and alpha
 have m = #basis rows, and its predicts take ``+||.||^2`` for the variance.
 Those are batched library products and factorizations, as the JAX package
-leaves them to XLA. The sharded bank fit is not ported yet (ROADMAP.md,
-Queue 1 item 9).
+leaves them to XLA. The sharded bank fit over several ranks is
+``parallel/mesh.sharded_bank_fit``.
 """
 
 from __future__ import annotations

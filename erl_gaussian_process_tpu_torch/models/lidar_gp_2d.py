@@ -14,8 +14,9 @@ bank fit solves each partition's information system over one shared
 Hilbert basis (``models/batch_gp.bank_fit_rr_core``) and the routed
 predict takes ``+||.||^2`` for the variance.
 
-Not ported yet: the sharded bank fit ``mesh=`` (ROADMAP.md, Queue 1 item
-9).
+With ``mesh=``, a train shards the bank's members over the ranks
+(``parallel/mesh.sharded_bank_fit``); a reduced-rank fit stays on each
+rank whole, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,16 +40,12 @@ from erl_gaussian_process_tpu_torch.models.batch_gp import (
     bank_predict_assigned,
     bank_state_from_numpy,
 )
-from erl_gaussian_process_tpu_torch.models.gp_core import (
-    DEFAULT_DEVICE,
-    resolve_device,
-)
+from erl_gaussian_process_tpu_torch.models.gp_core import DEFAULT_DEVICE
 from erl_gaussian_process_tpu_torch.models.mapping import (
     Mapping,
     MappingSetting,
     MappingType,
 )
-from erl_gaussian_process_tpu_torch.models.range_sensor_gp_3d import MESH_TODO
 from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     torch_dtype,
 )
@@ -58,6 +55,10 @@ from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
     VanillaGPState,
     VanillaTrainSet,
     setup_reduced_rank,
+)
+from erl_gaussian_process_tpu_torch.parallel.mesh import (
+    model_device,
+    sharded_bank_fit,
 )
 from erl_gaussian_process_tpu_torch.utils.serialization import (
     eq_state,
@@ -240,20 +241,19 @@ class LidarGP2DTestResult:
 
 
 class LidarGaussianProcess2D:
-    """The bank lives on ``device``; the frame, the partition tables and the
-    query routing stay on the host."""
+    """The bank lives on ``device`` (the mesh's device with a ``mesh``); the
+    frame, the partition tables and the query routing stay on the host."""
 
     Setting = LidarGP2DSetting
     TestResult = LidarGP2DTestResult
 
     def __init__(self, setting: Optional[LidarGP2DSetting] = None,
                  dtype=np.float64, mesh=None, device=DEFAULT_DEVICE):
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
+        self.device = model_device(mesh, device)
+        self.mesh = mesh
         self.setting = setting or LidarGP2DSetting()
         self.dtype = np.dtype(dtype)
         self._tdtype = torch_dtype(self.dtype)
-        self.device = resolve_device(device)
         self.sensor_frame = LidarFrame2D(self.setting.sensor_frame,
                                          dtype=dtype)
         self.mapping = Mapping(self.setting.mapping)
@@ -439,11 +439,14 @@ class LidarGaussianProcess2D:
         gather and ONE bank fit (or the reduced-rank bank fit). A member's
         L, L_inv and alpha do not depend on the bank it is fit in
         (``ops/bank.py``), so each scan's slice of a replay equals its own
-        train bit for bit."""
+        train bit for bit. A mesh shards the members over its ranks."""
         x, y, var, mask = self._gather_scans(ranges_batch)
         if self._basis is not None:
             return bank_fit_rr_core(x, y, var, mask,
                                     *self._basis.consts(self.device))
+        if self.mesh is not None:
+            return sharded_bank_fit(self.mesh, x, y, var, mask, self._scale,
+                                    kernel=self._kernel)
         return bank_fit_core(x, y, var, mask, self._scale,
                              kernel=self._kernel)
 
@@ -453,11 +456,14 @@ class LidarGaussianProcess2D:
         members, scan-major (member s*B + b is scan s's partition b); use
         :meth:`use_scan_bank` to route queries at one scan's slice. Needs
         the static angle-partition table and a plain kernel; does not
-        change this instance's trained state."""
+        change this instance's trained state. One card only."""
         if self.setting.partition_on_hit_rays or self._basis is not None:
             raise NotImplementedError(
                 "train_scan_batch needs the static angle-partition table "
                 "with a plain kernel on a single chip")
+        if self.mesh is not None:
+            raise ValueError("train_scan_batch runs on one card: build the "
+                             "model without mesh=")
         rb = np.asarray(ranges_batch, self.dtype)
         if rb.ndim != 2 or rb.shape[1] != self.setting.sensor_frame.num_rays:
             raise ValueError(

@@ -11,9 +11,9 @@ on the host and answers all partitions in one batched predict
 are host numpy, as in the JAX package. A reduced-rank ``gp.kernel_type``
 fits each partition's basis information system instead
 (``models/batch_gp.bank_fit_rr_core``) and predicts with ``+||.||^2``.
-
-Not ported yet: the sharded bank fit ``mesh=`` (ROADMAP.md, Queue 1 item
-9).
+With ``mesh=``, a train shards the bank's members over the ranks
+(``parallel/mesh.sharded_bank_fit``); a reduced-rank fit stays on each
+rank whole, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,10 +36,7 @@ from erl_gaussian_process_tpu_torch.models.batch_gp import (
     bank_predict_assigned,
     bank_state_from_numpy,
 )
-from erl_gaussian_process_tpu_torch.models.gp_core import (
-    DEFAULT_DEVICE,
-    resolve_device,
-)
+from erl_gaussian_process_tpu_torch.models.gp_core import DEFAULT_DEVICE
 from erl_gaussian_process_tpu_torch.models.mapping import (
     Mapping,
     MappingSetting,
@@ -55,14 +52,15 @@ from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
     VanillaTrainSet,
     setup_reduced_rank,
 )
+from erl_gaussian_process_tpu_torch.parallel.mesh import (
+    model_device,
+    sharded_bank_fit,
+)
 from erl_gaussian_process_tpu_torch.utils.serialization import (
     eq_state,
     load_pytree,
     save_pytree,
 )
-
-MESH_TODO = ("the sharded bank fit (mesh=) is not ported yet (ROADMAP.md, "
-             "Queue 1 item 9)")
 
 
 def _grid_partitions(coords: np.ndarray, group_size: int, overlap: int,
@@ -190,16 +188,16 @@ class RangeSensorGP3DTestResult:
 
 
 class RangeSensorGaussianProcess3D:
-    """The bank lives on ``device``; frames, partition tables and query
-    routing stay on the host."""
+    """The bank lives on ``device`` (the mesh's device with a ``mesh``);
+    frames, partition tables and query routing stay on the host."""
 
     Setting = RangeSensorGP3DSetting
     TestResult = RangeSensorGP3DTestResult
 
     def __init__(self, setting: Optional[RangeSensorGP3DSetting] = None,
                  dtype=np.float64, mesh=None, device=DEFAULT_DEVICE):
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
+        self.device = model_device(mesh, device)
+        self.mesh = mesh
         self.setting = setting or RangeSensorGP3DSetting()
         if self.setting.row_overlap_size % 2 or \
                 self.setting.col_overlap_size % 2:
@@ -207,7 +205,6 @@ class RangeSensorGaussianProcess3D:
                              "even")
         self.dtype = np.dtype(dtype)
         self._tdtype = torch_dtype(self.dtype)
-        self.device = resolve_device(device)
         self.sensor_frame = create_range_sensor_frame_3d(
             self.setting.sensor_frame_type, self.setting.sensor_frame,
             dtype=dtype)
@@ -419,11 +416,15 @@ class RangeSensorGaussianProcess3D:
         ONE bank fit. A member's L, L_inv and alpha do not depend on the
         bank it is fit in (``ops/bank.py``), so each scan's slice of a
         replay equals its own train bit for bit. A reduced-rank model
-        fits the members' basis information systems instead."""
+        fits the members' basis information systems instead; a mesh
+        shards the members over its ranks."""
         x, y, var, mask = self._gather_scans(ranges_batch)
         if self._basis is not None:
             return bank_fit_rr_core(x, y, var, mask,
                                     *self._basis.consts(self.device))
+        if self.mesh is not None:
+            return sharded_bank_fit(self.mesh, x, y, var, mask, self._scale,
+                                    kernel=self._kernel)
         return bank_fit_core(x, y, var, mask, self._scale,
                              kernel=self._kernel)
 
@@ -432,10 +433,14 @@ class RangeSensorGaussianProcess3D:
         bank fit. ranges_batch (S, n_az, n_el), or (S, H, W) for a depth
         frame. Returns a BankState with S*B members, scan-major; use
         :meth:`use_scan_bank` to route queries at one scan's slice. Does
-        not change this instance's trained state. Plain kernels only."""
+        not change this instance's trained state. Plain kernels on one card
+        only."""
         if self._basis is not None:
             raise NotImplementedError(
                 "train_scan_batch needs plain kernels on a single chip")
+        if self.mesh is not None:
+            raise ValueError("train_scan_batch runs on one card: build the "
+                             "model without mesh=")
         rb = np.asarray(ranges_batch, self.dtype)
         fc = self.sensor_frame.frame_coords()
         if rb.ndim != 3 or rb.shape[1:] != fc.shape[:2]:

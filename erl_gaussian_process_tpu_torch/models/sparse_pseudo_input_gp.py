@@ -131,15 +131,16 @@ def spgp_init(pseudo: torch.Tensor, scale, *, kernel: str,
 
 
 def spgp_update(state: SpGpState, x, y, var, mask, scale, *, kernel: str,
-                diagonal_qm: bool = False,
-                zero_threshold: float = 0.0) -> SpGpState:
+                diagonal_qm: bool = False, zero_threshold: float = 0.0,
+                reduce=None) -> SpGpState:
     """Rank-N FITC update with fixed-shape masking: masked-out columns
     contribute nothing. x (n, d); y (n, q); var/mask (n,).
 
     Dense Q_M without a threshold runs the FITC kernel wrapper (kernel on
     CUDA, plain version on the CPU); ``diagonal_qm`` or ``zero_threshold``
     > 0 (the reference's UpdateSparse math as a masked dense chain) run
-    :func:`fitc_delta`."""
+    :func:`fitc_delta`. ``reduce``, when given, maps each increment before
+    the Kahan add (the mesh's sum over ranks, ``parallel/mesh.py``)."""
     if not diagonal_qm and zero_threshold == 0.0:
         dq, da = fitc_update_cuda(kernel, state.pseudo, state.L_inv, x, y,
                                   var, mask, scale)
@@ -148,6 +149,8 @@ def spgp_update(state: SpGpState, x, y, var, mask, scale, *, kernel: str,
         dq, da = fitc_delta(state.pseudo, state.L_km, x, y, var, mask, scale,
                             kernel=kernel, diagonal_qm=diagonal_qm,
                             zero_threshold=zero_threshold, L_inv=l_inv)
+    if reduce is not None:
+        dq, da = reduce(dq), reduce(da)
     qm, qm_c = kahan_add(state.qm, state.qm_c, dq)
     alpha, alpha_c = kahan_add(state.alpha, state.alpha_c, da)
     return state._replace(qm=qm, alpha=alpha, qm_c=qm_c, alpha_c=alpha_c)

@@ -13,11 +13,18 @@ pose draws from a ``torch.Generator`` on the map's device, seeded from
 (seed, step) alone (:func:`step_seed`): a pose's draw depends on nothing
 but the map seed and the pose index, so ``update_batch`` equals a sequence
 of ``update`` calls, and a checkpoint carries the seed in place of the key.
+
+With ``mesh=`` (``parallel/mesh.py``) every rank of the mesh runs the same
+calls: updates shard the FITC update's sample axis over the ranks (the
+sampler runs replicated from the same seeds, so every rank and the one-card
+map consume the same datasets), and predictions without a gradient shard
+the query axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -29,10 +36,7 @@ from erl_gaussian_process_tpu_torch.geometry.occupancy_dataset import (
     generate_dataset_fixed,
     generate_dataset_np,
 )
-from erl_gaussian_process_tpu_torch.models.gp_core import (
-    DEFAULT_DEVICE,
-    resolve_device,
-)
+from erl_gaussian_process_tpu_torch.models.gp_core import DEFAULT_DEVICE
 from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     SparsePseudoInputGaussianProcess,
     SpGpSetting,
@@ -41,14 +45,16 @@ from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     spgp_predict,
     spgp_update,
 )
+from erl_gaussian_process_tpu_torch.parallel.mesh import (
+    model_device,
+    sharded_spgp_predict,
+    sharded_spgp_update,
+)
 from erl_gaussian_process_tpu_torch.utils.serialization import (
     eq_state,
     load_pytree,
     save_pytree,
 )
-
-MESH_TODO = ("mesh= (the sharded map over several cards) is not ported yet "
-             "(ROADMAP.md, Queue 1: 'Multi-card map, mesh=')")
 
 
 @dataclasses.dataclass
@@ -118,15 +124,23 @@ def sample_pose(sensor_position, points, point_mask, aabb_min, aabb_max, *,
     return pts, y[:, None], var, mask
 
 
+def _fitc_update(mesh):
+    """``spgp_update``, or with a mesh its twin that shards the samples
+    over the ranks (``parallel/mesh.sharded_spgp_update``)."""
+    return spgp_update if mesh is None else functools.partial(
+        sharded_spgp_update, mesh)
+
+
 def update_step(state: SpGpState, sensor_position, points, point_mask,
                 aabb_min, aabb_max, scale, *, kernel, diagonal_qm,
                 free_slots, max_samples, min_distance, max_distance,
                 free_sampling_margin, free_points_per_meter, logodd_occupied,
                 logodd_free, logodd_variance, zero_threshold: float = 0.0,
-                generator=None, u=None):
+                generator=None, u=None, mesh=None):
     """One map update: sample dataset -> label -> FITC update. Returns
     (new state, number of samples used as a 0-dim device tensor,
-    the dataset (pts, y, mask) the update consumed)."""
+    the dataset (pts, y, mask) the update consumed). With ``mesh`` every
+    rank samples the same dataset and the FITC update is sharded."""
     pts, y, var, mask = sample_pose(
         sensor_position, points, point_mask, aabb_min, aabb_max,
         free_slots=free_slots, max_samples=max_samples,
@@ -135,9 +149,9 @@ def update_step(state: SpGpState, sensor_position, points, point_mask,
         free_points_per_meter=free_points_per_meter,
         logodd_occupied=logodd_occupied, logodd_free=logodd_free,
         logodd_variance=logodd_variance, generator=generator, u=u)
-    new_state = spgp_update(state, pts, y, var, mask, scale, kernel=kernel,
-                            diagonal_qm=diagonal_qm,
-                            zero_threshold=zero_threshold)
+    new_state = _fitc_update(mesh)(state, pts, y, var, mask, scale,
+                                   kernel=kernel, diagonal_qm=diagonal_qm,
+                                   zero_threshold=zero_threshold)
     return new_state, torch.sum(mask), (pts, y, mask)
 
 
@@ -146,7 +160,8 @@ def update_batch_steps(state: SpGpState, seed: int, step0: int,
                        aabb_max, scale, *, generator: torch.Generator, kernel,
                        diagonal_qm, zero_threshold: float = 0.0,
                        poses_per_step: int = 1,
-                       collect_datasets: bool = False, **sample_kw):
+                       collect_datasets: bool = False, mesh=None,
+                       **sample_kw):
     """B map updates in order, pose i drawing from ``generator`` seeded
     with ``step_seed(seed, step0 + i)``. Returns (state, n_used (B,)),
     plus the stacked datasets (pts (B, budget, d), y (B, budget, 1),
@@ -160,7 +175,9 @@ def update_batch_steps(state: SpGpState, seed: int, step0: int,
     independent per-column terms, so (Q_M, alpha) equal the sequential
     result up to the sums' rounding order. B must be a multiple of c (the
     class wrapper pads with all-masked poses, exact no-ops);
-    ``collect_datasets`` needs c == 1.
+    ``collect_datasets`` needs c == 1. With ``mesh`` every rank samples
+    the same datasets and each FITC update shards its N samples over the
+    ranks.
 
     sensor_positions (B, d); points (B, n, d); point_masks (B, n)."""
     c = int(poses_per_step)
@@ -172,6 +189,7 @@ def update_batch_steps(state: SpGpState, seed: int, step0: int,
     if b % c:
         raise ValueError(f"B={b} not a multiple of poses_per_step={c}")
     used, data = [], []
+    update = _fitc_update(mesh)
     for lo in range(0, b, c):
         chunk = []
         for i in range(lo, lo + c):
@@ -181,9 +199,8 @@ def update_batch_steps(state: SpGpState, seed: int, step0: int,
                 aabb_max, generator=generator, **sample_kw))
         pts, y, var, mask = (chunk[0] if c == 1 else
                              tuple(torch.cat(t) for t in zip(*chunk)))
-        state = spgp_update(state, pts, y, var, mask, scale, kernel=kernel,
-                            diagonal_qm=diagonal_qm,
-                            zero_threshold=zero_threshold)
+        state = update(state, pts, y, var, mask, scale, kernel=kernel,
+                       diagonal_qm=diagonal_qm, zero_threshold=zero_threshold)
         used.extend(torch.sum(m) for *_, m in chunk)
         if collect_datasets:
             data.append((pts, y, mask))
@@ -214,11 +231,16 @@ class SpGpOccupancyMap:
                  dtype=torch.float64, free_slots_per_ray: Optional[int] = None,
                  mesh=None, device=DEFAULT_DEVICE):
         """pseudo_points: (d, M) column-major (reference constructor
-        layout). Every tensor of the map lives on ``device``."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
+        layout). Every tensor of the map lives on ``device``.
+
+        ``mesh``: an optional ``parallel.mesh.Mesh``; the map then lives on
+        the mesh's device, every rank makes the same calls, ``update`` and
+        ``update_batch`` shard the FITC update's samples over the ranks and
+        ``predict`` without a gradient shards the queries
+        (``parallel/mesh.py``)."""
         self.setting = setting or SpGpOccupancyMapSetting()
-        self.device = resolve_device(device)
+        self.device = model_device(mesh, device)
+        self.mesh = mesh
         self.sp_gp = SparsePseudoInputGaussianProcess(
             self.setting.sp_gp, pseudo_points, dtype=dtype,
             device=self.device)
@@ -324,7 +346,16 @@ class SpGpOccupancyMap:
         per-pose datasets the FITC updates consumed — the drift check's
         replay input.
 
+        With a mesh, every rank samples the same datasets as the one-card
+        map and each FITC update is sharded; ``collect_datasets`` is
+        refused there (as in the JAX package): collect them from a one-card
+        replay.
+
         sensor_positions (B, d); points (B, n, d); point_masks (B, n)."""
+        if self.mesh is not None and collect_datasets:
+            raise ValueError(
+                "collect_datasets with mesh=: replay on one card (the "
+                "datasets are the same, each pose drawn from its own seed)")
         self.flush_online()
         sp = np.asarray(sensor_positions, numpy_dtype(self.dtype))
         p = np.asarray(points, numpy_dtype(self.dtype))
@@ -345,17 +376,25 @@ class SpGpOccupancyMap:
             torch.as_tensor(point_masks, device=self.device), self._aabb_min,
             self._aabb_max, self.sp_gp._scale, generator=self._generator,
             poses_per_step=poses_per_step, collect_datasets=collect_datasets,
-            **self._step_kw())
+            mesh=self.mesh, **self._step_kw())
         self._commit(out[0], b)
         return (out[1], out[2]) if collect_datasets else out[1][:b]
 
     def predict(self, points, compute_gradient: bool = False):
         """logodd (n,) and its gradient (n, d) | None, as device tensors
-        (reference Predict)."""
+        (reference Predict). With a mesh, a predict without a gradient
+        shards the queries over the ranks."""
         self.flush_online()
         L_qm, a = self.sp_gp._prepared()
+        xq = self._tensor(self._points(points))
+        if self.mesh is not None and not compute_gradient:
+            mean, _ = sharded_spgp_predict(
+                self.mesh, self.sp_gp.state, L_qm, a, xq, self.sp_gp._scale,
+                kernel=self.sp_gp._kernel, with_var=False,
+                zero_threshold=self.sp_gp._zero_threshold)
+            return mean[:, 0], None
         mean, grad, _ = spgp_predict(
-            self.sp_gp.state, L_qm, a, self._tensor(self._points(points)),
+            self.sp_gp.state, L_qm, a, xq,
             self.sp_gp._scale, kernel=self.sp_gp._kernel,
             with_grad=compute_gradient, with_var=False,
             zero_threshold=self.sp_gp._zero_threshold)

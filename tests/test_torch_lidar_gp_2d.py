@@ -398,7 +398,8 @@ def test_fit_cache_invalidated_by_partition_mode_toggle():
 
 
 def test_mesh_is_not_ported_and_bad_scans_do_not_train():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # mesh= is ported (tests/test_torch_parallel.py): what is not a mesh
+    with pytest.raises(TypeError, match="make_mesh"):
         LidarGaussianProcess2D(mesh=object(), device="cpu")
     gp, ang = _mk(90)
     assert not gp.train(np.eye(2), np.zeros(2), np.full(90, np.inf))

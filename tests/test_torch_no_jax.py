@@ -5,8 +5,9 @@ compute_occ, save/load), a BatchGPBank, an exact GP and a noisy-input GP
 with gradients, the 2D lidar GP on a logged scan (with the setting
 registry), the 2D simulators, a reduced-rank GP, the native host runtime
 (an ``.egpt`` checkpoint, the raycasters), the timers, scale selection and
-fitting, a ``torch.export`` artifact, the D/F API and ``poses_per_step``
-must not import ``jax``, ``yaml`` or the JAX package; and the host
+fitting, a ``torch.export`` artifact, the D/F API, ``poses_per_step`` and
+the sharded paths (``parallel/``, one gloo rank: a map and a 3D sensor GP
+with ``mesh=``) must not import ``jax``, ``yaml`` or the JAX package; and the host
 runtime's C++ source is the port's own copy."""
 
 import ast
@@ -149,6 +150,24 @@ L, a = m.sp_gp._prepared()
 mean, _ = load_fn(blob)(m.state, L, a, torch.zeros(5, 2))
 assert mean.shape == (5, 1)
 assert api.VanillaGaussianProcessF(device="cpu").dtype == np.float32
+import datetime
+import torch.distributed as dist
+from erl_gaussian_process_tpu_torch.parallel import make_mesh
+from erl_gaussian_process_tpu_torch.parallel.spawn import spawn_world
+dist.init_process_group(
+    "gloo", init_method="file://" + os.path.join(tempfile.mkdtemp(), "s"),
+    rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+mesh = make_mesh(1, device="cpu")
+ms = SpGpOccupancyMap(setting, g, Aabb.from_min_max([-2, -2], [2, 2]),
+                      dtype=np.float32, free_slots_per_ray=4, mesh=mesh,
+                      device="cpu")
+ms.update(np.zeros(2), ring)
+ms.update_batch(np.zeros((2, 2)), np.stack([ring] * 2), poses_per_step=2)
+assert ms.predict(np.array([[0.0, 0.0]]))[0].shape == (1,)
+gps = RangeSensorGaussianProcess3D(gp.setting, dtype=np.float32, mesh=mesh,
+                                   device="cpu")
+assert gps.train(np.eye(3), np.zeros(3), ranges)
+dist.destroy_process_group()
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "yaml",
                                     "erl_gaussian_process_tpu"))

@@ -389,7 +389,8 @@ def test_online_mapping_3d_quality():
 def test_paths_not_ported_yet_raise():
     _, ts = _settings()
     box = Aabb.from_min_max([-2] * 3, [2] * 3)
-    with pytest.raises(NotImplementedError, match="mesh="):
+    # mesh= is ported (tests/test_torch_parallel.py): what is not a mesh
+    with pytest.raises(TypeError, match="make_mesh"):
         SpGpOccupancyMap(ts, _pseudo(), box, mesh=object(), device="cpu")
     m = SpGpOccupancyMap(ts, _pseudo(), box, free_slots_per_ray=FREE_SLOTS,
                          device="cpu")

@@ -317,8 +317,9 @@ def test_reference_protocol_mse(name, gate, dtype):
 # -- deferred features -----------------------------------------------------
 
 def test_deferred_features_raise_naming_their_roadmap_item():
-    """mesh= is not ported and raises, naming its ROADMAP item; a
-    reduced-rank kernel type is ported: its frame-derived basis box and
+    """A mesh= that is not a mesh raises TypeError (the sharded fit is
+    tests/test_torch_parallel.py's); a reduced-rank kernel type is
+    ported: its frame-derived basis box and
     (m, m) bank as JAX's, the routed predictions to 1e-12 at float64 (the
     factors of the 1024 x 1024 information matrices at var 1e-4 to 1e-11:
     the products that build them sum ~10^2 samples of weight 1e4 in
@@ -346,7 +347,8 @@ def test_deferred_features_raise_naming_their_roadmap_item():
     _close(a.get_mean()[0][v], b.get_mean()[0][v], 1e-12)
     _close(a.get_variance()[0][v], b.get_variance()[0][v], 1e-12)
     assert (a.get_variance()[0][v] > 0).all()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # mesh= is ported (tests/test_torch_parallel.py): what is not a mesh
+    with pytest.raises(TypeError, match="make_mesh"):
         RangeSensorGaussianProcess3D(_setting(), mesh=object(), device="cpu")
     gp = RangeSensorGaussianProcess3D(_setting(), device="cpu")
     assert gp.gps == []            # untrained, no views
