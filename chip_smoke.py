@@ -26,14 +26,17 @@ The SPGP occupancy map's path:
    (``torch.matmul`` on a precomputed kmn) as a note;
 4. the slice: the 983-pose replica-hotel-0 replay at full width (1089
    pseudo points padded to 1152, 384 rays, 2048-sample budget, float32)
-   through ``SpGpOccupancyMap`` on the card — once pose by pose through
-   ``update``, once through ``update_batch(collect_datasets=True)`` — then
-   ``predict`` with the map-quality gates (surface > 0.9 occupied,
+   through ``SpGpOccupancyMap`` on the card (one CUDA-graph replay a pose,
+   ``models/pose_graph.py``) — once pose by pose through ``update``, once
+   through ``update_batch(collect_datasets=True)`` — then ``predict`` (a
+   graph replay too) with the map-quality gates (surface > 0.9 occupied,
    trajectory > 0.95 free);
-5. the launch counts of that run: one FITC launch per pose update and at
-   least one gram launch; one more pose under ``torch.profiler``: the FITC
-   kernel's launches per pose equal its plan's (3 per call); the cached
-   predict timed as the median of 5;
+5. the launch counts of that run, counted from the graphs: the FITC
+   launches the replays ran (each graph's captured launches times its
+   replays) equal the pose updates, and the wrappers' count is those plus
+   one eager warm-up run a capture; at least one gram launch; one more
+   graphed pose under ``torch.profiler``: the FITC kernels that ran equal
+   its plan's (3 per call); the cached predict timed as the median of 5;
 6. the drift check: the collected datasets replayed through the port's
    plain float64 path, posterior drift on the fixed query grid <= 0.2;
    then more replays of each entry for the median and range of ms/pose and
@@ -154,7 +157,8 @@ deployment, scale selection, the ops):
     times before the wrappers went through the ops (PERF.md §6), each op
     against its CUDA implementation called directly (event and host ms,
     alternated), and hotel-0's first 256 poses with FITC through the op
-    and called directly (ms/pose, alternated replays).
+    and called directly (ms/pose, alternated replays; the pose is a graph
+    replay, so the dispatcher runs only at each map's capture).
 
 The mesh (``parallel/mesh.py``), ranks spawned by this script, each joined
 within a limit (a dead rank fails the phase; its traceback is printed):
@@ -174,6 +178,25 @@ within a limit (a dead rank fails the phase; its traceback is printed):
     gates; launches a gloo rank by ``torch.profiler`` (FITC a chunk, a bank
     fit a train, grams a predict); ms/pose beside phases 4 and 19, the
     all_reduce's ms an update, the time to spawn and initialise.
+
+The map's CUDA graphs (``models/pose_graph.py``):
+
+24. each against the eager functional chain (``update_batch_steps``, the
+    same kernels launched one by one) bit for bit — Q_M, alpha, both Kahan
+    terms and the samples used: hotel-0's 983 poses through ``update``
+    (phase 4's replay) and through ``update_batch``, at ``poses_per_step``
+    = 4 (phase 19's replay), the 2D map's 50 poses through ``update``; the
+    graphed predict of 2000 hotel-0 points and of the 2D map's surface,
+    with and without the gradient, against the eager predict of the same
+    prepare; the quality gates on the graphed ``update_batch`` map; one
+    graphed pose under ``torch.cuda.set_sync_debug_mode("error")``; 16
+    graphed poses under ``torch.profiler`` (FITC's kernels 3 a pose, the
+    host's CUDA API calls a pose beside the eager chain's, device ms a
+    pose); ms/pose graphed (after the capture) and eager, the device's
+    idle share, the cached predict graphed and eager; each captured
+    shape's warm-up and capture ms and pool memory; the four example
+    scripts (``erl_gaussian_process_tpu_torch/examples/``) at their smoke
+    sizes on the card, exit 0.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -450,6 +473,21 @@ def log_device_split(label, fn, reps=10):
 FITC_KERNELS = ("kmn_kernel", "beta_tc_kernel", "syrk_tc_kernel")
 
 
+def clone_state(state):
+    """A copy of a map state (the graphed map overwrites its own)."""
+    return type(state)(*(t.clone() for t in state))
+
+
+def graph_launches(maps, wrapper) -> tuple:
+    """(launches of ``wrapper``'s kernel that the maps' graph replays ran,
+    those their captures' eager warm-ups ran): each captured graph's
+    launches a replay (``models/pose_graph.py``) times its replays, and
+    once for the warm-up run before its capture."""
+    graphs = [g for m in maps for g in m._graphs.captures]
+    return (sum(g.replays * g.launches.get(wrapper, 0) for g in graphs),
+            sum(g.launches.get(wrapper, 0) for g in graphs))
+
+
 def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
               traj):
     """Phases 4-6. Returns (launch counts, timings, drift results, the
@@ -494,7 +532,9 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
     seq_used = [seq.update(sensors[i], pts[i], masks[i]) for i in range(b)]
     torch.cuda.synchronize()
     t_seq = time.perf_counter() - t0
-    seq_ref = {"state": seq.state, "n_used": torch.stack(seq_used)}
+    # a copy: the graphed map updates its state buffers in place
+    seq_ref = {"state": clone_state(seq.state),
+               "n_used": torch.stack(seq_used)}
 
     bat = new_map()
     torch.cuda.synchronize()
@@ -528,10 +568,17 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
     cached_ms = [timed(lambda: bat.predict(sel.astype(np.float32)))[1]
                  for _ in range(TIMED_RUNS)]
     counts = launch_counts()
+    from erl_gaussian_process_tpu_torch.ops import fitc_update_cuda
+
+    replayed, warm_ups = graph_launches((seq, bat), fitc_update_cuda)
     log(f"launch counts of the main-path run: {counts} "
-        f"({2 * b} pose updates)")
-    check(counts["fitc"] == 2 * b,
-          f"fitc launches {counts['fitc']} != pose updates {2 * b}")
+        f"({2 * b} pose updates; FITC: {replayed} by the graphs' replays, "
+        f"{warm_ups} by their captures' eager warm-ups)")
+    check(replayed == 2 * b,
+          f"fitc launches by the replays {replayed} != pose updates {2 * b}")
+    check(counts["fitc"] == replayed + warm_ups,
+          f"fitc launches {counts['fitc']} != {replayed} replayed + "
+          f"{warm_ups} warm-ups")
     check(counts["gram"] > 0, "gram kernel never launched by predict")
     check(int(n_used.sum()) == int(dm.sum()), "collected masks != n_used")
     # FITC's kernel launches per call (its plan) and per pose (one more pose
@@ -2095,8 +2142,13 @@ def run_map_2d(dev, card):
         f"finite {bool(torch.isfinite(grad).all())}; launch counts {counts}")
     check(occ > 0.9 and free > 0.95 and bool(torch.isfinite(grad).all()),
           f"2D map quality: surface {occ}, trajectory {free}")
-    check(counts["fitc"] == MAP2D_POSES and counts["gram"] > 0,
-          f"2D map launches {counts}")
+    from erl_gaussian_process_tpu_torch.ops import fitc_update_cuda
+
+    replayed, warm_ups = graph_launches((m,), fitc_update_cuda)
+    check(replayed == MAP2D_POSES and counts["fitc"] == replayed + warm_ups
+          and counts["gram"] > 0,
+          f"2D map launches {counts}: FITC {replayed} by the replays, "
+          f"{warm_ups} by the warm-ups")
     plan = fitc_plan(m.state.pseudo.shape[0],
                      int(setting.sp_gp.max_num_samples),
                      torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -2766,11 +2818,14 @@ def run_poses_per_step(dev, card, setting, pseudo, lo, hi, sensors, pts,
     reset_launch_counts()
     m4, n4, first4 = replay(PPS)
     counts = launch_counts()
-    pps_ref = {"state": m4.state, "n_used": n4,
+    pps_ref = {"state": clone_state(m4.state), "n_used": n4,
                "lo_grid": m4.predict(hotel0_query_grid(lo, hi))[0]}
     chunks = -(-b // PPS)
-    check(counts["fitc"] == chunks,
-          f"poses_per_step={PPS}: FITC launches {counts['fitc']} != {chunks}")
+    replayed, warm_ups = graph_launches((m4,), fitc_update_cuda)
+    check(replayed == chunks and counts["fitc"] == replayed + warm_ups,
+          f"poses_per_step={PPS}: FITC launches {counts['fitc']}, "
+          f"{replayed} by the replays != {chunks} chunks, {warm_ups} by the "
+          "warm-up")
     # the one replay that keeps its datasets (the FITC check below); the
     # timed replays run c = 1 and c = PPS under the same flags
     m1, (n1, (dx, dy, dm)), _ = replay(1, collect=True)
@@ -3793,6 +3848,310 @@ def run_mesh(dev, card, hotel0, slice_ref, pps_ref, lidar, frame2d,
     return launches, timings
 
 
+# -- phase 24: the map's CUDA graphs (models/pose_graph.py) ------------------
+
+GRAPH_PROFILE_POSES = 16   # graphed poses under torch.profiler
+GRAPH_TIMING_REPLAYS = 3   # hotel-0 replays timed, graphed and eager
+EXAMPLE_TIMEOUT_S = 300
+# the example scripts at tests/test_examples_smoke.py's sizes
+EXAMPLES = (("gp_regression", []),
+            ("occupancy_mapping_2d", ["--hinged-grid-size", "15",
+                                      "--test-grid-size", "32",
+                                      "--n-poses", "6"]),
+            ("replica_hotel_3d", ["8"]),
+            ("deploy_serving", []))
+STATE_KEYS = ("qm", "alpha", "qm_c", "alpha_c")
+
+
+def eager_chain(m, sensors, pts, masks, c=1):
+    """(state, samples used) of the eager functional chain
+    (``update_batch_steps``, every kernel launched by its wrapper) from the
+    fresh map ``m``'s state, as the class feeds it (masked points zeroed,
+    the pose axis padded with all-masked poses to a multiple of c)."""
+    from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
+        update_batch_steps,
+    )
+
+    b = len(sensors)
+    pad = -b % c
+    p = np.where(masks[..., None], pts, 0).astype(np.float32)
+    sp, mk = sensors, masks
+    if pad:
+        sp = np.concatenate([sp, np.zeros((pad,) + sp.shape[1:], sp.dtype)])
+        p = np.concatenate([p, np.zeros((pad,) + p.shape[1:], p.dtype)])
+        mk = np.concatenate([mk, np.zeros((pad,) + mk.shape[1:], bool)])
+    st, used = update_batch_steps(
+        m.state, m.seed, 1, m._tensor(sp), m._tensor(p),
+        torch.as_tensor(mk, device=m.device), m._aabb_min, m._aabb_max,
+        m.sp_gp._scale, generator=torch.Generator(device=m.device),
+        poses_per_step=c, **m._step_kw())
+    return st, used[:b]
+
+
+def same_state(a, b) -> bool:
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in STATE_KEYS)
+
+
+def eager_predict(m, xq, with_grad):
+    """The map's predict without its graph: the eager
+    ``predict_prepared_step`` on the same cached prepare."""
+    from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
+        predict_prepared_step,
+    )
+
+    mean, grad = predict_prepared_step(
+        m.state, *m.sp_gp._prepared(), m._tensor(xq), m.sp_gp._scale,
+        kernel=m.sp_gp._kernel, with_grad=with_grad,
+        zero_threshold=m.sp_gp._zero_threshold)
+    return mean[:, 0], None if grad is None else grad[:, :, 0]
+
+
+def api_calls(fn) -> tuple:
+    """({CUDA runtime/driver API call: count}, {kernel: (count, device
+    ms)}) of one ``fn()`` by ``torch.profiler`` (host and device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = {e.key: e.count for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.key.startswith("cu")
+            and e.key not in ("cudaDeviceSynchronize",
+                              "cudaStreamSynchronize")}
+    dev = {e.key: (e.count, e.self_device_time_total / 1e3) for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    return host, dev
+
+
+def run_examples() -> dict:
+    """The four example scripts on the card at their smoke sizes, started
+    together, each a process of its own; any non-zero exit fails."""
+    procs = {}
+    for name, argv in EXAMPLES:
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m",
+             f"erl_gaussian_process_tpu_torch.examples.{name}", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        for name, proc in procs.items():
+            left = max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0))
+            stdout, stderr = proc.communicate(timeout=left)
+            out[name] = {"rc": proc.returncode,
+                         "s": time.perf_counter() - t0,
+                         "last": stdout.strip().splitlines()[-1:]}
+            log(f"example {name} on the card: exit {proc.returncode}; "
+                + " | ".join(stdout.strip().splitlines()))
+            check(proc.returncode == 0,
+                  f"example {name} failed:\n{stderr[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def run_graphs(dev, card, hotel0, slice_ref, pps_ref, ref_ms):
+    """Phase 24: the map's CUDA graphs against the eager functional chain,
+    bit for bit (hotel-0 through ``update`` (``slice_ref``, phase 4) and
+    ``update_batch``, at ``poses_per_step`` = PPS (``pps_ref``, phase 19),
+    the 2D map), the graphed predicts against the eager ones, a graphed
+    pose with the sync debug mode at "error", the profiler's counts, times
+    and capture costs, the examples on the card. ``ref_ms``: phase 4's
+    and 19's ms/pose, for the log. Returns the timings."""
+    from erl_gaussian_process_tpu_torch.geometry import Aabb
+    from erl_gaussian_process_tpu_torch.geometry.simulators import (
+        reference_space_2d,
+    )
+    from erl_gaussian_process_tpu_torch.models import SpGpOccupancyMap
+    from erl_gaussian_process_tpu_torch.ops import (
+        cross_gram_cuda,
+        fitc_update_cuda,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import FREE_SLOTS_PER_RAY
+
+    h = hotel0
+    sensors, pts, masks = h["sensors"], h["pts"], h["masks"]
+    b = len(sensors)
+    box = Aabb.from_min_max(h["lo"], h["hi"])
+
+    def new_map():
+        return SpGpOccupancyMap(h["setting"], h["pseudo"], box, seed=0,
+                                dtype=torch.float32,
+                                free_slots_per_ray=FREE_SLOTS_PER_RAY,
+                                device=dev)
+
+    # hotel-0 at c = 1: the eager chain against phase 4's graphed `update`
+    # replay and a graphed `update_batch` (the counted run of this phase)
+    st1, used1 = eager_chain(new_map(), sensors, pts, masks)
+    reset_launch_counts()
+    mb = new_map()
+    used_b = mb.update_batch(sensors, pts, masks)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    replayed, warm_ups = graph_launches((mb,), fitc_update_cuda)
+    same_update = same_state(st1, slice_ref["state"]) and bool(
+        torch.equal(used1, slice_ref["n_used"]))
+    same_batch = same_state(st1, mb.state) and bool(torch.equal(used1,
+                                                                used_b))
+    log(f"graphs vs the eager chain, hotel-0 {b} poses: update (phase 4) "
+        f"bit for bit {same_update}, update_batch bit for bit {same_batch} "
+        f"(launches {counts}; FITC {replayed} by {len(mb._graphs.captures)} "
+        f"graph(s), {warm_ups} by the warm-up)")
+    check(same_update, "graphed update differs from the eager chain")
+    check(same_batch, "graphed update_batch differs from the eager chain")
+    check(replayed == b and counts["fitc"] == replayed + warm_ups,
+          f"graphed update_batch launches {counts}")
+
+    # poses_per_step = PPS: the eager chain against phase 19's graphed replay
+    st4, used4 = eager_chain(new_map(), sensors, pts, masks, PPS)
+    m4 = new_map()
+    used_4 = m4.update_batch(sensors, pts, masks, poses_per_step=PPS)
+    same4 = all(same_state(st4, st) and bool(torch.equal(used4, n))
+                for st, n in ((pps_ref["state"], pps_ref["n_used"]),
+                              (m4.state, used_4)))
+    log(f"graphs vs the eager chain, hotel-0 at poses_per_step={PPS} "
+        f"(phase 19's replay and a fresh one): bit for bit {same4}")
+    check(same4, f"graphed poses_per_step={PPS} differs from the eager chain")
+
+    # the predicts, graphed against eager on the same prepare
+    sel, traj = h["sel"], h["traj"]
+    for grad in (False, True):
+        got, ref = mb.predict(sel, grad), eager_predict(mb, sel, grad)
+        ok = all((x is None and y is None) or bool(torch.equal(x, y))
+                 for x, y in zip(got, ref))
+        log(f"graphed predict of {len(sel)} hotel-0 points, gradient {grad}:"
+            f" bit for bit the eager predict {ok}")
+        check(ok, f"graphed predict (gradient {grad}) differs from eager")
+    surf = float((mb.predict(sel)[0] > 0).float().mean())
+    free = float((mb.predict(traj)[0] < 0).float().mean())
+    check(surf > 0.9 and free > 0.95,
+          f"graphed update_batch quality: surface {surf}, trajectory {free}")
+
+    # the 2D map's 50 poses and its gradient predict
+    s2, p2, m2k = map2d_scans(MAP2D_POSES)
+    box2 = Aabb.from_min_max([-3.0, -3.0], [3.0, 3.0])
+
+    def new_map2d():
+        return SpGpOccupancyMap(map2d_setting(), map2d_pseudo(), box2,
+                                seed=0, dtype=torch.float32,
+                                free_slots_per_ray=MAP2D_FREE_SLOTS,
+                                device=dev)
+
+    st2, used2 = eager_chain(new_map2d(), s2, p2, m2k)
+    m2 = new_map2d()
+    used_2 = torch.stack([m2.update(s2[i], p2[i], m2k[i])
+                          for i in range(MAP2D_POSES)])
+    same2 = same_state(st2, m2.state) and bool(torch.equal(used2, used_2))
+    surf2d = reference_space_2d().surface_points(0.05).astype(np.float32)
+    pred2 = all(
+        (x is None and y is None) or bool(torch.equal(x, y))
+        for grad in (False, True)
+        for x, y in zip(m2.predict(surf2d, grad),
+                        eager_predict(m2, surf2d, grad)))
+    log(f"graphs vs the eager chain, 2D map {MAP2D_POSES} poses: bit for "
+        f"bit {same2}; predict of {len(surf2d)} points with and without "
+        f"the gradient bit for bit {pred2}")
+    check(same2 and pred2, "graphed 2D map differs from the eager chain")
+
+    # one graphed pose may not synchronise with the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mb.update(sensors[0], pts[0], masks[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("one graphed pose under torch.cuda.set_sync_debug_mode('error'): no "
+        "synchronising call")
+
+    # the profiler over GRAPH_PROFILE_POSES poses, graphed and eager
+    k = GRAPH_PROFILE_POSES
+    pm = new_map()
+    pm.update(sensors[0], pts[0], masks[0])          # the capture
+    host_g, dev_g = api_calls(lambda: [pm.update(sensors[i], pts[i],
+                                                 masks[i])
+                                       for i in range(1, 1 + k)])
+    em = new_map()
+    host_e, dev_e = api_calls(lambda: eager_chain(
+        em, sensors[1:1 + k], pts[1:1 + k], masks[1:1 + k]))
+    fitc_g = sum(c for name, (c, _) in dev_g.items()
+                 if any(f in name for f in FITC_KERNELS))
+    dev_ms = sum(ms for _, ms in dev_g.values()) / k
+    log(f"{k} graphed poses by torch.profiler: FITC kernels {fitc_g} "
+        f"({fitc_g / k:g} a pose), {sum(c for c, _ in dev_g.values()) / k:g}"
+        f" kernels a pose, device {dev_ms:.4f} ms a pose; host CUDA API "
+        f"calls a pose {sum(host_g.values()) / k:g} ({host_g}) against the "
+        f"eager chain's {sum(host_e.values()) / k:g} "
+        f"({sum(c for c, _ in dev_e.values()) / k:g} kernels a pose)")
+    check(fitc_g == 3 * k, f"graphed poses ran {fitc_g} FITC kernels, not "
+          f"{3 * k}")
+    check(host_g.get("cudaGraphLaunch", 0) == k,
+          f"{k} graphed poses made {host_g.get('cudaGraphLaunch', 0)} graph "
+          "launches")
+
+    # ms/pose: graphed after the capture, and the eager chain, alternated
+    graphed_ms, eager_ms = [], []
+    for _ in range(GRAPH_TIMING_REPLAYS):
+        m = new_map()
+        m.update(sensors[0], pts[0], masks[0])
+        _, ms = timed(lambda: [m.update(sensors[i], pts[i], masks[i])
+                               for i in range(1, b)])
+        graphed_ms.append(ms / (b - 1))
+        em = new_map()
+        _, ms = timed(lambda: eager_chain(em, sensors, pts, masks))
+        eager_ms.append(ms / b)
+    idle = 1.0 - dev_ms / statistics.median(graphed_ms)
+    predict_g = [timed(lambda: mb.predict(sel))[1] for _ in range(TIMED_RUNS)]
+    predict_e = [timed(lambda: eager_predict(mb, sel, False))[1]
+                 for _ in range(TIMED_RUNS)]
+    timings = {
+        "graphed_ms_per_pose": statistics.median(graphed_ms),
+        "graphed_ms_per_pose_range": [min(graphed_ms), max(graphed_ms)],
+        "eager_chain_ms_per_pose": statistics.median(eager_ms),
+        "eager_chain_ms_per_pose_range": [min(eager_ms), max(eager_ms)],
+        "device_ms_per_pose": dev_ms, "device_idle_share": idle,
+        "host_api_calls_per_pose": sum(host_g.values()) / k,
+        "host_api_submissions_per_pose": sum(
+            n for name, n in host_g.items()
+            if name != "cudaStreamIsCapturing") / k,
+        "eager_host_api_calls_per_pose": sum(host_e.values()) / k,
+        "predict_graphed_ms": statistics.median(predict_g),
+        "predict_eager_ms": statistics.median(predict_e)}
+    log(f"hotel-0 on {card}: graphed {timings['graphed_ms_per_pose']:.4f} "
+        f"ms/pose after the capture (median of {GRAPH_TIMING_REPLAYS}, "
+        f"range {min(graphed_ms):.4f}-{max(graphed_ms):.4f}; phase 4, "
+        f"capture included: {ref_ms['update']:.4f}; phase 19 at c = {PPS}:"
+        f" {ref_ms['pps']:.4f}), the eager chain "
+        f"{timings['eager_chain_ms_per_pose']:.4f} (range "
+        f"{min(eager_ms):.4f}-{max(eager_ms):.4f}); device idle "
+        f"{100 * idle:.1f}%; cached predict of {len(sel)} points graphed "
+        f"{timings['predict_graphed_ms']:.4f} ms, eager "
+        f"{timings['predict_eager_ms']:.4f} ms (medians of {TIMED_RUNS})")
+    captures = [{"key": g.key[:3], "warmup_ms": g.warmup_ms,
+                 "capture_ms": g.capture_ms, "pool_mb": g.pool_bytes / 2**20,
+                 "launches": {w.__name__: n for w, n in g.launches.items()},
+                 "replays": g.replays}
+                for m in (mb, m4, m2) for g in m._graphs.captures]
+    for c in captures:
+        log(f"graph {c['key']}: warm-up {c['warmup_ms']:.2f} ms, capture "
+            f"{c['capture_ms']:.2f} ms, pool {c['pool_mb']:.1f} MiB, "
+            f"launches a replay {c['launches']}, replays {c['replays']}")
+    timings["captures"] = captures
+    check(cross_gram_cuda.launches > 0, "no gram launch in phase 24")
+    timings["examples"] = run_examples()
+    return timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -3926,6 +4285,11 @@ def main() -> int:
         {"update": timings["update_ms_per_pose"],
          "pps": pps_timings["pps_ms_per_pose"]})
     log(json.dumps({"mesh_timings": mesh_timings, "card": card}))
+    graph_timings = run_graphs(
+        dev, card, hotel0, slice_ref, pps_ref,
+        {"update": timings["update_ms_per_pose"],
+         "pps": pps_timings["pps_ms_per_pose"]})
+    log(json.dumps({"graph_timings": graph_timings, "card": card}))
 
     # FITC's bound at its timed shape, M=1152, N=2048, d=3 (fitc_bound();
     # the bank kernels' are computed in check_bank_kernels, the gram's in

@@ -53,18 +53,28 @@ def use_full_fp32_matmul() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-def kahan_add(s: torch.Tensor, c: torch.Tensor, d: torch.Tensor):
+def kahan_add(s: torch.Tensor, c: torch.Tensor, d: torch.Tensor, out=None):
     """One compensated (Kahan) accumulation step: returns ``(s', c')`` with
     the running sum recoverable as ``s' - c'`` to ~2 ulp of the term
     magnitudes, independent of how many terms have been accumulated.
+
+    ``out``: a pair of tensors (which may be ``s`` and ``c`` themselves)
+    that receive ``(s', c')``, computed by the same operations in the same
+    order, so bit for bit the new tensors' values (the CUDA graphs of
+    ``models/pose_graph.py`` update the state in place this way).
 
     Eager PyTorch evaluates the four operations as written, so the
     cancellation survives; do not ``torch.compile`` this function, whose
     algebraic simplification could reassociate ``(t - s) - y`` to zero."""
     y = d - c
     t = s + y
-    c_new = (t - s) - y
-    return t, c_new
+    if out is None:
+        return t, (t - s) - y
+    s_out, c_out = out
+    torch.sub(t, s, out=c_out)       # c is no longer read: y holds d - c
+    c_out.sub_(y)
+    s_out.copy_(t)
+    return s_out, c_out
 
 
 def cholesky_nan(K: torch.Tensor) -> torch.Tensor:

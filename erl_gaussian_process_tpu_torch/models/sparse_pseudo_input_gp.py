@@ -132,7 +132,7 @@ def spgp_init(pseudo: torch.Tensor, scale, *, kernel: str,
 
 def spgp_update(state: SpGpState, x, y, var, mask, scale, *, kernel: str,
                 diagonal_qm: bool = False, zero_threshold: float = 0.0,
-                reduce=None) -> SpGpState:
+                reduce=None, out: Optional[SpGpState] = None) -> SpGpState:
     """Rank-N FITC update with fixed-shape masking: masked-out columns
     contribute nothing. x (n, d); y (n, q); var/mask (n,).
 
@@ -140,7 +140,10 @@ def spgp_update(state: SpGpState, x, y, var, mask, scale, *, kernel: str,
     CUDA, plain version on the CPU); ``diagonal_qm`` or ``zero_threshold``
     > 0 (the reference's UpdateSparse math as a masked dense chain) run
     :func:`fitc_delta`. ``reduce``, when given, maps each increment before
-    the Kahan add (the mesh's sum over ranks, ``parallel/mesh.py``)."""
+    the Kahan add (the mesh's sum over ranks, ``parallel/mesh.py``).
+    ``out``, when given (it may be ``state``), receives the new ``qm``,
+    ``alpha``, ``qm_c`` and ``alpha_c`` in its tensors, bit for bit the
+    values of a new state (``gp_core.kahan_add``), and is returned."""
     if not diagonal_qm and zero_threshold == 0.0:
         dq, da = fitc_update_cuda(kernel, state.pseudo, state.L_inv, x, y,
                                   var, mask, scale)
@@ -151,8 +154,13 @@ def spgp_update(state: SpGpState, x, y, var, mask, scale, *, kernel: str,
                             zero_threshold=zero_threshold, L_inv=l_inv)
     if reduce is not None:
         dq, da = reduce(dq), reduce(da)
-    qm, qm_c = kahan_add(state.qm, state.qm_c, dq)
-    alpha, alpha_c = kahan_add(state.alpha, state.alpha_c, da)
+    qm, qm_c = kahan_add(state.qm, state.qm_c, dq,
+                         out=None if out is None else (out.qm, out.qm_c))
+    alpha, alpha_c = kahan_add(
+        state.alpha, state.alpha_c, da,
+        out=None if out is None else (out.alpha, out.alpha_c))
+    if out is not None:
+        return out
     return state._replace(qm=qm, alpha=alpha, qm_c=qm_c, alpha_c=alpha_c)
 
 

@@ -7,6 +7,14 @@ with log-odds, caps it at ``max_num_samples``, compacts the actives into a
 CUDA). ``sample_pose``/``update_step`` are the functional core; the class
 wraps them with the reference's API.
 
+On a CUDA device (without ``mesh=``) the class runs the JAX package's
+design, one dispatch a pose: each chunk of ``poses_per_step`` poses and
+each prepared predict is one replay of a CUDA graph captured over static
+state buffers (``models/pose_graph.py``), and ``sp_gp.state`` is those
+buffers, updated in place. The functional steps below stay eager: they are
+the reference the graphs are held to. The tiered prepare stays eager too
+(its tiers are host decisions), and so do the CPU map and the mesh.
+
 Randomness: the JAX package draws each pose's free-sample positions from
 ``fold_in(key, step)``. PyTorch cannot reproduce those bits, so here each
 pose draws from a ``torch.Generator`` on the map's device, seeded from
@@ -37,12 +45,14 @@ from erl_gaussian_process_tpu_torch.geometry.occupancy_dataset import (
     generate_dataset_np,
 )
 from erl_gaussian_process_tpu_torch.models.gp_core import DEFAULT_DEVICE
+from erl_gaussian_process_tpu_torch.models.pose_graph import PoseGraphs
 from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     SparsePseudoInputGaussianProcess,
     SpGpSetting,
     SpGpState,
     numpy_dtype,
     spgp_predict,
+    spgp_prepare,
     spgp_update,
 )
 from erl_gaussian_process_tpu_torch.parallel.mesh import (
@@ -211,6 +221,18 @@ def update_batch_steps(state: SpGpState, seed: int, step0: int,
     return state, n_used
 
 
+def predict_step(state: SpGpState, xq, scale, *, kernel, diagonal_qm,
+                 with_grad, zero_threshold: float = 0.0):
+    """Prepare fused with predict for one-shot queries: (mean (m, q),
+    grad (m, d, q) | None) of a state whose prepare is not cached. Repeated
+    queries on an unchanged map go through the class's cached prepare
+    (:func:`predict_prepared_step`) instead."""
+    L_qm, a = spgp_prepare(state, diagonal_qm=diagonal_qm)
+    return predict_prepared_step(state, L_qm, a, xq, scale, kernel=kernel,
+                                 with_grad=with_grad,
+                                 zero_threshold=zero_threshold)
+
+
 def predict_prepared_step(state: SpGpState, L_qm, alpha_solved, xq, scale, *,
                           kernel, with_grad, zero_threshold: float = 0.0):
     """Queries against a prepared posterior (``(L_qm, alpha_solved)`` of
@@ -237,7 +259,13 @@ class SpGpOccupancyMap:
         the mesh's device, every rank makes the same calls, ``update`` and
         ``update_batch`` shard the FITC update's samples over the ranks and
         ``predict`` without a gradient shards the queries
-        (``parallel/mesh.py``)."""
+        (``parallel/mesh.py``).
+
+        On a CUDA device without a mesh, updates and predicts replay CUDA
+        graphs (``models/pose_graph.py``): ``state`` is the graphs' static
+        buffers, overwritten in place by every update, so a state held from
+        before an update is not a snapshot (copy it, or use
+        ``state_dict``)."""
         self.setting = setting or SpGpOccupancyMapSetting()
         self.device = model_device(mesh, device)
         self.mesh = mesh
@@ -253,6 +281,8 @@ class SpGpOccupancyMap:
                 1, int(np.ceil(s.free_points_per_meter * s.max_distance)))
         self.free_slots = int(free_slots_per_ray)
         self._generator = torch.Generator(device=self.device)
+        self._graphs = PoseGraphs(self.device) \
+            if self.device.type == "cuda" and mesh is None else None
         self._set_boundary(map_boundary)
         self._online_buf: list = []
 
@@ -288,6 +318,37 @@ class SpGpOccupancyMap:
             logodd_occupied=s.logodd_occupied, logodd_free=s.logodd_free,
             logodd_variance=s.logodd_variance,
             zero_threshold=self.sp_gp._zero_threshold)
+
+    def _bind(self) -> None:
+        """Point the state and the box at the graphs' static buffers,
+        copying whatever was put in their place (``load_state_dict``)."""
+        self.sp_gp.state, self._aabb_min, self._aabb_max = self._graphs.bind(
+            self.sp_gp.state, self._aabb_min, self._aabb_max)
+
+    def _update_graphed(self, sp, p, masks, c: int, collect: bool):
+        """``update_batch_steps`` as one graph replay a chunk of c poses
+        (B a multiple of c). Returns (n_used (B,), the stacked datasets or
+        None)."""
+        if collect and c != 1:
+            raise ValueError("collect_datasets requires poses_per_step == 1")
+        self._bind()
+        b = sp.shape[0]
+        kw = self._step_kw()
+        n_used = torch.empty(b, dtype=torch.int64, device=self.device)
+        data = None
+        for lo in range(0, b, c):
+            used, ds = self._graphs.update_chunk(
+                sp[lo:lo + c], p[lo:lo + c], masks[lo:lo + c],
+                [step_seed(self.seed, self.step + 1 + i)
+                 for i in range(lo, lo + c)],
+                self.sp_gp._scale, collect_datasets=collect, **kw)
+            n_used[lo:lo + c].copy_(used)
+            if collect:
+                if data is None:
+                    data = tuple(t.new_empty((b, *t.shape)) for t in ds)
+                for out, t in zip(data, ds):
+                    out[lo].copy_(t)
+        return n_used, data
 
     def _commit(self, state: SpGpState, poses: int) -> None:
         self.sp_gp.state = state
@@ -370,13 +431,20 @@ class SpGpOccupancyMap:
             p = np.concatenate([p, np.zeros((pad,) + p.shape[1:], p.dtype)])
             point_masks = np.concatenate(
                 [point_masks, np.zeros((pad,) + point_masks.shape[1:], bool)])
-        out = update_batch_steps(
-            self.sp_gp.state, self.seed, self.step + 1, self._tensor(sp),
-            self._tensor(np.where(point_masks[..., None], p, 0.0)),
-            torch.as_tensor(point_masks, device=self.device), self._aabb_min,
-            self._aabb_max, self.sp_gp._scale, generator=self._generator,
-            poses_per_step=poses_per_step, collect_datasets=collect_datasets,
-            mesh=self.mesh, **self._step_kw())
+        p = np.where(point_masks[..., None], p, p.dtype.type(0))
+        if self._graphs is not None:
+            n_used, data = self._update_graphed(
+                sp, p, point_masks, int(poses_per_step), collect_datasets)
+            out = (self.sp_gp.state, n_used, data)
+        else:
+            out = update_batch_steps(
+                self.sp_gp.state, self.seed, self.step + 1, self._tensor(sp),
+                self._tensor(p),
+                torch.as_tensor(point_masks, device=self.device),
+                self._aabb_min, self._aabb_max, self.sp_gp._scale,
+                generator=self._generator, poses_per_step=poses_per_step,
+                collect_datasets=collect_datasets, mesh=self.mesh,
+                **self._step_kw())
         self._commit(out[0], b)
         return (out[1], out[2]) if collect_datasets else out[1][:b]
 
@@ -385,6 +453,14 @@ class SpGpOccupancyMap:
         (reference Predict). With a mesh, a predict without a gradient
         shards the queries over the ranks."""
         self.flush_online()
+        if self._graphs is not None:
+            self._bind()
+            mean, grad = self._graphs.predict(
+                self.sp_gp._prepared(), self._points(points),
+                self.sp_gp._scale, kernel=self.sp_gp._kernel,
+                with_grad=compute_gradient,
+                zero_threshold=self.sp_gp._zero_threshold)
+            return mean[:, 0], None if grad is None else grad[:, :, 0]
         L_qm, a = self.sp_gp._prepared()
         xq = self._tensor(self._points(points))
         if self.mesh is not None and not compute_gradient:
@@ -438,6 +514,8 @@ class SpGpOccupancyMap:
         self.seed = int(d["seed"])
         self.step = int(d.get("step", 0))
         self._online_buf = []
+        if self._graphs is not None:
+            self._bind()
 
     def save(self, path):
         save_pytree(path, self.state_dict())

@@ -20,7 +20,7 @@ import math
 import torch
 
 from erl_gaussian_process_tpu_torch.ops._build import load_library
-from erl_gaussian_process_tpu_torch.ops._library import define
+from erl_gaussian_process_tpu_torch.ops._library import define, note_launch
 from erl_gaussian_process_tpu_torch.ops.gram import (
     _plain_spec,
     check_cuda_operands,
@@ -114,13 +114,15 @@ def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):
     mask: (n,) bool. Any M and n. The op ``egp::fitc_update``: CPU tensors
     take :func:`fitc_update_plain`; CUDA tensors launch ``csrc/fitc.cu``,
     the :data:`LAUNCHES` kernels of :func:`fitc_plan`'s grid (one call
-    counted in ``fitc_update_cuda.launches``), or raise."""
+    counted in ``fitc_update_cuda.launches``, or in ``.captured`` under
+    CUDA-graph capture: ``ops/_library.note_launch``), or raise."""
     check_devices("fitc_update_cuda", pseudo, linv, x, y, var)
     return torch.ops.egp.fitc_update(pseudo, linv, x, y, var, mask,
                                      *family_spec(name), float(scale))
 
 
 fitc_update_cuda.launches = 0
+fitc_update_cuda.captured = 0
 
 
 def _fitc_cuda(pseudo, linv, x, y, var, mask, base, ratios, weights, scale):
@@ -170,7 +172,7 @@ def _fitc_cuda(pseudo, linv, x, y, var, mask, base, ratios, weights, scale):
               plan.splits, plan.chunk, fam, ncomp, coefs, weights, dev.index,
               stream)
     kl.check(code, "FITC kernel launch")
-    fitc_update_cuda.launches += 1
+    note_launch(fitc_update_cuda)
     return dq, da
 
 

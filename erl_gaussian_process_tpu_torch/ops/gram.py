@@ -35,7 +35,7 @@ import torch
 
 from erl_gaussian_process_tpu_torch.kernels.base import mixture_params
 from erl_gaussian_process_tpu_torch.ops._build import double_array, load_library
-from erl_gaussian_process_tpu_torch.ops._library import define
+from erl_gaussian_process_tpu_torch.ops._library import define, note_launch
 
 FAMILY_IDS = {"rbf": 0, "ou": 1, "matern32": 2}
 MAX_COMPONENTS = 8  # csrc/family.cuh kMaxComponents
@@ -198,13 +198,15 @@ def cross_gram_cuda(name: str, x1: torch.Tensor, x2: torch.Tensor,
 
     The op ``egp::cross_gram``: CPU tensors take :func:`cross_gram_plain`;
     CUDA tensors launch ``csrc/gram.cuh`` (counted in
-    ``cross_gram_cuda.launches``) or raise."""
+    ``cross_gram_cuda.launches``, or in ``.captured`` under CUDA-graph
+    capture: ``ops/_library.note_launch``) or raise."""
     check_devices("cross_gram_cuda", x1, x2)
     return torch.ops.egp.cross_gram(x1, x2, mask1, *family_spec(name),
                                     float(scale))
 
 
 cross_gram_cuda.launches = 0
+cross_gram_cuda.captured = 0
 
 
 def cross_gram_batched_cuda(name: str, x1: torch.Tensor, x2: torch.Tensor,
@@ -222,6 +224,7 @@ def cross_gram_batched_cuda(name: str, x1: torch.Tensor, x2: torch.Tensor,
 
 
 cross_gram_batched_cuda.launches = 0
+cross_gram_batched_cuda.captured = 0
 
 
 def _gram_cuda(x1, x2, mask1, base, ratios, weights, scale):
@@ -236,7 +239,7 @@ def _gram_cuda(x1, x2, mask1, base, ratios, weights, scale):
         raise ValueError(f"cross_gram_cuda: empty operand, m={m} n={n} d={d}")
     out = _launch_gram((base, tuple(ratios), tuple(weights)), x1, x2, mask1,
                        scale, 1, m, n, d)[0]
-    cross_gram_cuda.launches += 1
+    note_launch(cross_gram_cuda)
     return out
 
 
@@ -255,7 +258,7 @@ def _gram_batched_cuda(x1, x2, mask1, base, ratios, weights, scale):
                          f"m={m} n={n} d={d}")
     out = _launch_gram((base, tuple(ratios), tuple(weights)), x1, x2, mask1,
                        scale, b, m, n, d)
-    cross_gram_batched_cuda.launches += 1
+    note_launch(cross_gram_batched_cuda)
     return out
 
 

@@ -337,9 +337,11 @@ def test_wrappers_raise_on_operands_the_kernels_do_not_take(cuda):
 
 
 def test_map_on_the_card_batch_equals_sequential(cuda):
-    """A small float32 map on the card: every update launches the FITC
-    kernel once, the batch replay equals the pose-by-pose updates bit for
-    bit, and predict launches the gram kernel."""
+    """A small float32 map on the card: every update runs the FITC kernel
+    once (a graph replay; the wrappers' count adds one eager warm-up run
+    a captured graph, models/pose_graph.py), the batch replay equals the
+    pose-by-pose updates bit for bit, and predict launches the gram
+    kernel."""
     setting = SpGpOccupancyMapSetting(
         sp_gp=SpGpSetting(kernel_type="matern32",
                           kernel=KernelSetting(x_dim=3, scale=0.5),
@@ -369,11 +371,156 @@ def test_map_on_the_card_batch_equals_sequential(cuda):
     bat.update_batch(sensors, pts)
     lo, _ = bat.predict(np.zeros((5, 3)))
     after = launch_counts()
-    assert after["fitc"] - before["fitc"] == 2 * b
+    graphs = [g for m in (seq, bat) for g in m._graphs.captures
+              if g.key[0] == "update"]
+    assert sum(g.replays * g.launches[fitc_update_cuda] for g in graphs) \
+        == 2 * b
+    assert after["fitc"] - before["fitc"] == 2 * b + len(graphs)
     assert after["gram"] > before["gram"]
     for x, y in zip(seq.state, bat.state):
         assert torch.equal(x, y)
     assert lo.is_cuda and bool((lo < 0).all())
+
+
+def _graph_map_case(cuda, dtype, b=6, rays=150):
+    setting = SpGpOccupancyMapSetting(
+        sp_gp=SpGpSetting(kernel_type="matern32",
+                          kernel=KernelSetting(x_dim=3, scale=0.5),
+                          max_num_samples=512),
+        min_distance=0.05, max_distance=10.0, free_points_per_meter=2.0,
+        free_sampling_margin=0.02, logodd_free=-1.0, logodd_occupied=1.0,
+        logodd_variance=1e-4)
+    c = np.linspace(-2, 2, 6)
+    pseudo = np.stack([a.ravel() for a in np.meshgrid(c, c, c,
+                                                      indexing="ij")])
+    rng = np.random.default_rng(1)
+    sensors = rng.uniform(-0.3, 0.3, (b, 3))
+    d = rng.normal(size=(b, rays, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pts = sensors[:, None, :] + rng.uniform(1.2, 1.8, (b, rays, 1)) * d
+    masks = rng.uniform(size=(b, rays)) < 0.9
+
+    def make(seed=3):
+        return SpGpOccupancyMap(setting, pseudo, Aabb.from_min_max(
+            [-2] * 3, [2] * 3), seed=seed, dtype=dtype,
+            free_slots_per_ray=4, device=cuda)
+
+    return make, sensors.astype(dtype), pts.astype(dtype), masks
+
+
+def _eager_chain(m, sensors, pts, masks, c=1):
+    from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
+        update_batch_steps,
+    )
+
+    b = len(sensors)
+    pad = -b % c
+    p = np.where(masks[..., None], pts, 0)
+    sp, mk = sensors, masks
+    if pad:
+        sp = np.concatenate([sp, np.zeros((pad, 3), sp.dtype)])
+        p = np.concatenate([p, np.zeros((pad,) + p.shape[1:], p.dtype)])
+        mk = np.concatenate([mk, np.zeros((pad, mk.shape[1]), bool)])
+    st, used = update_batch_steps(
+        m.state, m.seed, 1, m._tensor(sp), m._tensor(p),
+        torch.as_tensor(mk, device=m.device), m._aabb_min, m._aabb_max,
+        m.sp_gp._scale, generator=torch.Generator(device=m.device),
+        poses_per_step=c, **m._step_kw())
+    return st, used[:b]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("c", [1, 4])
+def test_map_graphs_equal_the_eager_chain(cuda, dtype, c):
+    """The map's CUDA graphs against the eager functional chain
+    (update_batch_steps, the same kernels launched one by one), bit for
+    bit: pose by pose through update, the batch through update_batch at
+    poses_per_step c (6 poses pad to 8 at c = 4), the samples used; the
+    graphed predict, with and without the gradient, against the eager
+    predict of the same prepare; the state is the graphs' buffers."""
+    from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
+        predict_prepared_step,
+    )
+
+    make, sensors, pts, masks = _graph_map_case(cuda, dtype)
+    ref, ref_used = _eager_chain(make(), sensors, pts, masks, c)
+    bat = make()
+    used = bat.update_batch(sensors, pts, masks, poses_per_step=c)
+    assert bat.state.qm is bat._graphs.state.qm
+    assert torch.equal(used, ref_used)
+    for name in ("qm", "alpha", "qm_c", "alpha_c"):
+        assert torch.equal(getattr(bat.state, name), getattr(ref, name))
+    if c == 1:
+        seq = make()
+        seq_used = torch.stack([seq.update(sensors[i], pts[i], masks[i])
+                                for i in range(len(sensors))])
+        assert torch.equal(seq_used, ref_used)
+        for x, y in zip(seq.state, bat.state):
+            assert torch.equal(x, y)
+    q = np.random.default_rng(2).uniform(-1.5, 1.5, (77, 3)).astype(dtype)
+    for grad in (False, True):
+        got = bat.predict(q, grad)
+        mean, g = predict_prepared_step(
+            bat.state, *bat.sp_gp._prepared(), bat._tensor(q),
+            bat.sp_gp._scale, kernel=bat.sp_gp._kernel, with_grad=grad)
+        assert torch.equal(got[0], mean[:, 0])
+        assert (got[1] is None) == (not grad)
+        if grad:
+            assert torch.equal(got[1], g[:, :, 0])
+
+
+def test_graphed_pose_makes_no_synchronising_call(cuda):
+    """Once its graph is captured, an update is host work, input copies
+    and one replay: nothing waits for the card."""
+    make, sensors, pts, masks = _graph_map_case(cuda, np.float32)
+    m = make()
+    m.update(sensors[0], pts[0], masks[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(1, 3):
+            m.update(sensors[i], pts[i], masks[i])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert m.step == 3
+
+
+def test_graph_replays_run_the_fitc_kernels(cuda):
+    """A graphed pose runs FITC's 3 kernels (torch.profiler) and adds the
+    graph's captured launches to the count: one FITC call a replay."""
+    make, sensors, pts, masks = _graph_map_case(cuda, np.float32)
+    m = make()
+    m.update(sensors[0], pts[0], masks[0])
+    before = launch_counts()["fitc"]
+    kernels = _device_kernels(lambda: [m.update(sensors[i], pts[i],
+                                                masks[i])
+                                       for i in range(1, 4)])
+    fitc = sum(n for k, n in kernels.items()
+               if any(f in k for f in ("kmn_kernel", "beta_tc_kernel",
+                                       "syrk_tc_kernel")))
+    assert fitc == 3 * 3, kernels
+    assert launch_counts()["fitc"] - before == 3
+
+
+def test_graphed_map_checkpoint_continues_bitwise(cuda):
+    """A checkpoint loaded into a graphed map is copied into its buffers
+    and the map continues bit for bit like the one it came from; the
+    graphs it had captured stay (same shapes)."""
+    make, sensors, pts, masks = _graph_map_case(cuda, np.float32)
+    a = make()
+    a.update_batch(sensors[:3], pts[:3], masks[:3])
+    b = make(seed=9)
+    b.update(sensors[0], pts[0], masks[0])
+    captured = len(b._graphs.captures)
+    buffers = tuple(b._graphs.state)
+    b.load_state_dict(a.state_dict())
+    assert all(x is y for x, y in zip(b.state, buffers))
+    for m in (a, b):
+        m.update_batch(sensors[3:], pts[3:], masks[3:])
+    for x, y in zip(a.state, b.state):
+        assert torch.equal(x, y)
+    assert len(b._graphs.captures) == captured
 
 
 def _bank_args(cuda, dtype, b, n, seed=0, q=2):

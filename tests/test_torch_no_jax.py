@@ -7,7 +7,8 @@ registry), the 2D simulators, a reduced-rank GP, the native host runtime
 (an ``.egpt`` checkpoint, the raycasters), the timers, scale selection and
 fitting, a ``torch.export`` artifact, the D/F API, ``poses_per_step`` and
 the sharded paths (``parallel/``, one gloo rank: a map and a 3D sensor GP
-with ``mesh=``) must not import ``jax``, ``yaml`` or the JAX package; and the host
+with ``mesh=``), the CUDA-graph module and the example scripts (imported)
+must not import ``jax``, ``yaml`` or the JAX package; and the host
 runtime's C++ source is the port's own copy."""
 
 import ast
@@ -150,6 +151,10 @@ L, a = m.sp_gp._prepared()
 mean, _ = load_fn(blob)(m.state, L, a, torch.zeros(5, 2))
 assert mean.shape == (5, 1)
 assert api.VanillaGaussianProcessF(device="cpu").dtype == np.float32
+from erl_gaussian_process_tpu_torch.models import pose_graph
+from erl_gaussian_process_tpu_torch.examples import (
+    deploy_serving, gp_regression, occupancy_mapping_2d, replica_hotel_3d)
+assert pose_graph.MAX_GRAPHS > 0 and occupancy_mapping_2d.production_setting()
 import datetime
 import torch.distributed as dist
 from erl_gaussian_process_tpu_torch.parallel import make_mesh
@@ -184,10 +189,16 @@ def test_port_runs_without_jax_or_yaml():
     assert "BAD []" in out.stdout, out.stdout
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "main_path_ab.py"])
+@pytest.mark.parametrize("script", [
+    "chip_smoke.py", "main_path_ab.py",
+    "erl_gaussian_process_tpu_torch/models/pose_graph.py",
+    *(f"erl_gaussian_process_tpu_torch/examples/{name}.py" for name in (
+        "gp_regression", "occupancy_mapping_2d", "replica_hotel_3d",
+        "deploy_serving"))])
 def test_card_scripts_import_no_jax(script):
-    """The scripts run on the card's machine (no JAX, no PyYAML) name
-    neither, nor the JAX package, in any import statement."""
+    """The scripts and modules run on the card's machine (no JAX, no
+    PyYAML) name neither, nor the JAX package, in any import statement:
+    the two scripts, the CUDA-graph module and the example scripts."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, script)) as f:
         tree = ast.parse(f.read())
