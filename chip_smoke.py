@@ -59,10 +59,26 @@ The 3D range-sensor GP's path:
    no matrix product), MSE <= 4.2e-4, ``compute_occ`` signs, one bank-fit
    launch per train; one ``test`` under ``torch.profiler`` (one gram
    launch, no ``where`` over the gram); the same scan at the default 12/4 grouping (408 x
-   144); then the depth protocol: MSE <= 2.2e-4;
+   144); then the depth protocol: MSE <= 2.2e-4. Each ``train`` and
+   ``test`` on the card is one CUDA-graph replay
+   (``models/sensor_graph.py``; the 10 000-query test's bucket is too
+   large to graph and runs eagerly): against the eager chain of the same
+   model
+   (its graphs set aside) bit for bit — banks, means, variances, valid
+   masks —, train and test ms graphed and eager (alternated, medians of 5
+   with ranges), the host's CUDA API calls and the kernels a train, the
+   device's idle share a train and a test, the routed predict's phase
+   split (host grouping, copies in, device, copy out and scatter) eager and
+   graphed, each captured shape's warm-up and capture ms and pool MiB;
 9. offline replay: ``train_scan_batch`` of 64 lidar scans (47 104 members)
-   in one bank-fit launch, equal bit for bit to per-scan ``train``, timed
-   as the median of 5 after a warm-up;
+   in one bank-fit launch, eager as the port runs it, equal bit for bit to
+   per-scan ``train``, timed as the median of 5 after a warm-up; against a
+   graph of it (its first call and its cached calls, with the copy out a
+   graph needs), with train and test again as in phase 8; the same 64
+   scans one by one (train, the 10 000 queries, ``compute_occ`` on the
+   scan's own points) eager, graphed as shipped, and graphed with every
+   routed bucket captured: the sequence's ms, its captures and their cost,
+   every way bit for bit the eager run;
 10. ``BatchGPBank`` at (1000, 104): one bank-Cholesky launch, results
     against numpy float64, identity padding exact, the solve timed as the
     median of 5 after a warm-up.
@@ -120,14 +136,21 @@ The 2D paths and reduced rank:
     ``train`` (one bank-fit launch, no matrix product) and one ``test``
     (one gram launch) under ``torch.profiler``; the 28 scans in one
     bank-fit launch, every scan's slice bit for bit its own ``train``;
-    train, test and replay as medians of 5;
+    train, test and replay as medians of 5; train, test and replay graphed
+    against the eager chain as in phase 9, the 28 scans one by one as in
+    phase 9 (test at the scan's angles, ``compute_occ`` at 0.5 and 1.2 of
+    each hit ray's range); the 28 scans with
+    ``partition_on_hit_rays`` graphed, each bit for bit the eager chain,
+    with the captures that takes and their cost;
 17. reduced rank: the vanilla reduced-rank GP of
     tests/test_reduced_rank.py:240-259 (2D Matérn, 16x16 basis) at float64
     and float32 against its plain version on the card, its fit under
     ``torch.profiler`` (the blocked Cholesky and one substitution a
     direction), those kernels at its (256, 256) system against their plain
     versions and the library calls; the reduced-rank lidar GP of
-    tests/test_lidar_gp_2d.py:155-210 at its MAE gate (< 0.02).
+    tests/test_lidar_gp_2d.py:155-210 at its MAE gate (< 0.02), its graphed
+    train (the well-posed chain captured, no jitter ladder run) and test
+    against the eager chain as in phase 8.
 
 The modules ported last (the native host runtime, ``poses_per_step``,
 deployment, scale selection, the ops):
@@ -144,10 +167,11 @@ deployment, scale selection, the ops):
     ``torch.profiler``, ms/pose beside c = 1 (medians of alternated
     replays);
 20. the 2D map's update and predict artifacts (``utils/deploy.py``,
-    ``torch.export``) exported on the card, through bytes: 10 updates and
-    a predict equal bit for bit to the eager step, the FITC and gram
-    launches counted from the artifacts, an artifact call timed against
-    the eager step;
+    ``torch.export``) exported on the card, through bytes, each call a
+    CUDA-graph replay: 10 updates and a predict equal bit for bit to the
+    eager step and to the loaded module's own call, the FITC and gram
+    launches counted from the replays, an artifact call timed against the
+    module's own call and the eager step;
 21. ``select_scale_spgp`` on the 2D map's 50-pose datasets with the
     production pseudo grid through the gram kernel, its float32 NLML
     within 3e-3 (relative) of the plain float64 sweep, the chosen scale
@@ -889,6 +913,273 @@ def timed(fn):
     return r, 1e3 * (time.perf_counter() - t0)
 
 
+def bank_copy(bank) -> tuple:
+    """A bank (or any tuple of tensors) copied off the graphs' buffers."""
+    return tuple(None if t is None else t.clone() for t in bank)
+
+
+def bits(a, b) -> bool:
+    """Bit for bit, NaN included: tensors, arrays, or tuples of them."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(bits(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def sensor_result(res) -> tuple:
+    """A sensor GP's test result: (mean, variance, valid)."""
+    return res._mean, res._var, res._valid
+
+
+def replay_graph_side(gp, rb):
+    """The offline replay as a graph of its own, the side the port does not
+    take (``train_scan_batch`` runs eagerly): a ``SensorGraphs`` table
+    holding a graph of the same body (``gp._scan_step``) on ``rb``, and a
+    call that replays it and copies the bank out, as a graphed
+    ``train_scan_batch`` must (the next replay overwrites its outputs).
+    Returns (the table, the call)."""
+    from erl_gaussian_process_tpu_torch.models.sensor_graph import (
+        SensorGraphs,
+    )
+
+    side = SensorGraphs(gp.device)
+    rb = np.asarray(rb, gp.dtype)
+    feeds = (rb, gp._scan_scalars())
+    if hasattr(gp, "_table_tensors"):            # the 2D lidar GP
+        c = gp._build_scan_fit_cache()
+        key, tables = gp._step_key(rb.shape, c["idx"].shape), (c["idx"],
+                                                               c["inb"])
+    else:
+        key, tables = gp._step_key(rb.shape), ()
+    return side, lambda: bank_copy(side.fit(key, gp._scan_step, feeds,
+                                            tables))
+
+
+def capture_record(g) -> dict:
+    return {"key": str(g.key)[:120], "warmup_ms": g.warmup_ms,
+            "capture_ms": g.capture_ms, "pool_mib": g.pool_bytes / 2**20,
+            "replays": g.replays}
+
+
+def sensor_graphs_vs_eager(label, card, gp, train, test, route,
+                           replay_scans=None, profile=True) -> dict:
+    """A graphed sensor GP (``models/sensor_graph.py``) against its eager
+    chain (the same model with its graphs set aside), on the card: (a) the
+    graphed ``train`` (``train()``) and ``test`` (``test()``, a TestResult;
+    a bucket too large to graph runs eagerly) bit for bit the eager
+    ones: banks, means, variances, valid masks; (b) train and test ms
+    graphed and eager, alternated, medians of TIMED_RUNS with their
+    ranges; (c) the host's CUDA API calls a train and a test
+    (``torch.profiler``); (d) the device's idle share a train and a test;
+    (e) the routed predict's phase split
+    (``bank_predict_assigned(profile=)``, ``route()`` the test's (queries,
+    member ids)) eager and graphed; (f) each captured shape's warm-up and
+    capture ms and pool MiB. ``replay_scans``: the offline replay of these
+    scans, eager as the port runs it, against a graph of its own
+    (:func:`replay_graph_side`): bit for bit, the graph's first call (its
+    capture) and its cached calls against the eager call, its capture and
+    pool. ``profile=False`` leaves out (c)-(e) (a model already profiled).
+    Returns them, with the wall seconds the report took."""
+    from erl_gaussian_process_tpu_torch.models.batch_gp import (
+        bank_predict_assigned,
+    )
+
+    t_start = time.perf_counter()
+    graphs = gp._graphs
+    check(graphs is not None, f"{label}: the model on the card has no graphs")
+
+    def eager(fn):
+        gp._graphs = None
+        try:
+            return fn()
+        finally:
+            gp._graphs = graphs
+
+    check(train(), f"{label}: graphed train")
+    bank_g = bank_copy(gp.bank)
+    res_g = sensor_result(test())
+    check(eager(train), f"{label}: eager train")
+    same_bank = bits(bank_g, tuple(gp.bank))
+    same_test = bits(res_g, sensor_result(eager(test)))
+    same_replay, side = None, None
+    if replay_scans is not None:
+        side, side_call = replay_graph_side(gp, replay_scans)
+        st_g, first_ms = timed(side_call)
+        same_replay = bits(st_g, tuple(gp.train_scan_batch(replay_scans)))
+        del st_g
+    train()
+    log(f"{label} graphed vs eager on the card: train bank bit for bit "
+        f"{same_bank}, test mean/var/valid bit for bit {same_test}"
+        + ("" if replay_scans is None else
+           f", train_scan_batch (eager) and a graph of it bit for bit "
+           f"{same_replay}"))
+    check(same_bank and same_test and same_replay in (None, True),
+          f"{label}: a graphed step differs from the eager chain")
+    t_g, t_e, q_g, q_e, r_g, r_e = [], [], [], [], [], []
+    for _ in range(TIMED_RUNS):
+        t_e.append(timed(lambda: eager(train))[1])
+        t_g.append(timed(train)[1])
+        q_g.append(timed(test)[1])
+        q_e.append(timed(lambda: eager(test))[1])
+        if side is not None:
+            r_g.append(timed(side_call)[1])
+            r_e.append(timed(lambda: gp.train_scan_batch(replay_scans))[1])
+
+    def med(v):
+        return {"median": statistics.median(v), "range": [min(v), max(v)]}
+
+    out = {"train_ms": med(t_g), "train_eager_ms": med(t_e),
+           "test_ms": med(q_g), "test_eager_ms": med(q_e),
+           "captures": [capture_record(g) for g in graphs.captures],
+           "ladder_runs": graphs.ladder_runs}
+    if side is not None:
+        out["replay_eager_ms"], out["replay_graph_ms"] = med(r_e), med(r_g)
+        out["replay_graph_first_ms"] = first_ms
+        out["replay_graph_capture"] = capture_record(side.captures[0])
+        side._fits.drop()
+        del side, side_call
+        torch.cuda.empty_cache()
+    times = (f"train {out['train_ms']['median']:.4f} ms graphed (range "
+             f"{min(t_g):.4f}-{max(t_g):.4f}) vs "
+             f"{out['train_eager_ms']['median']:.4f} eager ({min(t_e):.4f}-"
+             f"{max(t_e):.4f}); test {out['test_ms']['median']:.4f} ms "
+             f"graphed ({min(q_g):.4f}-{max(q_g):.4f}) vs "
+             f"{out['test_eager_ms']['median']:.4f} eager ({min(q_e):.4f}-"
+             f"{max(q_e):.4f})"
+             + ("" if not r_e else
+                f"; replay {out['replay_eager_ms']['median']:.4f} ms eager "
+                f"(as shipped; {min(r_e):.4f}-{max(r_e):.4f}) vs a graph of "
+                f"it {out['replay_graph_ms']['median']:.4f} cached "
+                f"({min(r_g):.4f}-{max(r_g):.4f}), its first call "
+                f"{first_ms:.4f} (the capture: warm-up "
+                f"{out['replay_graph_capture']['warmup_ms']:.2f} ms, capture "
+                f"{out['replay_graph_capture']['capture_ms']:.2f} ms, pool "
+                f"{out['replay_graph_capture']['pool_mib']:.1f} MiB)")
+             + f" (medians of {TIMED_RUNS}, alternated)")
+    if not profile:
+        out["report_s"] = time.perf_counter() - t_start
+        log(f"{label} on {card}: {times}; report {out['report_s']:.1f} s")
+        return out
+    # one profile each: the graphed and the eager train, the graphed test
+    host_tg, dev_tg = api_calls(train)
+    host_te, dev_te = api_calls(lambda: eager(train))
+    train()
+    host_qg, dev_qg = api_calls(test)
+
+    def split(use):
+        p = {}
+        bank_predict_assigned(gp.bank, *route(), gp._scale,
+                              kernel=gp._kernel,
+                              reduced_rank=gp.reduced_rank_kernel,
+                              basis=gp._basis, profile=p,
+                              graphs=graphs if use else None)
+        return {k: (1e3 * v if k != "bucket" else v) for k, v in p.items()}
+
+    split(True)
+    prof_e, prof_g = split(False), split(True)
+    dev_train = sum(ms for _, ms in dev_tg.values())
+    dev_test = sum(ms for _, ms in dev_qg.values())
+    out.update({
+        "train_api_calls": sum(host_tg.values()),
+        "train_api_calls_eager": sum(host_te.values()),
+        "train_api": host_tg, "test_api_calls": sum(host_qg.values()),
+        "train_kernels": sum(c for c, _ in dev_tg.values()),
+        "train_kernels_eager": sum(c for c, _ in dev_te.values()),
+        "train_device_ms": dev_train, "test_device_ms": dev_test,
+        "train_idle": 1.0 - dev_train / statistics.median(t_g),
+        "test_idle": 1.0 - dev_test / statistics.median(q_g),
+        "test_split_eager_ms": prof_e, "test_split_ms": prof_g,
+        "report_s": time.perf_counter() - t_start})
+    log(f"{label} on {card}: {times}; host CUDA API calls a train "
+        f"{out['train_api_calls']} ({host_tg}) vs "
+        f"{out['train_api_calls_eager']} eager, a test "
+        f"{out['test_api_calls']} graphed; kernels a train "
+        f"{out['train_kernels']} vs {out['train_kernels_eager']}; device "
+        f"{dev_train:.4f} ms a train (idle {100 * out['train_idle']:.1f}%), "
+        f"{dev_test:.4f} ms a test (idle {100 * out['test_idle']:.1f}%); "
+        f"report {out['report_s']:.1f} s")
+    log(f"{label} test split (ms): eager {prof_e}; graphed {prof_g}")
+    for c in out["captures"]:
+        log(f"{label} graph {c['key']}: warm-up {c['warmup_ms']:.2f} ms, "
+            f"capture {c['capture_ms']:.2f} ms, pool {c['pool_mib']:.1f} "
+            f"MiB, replays {c['replays']}")
+    return out
+
+
+def sensor_sequence(label, card, gp, n, step) -> dict:
+    """A sensor GP on a real sequence of scans: ``step(k)`` trains scan k
+    and runs its ``test`` and ``compute_occ`` on its own points, returning
+    their results. The sequence runs with the model's graphs as shipped
+    (routed buckets of at most ``sensor_graph.MAX_SLOTS`` query slots
+    graphed), with graphs of every routed bucket, and eagerly, in the
+    order E, S, A, A, S, E, each graphed run on graphs of its own (their
+    captures are part of the run); every run's results bit for bit the
+    first eager run's.
+    Reports each way's wall ms for the whole sequence (both runs), its
+    captures (trains, routed predicts), their warm-up and capture ms and
+    pool MiB."""
+    from erl_gaussian_process_tpu_torch.models.sensor_graph import (
+        SensorGraphs,
+    )
+
+    t_start = time.perf_counter()
+    own = gp._graphs
+    ref, same = None, True
+    ways = {"eager": None, "shipped": {}, "every_bucket": {"max_slots": None}}
+    out = {w: {"ms": [], "captures": []} for w in ways}
+    try:
+        for way in ("eager", "shipped", "every_bucket", "every_bucket",
+                    "shipped", "eager"):
+            kw = ways[way]
+            gp._graphs = None if kw is None else SensorGraphs(gp.device, **kw)
+            results = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(n):
+                results.append(step(k))
+            torch.cuda.synchronize()
+            out[way]["ms"].append(1e3 * (time.perf_counter() - t0))
+            if ref is None:
+                ref = results
+            else:
+                same &= all(bits(a, b) for a, b in zip(results, ref))
+            if gp._graphs is not None:
+                caps = gp._graphs.captures
+                out[way]["captures"].append({
+                    "train": sum(1 for g in caps if g.key[0] == "fit"),
+                    "routed": sum(1 for g in caps if g.key[0] != "fit"),
+                    "ms": sum(g.warmup_ms + g.capture_ms for g in caps),
+                    "capture_ms": sum(g.capture_ms for g in caps),
+                    "pool_mib": sum(g.pool_bytes for g in caps) / 2**20})
+                for t in (gp._graphs._fits, gp._graphs._routed):
+                    t.drop()
+            del results
+    finally:
+        gp._graphs = own
+        torch.cuda.empty_cache()
+    out["same_bits"] = bool(same)
+    out["scans"] = n
+    out["report_s"] = time.perf_counter() - t_start
+    log(f"{label} sequence of {n} scans (train, test, compute_occ) on "
+        f"{card}: every way bit for bit the eager run {same}; " + "; ".join(
+            f"{w} {v['ms'][0]:.2f} / {v['ms'][1]:.2f} ms"
+            + ("" if not v["captures"] else
+               " (captures " + ", ".join(
+                   f"{c['train']} train + {c['routed']} routed, "
+                   f"{c['ms']:.2f} ms warm-up and capture of which capture "
+                   f"{c['capture_ms']:.2f}, pool {c['pool_mib']:.1f} MiB"
+                   for c in v["captures"]) + ")")
+            for w in ways for v in [out[w]])
+        + f"; report {out['report_s']:.1f} s")
+    check(same, f"{label} sequence: a graphed way differs from the eager "
+                "run")
+    return out
+
+
 def run_sensor_gp(dev, card, lidar, depth):
     """Phases 8-10: the 3D range-sensor GP on the card. Returns (launch
     counts per phase, timings)."""
@@ -979,6 +1270,11 @@ def run_sensor_gp(dev, card, lidar, depth):
         f"{min(train_ms):.4f}-{max(train_ms):.4f}), test of {len(q)} queries "
         f"{timings['test_ms_10000']:.4f} ms (median of 5, range "
         f"{min(test_ms):.4f}-{max(test_ms):.4f}) on {card}")
+    dirs_local = gp.sensor_frame.dir_world_to_frame(np.asarray(q, gp.dtype))
+    timings["graphs"] = sensor_graphs_vs_eager(
+        "3D lidar (736 x 100)", card, gp, lambda: gp.train(R, t, ranges),
+        lambda: gp.test(q, False, True),
+        lambda: gp.route_directions(dirs_local))
 
     # the same scan at the setting's default grouping: 408 members of 144
     ggp = RangeSensorGaussianProcess3D(default_grouped_setting(),
@@ -1004,6 +1300,7 @@ def run_sensor_gp(dev, card, lidar, depth):
 
     ds, dR, dt_, dranges, dq, dgt, _ = depth
     dgp = RangeSensorGaussianProcess3D(ds, dtype=np.float32, device=dev)
+    dgp.train(dR, dt_, dranges)                # the capture, not counted
     reset_launch_counts()
     check(dgp.train(dR, dt_, dranges), "depth train")
     dpred, dvalid = dgp.test(dq, False, True).get_mean()
@@ -1056,6 +1353,25 @@ def run_sensor_gp(dev, card, lidar, depth):
         f"{REPLAY_SCANS - 1} equal to per-scan train bit for bit; launch "
         f"counts {counts['replay']}")
     del stacked, first_replay
+    # the eager replay against a graph of it (and train, test again)
+    timings["graphs_replay"] = sensor_graphs_vs_eager(
+        f"3D lidar replay ({REPLAY_SCANS} scans)", card, gp,
+        lambda: gp.train(R, t, ranges), lambda: gp.test(q, False, True),
+        lambda: gp.route_directions(dirs_local), replay_scans=rb,
+        profile=False)
+    torch.cuda.empty_cache()
+    # the trajectory scan by scan: train, the protocol's 10 000 queries,
+    # compute_occ on the scan's own points
+    occ = [[occ_points(gp, rb[k], fr) for fr in OCC_FRACTIONS]
+           for k in range(REPLAY_SCANS)]
+
+    def step(k):
+        check(gp.train(Rs[k], ts[k], rb[k]), f"trajectory scan {k} train")
+        res = sensor_result(gp.test(q, False, True))
+        return res + tuple(gp.compute_occ(o) for o in occ[k])
+
+    timings["sequence"] = sensor_sequence("3D lidar (736 x 100)", card, gp,
+                                          REPLAY_SCANS, step)
 
     rng = np.random.default_rng(2)
     bank = BatchGPBank(1000, 104, y_dim=1, dtype=np.float32, device=dev)
@@ -2473,6 +2789,31 @@ def run_lidar_2d(dev, card, frames, frames32):
                   if not torch.equal(a[s * B:(s + 1) * B], b)]
         check(not differ, f"lidar 2D replay scan {s} differs from its "
                           f"train in {differ}")
+    a_local = gp.sensor_frame.angles_world_to_frame(
+        np.asarray(f.angles, gp.dtype).reshape(-1))
+    timings["lidar2d_graphs"] = sensor_graphs_vs_eager(
+        "2D lidar (14 x 26, f32)", card, gp,
+        lambda: gp.train(eye, zero, f.ranges),
+        lambda: gp.test(f.angles, False, True),
+        lambda: (a_local[:, None], gp.search_partition(a_local)),
+        replay_scans=rb)
+    # the log scan by scan: train, test at its own angles, compute_occ at
+    # half and 1.2 times each hit ray's range
+    occ = []
+    for fr in frames32:
+        hit = np.isfinite(fr.ranges)
+        a, r = fr.angles[hit], fr.ranges[hit]
+        occ.append([np.stack([c * r * np.cos(a), c * r * np.sin(a)], -1)
+                    for c in (0.5, 1.2)])
+
+    def step(k):
+        check(gp.train(eye, zero, frames32[k].ranges), f"log scan {k} train")
+        res = sensor_result(gp.test(frames32[k].angles, True, False))
+        return res + tuple(gp.compute_occ(o) for o in occ[k])
+
+    timings["lidar2d_sequence"] = sensor_sequence(
+        "2D lidar (14 x 26, f32)", card, gp, len(frames32), step)
+    timings["lidar2d_hit_rays"] = hit_ray_graphs(dev, card, frames32)
     timings.update({
         "lidar2d_train_ms": statistics.median(train_ms),
         "lidar2d_train_ms_range": [min(train_ms), max(train_ms)],
@@ -2492,6 +2833,47 @@ def run_lidar_2d(dev, card, frames, frames32):
         f"{max(rep_ms):.4f}), one bank-fit launch, every scan's slice equal "
         "to its train bit for bit")
     return counts, timings
+
+
+def hit_ray_graphs(dev, card, frames) -> dict:
+    """The 2D lidar GP with ``partition_on_hit_rays`` (float32) through the
+    log's scans, graphed, each scan's bank and test bit for bit the eager
+    chain's: the partition table, and so the shape, may change from scan
+    to scan (a graph per shape). Returns the captures and train ms."""
+    from erl_gaussian_process_tpu_torch.models import LidarGaussianProcess2D
+
+    f0 = frames[0]
+    s = lidar2d_setting(f0.angles, False)
+    s.partition_on_hit_rays = True
+    gp = LidarGaussianProcess2D(s, dtype=np.float32, device=dev)
+    eye, zero = np.eye(2), np.zeros(2)
+    graphs, ms, same = gp._graphs, [], True
+    for f in frames:
+        ok, t = timed(lambda: gp.train(eye, zero, f.ranges))
+        ms.append(t)
+        bank, res = bank_copy(gp.bank), sensor_result(
+            gp.test(f.angles, True, False))
+        gp._graphs = None
+        try:
+            check(ok and gp.train(eye, zero, f.ranges), "hit-ray train")
+            same &= bits(bank, tuple(gp.bank)) and bits(
+                res, sensor_result(gp.test(f.angles, True, False)))
+        finally:
+            gp._graphs = graphs
+    fits = [g for g in graphs.captures if g.key[0] == "fit"]
+    out = {"scans": len(frames), "fit_captures": len(fits),
+           "capture_ms": sum(g.warmup_ms + g.capture_ms for g in fits),
+           "pool_mib": sum(g.pool_bytes for g in fits) / 2**20,
+           "train_ms": {"median": statistics.median(ms),
+                        "range": [min(ms), max(ms)]}}
+    log(f"2D lidar, partition_on_hit_rays, {len(frames)} scans graphed on "
+        f"{card}: every bank and test bit for bit the eager chain's {same}; "
+        f"{len(fits)} train capture(s) ({out['capture_ms']:.2f} ms warm-up "
+        f"and capture, {out['pool_mib']:.1f} MiB), train "
+        f"{out['train_ms']['median']:.4f} ms (median, range "
+        f"{min(ms):.4f}-{max(ms):.4f}, the first one the capture)")
+    check(same, "hit-ray 2D lidar GP: a graphed scan differs from eager")
+    return out
 
 
 # the reduced-rank fit's kernels by name: the blocked Cholesky's launches
@@ -2687,6 +3069,14 @@ def run_reduced_rank(dev, card):
         f"{bool((lvar[valid] > 0).all())}; launch counts {counts['lidar']}")
     check(valid.sum() > 0.9 * len(angles) and mae < RR_LIDAR_MAE
           and (lvar[valid] > 0).all(), f"reduced-rank lidar MAE {mae}")
+    graphs = sensor_graphs_vs_eager(
+        "reduced-rank lidar (96 basis, f64)", card, lgp,
+        lambda: lgp.train(np.eye(2), np.zeros(2), ranges),
+        lambda: lgp.test(angles, True, True),
+        lambda: (angles[:, None], lgp.search_partition(angles)))
+    check(graphs["ladder_runs"] == 0, "the reduced-rank lidar fit ran its "
+          "jitter ladder")
+    log(json.dumps({"rr_lidar_graphs": graphs, "card": card}))
     return counts, out
 
 
@@ -2697,6 +3087,10 @@ PPS = 4                  # poses fused into one FITC update (hotel-0)
 PPS_REPLAYS = 3          # more replays of each of c = 1 and c = PPS
 PPS_TOL = dict(rtol=1e-3, atol=1e-4)   # tests/test_spgp_occupancy_map.py
 DEPLOY_POSES = 10        # 2D map poses through the artifact and the eager step
+# phase 20's artifact and eager-step event times before the artifacts
+# replayed graphs (NVIDIA H100 80GB HBM3, 700 W; PERF.md §5)
+ARTIFACT_MS_BEFORE_GRAPHS = {"update": 1.7246, "update_eager": 1.3888,
+                    "predict": 0.1858, "predict_eager": 0.0745}
 # the f32 SPGP sweep's NLML against the plain float64 sweep, relative, where
 # both are finite: 3.3x the 9.06e-4 that three runs on an H100 read
 SWEEP_TOL = 3e-3
@@ -3000,9 +3394,11 @@ def run_deploy(dev, card):
                        torch.as_tensor(p, device=dev),
                        torch.as_tensor(masks[i], device=dev),
                        m._aabb_min, m._aabb_max))
-    st_e = m.state
+    st_e = st_m = m.state
     for u, *args in inputs:
         st_e, _, _ = update_step(st_e, *args, scale, u=u, **kw)
+        st_m, _ = step.eager(st_m, u, *args)
+    step(m.state, *inputs[0])              # the capture, not counted
     torch.cuda.synchronize()
     reset_launch_counts()
     st_a = m.state
@@ -3011,48 +3407,75 @@ def run_deploy(dev, card):
     torch.cuda.synchronize()
     counts = launch_counts()
     same = all(torch.equal(a, b) for a, b in zip(st_a, st_e))
+    same_module = bits(tuple(st_a), tuple(st_m))
     surf = torch.as_tensor(reference_space_2d().surface_points(0.05),
                            dtype=torch.float32, device=dev)
     L_qm, alpha = spgp_prepare(st_a)
+    predict(st_a, L_qm, alpha, surf)       # the capture, not counted
+    torch.cuda.synchronize()
     reset_launch_counts()
     mean_a, _ = predict(st_a, L_qm, alpha, surf)
     torch.cuda.synchronize()
     pcounts = launch_counts()
     mean_e, _ = predict_prepared_step(st_a, L_qm, alpha, surf, scale,
                                       kernel=m.sp_gp._kernel, with_grad=False)
+    mean_m, _ = predict.eager(st_a, L_qm, alpha, surf)
     occ = float((mean_a[:, 0] > 0).float().mean())
-    log(f"artifact vs eager: {DEPLOY_POSES} updates equal bit for bit "
-        f"{same}, predict of {surf.shape[0]} points equal "
-        f"{bool(torch.equal(mean_a, mean_e))} (surface occupied {occ:.4f});"
-        f" launches by the artifacts: update {counts}, predict {pcounts}")
-    check(same and bool(torch.equal(mean_a, mean_e)),
+    log(f"artifact (a graph replay a call) vs eager: {DEPLOY_POSES} updates "
+        f"equal bit for bit {same} (and to the module's own call "
+        f"{same_module}), predict of {surf.shape[0]} points equal "
+        f"{bool(torch.equal(mean_a, mean_e))} (and to the module's "
+        f"{bits(mean_a, mean_m)}; surface occupied {occ:.4f}); launches by "
+        f"the artifacts: update {counts}, predict {pcounts}")
+    check(same and same_module and bool(torch.equal(mean_a, mean_e))
+          and bits(mean_a, mean_m),
           "artifact results differ from the eager step")
     check(counts["fitc"] == DEPLOY_POSES and pcounts["gram"] == 1,
           f"artifact launches: update {counts}, predict {pcounts}")
     u, *args = inputs[0]
     st0 = m.state
+
+    def eager_predict_step():
+        return predict_prepared_step(st_a, L_qm, alpha, surf, scale,
+                                     kernel=m.sp_gp._kernel, with_grad=False)
+
     times = {
         "update_artifact_ms": cuda_ms(lambda: step(st0, u, *args)),
+        "update_artifact_module_ms": cuda_ms(lambda: step.eager(st0, u,
+                                                                *args)),
         "update_eager_ms": cuda_ms(lambda: update_step(st0, *args, scale,
                                                        u=u, **kw)),
+        "update_artifact_host_ms": host_ms(lambda: step(st0, u, *args)),
+        "update_eager_host_ms": host_ms(lambda: update_step(
+            st0, *args, scale, u=u, **kw)),
         "predict_artifact_ms": cuda_ms(lambda: predict(st_a, L_qm, alpha,
                                                        surf)),
-        "predict_eager_ms": cuda_ms(lambda: predict_prepared_step(
-            st_a, L_qm, alpha, surf, scale, kernel=m.sp_gp._kernel,
-            with_grad=False)),
+        "predict_artifact_module_ms": cuda_ms(lambda: predict.eager(
+            st_a, L_qm, alpha, surf)),
+        "predict_eager_ms": cuda_ms(eager_predict_step),
         "predict_artifact_host_ms": host_ms(lambda: predict(
             st_a, L_qm, alpha, surf)),
-        "predict_eager_host_ms": host_ms(lambda: predict_prepared_step(
-            st_a, L_qm, alpha, surf, scale, kernel=m.sp_gp._kernel,
-            with_grad=False)),
+        "predict_eager_host_ms": host_ms(eager_predict_step),
+        "captures": [{"key": str(g.key[1])[:100], "warmup_ms": g.warmup_ms,
+                      "capture_ms": g.capture_ms,
+                      "pool_mib": g.pool_bytes / 2**20}
+                     for f in (step, predict) for g in f.captures],
         "export_s": t_export, "load_s": t_load}
     log(f"artifact times on {card} (CUDA events, median of {REPS}): update "
-        f"{times['update_artifact_ms']:.4f} ms vs eager "
-        f"{times['update_eager_ms']:.4f} ms; predict "
-        f"{times['predict_artifact_ms']:.4f} ms vs eager "
-        f"{times['predict_eager_ms']:.4f} ms (host a call "
+        f"{times['update_artifact_ms']:.4f} ms graphed, the module's own "
+        f"call {times['update_artifact_module_ms']:.4f}, the eager step "
+        f"{times['update_eager_ms']:.4f} (before the graphs: artifact "
+        f"{ARTIFACT_MS_BEFORE_GRAPHS['update']}, eager step "
+        f"{ARTIFACT_MS_BEFORE_GRAPHS['update_eager']}); predict "
+        f"{times['predict_artifact_ms']:.4f} ms graphed, module "
+        f"{times['predict_artifact_module_ms']:.4f}, eager "
+        f"{times['predict_eager_ms']:.4f} (before the graphs: "
+        f"{ARTIFACT_MS_BEFORE_GRAPHS['predict']}, {ARTIFACT_MS_BEFORE_GRAPHS['predict_eager']});"
+        f" host a call: update {times['update_artifact_host_ms']:.4f} vs "
+        f"{times['update_eager_host_ms']:.4f} ms, predict "
         f"{times['predict_artifact_host_ms']:.4f} vs "
-        f"{times['predict_eager_host_ms']:.4f} ms)")
+        f"{times['predict_eager_host_ms']:.4f} ms; captures "
+        f"{times['captures']}")
     return {"fitc": counts["fitc"], "gram": pcounts["gram"]}, times
 
 
@@ -3908,15 +4331,24 @@ def eager_predict(m, xq, with_grad):
 
 def api_calls(fn) -> tuple:
     """({CUDA runtime/driver API call: count}, {kernel: (count, device
-    ms)}) of one ``fn()`` by ``torch.profiler`` (host and device)."""
+    ms)}) of one ``fn()`` by ``torch.profiler`` (host and device). A trace
+    with no device event is taken again, up to PROFILE_ATTEMPTS times, as
+    in :func:`device_kernels` (a sensor GP's eager train and graphed test
+    came back without one once each in a whole-script card run)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    events = prof.key_averages()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in events):
+            break
+        log(f"torch.profiler returned no device event (attempt "
+            f"{attempt + 1} of {PROFILE_ATTEMPTS})")
     host = {e.key: e.count for e in events
             if e.device_type == torch.autograd.DeviceType.CPU
             and e.key.startswith("cu")

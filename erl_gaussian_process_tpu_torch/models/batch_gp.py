@@ -31,7 +31,9 @@ from erl_gaussian_process_tpu_torch.kernels.reduced_rank import (
 )
 from erl_gaussian_process_tpu_torch.models.gp_core import (
     DEFAULT_DEVICE,
-    cholesky_fit,
+    cholesky_flagged,
+    cholesky_solve_pair,
+    jitter_ladder,
     resolve_device,
     whiten,
 )
@@ -78,17 +80,53 @@ def bank_fit_core(x, y, var, mask, scale, *, kernel: str) -> BankState:
 bank_fit = bank_fit_core
 
 
+class RRFitParts(NamedTuple):
+    """The reduced-rank bank fit before its jitter ladder: ``bank`` with L
+    the plain Cholesky of each information system A (NaN where it failed)
+    and alpha solved with it; A and b; ``bad`` (B,) the failed members;
+    ``any_bad`` () their any. Tensor code with no host sync, so a CUDA
+    graph captures it (``models/sensor_graph.py``)."""
+
+    bank: BankState
+    A: torch.Tensor
+    b: torch.Tensor
+    bad: torch.Tensor
+    any_bad: torch.Tensor
+
+
+def bank_fit_rr_parts(x, y, var, mask, freq, sqrt_s, origin, half,
+                      inv_sqrt_vol) -> RRFitParts:
+    """Each member's features, information system, Cholesky and solves,
+    batched, on the basis constants (``ReducedRankBasis.consts``)."""
+    phi = rr_features(x, mask, freq, sqrt_s, origin, half, inv_sqrt_vol)
+    A, b = rr_train_system(phi, y, var, mask)
+    L, bad = cholesky_flagged(A)
+    bank = BankState(x=x, mask=mask, L=L, alpha=cholesky_solve_pair(L, b),
+                     trained=torch.any(mask, dim=1))
+    return RRFitParts(bank, A, b, bad, torch.any(bad))
+
+
+def bank_fit_rr_finish(parts: RRFitParts) -> tuple:
+    """(bank, whether the ladder ran): one host read of ``any_bad``; when a
+    member failed, ``gp_core.jitter_ladder`` retries the failed members and
+    alpha is solved again from the new L, as ``gp_core.cholesky_fit`` does.
+    Members that did not fail keep their bits either way."""
+    if not bool(parts.any_bad):
+        return parts.bank, False
+    L = jitter_ladder(parts.A, parts.bank.L, parts.bad)
+    return parts.bank._replace(L=L, alpha=cholesky_solve_pair(L, parts.b)), \
+        True
+
+
 def bank_fit_rr_core(x, y, var, mask, freq, sqrt_s, origin, half,
                      inv_sqrt_vol) -> BankState:
     """Reduced-rank bank fit on the basis constants
     (``ReducedRankBasis.consts``): each member's features, information
-    system and robust Cholesky, batched. The one implementation shared by
+    system and robust Cholesky, batched (:func:`bank_fit_rr_parts`, then
+    :func:`bank_fit_rr_finish`). The one implementation shared by
     :func:`bank_fit_rr` and the sensor GPs' scan trains."""
-    phi = rr_features(x, mask, freq, sqrt_s, origin, half, inv_sqrt_vol)
-    A, b = rr_train_system(phi, y, var, mask)
-    L, alpha = cholesky_fit(A, b)
-    return BankState(x=x, mask=mask, L=L, alpha=alpha,
-                     trained=torch.any(mask, dim=1))
+    return bank_fit_rr_finish(bank_fit_rr_parts(
+        x, y, var, mask, freq, sqrt_s, origin, half, inv_sqrt_vol))[0]
 
 
 def bank_fit_rr(x, y, var, mask, basis) -> BankState:
@@ -201,7 +239,7 @@ def group_queries(idx: np.ndarray, trained: np.ndarray):
 
 def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
                           reduced_rank: bool = False, basis=None,
-                          profile: dict | None = None):
+                          profile: dict | None = None, graphs=None):
     """Per-query routed prediction: query j is answered by bank member
     idx[j]. q (m, d) and idx (m,) host arrays; idx may be -1 (unresolved,
     flagged invalid) or name an untrained member (invalid too).
@@ -218,7 +256,13 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
 
     ``profile``: pass a dict to record per-phase wall-clock seconds (keys
     ``host_group``, ``h2d``, ``device``, ``d2h_scatter``, plus the bucket
-    shape ``bucket``). Profiling synchronizes between phases."""
+    shape ``bucket``). Profiling synchronizes between phases.
+
+    ``graphs`` (a ``models/sensor_graph.SensorGraphs``): the device half
+    runs as one replay of the graph captured for this bucket, kernel and
+    bank (the queries and member ids copied into its static inputs, one
+    copy of the results back), bit for bit the eager predict; eagerly for
+    a bucket too large to graph (``SensorGraphs.max_slots``)."""
     prof = profile is not None
     if prof:
         t0 = time.perf_counter()
@@ -239,24 +283,41 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
         t1 = time.perf_counter()
         profile["host_group"] = t1 - t0
         profile["bucket"] = tuple(int(v) for v in slots.shape)
-    qs = torch.as_tensor(q[slots], dtype=state.x.dtype, device=dev)
-    mids = torch.as_tensor(member_ids, device=dev)
+    fused = state.L_inv is not None
+
+    def segmented(bank, mids, qs):
+        if basis is not None:
+            return _predict_segmented_rr(bank, mids, qs, basis)
+        return _predict_segmented(bank, mids, qs, scale, kernel=kernel,
+                                  fused=fused, reduced_rank=reduced_rank)
+
+    q_host = q[slots].astype(dtype, copy=False)
+    g = None if graphs is None else graphs.routed(
+        state, segmented, q_host, member_ids,
+        (kernel, float(scale), reduced_rank, basis is not None))
+    if g is None:
+        qs = torch.as_tensor(q_host, device=dev)
+        mids = torch.as_tensor(member_ids, device=dev)
     if prof:
         _sync(dev)
         t2 = time.perf_counter()
         profile["h2d"] = t2 - t1
-    if basis is not None:
-        mean_seg, var_seg = _predict_segmented_rr(state, mids, qs, basis)
+    if g is not None:
+        g.replay()
     else:
-        mean_seg, var_seg = _predict_segmented(
-            state, mids, qs, scale, kernel=kernel,
-            fused=state.L_inv is not None, reduced_rank=reduced_rank)
+        mean_seg, var_seg = segmented(state, mids, qs)
     if prof:
         _sync(dev)
         t3 = time.perf_counter()
         profile["device"] = t3 - t2
-    mean_seg = mean_seg.cpu().numpy()
-    var_seg = var_seg.cpu().numpy()
+    if g is not None:
+        out = g.outputs.cpu().numpy()
+        Bp, C = slots.shape
+        mean_seg = out[:Bp * C * q_dim].reshape(Bp, C, q_dim)
+        var_seg = out[Bp * C * q_dim:].reshape(Bp, C)
+    else:
+        mean_seg = mean_seg.cpu().numpy()
+        var_seg = var_seg.cpu().numpy()
     mean_out[slots[svalid]] = mean_seg[svalid]
     var_out[slots[svalid]] = var_seg[svalid]
     if prof:

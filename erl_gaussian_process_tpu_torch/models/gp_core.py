@@ -84,23 +84,44 @@ def cholesky_nan(K: torch.Tensor) -> torch.Tensor:
     return L.masked_fill((info != 0)[..., None, None], float("nan"))
 
 
-def robust_cholesky(K: torch.Tensor) -> torch.Tensor:
-    """Cholesky of K (..., n, n) with escalating relative jitter on
-    failure: each failed matrix retries with jitter growing from 1e-14
-    (f64) or 1e-6 (f32) of its mean diagonal, x100 per step, up to 1, as
-    the JAX package's (vmapped) loop does. Zero retries, and one host sync,
-    on the well-posed path."""
+def cholesky_flagged(K: torch.Tensor):
+    """(:func:`cholesky_nan` of K (..., n, n), the (...,) flags of the
+    matrices whose factorization failed): the first rung of
+    :func:`robust_cholesky`, with no host sync."""
     L = cholesky_nan(K)
+    return L, torch.isnan(L).flatten(-2).any(-1)
+
+
+def jitter_ladder(K: torch.Tensor, L: torch.Tensor,
+                  bad: torch.Tensor) -> torch.Tensor:
+    """The retries of :func:`robust_cholesky` after its first rung (L, bad)
+    = :func:`cholesky_flagged` (K): each failed matrix retries with jitter
+    growing from 1e-14 (f64) or 1e-6 (f32) of its mean diagonal, x100 per
+    step, up to 1, as the JAX package's (vmapped) loop does. Matrices that
+    did not fail are never replaced; with none failed it returns ``L``
+    after one host sync."""
     scale = torch.mean(torch.diagonal(K, dim1=-2, dim2=-1), dim=-1)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     j = 1e-14 if K.dtype == torch.float64 else 1e-6
-    bad = torch.isnan(L).flatten(-2).any(-1)
     while bool(bad.any()) and j < 1.0:
         retry = cholesky_nan(K + (j * scale)[..., None, None] * eye)
         L = torch.where(bad[..., None, None], retry, L)
         bad = torch.isnan(L).flatten(-2).any(-1)
         j *= 100.0
     return L
+
+
+def robust_cholesky(K: torch.Tensor) -> torch.Tensor:
+    """Cholesky of K (..., n, n) with escalating relative jitter on failure
+    (:func:`jitter_ladder`). Zero retries, and one host sync, on the
+    well-posed path."""
+    return jitter_ladder(K, *cholesky_flagged(K))
+
+
+def cholesky_solve_pair(L: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """K^{-1} y = L^{-T} L^{-1} y by two triangular solves (batched)."""
+    a = torch.linalg.solve_triangular(L, y, upper=False)
+    return torch.linalg.solve_triangular(L.mT, a, upper=True)
 
 
 def cholesky_fit(K: torch.Tensor, y: torch.Tensor, *, robust: bool = True):
@@ -115,8 +136,7 @@ def cholesky_fit(K: torch.Tensor, y: torch.Tensor, *, robust: bool = True):
     (:func:`host_jitter_retry`)."""
     if robust:
         L = robust_cholesky(K)
-        a = torch.linalg.solve_triangular(L, y, upper=False)
-        return L, torch.linalg.solve_triangular(L.mT, a, upper=True)
+        return L, cholesky_solve_pair(L, y)
     from erl_gaussian_process_tpu_torch.ops.chol import chol_blocked
 
     L, dinv = chol_blocked(K, return_dinv=True)

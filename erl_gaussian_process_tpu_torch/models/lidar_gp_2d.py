@@ -14,9 +14,15 @@ bank fit solves each partition's information system over one shared
 Hilbert basis (``models/batch_gp.bank_fit_rr_core``) and the routed
 predict takes ``+||.||^2`` for the variance.
 
+On a CUDA device each scan train (:meth:`~LidarGaussianProcess2D.train`)
+and the device half of each routed predict is one replay of a CUDA graph
+(``models/sensor_graph.py``), as each is one jit in the JAX package; the
+offline replay (:meth:`~LidarGaussianProcess2D.train_scan_batch`) runs
+eagerly.
+
 With ``mesh=``, a train shards the bank's members over the ranks
-(``parallel/mesh.sharded_bank_fit``); a reduced-rank fit stays on each
-rank whole, as in the JAX package.
+(``parallel/mesh.sharded_bank_fit``) and runs eagerly; a reduced-rank fit
+stays on each rank whole, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from erl_gaussian_process_tpu_torch.kernels import resolve_kernel_setting
 from erl_gaussian_process_tpu_torch.models.batch_gp import (
     BankState,
     bank_fit_core,
-    bank_fit_rr_core,
+    bank_fit_rr_finish,
+    bank_fit_rr_parts,
     bank_predict_assigned,
     bank_state_from_numpy,
 )
@@ -46,9 +53,7 @@ from erl_gaussian_process_tpu_torch.models.mapping import (
     MappingSetting,
     MappingType,
 )
-from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
-    torch_dtype,
-)
+from erl_gaussian_process_tpu_torch.models.sensor_graph import SensorGraphs
 from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
     VanillaGaussianProcess,
     VanillaGPSetting,
@@ -135,7 +140,9 @@ def _gather_scan(ranges, angles, idx, inb, vmin, vmax, thr, srv, dv, *,
     """The device gather of a scan train, for S scans at once.
 
     ranges (S, n); angles (n,); idx (B, width) each partition's ray indices
-    [il, ir), inb (B, width) its valid slots. A stable sort on ~hit compacts
+    [il, ir), inb (B, width) its valid slots; vmin, vmax, thr, srv and dv
+    0-dim tensors of the ranges' dtype (a graph's static input). A stable
+    sort on ~hit compacts
     each member's hit rays to the front in ray order, the host's
     ``np.arange(il, ir)[hit[il:ir]]``. A ray is discontinuous when the
     range jump to either neighbour exceeds ``thr`` (the frame's continuity
@@ -253,7 +260,6 @@ class LidarGaussianProcess2D:
         self.mesh = mesh
         self.setting = setting or LidarGP2DSetting()
         self.dtype = np.dtype(dtype)
-        self._tdtype = torch_dtype(self.dtype)
         self.sensor_frame = LidarFrame2D(self.setting.sensor_frame,
                                          dtype=dtype)
         self.mapping = Mapping(self.setting.mapping)
@@ -262,6 +268,9 @@ class LidarGaussianProcess2D:
         self.bank: Optional[BankState] = None
         self.mapped_distances = None
         self._scan_fit_cache = None
+        self._angles = None     # the frame's angles on the device
+        self._graphs = SensorGraphs(self.device) \
+            if self.device.type == "cuda" and mesh is None else None
         angles = self.sensor_frame.angles_in_frame
         n = angles.shape[0]
         self.partitions = []
@@ -346,11 +355,15 @@ class LidarGaussianProcess2D:
         reference's ``gps``): each view's state is its member's slice of
         the bank, on the bank's device, and its train set the stored
         scan's partition. ``[]`` when untrained. The routed predict of
-        :meth:`test` does not use them."""
+        :meth:`test` does not use them. On a model with graphs the views
+        hold a copy of the bank, which the next train does not overwrite."""
         if not self._trained or self.bank is None:
             return []
         xs, ys, vs, ms = self._assemble_bank_arrays()
         bank = self.bank
+        if self._graphs is not None:
+            bank = BankState(*(None if t is None else t.clone()
+                               for t in bank))
         trained = bank.trained.cpu().numpy()
         out = []
         for b in range(len(self.partitions)):
@@ -394,9 +407,9 @@ class LidarGaussianProcess2D:
         self._scan_fit_cache = None
 
     def _build_scan_fit_cache(self) -> dict:
-        """Geometry-only device constants of the scan train: the partition
-        index table and the angle grid, rebuilt whenever the partition
-        table changes. Setting scalars are read live at every train."""
+        """The partition index table of the scan train (``idx``, ``inb``:
+        host arrays), rebuilt whenever the partition table changes. Setting
+        scalars are read live at every train (:meth:`_scan_scalars`)."""
         c = self._scan_fit_cache
         if c is None:
             B = len(self.partitions)
@@ -406,49 +419,95 @@ class LidarGaussianProcess2D:
             for b, (il, ir, _, _) in enumerate(self.partitions):
                 idx[b, :ir - il] = np.arange(il, ir)
                 inb[b, :ir - il] = True
-            dev = self.device
-            c = {"angles": torch.as_tensor(self.sensor_frame.angles_in_frame,
-                                           device=dev),
-                 "idx": torch.as_tensor(idx, device=dev),
-                 "inb": torch.as_tensor(inb, device=dev)}
+            c = {"idx": idx, "inb": inb}
             self._scan_fit_cache = c
         return c
 
-    def _scalar(self, v) -> torch.Tensor:
-        return torch.tensor(v, dtype=self._tdtype, device=self.device)
+    def _table_tensors(self) -> tuple:
+        """The partition index table on the device, for the eager chain
+        (kept with the table until it is rebuilt)."""
+        c = self._build_scan_fit_cache()
+        if "idx_t" not in c:
+            c["idx_t"] = torch.as_tensor(c["idx"], device=self.device)
+            c["inb_t"] = torch.as_tensor(c["inb"], device=self.device)
+        return c["idx_t"], c["inb_t"]
+
+    def _scan_scalars(self) -> np.ndarray:
+        """The float settings a scan train reads, at every train: (valid
+        range min, max, discontinuity threshold, sensor range variance,
+        discontinuity variance) in the model's dtype."""
+        sf, s = self.setting.sensor_frame, self.setting
+        return np.array([sf.valid_range_min, sf.valid_range_max,
+                         sf.discontinuity_threshold, s.sensor_range_var,
+                         s.discontinuity_var], self.dtype)
 
     def _gather_scans(self, ranges_batch: np.ndarray):
         """S scans -> the bank fit's inputs (x, y, var, mask) of S*B
         members, scan-major, gathered on the model's device."""
-        c = self._build_scan_fit_cache()
-        sf, s = self.setting.sensor_frame, self.setting
-        xs, ys, vs, ms = _gather_scan(
-            torch.as_tensor(ranges_batch, dtype=self._tdtype,
+        return self._gather_tensors(
+            torch.as_tensor(np.asarray(ranges_batch, self.dtype),
                             device=self.device),
-            c["angles"], c["idx"], c["inb"], float(sf.valid_range_min),
-            float(sf.valid_range_max), float(sf.discontinuity_threshold),
-            self._scalar(s.sensor_range_var),
-            self._scalar(s.discontinuity_var),
+            torch.as_tensor(self._scan_scalars(), device=self.device),
+            *self._table_tensors())
+
+    def _gather_tensors(self, ranges, scalars, idx, inb):
+        """:meth:`_gather_scans` of S scans (S, n), :meth:`_scan_scalars`
+        and the partition table, as tensors on the model's device."""
+        if self._angles is None:
+            self._angles = torch.as_tensor(
+                self.sensor_frame.angles_in_frame, device=self.device)
+        sf = self.setting.sensor_frame
+        xs, ys, vs, ms = _gather_scan(
+            ranges, self._angles, idx, inb, *scalars.unbind(),
             discon_on=sf.discontinuity_detection, mapping=self.mapping)
         S, B, w = ms.shape
         return (xs.reshape(S * B, w, 1), ys.reshape(S * B, w, 1),
                 vs.reshape(S * B, w), ms.reshape(S * B, w))
 
-    def _fit_scans(self, ranges_batch: np.ndarray) -> BankState:
-        """S scans -> one BankState of S*B members, scan-major: the device
-        gather and ONE bank fit (or the reduced-rank bank fit). A member's
-        L, L_inv and alpha do not depend on the bank it is fit in
-        (``ops/bank.py``), so each scan's slice of a replay equals its own
-        train bit for bit. A mesh shards the members over its ranks."""
-        x, y, var, mask = self._gather_scans(ranges_batch)
+    def _scan_step(self, ranges, scalars, idx, inb):
+        """The body of a scan train, the function its CUDA graph captures:
+        the gather and ONE bank fit, a BankState of S*B members (a
+        reduced-rank model's ``batch_gp.bank_fit_rr_parts``, before its
+        jitter ladder). Plain tensor code."""
+        x, y, var, mask = self._gather_tensors(ranges, scalars, idx, inb)
         if self._basis is not None:
-            return bank_fit_rr_core(x, y, var, mask,
-                                    *self._basis.consts(self.device))
+            return bank_fit_rr_parts(x, y, var, mask,
+                                     *self._basis.consts(self.device))
         if self.mesh is not None:
             return sharded_bank_fit(self.mesh, x, y, var, mask, self._scale,
                                     kernel=self._kernel)
         return bank_fit_core(x, y, var, mask, self._scale,
                              kernel=self._kernel)
+
+    def _step_key(self, shape, table_shape) -> tuple:
+        """What a scan train's graph bakes: the shapes, and the settings
+        that are not :meth:`_scan_scalars`."""
+        m = self.mapping.setting
+        return ("fit", tuple(shape), tuple(table_shape), self.dtype.str,
+                self._kernel, self._scale, str(m.type), float(m.scale),
+                bool(self.setting.sensor_frame.discontinuity_detection),
+                self._basis is not None)
+
+    def _fit_scans(self, ranges_batch: np.ndarray,
+                   graphed: bool = False) -> BankState:
+        """S scans -> one BankState of S*B members, scan-major: the device
+        gather and ONE bank fit, or the reduced-rank bank fit
+        (:meth:`_scan_step`), one CUDA-graph replay when ``graphed`` on a
+        model with graphs. A member's L, L_inv and alpha do not depend on
+        the bank it is fit in (``ops/bank.py``), so each scan's slice of a
+        replay equals its own train bit for bit. A mesh shards the members
+        over its ranks."""
+        rb = np.asarray(ranges_batch, self.dtype)
+        sc = self._scan_scalars()
+        if graphed and self._graphs is not None:
+            c = self._build_scan_fit_cache()
+            return self._graphs.fit(self._step_key(rb.shape, c["idx"].shape),
+                                    self._scan_step, (rb, sc),
+                                    (c["idx"], c["inb"]))
+        out = self._scan_step(torch.as_tensor(rb, device=self.device),
+                              torch.as_tensor(sc, device=self.device),
+                              *self._table_tensors())
+        return bank_fit_rr_finish(out)[0] if self._basis is not None else out
 
     def train_scan_batch(self, ranges_batch) -> BankState:
         """Offline trajectory replay: S scans' partition banks in ONE bank
@@ -456,7 +515,9 @@ class LidarGaussianProcess2D:
         members, scan-major (member s*B + b is scan s's partition b); use
         :meth:`use_scan_bank` to route queries at one scan's slice. Needs
         the static angle-partition table and a plain kernel; does not
-        change this instance's trained state. One card only."""
+        change this instance's trained state. One card only. Runs eagerly
+        on every device (``models/sensor_graph.py`` says why): the result
+        is new tensors, the caller's own."""
         if self.setting.partition_on_hit_rays or self._basis is not None:
             raise NotImplementedError(
                 "train_scan_batch needs the static angle-partition table "
@@ -484,7 +545,10 @@ class LidarGaussianProcess2D:
 
     def train(self, rotation, translation, ranges) -> bool:
         """Store the scan, map its distances, and fit its partition bank in
-        one launch (reference Train)."""
+        one launch (reference Train). On a CUDA model without a mesh,
+        ``self.bank`` is then the outputs of the train's graph, which the
+        next train of that shape overwrites in place: clone a bank to keep
+        it."""
         self._trained = False
         self.sensor_frame.update_ranges(rotation, translation, ranges)
         if not self.sensor_frame.is_valid():
@@ -501,7 +565,8 @@ class LidarGaussianProcess2D:
             _LOG.warning("LidarGaussianProcess2D.train: no partitions for "
                          "this scan — nothing to train")
             return False
-        self.bank = self._fit_scans(self.sensor_frame.ranges[None])
+        self.bank = self._fit_scans(self.sensor_frame.ranges[None],
+                                    graphed=True)
         self._trained = True
         return True
 
@@ -540,7 +605,7 @@ class LidarGaussianProcess2D:
             self.bank, angles_local[:, None],
             self.search_partition(angles_local), self._scale,
             kernel=self._kernel, reduced_rank=self.reduced_rank_kernel,
-            basis=self._basis)
+            basis=self._basis, graphs=self._graphs)
 
     def test(self, angles, angles_are_local: bool, un_map: bool
              ) -> Optional[LidarGP2DTestResult]:

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 from typing import Callable, Optional
 
@@ -90,7 +91,7 @@ def pose_chunk_body(state: SpGpState, sensor_positions, points, point_masks,
                          tuple(torch.cat(t) for t in zip(*chunk)))
     spgp_update(state, pts, y, var, mask, scale, kernel=kernel,
                 diagonal_qm=diagonal_qm, zero_threshold=zero_threshold,
-                out=state)
+                out=state, block=chunk[0][0].shape[0])
     n_used = torch.stack([torch.sum(m) for *_, m in chunk])
     return n_used, ((pts, y, mask) if collect_datasets else None)
 
@@ -134,7 +135,12 @@ def capture(key, device, warm: Callable, run: Callable, inputs: tuple,
             generators=()) -> CapturedGraph:
     """``warm()`` once eagerly, then ``run()`` captured as a CUDA graph, both
     on a side stream; ``run``'s return value is the graph's static output.
-    The generators ``run`` draws from are registered with the graph."""
+    The generators ``run`` draws from are registered with the graph.
+
+    Python's cyclic garbage collector is held off during the capture: a
+    graph that a collected reference cycle held would be destroyed inside
+    the capture, and freeing a graph is an operation a capturing stream
+    does not permit (it invalidates the capture)."""
     wrappers = _counted_wrappers()
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
@@ -148,11 +154,17 @@ def capture(key, device, warm: Callable, run: Callable, inputs: tuple,
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
-        graph.capture_begin(capture_error_mode="thread_local")
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            out = run()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = run()
+            finally:
+                graph.capture_end()
         finally:
-            graph.capture_end()
+            if collecting:
+                gc.enable()
         t2 = time.perf_counter()
     torch.cuda.current_stream(device).wait_stream(stream)
     launches = {w: w.captured - n for w, n in zip(wrappers, before)
@@ -161,6 +173,46 @@ def capture(key, device, warm: Callable, run: Callable, inputs: tuple,
         key=key, graph=graph, inputs=inputs, outputs=out, launches=launches,
         warmup_ms=1e3 * (t1 - t0), capture_ms=1e3 * (t2 - t1),
         pool_bytes=torch.cuda.memory_reserved(device) - reserved)
+
+
+class GraphTable:
+    """Captured graphs by key, the way a jit caches one executable per
+    static shape: at most ``size`` kept, the least recently used released
+    first. Every graph kept is appended to ``captures`` (a list that the
+    tables of one model share: the record of what was captured, released
+    graphs included)."""
+
+    def __init__(self, captures: list, size: int = MAX_GRAPHS):
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self.captures = captures
+        self.size = size
+
+    def get(self, key) -> Optional[CapturedGraph]:
+        g = self._graphs.get(key)
+        if g is not None:
+            self._graphs.move_to_end(key)
+        return g
+
+    def keep(self, g: CapturedGraph) -> CapturedGraph:
+        self._graphs[g.key] = g
+        self.captures.append(g)
+        while len(self._graphs) > self.size:
+            self._graphs.popitem(last=False)[1].release()
+        return g
+
+    def drop(self, keep: Callable = lambda g: False) -> None:
+        """Release every graph for which ``keep(g)`` is false."""
+        for key in [k for k, g in self._graphs.items() if not keep(g)]:
+            self._graphs.pop(key).release()
+
+    def __iter__(self):
+        return iter(self._graphs)
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def values(self):
+        return self._graphs.values()
 
 
 def _to_device(dst: torch.Tensor, a: np.ndarray) -> None:
@@ -184,10 +236,10 @@ class PoseGraphs:
         self.state: Optional[SpGpState] = None
         self.box: Optional[tuple] = None
         self._generators: list = []
-        self._updates: collections.OrderedDict = collections.OrderedDict()
-        self._predicts: collections.OrderedDict = collections.OrderedDict()
-        self._prepared = None     # (the prepare it holds, L_qm, alpha)
         self.captures: list = []
+        self._updates = GraphTable(self.captures)
+        self._predicts = GraphTable(self.captures)
+        self._prepared = None     # (the prepare it holds, L_qm, alpha)
 
     def bind(self, state: SpGpState, aabb_min, aabb_max) -> tuple:
         """Make the static buffers hold ``state`` and the box: nothing when
@@ -207,25 +259,10 @@ class PoseGraphs:
                 return self.state, *self.box
         fresh = [_fresh(t) for t in new]
         self.state, self.box = SpGpState(*fresh[:-2]), tuple(fresh[-2:])
-        for table in (self._updates, self._predicts):
-            for g in table.values():
-                g.release()
-            table.clear()
+        self._updates.drop()
+        self._predicts.drop()
         self._prepared = None
         return self.state, *self.box
-
-    def _cached(self, table, key) -> Optional[CapturedGraph]:
-        g = table.get(key)
-        if g is not None:
-            table.move_to_end(key)
-        return g
-
-    def _keep(self, table, g: CapturedGraph) -> CapturedGraph:
-        table[g.key] = g
-        self.captures.append(g)
-        while len(table) > MAX_GRAPHS:
-            table.popitem(last=False)[1].release()
-        return g
 
     def _capture_update(self, key, c, n, scale, collect_datasets, kw):
         d = self.state.pseudo.shape[1]
@@ -242,7 +279,7 @@ class PoseGraphs:
                                    generators=gens,
                                    collect_datasets=collect_datasets, **kw)
 
-        return self._keep(self._updates, capture(
+        return self._updates.keep(capture(
             key, dev, lambda: body(SpGpState(*map(_fresh, self.state))),
             lambda: body(self.state), inputs, gens))
 
@@ -258,7 +295,7 @@ class PoseGraphs:
         c, n = point_masks.shape
         key = ("update", n, c, bool(collect_datasets), float(scale),
                tuple(sorted(kw.items())))
-        g = self._cached(self._updates, key) or self._capture_update(
+        g = self._updates.get(key) or self._capture_update(
             key, c, n, float(scale), bool(collect_datasets), kw)
         for dst, a in zip(g.inputs, (sensor_positions, points, point_masks)):
             _to_device(dst, a)
@@ -287,7 +324,7 @@ class PoseGraphs:
         q = xq.shape[0]
         key = ("predict", q, bool(with_grad), kernel, float(scale),
                float(zero_threshold))
-        g = self._cached(self._predicts, key)
+        g = self._predicts.get(key)
         if g is None:
             inputs = (torch.zeros((q, self.state.pseudo.shape[1]),
                                   dtype=self.state.pseudo.dtype,
@@ -299,8 +336,8 @@ class PoseGraphs:
                     kernel=kernel, with_grad=with_grad,
                     zero_threshold=zero_threshold)
 
-            g = self._keep(self._predicts,
-                           capture(key, self.device, run, run, inputs))
+            g = self._predicts.keep(capture(key, self.device, run, run,
+                                            inputs))
         _to_device(g.inputs[0], xq)
         g.replay()
         mean, grad = g.outputs

@@ -11,9 +11,14 @@ on the host and answers all partitions in one batched predict
 are host numpy, as in the JAX package. A reduced-rank ``gp.kernel_type``
 fits each partition's basis information system instead
 (``models/batch_gp.bank_fit_rr_core``) and predicts with ``+||.||^2``.
+On a CUDA device each scan train
+(:meth:`~RangeSensorGaussianProcess3D.train`) and the device half of each
+routed predict is one replay of a CUDA graph (``models/sensor_graph.py``),
+as each is one jit in the JAX package; the offline replay
+(:meth:`~RangeSensorGaussianProcess3D.train_scan_batch`) runs eagerly.
 With ``mesh=``, a train shards the bank's members over the ranks
-(``parallel/mesh.sharded_bank_fit``); a reduced-rank fit stays on each
-rank whole, as in the JAX package.
+(``parallel/mesh.sharded_bank_fit``) and runs eagerly; a reduced-rank fit
+stays on each rank whole, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from erl_gaussian_process_tpu_torch.kernels import resolve_kernel_setting
 from erl_gaussian_process_tpu_torch.models.batch_gp import (
     BankState,
     bank_fit_core,
-    bank_fit_rr_core,
+    bank_fit_rr_finish,
+    bank_fit_rr_parts,
     bank_predict_assigned,
     bank_state_from_numpy,
 )
@@ -42,9 +48,7 @@ from erl_gaussian_process_tpu_torch.models.mapping import (
     MappingSetting,
     MappingType,
 )
-from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
-    torch_dtype,
-)
+from erl_gaussian_process_tpu_torch.models.sensor_graph import SensorGraphs
 from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
     VanillaGaussianProcess,
     VanillaGPSetting,
@@ -88,11 +92,12 @@ def _gather_scan_3d(ranges, fc_flat, idx, inb, vmin, vmax, srv, min_count,
 
     ranges (S, H, W); fc_flat (H*W, 2) frame coords; idx (B, width) the
     flat grid indices of each partition's sub-block in row-major order,
-    inb (B, width) its valid slots. A stable sort on ~hit compacts each
-    member's hits to the front in that order, exactly numpy's boolean-mask
-    flattening; groups with at most ``min_count`` hits are masked out
-    whole. Returns xs (S, B, width, 2), ys (S, B, width, 1), vs and ms (S,
-    B, width)."""
+    inb (B, width) its valid slots; vmin, vmax and srv 0-dim tensors of
+    the ranges' dtype (a graph's static input). A stable sort on ~hit
+    compacts each member's hits to the front in that order, exactly
+    numpy's boolean-mask flattening; groups with at most ``min_count`` hits
+    are masked out whole. Returns xs (S, B, width, 2), ys (S, B, width, 1),
+    vs and ms (S, B, width)."""
     r = ranges.reshape(ranges.shape[0], -1)
     hit = torch.isfinite(r) & (r >= vmin) & (r <= vmax)
     mapped = mapping.map(r)
@@ -104,7 +109,7 @@ def _gather_scan_3d(ranges, fc_flat, idx, inb, vmin, vmax, srv, min_count,
     xs = torch.where(ms[..., None], fc_flat[sel], 0.0)
     rows = torch.arange(r.shape[0], device=r.device)[:, None, None]
     ys = torch.where(ms, mapped[rows, sel], 0.0)
-    vs = torch.full(ms.shape, srv, dtype=r.dtype, device=r.device)
+    vs = srv.expand(ms.shape).contiguous()
     return xs, ys[..., None], vs, ms
 
 
@@ -163,7 +168,8 @@ class RangeSensorGP3DTestResult:
         coords, idx = gp.route_directions(d)
         mean, var, valid = bank_predict_assigned(
             gp.bank, coords, idx, gp._scale, kernel=gp._kernel,
-            reduced_rank=gp.reduced_rank_kernel, basis=gp._basis)
+            reduced_rank=gp.reduced_rank_kernel, basis=gp._basis,
+            graphs=gp._graphs)
         self._gp = gp
         self._mean = mean[:, 0]
         self._var = var
@@ -204,7 +210,6 @@ class RangeSensorGaussianProcess3D:
             raise ValueError("row_overlap_size and col_overlap_size must be "
                              "even")
         self.dtype = np.dtype(dtype)
-        self._tdtype = torch_dtype(self.dtype)
         self.sensor_frame = create_range_sensor_frame_3d(
             self.setting.sensor_frame_type, self.setting.sensor_frame,
             dtype=dtype)
@@ -225,6 +230,8 @@ class RangeSensorGaussianProcess3D:
         self.bank: Optional[BankState] = None
         self.mapped_distances = None
         self._scan_fit_cache = None
+        self._graphs = SensorGraphs(self.device) \
+            if self.device.type == "cuda" and mesh is None else None
 
     def _setup_kernel(self):
         """Resolve the partition GPs' kernel. A reduced-rank kernel type
@@ -277,11 +284,16 @@ class RangeSensorGaussianProcess3D:
         views of the bank (the reference's ``gps``): each view's state is
         its member's slice of the bank, on the bank's device, and its train
         set the stored scan's partition. ``[]`` when untrained. The routed
-        predict of :meth:`test` does not use them."""
+        predict of :meth:`test` does not use them. On a model with graphs
+        the views hold a copy of the bank, which the next train does not
+        overwrite."""
         if not self._trained or self.bank is None:
             return []
         xs, ys, vs, ms = self._assemble_bank_arrays()
         bank = self.bank
+        if self._graphs is not None:
+            bank = BankState(*(None if t is None else t.clone()
+                               for t in bank))
         trained = bank.trained.cpu().numpy()
         R, C = self.num_partitions
         grid = []
@@ -396,37 +408,74 @@ class RangeSensorGaussianProcess3D:
             self._scan_fit_cache = c
         return c
 
+    def _scan_scalars(self) -> np.ndarray:
+        """The float settings a scan train reads, at every train: (valid
+        range min, max, sensor range variance) in the model's dtype."""
+        sf, s = self.sensor_frame.setting, self.setting
+        return np.array([sf.valid_range_min, sf.valid_range_max,
+                         s.sensor_range_var], self.dtype)
+
     def _gather_scans(self, ranges_batch: np.ndarray):
         """S range images -> the bank fit's inputs (x, y, var, mask) of S*B
         members, scan-major, gathered on the model's device."""
-        c = self._build_scan_fit_cache()
-        sf, s = self.sensor_frame.setting, self.setting
-        xs, ys, vs, ms = _gather_scan_3d(
-            torch.as_tensor(ranges_batch, dtype=self._tdtype,
+        return self._gather_tensors(
+            torch.as_tensor(np.asarray(ranges_batch, self.dtype),
                             device=self.device),
-            c["fc_flat"], c["idx"], c["inb"], float(sf.valid_range_min),
-            float(sf.valid_range_max), float(s.sensor_range_var),
-            int(s.min_num_samples_per_group), mapping=self.mapping)
+            torch.as_tensor(self._scan_scalars(), device=self.device))
+
+    def _gather_tensors(self, ranges, scalars):
+        """:meth:`_gather_scans` of S range images (S, H, W) and
+        :meth:`_scan_scalars` as tensors on the model's device."""
+        c = self._build_scan_fit_cache()
+        xs, ys, vs, ms = _gather_scan_3d(
+            ranges, c["fc_flat"], c["idx"], c["inb"], scalars[0], scalars[1],
+            scalars[2], int(self.setting.min_num_samples_per_group),
+            mapping=self.mapping)
         S, B, w = ms.shape
         return (xs.reshape(S * B, w, 2), ys.reshape(S * B, w, 1),
                 vs.reshape(S * B, w), ms.reshape(S * B, w))
 
-    def _fit_scans(self, ranges_batch: np.ndarray) -> BankState:
-        """S range images -> one BankState of S*B members: the gather and
-        ONE bank fit. A member's L, L_inv and alpha do not depend on the
-        bank it is fit in (``ops/bank.py``), so each scan's slice of a
-        replay equals its own train bit for bit. A reduced-rank model
-        fits the members' basis information systems instead; a mesh
-        shards the members over its ranks."""
-        x, y, var, mask = self._gather_scans(ranges_batch)
+    def _scan_step(self, ranges, scalars):
+        """The body of a scan train, the function its CUDA graph captures:
+        the gather and ONE bank fit, a BankState of S*B members (a
+        reduced-rank model's ``batch_gp.bank_fit_rr_parts``, before its
+        jitter ladder). Plain tensor code."""
+        x, y, var, mask = self._gather_tensors(ranges, scalars)
         if self._basis is not None:
-            return bank_fit_rr_core(x, y, var, mask,
-                                    *self._basis.consts(self.device))
+            return bank_fit_rr_parts(x, y, var, mask,
+                                     *self._basis.consts(self.device))
         if self.mesh is not None:
             return sharded_bank_fit(self.mesh, x, y, var, mask, self._scale,
                                     kernel=self._kernel)
         return bank_fit_core(x, y, var, mask, self._scale,
                              kernel=self._kernel)
+
+    def _step_key(self, shape) -> tuple:
+        """What a scan train's graph bakes: the shape, and the settings
+        that are not :meth:`_scan_scalars`."""
+        m = self.mapping.setting
+        return ("fit", tuple(shape), self.dtype.str, self._kernel,
+                self._scale, str(m.type), float(m.scale),
+                int(self.setting.min_num_samples_per_group),
+                self._basis is not None)
+
+    def _fit_scans(self, ranges_batch: np.ndarray,
+                   graphed: bool = False) -> BankState:
+        """S range images -> one BankState of S*B members: the gather and
+        ONE bank fit (:meth:`_scan_step`), one CUDA-graph replay when
+        ``graphed`` on a model with graphs. A member's L, L_inv and alpha
+        do not depend on the bank it is fit in (``ops/bank.py``), so each
+        scan's slice of a replay equals its own train bit for bit. A
+        reduced-rank model fits the members' basis information systems
+        instead; a mesh shards the members over its ranks."""
+        rb = np.asarray(ranges_batch, self.dtype)
+        sc = self._scan_scalars()
+        if graphed and self._graphs is not None:
+            return self._graphs.fit(self._step_key(rb.shape),
+                                    self._scan_step, (rb, sc))
+        out = self._scan_step(torch.as_tensor(rb, device=self.device),
+                              torch.as_tensor(sc, device=self.device))
+        return bank_fit_rr_finish(out)[0] if self._basis is not None else out
 
     def train_scan_batch(self, ranges_batch) -> BankState:
         """Offline trajectory replay: S range images' partition banks in ONE
@@ -434,7 +483,8 @@ class RangeSensorGaussianProcess3D:
         frame. Returns a BankState with S*B members, scan-major; use
         :meth:`use_scan_bank` to route queries at one scan's slice. Does
         not change this instance's trained state. Plain kernels on one card
-        only."""
+        only. Runs eagerly on every device (``models/sensor_graph.py`` says
+        why): the result is new tensors, the caller's own."""
         if self._basis is not None:
             raise NotImplementedError(
                 "train_scan_batch needs plain kernels on a single chip")
@@ -462,11 +512,15 @@ class RangeSensorGaussianProcess3D:
         self._trained = True
 
     def train(self, rotation, translation, ranges) -> bool:
-        """One scan -> one flattened padded bank fit (reference Train)."""
+        """One scan -> one flattened padded bank fit (reference Train). On
+        a CUDA model without a mesh, ``self.bank`` is then the outputs of
+        the train's graph, which the next train overwrites in place: clone
+        a bank to keep it."""
         self._trained = False
         if not self.store_data(rotation, translation, ranges):
             return False
-        self.bank = self._fit_scans(self.sensor_frame.ranges[None])
+        self.bank = self._fit_scans(self.sensor_frame.ranges[None],
+                                    graphed=True)
         self._trained = True
         return True
 
@@ -511,7 +565,8 @@ class RangeSensorGaussianProcess3D:
         coords, idx = self.route_directions(dirs)
         mean, var, valid = bank_predict_assigned(
             self.bank, coords, idx, self._scale, kernel=self._kernel,
-            reduced_rank=self.reduced_rank_kernel, basis=self._basis)
+            reduced_rank=self.reduced_rank_kernel, basis=self._basis,
+            graphs=self._graphs)
         mean = mean[:, 0]
         valid = valid & (var <= self.setting.max_valid_range_var)
         a = dist * self.setting.occ_test_temperature

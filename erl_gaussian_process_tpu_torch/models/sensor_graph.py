@@ -1,0 +1,244 @@
+"""CUDA graphs of the sensor GPs' steps: the port's counterpart of the JAX
+package's one-dispatch jits of the 3D range-sensor GP and the 2D lidar GP
+(``erl_gaussian_process_tpu/models/range_sensor_gp_3d.py``
+``_scan_train_fused`` and ``_scan_train_fused_rr``, the same two in
+``models/lidar_gp_2d.py``) and of their routed predict
+(``models/batch_gp.py`` ``_predict_segmented`` and
+``_predict_segmented_rr``).
+
+On a CUDA device without ``mesh=``, ``RangeSensorGaussianProcess3D`` and
+``LidarGaussianProcess2D`` run each scan train (the gather and the bank fit
+on the device) and the device half of each routed predict as one replay
+of a graph captured with ``models/pose_graph.capture``:
+
+- **Trains.** A graph per shape and per the settings a graph bakes (the
+  kernel, its scale, the mapping, the integer settings), keyed by the
+  model; the float settings (valid range, sensor variance, discontinuity
+  threshold and variance) are a static input filled before every replay,
+  so a setting changed between two trains reaches the next one. The range
+  images are copied into a static input; the 2D lidar GP's partition table
+  too, whenever the model built a new one (with ``partition_on_hit_rays``
+  it may change shape from scan to scan: a graph per shape, as JAX traces
+  per shape). The graph's outputs are the bank a train returns: the next
+  replay of that graph overwrites them.
+- **Not the offline replay.** ``train_scan_batch`` (JAX's
+  ``_scan_train_batch_fused``) runs eagerly: a trajectory is replayed
+  once, so its graph would cost a capture on top of an eager run each
+  time; on the card a cached graph of the 64-scan replay only tied the
+  eager chain (its outputs must be copied out) and pinned a pool as large
+  as they are.
+- **The reduced-rank fit** captures the well-posed chain
+  (``batch_gp.bank_fit_rr_parts``); after the replay the host reads the
+  one flag the eager fit reads, and only a bank with a failed member runs
+  the jitter ladder, eagerly (``ladder_runs`` counts those trains).
+- **Routed predicts.** A graph per (bank, bucket (Bp, C), kernel, scale,
+  fused, reduced rank, dtype), for a bucket of at most ``max_slots``
+  query slots (Bp * C); a larger bucket runs the eager chain. A replay
+  saves the same launches whatever the bucket, while a capture's warm-up,
+  pool and the number of buckets grow with it: the bucket follows the
+  queries (the members they touch, the most a member gets), and on a
+  trajectory the 3D lidar's 10 000-query test (656-720 x 128-256) met a
+  new one every few scans, each capture costing more than its replays
+  saved. The 2D lidar's buckets (16 x 32) and the 3D ``compute_occ`` on a
+  scan's own points (464 x 2) are graphed. The bank a graph reads is a
+  train graph's outputs when the model's bank is those (no copy), else a
+  static copy of the model's bank, copied again whenever the model holds
+  another bank (``use_scan_bank``, a loaded checkpoint, a bank the jitter
+  ladder replaced). The queries and member ids go into static inputs
+  without blocking, and the mean and variance come back in one copy.
+
+Each capture runs its body once eagerly first (``capture``'s warm-up);
+capture errors raise with their cause, and no failure falls back to the
+eager chain. The CPU model and the model with ``mesh=`` build none of
+this.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import weakref
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from erl_gaussian_process_tpu_torch.models import pose_graph
+from erl_gaussian_process_tpu_torch.models.batch_gp import (
+    BankState,
+    RRFitParts,
+    bank_fit_rr_finish,
+)
+from erl_gaussian_process_tpu_torch.models.pose_graph import (
+    CapturedGraph,
+    GraphTable,
+)
+
+_LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
+
+MAX_GRAPHS = 8  # graphs kept of each kind (trains, routed predicts)
+MAX_SLOTS = 4096  # the largest routed bucket (Bp * C query slots) graphed
+
+
+def _bank_of(outputs) -> BankState:
+    return outputs.bank if isinstance(outputs, RRFitParts) else outputs
+
+
+def _same(a: tuple, b: tuple) -> bool:
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+def _empty_like(a: np.ndarray, device) -> torch.Tensor:
+    return torch.empty(a.shape, device=device,
+                       dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
+
+
+def _feed(dst: torch.Tensor, a) -> None:
+    """Copy a host array (pageable: CUDA stages it before the call returns)
+    or a tensor into the static tensor ``dst`` without waiting."""
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    dst.copy_(a, non_blocking=True)
+
+
+class SensorGraphs:
+    """One sensor GP's graphs (see the module docstring). ``captures``
+    lists every graph captured, the dropped ones released: key, warm-up
+    and capture ms, pool bytes, launches a replay, replays. ``max_slots``:
+    the largest routed bucket graphed (None: every bucket)."""
+
+    def __init__(self, device, size: int = MAX_GRAPHS,
+                 max_slots: Optional[int] = MAX_SLOTS):
+        self.device = torch.device(device)
+        self.captures: list = []
+        self._fits = GraphTable(self.captures, size)
+        self._routed = GraphTable(self.captures, size)
+        self._tables: dict = {}       # fit key -> the tables last copied
+        # static copies of banks that are no train graph's outputs:
+        # token -> (bank, the bank last copied into it)
+        self._banks: collections.OrderedDict = collections.OrderedDict()
+        self.size = size
+        self.max_slots = max_slots
+        self.ladder_runs = 0
+
+    # -- trains ------------------------------------------------------------
+    def fit(self, key, body: Callable, feeds: tuple, tables: tuple = ()):
+        """One scan train through the graph of ``key`` (captured at its
+        first use): ``feeds`` (host arrays) are copied into the graph's
+        static inputs before every replay, ``tables`` (host arrays) only
+        when they are other objects than the last ones copied;
+        ``body(*feeds, *tables)`` on those inputs is what the graph runs.
+        Returns the bank: the graph's outputs, or for a reduced-rank fit
+        (``body`` returning ``batch_gp.RRFitParts``) its bank after
+        ``batch_gp.bank_fit_rr_finish``."""
+        g = self._fits.get(key)
+        arrays = (*feeds, *tables)
+        if g is None:
+            inputs = tuple(_empty_like(a, self.device) for a in arrays)
+            for dst, a in zip(inputs, arrays):
+                _feed(dst, a)
+
+            def run():
+                return body(*inputs)
+
+            g = self._fits.keep(pose_graph.capture(key, self.device, run, run,
+                                                   inputs))
+            self._prune()
+        else:
+            for dst, a in zip(g.inputs, feeds):
+                _feed(dst, a)
+            if not _same(self._tables.get(key, ()), tables):
+                for dst, a in zip(g.inputs[len(feeds):], tables):
+                    _feed(dst, a)
+        self._tables[key] = tables
+        g.replay()
+        if not isinstance(g.outputs, RRFitParts):
+            return g.outputs
+        bank, laddered = bank_fit_rr_finish(g.outputs)
+        if laddered:
+            self.ladder_runs += 1
+            _LOG.info("reduced-rank bank fit: a member's Cholesky failed; "
+                      "ran the jitter ladder after the replay (%d so far)",
+                      self.ladder_runs)
+        return bank
+
+    def _prune(self) -> None:
+        """A train graph's outputs go with it when the table drops it: so
+        do the routed predicts that read them."""
+        kept = set(self._fits)
+        self._tables = {k: v for k, v in self._tables.items() if k in kept}
+        self._routed.drop(lambda r: r.key[0][0] != "fit"
+                          or r.key[0][1] in kept)
+
+    # -- routed predicts ---------------------------------------------------
+    def _token(self, state: BankState):
+        """(token, the train graph whose outputs ``state`` is, or None):
+        the part of a routed key that names the bank."""
+        for g in self._fits.values():
+            if g.outputs is not None and _same(tuple(state),
+                                               tuple(_bank_of(g.outputs))):
+                return ("fit", g.key), g
+        return ("bank", tuple(None if t is None else
+                              (tuple(t.shape), t.dtype) for t in state)), None
+
+    def _bank(self, token, fit, state: BankState) -> BankState:
+        """The static bank a routed graph of ``token`` reads for
+        ``state``: the train graph's outputs, or a static copy of
+        ``state``, copied again when it holds another bank."""
+        if fit is not None:
+            return _bank_of(fit.outputs)
+        # the bank last copied in, held by weak references: a caller's
+        # bank is not kept alive by its copy
+        source = tuple(None if t is None else weakref.ref(t) for t in state)
+        held = self._banks.get(token)
+        if held is None:
+            held = (BankState(*(None if t is None else
+                                t.clone(memory_format=torch.contiguous_format)
+                                for t in state)), source)
+            self._banks[token] = held
+            while len(self._banks) > self.size:
+                old, _ = self._banks.popitem(last=False)
+                self._routed.drop(lambda r, old=old: r.key[0] != old)
+        else:
+            self._banks.move_to_end(token)
+            if not _same(tuple(None if r is None else r() for r in held[1]),
+                         tuple(state)):
+                for dst, src in zip(held[0], state):
+                    if dst is not None:
+                        dst.copy_(src)
+                held = (held[0], source)
+                self._banks[token] = held
+        return held[0]
+
+    def routed(self, state: BankState, body: Callable, qs: np.ndarray,
+               mids: np.ndarray, settings: tuple) -> Optional[CapturedGraph]:
+        """The graph of the routed predict ``body(bank, mids, qs)`` ->
+        (mean (Bp, C, q), var (Bp, C)) for ``state``'s bank, with the host
+        queries qs (Bp, C, d) and member ids mids (Bp,) copied into its
+        static inputs; ``settings`` the kernel's, baked by the capture.
+        The caller replays it; its output is the mean and the variance
+        flattened into one tensor. None for a bucket of more than
+        ``max_slots`` query slots: the caller runs ``body`` eagerly."""
+        if self.max_slots is not None and \
+                qs.shape[0] * qs.shape[1] > self.max_slots:
+            return None
+        token, fit = self._token(state)
+        key = (token, qs.shape, qs.dtype.str, *settings)
+        g = self._routed.get(key)
+        if g is None:
+            bank = self._bank(token, fit, state)
+            inputs = (_empty_like(qs, self.device),
+                      _empty_like(mids, self.device))
+            for dst, a in zip(inputs, (qs, mids)):
+                _feed(dst, a)
+
+            def run():
+                mean, var = body(bank, inputs[1], inputs[0])
+                return torch.cat([mean.reshape(-1), var.reshape(-1)])
+
+            return self._routed.keep(pose_graph.capture(key, self.device,
+                                                        run, run, inputs))
+        self._bank(token, fit, state)
+        for dst, a in zip(g.inputs, (qs, mids)):
+            _feed(dst, a)
+        return g

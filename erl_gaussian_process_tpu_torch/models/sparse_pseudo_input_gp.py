@@ -42,7 +42,10 @@ from erl_gaussian_process_tpu_torch.models.gp_core import (
     robust_cholesky,
     use_full_fp32_matmul,
 )
-from erl_gaussian_process_tpu_torch.ops.fitc import fitc_update_cuda
+from erl_gaussian_process_tpu_torch.ops.fitc import (
+    fitc_update_cuda,
+    fitc_update_plain,
+)
 from erl_gaussian_process_tpu_torch.utils.serialization import (
     eq_state,
     load_pytree,
@@ -132,7 +135,8 @@ def spgp_init(pseudo: torch.Tensor, scale, *, kernel: str,
 
 def spgp_update(state: SpGpState, x, y, var, mask, scale, *, kernel: str,
                 diagonal_qm: bool = False, zero_threshold: float = 0.0,
-                reduce=None, out: Optional[SpGpState] = None) -> SpGpState:
+                reduce=None, out: Optional[SpGpState] = None,
+                block: int = 0) -> SpGpState:
     """Rank-N FITC update with fixed-shape masking: masked-out columns
     contribute nothing. x (n, d); y (n, q); var/mask (n,).
 
@@ -143,10 +147,17 @@ def spgp_update(state: SpGpState, x, y, var, mask, scale, *, kernel: str,
     the Kahan add (the mesh's sum over ranks, ``parallel/mesh.py``).
     ``out``, when given (it may be ``state``), receives the new ``qm``,
     ``alpha``, ``qm_c`` and ``alpha_c`` in its tensors, bit for bit the
-    values of a new state (``gp_core.kahan_add``), and is returned."""
+    values of a new state (``gp_core.kahan_add``), and is returned.
+    ``block``: the samples of one pose when the n samples are a fused update
+    of several poses: on the CPU the FITC plain version then sums pose by
+    pose (``ops/fitc.fitc_update_plain``); the kernel sums its own chunks."""
     if not diagonal_qm and zero_threshold == 0.0:
-        dq, da = fitc_update_cuda(kernel, state.pseudo, state.L_inv, x, y,
-                                  var, mask, scale)
+        if x.device.type == "cpu" and 0 < block < x.shape[0]:
+            dq, da = fitc_update_plain(kernel, state.pseudo, state.L_inv, x,
+                                       y, var, mask, scale, block)
+        else:
+            dq, da = fitc_update_cuda(kernel, state.pseudo, state.L_inv, x,
+                                      y, var, mask, scale)
     else:
         l_inv = state.L_inv if state.pseudo.dtype == torch.float32 else None
         dq, da = fitc_delta(state.pseudo, state.L_km, x, y, var, mask, scale,

@@ -210,7 +210,8 @@ def update_batch_steps(state: SpGpState, seed: int, step0: int,
         pts, y, var, mask = (chunk[0] if c == 1 else
                              tuple(torch.cat(t) for t in zip(*chunk)))
         state = update(state, pts, y, var, mask, scale, kernel=kernel,
-                       diagonal_qm=diagonal_qm, zero_threshold=zero_threshold)
+                       diagonal_qm=diagonal_qm, zero_threshold=zero_threshold,
+                       block=chunk[0][0].shape[0])
         used.extend(torch.sum(m) for *_, m in chunk)
         if collect_datasets:
             data.append((pts, y, mask))

@@ -2,7 +2,9 @@
 
 Each wrapper takes the plain version for CPU tensors and launches its
 CUDA kernel for CUDA tensors; every launch adds one to the wrapper's
-``launches`` count, so a run can show that it went through the kernels.
+``launches`` count, so a run can show that it went through the kernels
+(``ops/_library.note_launch``: a launch recorded into a CUDA graph counts
+in ``captured``, and each replay of the graph adds it to ``launches``).
 The gram and FITC wrappers call the ``torch.library`` ops of
 ``ops/_library.py`` (``egp::cross_gram``, ``egp::cross_gram_batched``,
 ``egp::fitc_update``), registered when this package is imported.

@@ -27,6 +27,7 @@ import functools
 import torch
 
 from erl_gaussian_process_tpu_torch.ops._build import load_library
+from erl_gaussian_process_tpu_torch.ops._library import note_launch
 from erl_gaussian_process_tpu_torch.ops.gram import (
     check_cuda_operands,
     packed_family,
@@ -119,11 +120,12 @@ def bank_fit_cuda(name: str, x, y, var, mask, scale,
               fam, ncomp, coefs, weights, members_per_block, x.device.index,
               stream)
     kl.check(code, "bank fit kernel launch")
-    bank_fit_cuda.launches += 1
+    note_launch(bank_fit_cuda)
     return L, L_inv, alpha
 
 
 bank_fit_cuda.launches = 0
+bank_fit_cuda.captured = 0
 
 
 PANEL = 16  # csrc/bank.cu kPt: the blocked kernel's panel and tile edge
@@ -216,8 +218,9 @@ def bank_cholesky_solve_cuda(K, y):
               alpha.data_ptr(), b, n, q, plan.members_per_block,
               K.device.index, stream)
     kl.check(code, "bank Cholesky kernel launch")
-    bank_cholesky_solve_cuda.launches += 1
+    note_launch(bank_cholesky_solve_cuda)
     return L, L_inv, alpha
 
 
 bank_cholesky_solve_cuda.launches = 0
+bank_cholesky_solve_cuda.captured = 0

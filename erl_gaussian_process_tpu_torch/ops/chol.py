@@ -31,6 +31,7 @@ import functools
 import torch
 
 from erl_gaussian_process_tpu_torch.ops._build import load_library
+from erl_gaussian_process_tpu_torch.ops._library import note_launch
 from erl_gaussian_process_tpu_torch.ops.gram import (
     FAMILY_IDS,
     check_cuda_operands,
@@ -172,11 +173,12 @@ def chol_blocked(A, *, return_dinv: bool = False):
               *plan, n, A.device.index,
               torch.cuda.current_stream(A.device).cuda_stream)
     kl.check(code, "chol kernel launch")
-    chol_blocked.launches += 1
+    note_launch(chol_blocked)
     return _result(L, dinv, return_dinv)
 
 
 chol_blocked.launches = 0
+chol_blocked.captured = 0
 
 
 def chol_blocked_gram(name: str, x, var, mask, scale, *,
@@ -206,11 +208,12 @@ def chol_blocked_gram(name: str, x, var, mask, scale, *,
               weights, x.device.index,
               torch.cuda.current_stream(x.device).cuda_stream)
     kl.check(code, "chol gram kernel launch")
-    chol_blocked_gram.launches += 1
+    note_launch(chol_blocked_gram)
     return _result(L, dinv, return_dinv)
 
 
 chol_blocked_gram.launches = 0
+chol_blocked_gram.captured = 0
 
 
 def chol_blocked_gram_joint(name: str, x, var_v, var_g, sample_mask,
@@ -250,8 +253,9 @@ def chol_blocked_gram_joint(name: str, x, var_v, var_g, sample_mask,
               float(scale), x.device.index,
               torch.cuda.current_stream(x.device).cuda_stream)
     kl.check(code, "chol joint kernel launch")
-    chol_blocked_gram_joint.launches += 1
+    note_launch(chol_blocked_gram_joint)
     return _result(L, dinv, return_dinv)
 
 
 chol_blocked_gram_joint.launches = 0
+chol_blocked_gram_joint.captured = 0

@@ -86,22 +86,39 @@ def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def fitc_update_plain(name: str, pseudo, linv, x, y, var, mask, scale):
+def fitc_update_plain(name: str, pseudo, linv, x, y, var, mask, scale,
+                      block: int = 0):
     """The plain PyTorch version of the FITC kernel, on any device: the
     beta-via-L_inv formulation of ``fitc_delta`` (the one the Pallas kernel
-    also computes)."""
+    also computes). ``block`` > 0: the samples are a fused update of poses
+    of ``block`` samples each, and dQ_M and dalpha are summed pose by pose,
+    in pose order, as the per-pose updates' sum rounds (the kernel sums its
+    own :func:`fitc_plan` chunks and takes no ``block``)."""
     return _fitc_plain(pseudo, linv, x, y, var, mask, *family_spec(name),
-                       float(scale))
+                       float(scale), int(block))
 
 
-def _fitc_plain(pseudo, linv, x, y, var, mask, base, ratios, weights, scale):
+def _fitc_plain(pseudo, linv, x, y, var, mask, base, ratios, weights, scale,
+                block=0):
     kmn = _plain_spec(pseudo, x, None, base, ratios, weights, scale)
     beta = linv @ kmn                                         # (M, n)
     lam = torch.clamp(1.0 - torch.sum(beta * beta, dim=0), min=0.0)
     inv = torch.where(mask, 1.0 / (lam + var), torch.zeros_like(lam))
     ksc = kmn * inv[None, :]
     yv = torch.where(mask[:, None], y, torch.zeros_like(y))
-    return ksc @ kmn.T, ksc @ yv
+    n = kmn.shape[1]
+    if block <= 0 or block >= n:
+        return ksc @ kmn.T, ksc @ yv
+    # a fused update of several poses: each pose's products on their own,
+    # added in pose order, so that the sum rounds as the per-pose updates'
+    # sum does (one product over all N samples lets the BLAS block its
+    # sample sum across pose boundaries)
+    dq, da = ksc[:, :block] @ kmn[:, :block].T, ksc[:, :block] @ yv[:block]
+    for lo in range(block, n, block):
+        hi = lo + block
+        dq = dq + ksc[:, lo:hi] @ kmn[:, lo:hi].T
+        da = da + ksc[:, lo:hi] @ yv[lo:hi]
+    return dq, da
 
 
 def fitc_update_cuda(name: str, pseudo, linv, x, y, var, mask, scale):

@@ -21,6 +21,7 @@ import functools
 import torch
 
 from erl_gaussian_process_tpu_torch.ops._build import load_library
+from erl_gaussian_process_tpu_torch.ops._library import note_launch
 from erl_gaussian_process_tpu_torch.ops.chol import TILE, diag_tile_inverses
 from erl_gaussian_process_tpu_torch.ops.gram import check_cuda_operands
 
@@ -118,11 +119,12 @@ def substitute_cuda(L, inv, b, trans: bool, *, grid=None):
               words.data_ptr(), n, q, int(trans), blocks, L.device.index,
               torch.cuda.current_stream(L.device).cuda_stream)
     kl.check(code, "trsv kernel launch")
-    substitute_cuda.launches += 1
+    note_launch(substitute_cuda)
     return x
 
 
 substitute_cuda.launches = 0
+substitute_cuda.captured = 0
 
 
 def _solve(L, b, inv, trans: bool):

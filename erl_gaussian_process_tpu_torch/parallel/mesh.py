@@ -181,7 +181,8 @@ def sharded_bank_fit(mesh: Mesh, x, y, var, mask, scale, *,
 
 def sharded_spgp_update(mesh: Mesh, state: SpGpState, x, y, var, mask,
                         scale, *, kernel: str, diagonal_qm: bool = False,
-                        zero_threshold: float = 0.0) -> SpGpState:
+                        zero_threshold: float = 0.0,
+                        block: int = 0) -> SpGpState:
     """FITC rank-N update with the N sample axis sharded over the mesh.
 
     Each rank runs ``spgp_update``'s increment on its block of samples
@@ -190,13 +191,15 @@ def sharded_spgp_update(mesh: Mesh, state: SpGpState, x, y, var, mask,
     with the same semantics as one card), the increments are summed by one
     ``all_reduce`` pair, and the Kahan add runs replicated. Padding samples
     are masked: their weight is exactly 0. The pseudo-point state is
-    replicated. x (n, d); y (n, q); var/mask (n,)."""
+    replicated. x (n, d); y (n, q); var/mask (n,). ``block``: the samples of
+    one pose of a fused update (``spgp_update``); each rank's plain version
+    sums its shard in blocks of that many samples."""
     (x, y, var, mask), _ = _pad_axis([x, y, var, mask], 0, mesh.size)
     return spgp_update(state, _shard(mesh, x), _shard(mesh, y),
                        _shard(mesh, var), _shard(mesh, mask), scale,
                        kernel=kernel, diagonal_qm=diagonal_qm,
                        zero_threshold=zero_threshold,
-                       reduce=lambda t: all_reduce(mesh, t))
+                       reduce=lambda t: all_reduce(mesh, t), block=block)
 
 
 def sharded_update_step(mesh: Mesh, state: SpGpState, seed: int, step: int,

@@ -29,6 +29,10 @@ How the contract differs from the JAX module's:
 
 Shapes are frozen at export, except the query dimension of a predict
 artifact exported with ``n_queries=None`` (a ``torch.export.Dim``).
+
+A loaded artifact's call on CUDA inputs is one replay of a CUDA graph of
+the module's call (:class:`LoadedStep`), as a loaded ``jax.export``
+artifact is one compiled executable.
 """
 
 from __future__ import annotations
@@ -124,11 +128,73 @@ def load_program(blob: bytes) -> torch.export.ExportedProgram:
     return torch.export.load(io.BytesIO(blob))
 
 
-def load_fn(blob: bytes) -> Callable:
+class LoadedStep:
+    """A loaded artifact as a callable with the exported function's
+    signature (NamedTuple states in and out; the module checks its inputs'
+    shapes).
+
+    On CUDA inputs a call is one replay of a CUDA graph of the module's
+    call, captured at the first call of each set of input shapes and
+    dtypes (``models/pose_graph.capture``; the predict artifact's dynamic
+    query dimension gives a graph per query count), at most
+    ``pose_graph.MAX_GRAPHS`` of them, the least recently used dropped
+    first: the inputs are copied into the graph's static inputs, and the
+    results come back as new tensors, bit for bit the module's own.
+    On CPU inputs it calls the module (:meth:`eager`). ``captures`` records
+    every graph captured."""
+
+    def __init__(self, module):
+        from erl_gaussian_process_tpu_torch.models.pose_graph import (
+            GraphTable,
+        )
+
+        self.module = module
+        self.captures: list = []
+        self._graphs = GraphTable(self.captures)
+
+    def eager(self, *args):
+        """The module's own call, one launch at a time."""
+        return self.module(*_as_tuples(args))
+
+    def __call__(self, *args):
+        import torch.utils._pytree as pytree
+
+        from erl_gaussian_process_tpu_torch.models import pose_graph
+
+        flat, spec = pytree.tree_flatten(_as_tuples(args))
+        if not flat or not all(isinstance(t, torch.Tensor)
+                               and t.device.type == "cuda" for t in flat):
+            return self.eager(*args)
+        key = tuple((t.shape, t.dtype, t.device) for t in flat)
+        g = self._graphs.get(key)
+        if g is None or g.spec != spec:
+            inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                      for t in flat]
+            torch._foreach_copy_(inputs, flat)
+
+            def run():
+                return self.module(*pytree.tree_unflatten(inputs, spec))
+
+            g = self._graphs.keep(pose_graph.capture(
+                key, flat[0].device, run, run, tuple(inputs)))
+            g.spec = spec
+        else:
+            # one multi-tensor copy in, one out: the step's host cost
+            torch._foreach_copy_(list(g.inputs), flat)
+        g.replay()
+        out, out_spec = pytree.tree_flatten(g.outputs)
+        new = [torch.empty_like(t) if isinstance(t, torch.Tensor) else t
+               for t in out]
+        pairs = [(a, b) for a, b in zip(new, out)
+                 if isinstance(b, torch.Tensor)]
+        torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
+        return pytree.tree_unflatten(new, out_spec)
+
+
+def load_fn(blob: bytes) -> LoadedStep:
     """An artifact as a callable with the exported function's signature
-    (NamedTuple states in and out); it checks its inputs' shapes."""
-    mod = load_program(blob).module()
-    return lambda *args: mod(*_as_tuples(args))
+    (:class:`LoadedStep`: a CUDA-graph replay on CUDA inputs)."""
+    return LoadedStep(load_program(blob).module())
 
 
 def _state_example(n_pseudo: int, dim: int, dtype, device):

@@ -759,7 +759,9 @@ def test_batched_gram_kernel_matches_plain(cuda, fam, dtype, tol, c):
 
 def test_cuda_sensor_gp_never_calls_the_plain_versions(cuda, monkeypatch):
     """A CUDA train and test of the 3D sensor GP run the kernels only: the
-    plain versions are patched to raise."""
+    plain versions are patched to raise. The first train captures its
+    graph; the next is one replay, one bank-fit launch; the test's bucket
+    is too large to graph and runs eagerly, one gram launch."""
     import erl_gaussian_process_tpu_torch.ops.bank as bank_ops
     import erl_gaussian_process_tpu_torch.ops.gram as gram_ops
     from erl_gaussian_process_tpu_torch.models import (
@@ -779,6 +781,8 @@ def test_cuda_sensor_gp_never_calls_the_plain_versions(cuda, monkeypatch):
         monkeypatch.setattr(mod, name, boom)
     setting, R, t, ranges, q, gt, _ = lidar3d_reference_workload()
     gp = RangeSensorGaussianProcess3D(setting, dtype=np.float32, device=cuda)
+    assert gp.train(R, t, ranges)
+    gp.test(q, False, True)
     before = launch_counts()
     assert gp.train(R, t, ranges)
     pred, valid = gp.test(q, False, True).get_mean()
@@ -1158,8 +1162,9 @@ def _lidar_log_gp(cuda, dtype):
 def test_lidar_gp_2d_replay_on_the_card_is_bitwise_per_scan_train(cuda,
                                                                  dtype):
     """The 28 logged scans (392 members of 26) in one bank-fit launch: each
-    scan's slice equals its own train bit for bit; the routed test is one
-    batched gram launch and agrees with the CPU model."""
+    scan's slice equals its own train bit for bit; the routed test (a
+    replay of its bucket's graph) is one batched gram launch and agrees
+    with the CPU model."""
     gp, cpu, rb = _lidar_log_gp(cuda, dtype)
     before = launch_counts()
     stacked = gp.train_scan_batch(rb)
@@ -1171,6 +1176,7 @@ def test_lidar_gp_2d_replay_on_the_card_is_bitwise_per_scan_train(cuda,
         for a, b in zip(stacked, gp.bank):
             assert torch.equal(a[s * 14:(s + 1) * 14], b)
     angles = gp.sensor_frame.angles_in_frame
+    gp.test(angles, True, True)
     before = launch_counts()
     pred, valid = gp.test(angles, True, True).get_mean()
     assert launch_counts()["gram_batched"] == before["gram_batched"] + 1
@@ -1392,7 +1398,8 @@ def test_fitc_kernel_at_four_poses(cuda, dtype):
 
 def test_artifact_round_trip_on_the_card(cuda):
     """The map's update and predict artifacts exported on the card,
-    through bytes, equal the eager step bit for bit and launch the FITC and
+    through bytes, equal the eager step bit for bit (a call after the one
+    that captured its graph) and launch the FITC and
     gram kernels (the launch counts)."""
     from erl_gaussian_process_tpu_torch.geometry import free_sample_fractions
     from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
@@ -1435,6 +1442,7 @@ def test_artifact_round_trip_on_the_card(cuda):
     g = torch.Generator(device=cuda)
     g.manual_seed(step_seed(0, 1))
     u = free_sample_fractions(32, 4, 0.02, g, torch.float32, cuda)
+    step(st, u, *scan)                   # the capture
     before = launch_counts()
     got, n_used = step(st, u, *scan)
     torch.cuda.synchronize()
@@ -1448,6 +1456,7 @@ def test_artifact_round_trip_on_the_card(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     L_qm, a = spgp_prepare(got)
     q = torch.rand(100, 2, device=cuda) * 2 - 1
+    predict(got, L_qm, a, q)             # the capture
     before = launch_counts()["gram"]
     mean, _ = predict(got, L_qm, a, q)
     torch.cuda.synchronize()
@@ -1455,3 +1464,242 @@ def test_artifact_round_trip_on_the_card(cuda):
     ref_mean, _ = predict_prepared_step(got, L_qm, a, q, 0.3,
                                         kernel="matern32", with_grad=False)
     assert torch.equal(mean, ref_mean)
+
+
+# -- the sensor GPs' and the loaded artifacts' CUDA graphs -------------------
+
+def _sensor_case(cuda, kind, dtype, **kw):
+    """(graphed model on the card, the same model's eager chain as a
+    function of a callable, scans, train pose, test queries) for the 3D
+    range-sensor GP (a 40 x 20 analytic scan) or the 2D lidar GP (the
+    logged scans), plain or reduced rank (``kind`` ending in "_rr")."""
+    import os
+
+    from erl_gaussian_process_tpu_torch.models import (
+        LidarGaussianProcess2D,
+        LidarGP2DSetting,
+        RangeSensorGaussianProcess3D,
+        RangeSensorGP3DSetting,
+    )
+    from erl_gaussian_process_tpu_torch.utils.loaders import load_lidar_log
+
+    rr = kind.endswith("_rr")
+    if kind.startswith("3d"):
+        gp_kw = (dict(kernel_type="reduced_rank_rbf",
+                      kernel=dict(x_dim=2, scale=0.5, num_basis=[24, 12],
+                                  boundary=[4.8, 2.1],
+                                  coord_origin=[0.0, 0.0]))
+                 if rr else dict(kernel_type="ou",
+                                 kernel=dict(x_dim=2, scale=0.5)))
+        d = dict(row_group_size=12, row_overlap_size=4, col_group_size=12,
+                 col_overlap_size=4, sensor_range_var=1e-2 if rr else 1e-4,
+                 sensor_frame=dict(valid_range_min=0.1, valid_range_max=40.0,
+                                   azimuth_min=-np.pi, azimuth_max=np.pi,
+                                   elevation_min=-0.6, elevation_max=0.6,
+                                   num_azimuth_lines=40,
+                                   num_elevation_lines=20),
+                 gp=gp_kw, mapping=dict(type="inverse_sqrt"))
+        d.update(kw)
+        gp = RangeSensorGaussianProcess3D(RangeSensorGP3DSetting.from_dict(d),
+                                          dtype=dtype, device=cuda)
+        dirs = gp.sensor_frame.ray_directions_in_frame()
+        az = np.arctan2(dirs[..., 1], dirs[..., 0])
+        el = np.arctan2(dirs[..., 2], np.hypot(dirs[..., 0], dirs[..., 1]))
+        r = 5.0 + 0.5 * np.sin(3 * az) * np.cos(2 * el)
+        rng = np.random.default_rng(1)
+        scans = np.stack([np.where(rng.uniform(size=r.shape) < 0.2, np.inf,
+                                   r * (1 + 0.01 * k)) for k in range(3)])
+        return gp, scans, (np.eye(3), np.zeros(3)), dirs.reshape(-1, 3)[::5]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    frames = load_lidar_log(os.path.join(root, "data", "double",
+                                         "train.dat"))
+    f = frames[0]
+    d = dict(group_size=26, overlap_size=6, margin=1, sensor_range_var=0.01,
+             discontinuity_var=100.0,
+             sensor_frame=dict(valid_range_min=0.1, valid_range_max=30.0,
+                               angle_min=float(f.angles[0]),
+                               angle_max=float(f.angles[-1]), num_rays=270,
+                               discontinuity_detection=True),
+             gp=(dict(kernel_type="reduced_rank_rbf",
+                      kernel=dict(x_dim=1, scale=0.25, num_basis=[48]))
+                 if rr else dict(kernel_type="ou",
+                                 kernel=dict(x_dim=1, scale=0.05))),
+             mapping=dict(type="identity"))
+    d.update(kw)
+    gp = LidarGaussianProcess2D(LidarGP2DSetting.from_dict(d), dtype=dtype,
+                                device=cuda)
+    return (gp, np.stack([fr.ranges for fr in frames]), (np.eye(2),
+                                                          np.zeros(2)),
+            f.angles)
+
+
+def _eager(gp, fn):
+    """``fn()`` with ``gp``'s graphs set aside: the eager chain."""
+    graphs, gp._graphs = gp._graphs, None
+    try:
+        return fn()
+    finally:
+        gp._graphs = graphs
+
+
+def _bits(a, b) -> bool:
+    """Bit for bit, NaN included: tensors, arrays or tuples of them."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_bits(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def _result(gp, q):
+    r = gp.test(q, True, False)
+    return r._mean, r._var, r._valid
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["3d", "3d_rr", "2d", "2d_rr"])
+def test_sensor_graphs_equal_the_eager_chain(cuda, kind, dtype):
+    """The graphed ``train`` and ``test`` (twice: the capture, then a
+    replay) against the same model's eager chain on the card, bit for bit:
+    banks, means, variances and valid masks; a replay is one bank-fit
+    launch (plain) and one batched gram launch. ``train_scan_batch``
+    (eager) too."""
+    gp, scans, pose, q = _sensor_case(cuda, kind, dtype)
+    for s in range(2):
+        before = launch_counts()
+        assert gp.train(*pose, scans[s])
+        bank = tuple(t.clone() if t is not None else None for t in gp.bank)
+        got = _result(gp, q)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert _eager(gp, lambda: gp.train(*pose, scans[s]))
+        assert _bits(bank, tuple(gp.bank))
+        assert _bits(got, _eager(gp, lambda: _result(gp, q)))
+        if s == 1 and not kind.endswith("_rr"):
+            assert counts["bank_fit"] - before["bank_fit"] == 1
+            assert counts["gram_batched"] - before["gram_batched"] == 1
+    assert gp._graphs.ladder_runs == 0
+    if kind.endswith("_rr"):
+        return
+    stacked = gp.train_scan_batch(scans)
+    assert _bits(tuple(stacked),
+                 tuple(_eager(gp, lambda: gp.train_scan_batch(scans))))
+
+
+def test_sensor_graph_replays_launch_the_bank_fit_once(cuda):
+    """After the capture, N graphed trains launch the bank fit N times (the
+    replays add the launch each captured), and the graph records one."""
+    from erl_gaussian_process_tpu_torch.ops import bank_fit_cuda
+
+    gp, scans, pose, _ = _sensor_case(cuda, "3d", np.float32)
+    assert gp.train(*pose, scans[0])
+    g = list(gp._graphs._fits.values())[0]
+    assert g.launches == {bank_fit_cuda: 1}
+    before = launch_counts()["bank_fit"]
+    for k in range(5):
+        assert gp.train(*pose, scans[k % 3])
+    torch.cuda.synchronize()
+    assert launch_counts()["bank_fit"] - before == 5 and g.replays == 6
+
+
+@pytest.mark.parametrize("kind", ["3d", "2d"])
+def test_sensor_graph_sees_a_changed_scalar(cuda, kind):
+    """A setting changed between two trains reaches the graphed train as it
+    reaches the eager one (one graph: the scalars are a static input), and
+    a bank held from ``train_scan_batch`` is not overwritten by the next
+    call."""
+    gp, scans, pose, q = _sensor_case(cuda, kind, np.float32)
+    assert gp.train(*pose, scans[0])
+    before = gp.bank.L.clone()
+    gp.setting.sensor_range_var = 0.05
+    assert gp.train(*pose, scans[0])
+    bank = tuple(t.clone() for t in gp.bank)
+    assert _eager(gp, lambda: gp.train(*pose, scans[0]))
+    assert _bits(bank, tuple(gp.bank)) and not torch.equal(before, bank[2])
+    assert len(gp._graphs._fits) == 1
+    first = gp.train_scan_batch(scans)
+    kept = tuple(t.clone() for t in first)
+    gp.train_scan_batch(scans[::-1].copy())
+    assert _bits(kept, tuple(first))
+
+
+@pytest.mark.parametrize("kind", ["3d", "2d"])
+def test_sensor_graph_scan_batch_leaves_the_trained_bank(cuda, kind):
+    """``train`` of scan A, then ``train_scan_batch`` of scan B alone (S =
+    1, the train's own shape): the bank and ``test`` stay scan A's, bit for
+    bit the eager chain's ``test`` of A."""
+    gp, scans, pose, q = _sensor_case(cuda, kind, np.float32)
+    assert gp.train(*pose, scans[0])
+    _result(gp, q)
+    bank = tuple(t.clone() for t in gp.bank)
+    gp.train_scan_batch(scans[1:2])
+    got = _result(gp, q)
+    assert _bits(bank, tuple(gp.bank))
+    assert _bits(got, _eager(gp, lambda: _result(gp, q)))
+    assert gp._graphs._routed.get(next(iter(gp._graphs._routed))) \
+        .replays == 2
+
+
+def test_loaded_artifacts_replay_graphs_bit_for_bit(cuda):
+    """A loaded update and predict artifact on CUDA inputs: each call after
+    the capture is one graph replay (one FITC launch, one gram launch)
+    whose results equal the module's own call bit for bit, across 5 chained
+    updates and two query counts of the dynamic predict."""
+    from erl_gaussian_process_tpu_torch.geometry import free_sample_fractions
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        spgp_prepare,
+    )
+    from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
+        step_seed,
+    )
+    from erl_gaussian_process_tpu_torch.utils.deploy import (
+        export_map_predict_step,
+        export_map_update_step,
+        load_fn,
+    )
+
+    s = SpGpOccupancyMapSetting(
+        sp_gp=SpGpSetting(kernel_type="matern32",
+                          kernel=KernelSetting(x_dim=2, scale=0.3),
+                          max_num_samples=256),
+        min_distance=0.0, max_distance=30.0, free_points_per_meter=2.0,
+        free_sampling_margin=0.02, logodd_free=-1.0, logodd_occupied=1.0,
+        logodd_variance=1e-4)
+    c = np.linspace(-1, 1, 8)
+    pseudo = np.stack([a.ravel() for a in np.meshgrid(c, c, indexing="ij")],
+                      -1)
+    st = spgp_init(torch.as_tensor(pseudo, dtype=torch.float32, device=cuda),
+                   0.3, kernel="matern32")
+    step = load_fn(export_map_update_step(s, n_pseudo=64, n_rays=32,
+                                          free_slots=4, device=cuda))
+    predict = load_fn(export_map_predict_step(n_pseudo=64, scale=0.3,
+                                              device=cuda))
+    lo = torch.full((2,), -3.0, device=cuda)
+    hi = torch.full((2,), 3.0, device=cuda)
+    g = torch.Generator(device=cuda)
+    st_g = st_e = st
+    for k in range(5):
+        ang = np.linspace(-2.0, 2.0, 32) + 0.1 * k
+        pts = torch.as_tensor(np.stack([2 * np.cos(ang), 2 * np.sin(ang)],
+                                       -1), dtype=torch.float32, device=cuda)
+        scan = (torch.full((2,), 0.05 * k, device=cuda), pts,
+                torch.ones(32, dtype=torch.bool, device=cuda), lo, hi)
+        g.manual_seed(step_seed(0, k + 1))
+        u = free_sample_fractions(32, 4, 0.02, g, torch.float32, cuda)
+        before = launch_counts()["fitc"]
+        st_g, n_g = step(st_g, u, *scan)
+        torch.cuda.synchronize()
+        assert launch_counts()["fitc"] - before == (2 if k == 0 else 1)
+        st_e, n_e = step.eager(st_e, u, *scan)
+        assert _bits(tuple(st_g), tuple(st_e)) and int(n_g) == int(n_e)
+    assert len(step.captures) == 1 and step.captures[0].replays == 5
+    L_qm, a = spgp_prepare(st_g)
+    for n in (100, 37, 100):
+        q = torch.rand(n, 2, device=cuda) * 2 - 1
+        mean, _ = predict(st_g, L_qm, a, q)
+        ref, _ = predict.eager(st_g, L_qm, a, q)
+        assert _bits(mean, ref)
+    assert len(predict.captures) == 2

@@ -138,3 +138,78 @@ def test_non_cpu_operands_raise():
     mask = torch.ones(5, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         fitc_update_cuda("rbf", *meta, mask, 1.0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_update_sums_pose_by_pose(dtype):
+    """``block`` = one pose's samples: a fused update of c poses is the sum
+    of the c per-pose products in pose order (the same operations, bit for
+    bit); a single pose (``block`` 0, or >= n) keeps the one-product bits
+    of the update before the block sum existed, which the chain below
+    writes out."""
+    rng = np.random.default_rng(3)
+    pseudo, x, y, mask = _problem(rng, 70, 4 * 96, 2, 1, dtype)
+    var = np.full(4 * 96, 1e-2, dtype)
+    st = spgp_init(torch.tensor(pseudo), 0.6, kernel="matern32")
+    args = _t(st.pseudo, st.L_inv, x, y, var, mask)
+    single = fitc_update_plain("matern32", *(a[:96] if a.dim() and
+                                             a.shape[0] == 4 * 96 else a
+                                             for a in args), 0.6)
+    for block in (0, 96, 500):
+        one = fitc_update_plain("matern32", *(a[:96] if a.dim() and
+                                              a.shape[0] == 4 * 96 else a
+                                              for a in args), 0.6, block)
+        assert all(torch.equal(p, q) for p, q in zip(one, single))
+    from erl_gaussian_process_tpu_torch.kernels.stationary import cross_gram
+
+    kmn = cross_gram("matern32", args[0], args[2][:96], 0.6)
+    beta = args[1] @ kmn
+    lam = torch.clamp(1.0 - torch.sum(beta * beta, dim=0), min=0.0)
+    inv = torch.where(args[5][:96], 1.0 / (lam + args[4][:96]),
+                      torch.zeros_like(lam))
+    ksc = kmn * inv[None, :]
+    yv = torch.where(args[5][:96, None], args[3][:96],
+                     torch.zeros_like(args[3][:96]))
+    assert torch.equal(single[0], ksc @ kmn.T)
+    assert torch.equal(single[1], ksc @ yv)
+    fused = fitc_update_plain("matern32", *args, 0.6, 96)
+    whole = fitc_update_plain("matern32", *args, 0.6)
+    k_all = cross_gram("matern32", args[0], args[2], 0.6)
+    b_all = args[1] @ k_all
+    lam = torch.clamp(1.0 - torch.sum(b_all * b_all, dim=0), min=0.0)
+    w = torch.where(args[5], 1.0 / (lam + args[4]), torch.zeros_like(lam))
+    ks = k_all * w[None, :]
+    yv = torch.where(args[5][:, None], args[3], torch.zeros_like(args[3]))
+    dq, da = ks[:, :96] @ k_all[:, :96].T, ks[:, :96] @ yv[:96]
+    for lo in (96, 192, 288):
+        dq = dq + ks[:, lo:lo + 96] @ k_all[:, lo:lo + 96].T
+        da = da + ks[:, lo:lo + 96] @ yv[lo:lo + 96]
+    assert torch.equal(fused[0], dq) and torch.equal(fused[1], da)
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    for a, b in zip(fused, whole):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def test_spgp_update_sums_a_fused_update_pose_by_pose_on_the_cpu():
+    """``spgp_update(block=)`` on CPU tensors: a fused update of 4 poses
+    adds the plain version's pose-by-pose sum; a single pose (``block`` =
+    n) goes through the op, whose plain version is the one product; the
+    op itself takes no ``block``."""
+    from erl_gaussian_process_tpu_torch.models.gp_core import kahan_add
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        spgp_update,
+    )
+
+    rng = np.random.default_rng(5)
+    pseudo, x, y, mask = _problem(rng, 40, 4 * 64, 2, 1, np.float32)
+    var = np.full(4 * 64, 1e-2, np.float32)
+    st = spgp_init(torch.tensor(pseudo), 0.6, kernel="matern32")
+    args = _t(x, y, var, mask)
+    for block, n in ((64, 4 * 64), (64, 64)):
+        a = [t[:n] for t in args]
+        got = spgp_update(st, *a, 0.6, kernel="matern32", block=block)
+        dq, da = fitc_update_plain("matern32", st.pseudo, st.L_inv, *a, 0.6,
+                                   block)
+        assert torch.equal(got.qm, kahan_add(st.qm, st.qm_c, dq)[0])
+        assert torch.equal(got.alpha, kahan_add(st.alpha, st.alpha_c, da)[0])
+    assert "block" not in str(torch.ops.egp.fitc_update.default._schema)

@@ -159,10 +159,12 @@ def fused_update_rounding(n_poses=8, c=4):
     """The float32 FITC update's rounding, port (``fitc_update_plain``, the
     CPU version) against reference (JAX's ``fitc_delta`` with ``L_inv``),
     on hotel-0's datasets of the port's map: for each chunk of c poses,
-    (a) one fused update (N = c x 2048) against the float64 sum of its c
-    per-pose updates made the same way, and (b) each side's fused update
-    against the float64 update of the same inputs; relative Frobenius of
-    dQ. Returns {side: {"fused_vs_per_pose": [...], "vs_float64": [...]}}."""
+    (a) one fused update (N = c x 2048, made as each side's map makes it:
+    the port's summed pose by pose, ``block`` = 2048) against the float64
+    sum of its c per-pose updates made the same way, and (b) each side's
+    fused update against the float64 update of the same inputs; relative
+    Frobenius of dQ. Returns {side: {"fused_vs_per_pose": [...],
+    "vs_float64": [...]}}."""
     import jax.numpy as jnp
     import torch
 
@@ -182,18 +184,19 @@ def fused_update_rounding(n_poses=8, c=4):
     kern, scale = omap.sp_gp._kernel, omap.sp_gp._scale
     P, Li = omap.state.pseudo.numpy(), omap.state.L_inv.numpy()
 
-    def port(dt, *args):
+    def port(dt, *args, block=0):
         return fitc_update_plain(kern, *(torch.tensor(a).to(
             dt if a.dtype != bool else torch.bool) for a in (P, Li, *args)),
-            scale)[0].double().numpy()
+            scale, block)[0].double().numpy()
 
-    def jax_(x, y, v, k):
+    def jax_(x, y, v, k, block=0):
         return np.asarray(fitc_delta(
             jnp.asarray(P), None, *map(jnp.asarray, (x, y, v, k)),
             np.float32(scale), kernel=kern, L_inv=jnp.asarray(Li))[0],
             np.float64)
 
-    sides = {"port": lambda *a: port(torch.float32, *a), "jax": jax_}
+    sides = {"port": lambda *a, block=0: port(torch.float32, *a,
+                                              block=block), "jax": jax_}
     out = {s: {"fused_vs_per_pose": [], "vs_float64": []} for s in sides}
     for lo_ in range(0, n_poses - c + 1, c):
         parts = [(dx[i].numpy(), dy[i].numpy(),
@@ -202,7 +205,7 @@ def fused_update_rounding(n_poses=8, c=4):
         fused_in = [np.concatenate(t) for t in zip(*parts)]
         ref64 = port(torch.float64, *fused_in)
         for side, f in sides.items():
-            fused = f(*fused_in)
+            fused = f(*fused_in, block=dm.shape[1])
             per_pose = sum(f(*p) for p in parts)
             out[side]["fused_vs_per_pose"].append(float(
                 np.linalg.norm(fused - per_pose) / np.linalg.norm(per_pose)))
@@ -220,3 +223,16 @@ def test_hotel0_prefix_f32_against_jax_f64_replay():
     # recorded beside the drift (PERF.md §6): the confident cells' sign
     # agreement of the float32 map with the float64 reference
     assert out["sign_agreement"] > 0.999, out
+
+
+def test_fused_update_rounds_like_jax():
+    """A fused update of c = 4 hotel-0 poses (the plain version summing
+    pose by pose) departs from the sum of its per-pose updates no more
+    than 1.5x as far as JAX's fused update does on the same datasets."""
+    out = fused_update_rounding(8, 4)
+    port, ref = out["port"]["fused_vs_per_pose"], \
+        out["jax"]["fused_vs_per_pose"]
+    assert len(port) == len(ref) == 2
+    assert all(0 < p <= 1.5 * r for p, r in zip(port, ref)), out
+    assert all(v < 2e-6 for side in out.values()
+               for v in side["vs_float64"]), out
