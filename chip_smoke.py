@@ -97,19 +97,30 @@ The exact GPs' paths:
     library times (``torch.linalg.cholesky``,
     ``torch.linalg.solve_triangular``);
 12. the exact GP: ``VanillaGaussianProcess`` (float32) trains on 8192
-    points and tests 4096 queries; mean MAE and variance max error against
-    the plain float64 fit on the card no worse than 2x those of the plain
-    float32 fit; ``test`` timed as the median of 5 and once under
-    ``torch.profiler`` (one gram launch, no ``where`` over the gram);
-    then one more ``train`` under ``torch.profiler``: launches
-    and device ms of the factorization's update, diagonal and apply kernels
-    and of the substitution (one launch per direction);
+    points and tests 4096 queries, each fit, test and variance query one
+    replay of a CUDA graph (``models/exact_graph.py``; the first train and
+    test are the captures, timed apart); mean MAE and variance max error
+    against the plain float64 fit on the card no worse than 2x those of
+    the plain float32 fit; one replay a train (one gram-fused Cholesky, two
+    substitutions) and a test (a gram); against the eager chain of the
+    same model (its graphs set aside) bit for bit, state and outputs;
+    train and test ms graphed and eager (alternated, medians of 5 with
+    ranges), the host's CUDA API calls, the device's busy ms and idle
+    share a train and a test, the variance graph's replay alone (the
+    whitening), each capture's warm-up and capture ms and pool MiB; a test
+    under ``torch.profiler`` (one gram launch, no ``where`` over the
+    gram, the chain run eagerly; the test graph captured one gram launch);
+    then one more ``train``, its eager chain, under ``torch.profiler``:
+    launches and device ms of the factorization's update, diagonal and
+    apply kernels and of the substitution (one launch per direction);
 13. the noisy-input GP (float32) with gradients on the 7680^2 joint system,
     mean, gradient, variance and covariance gated the same way; the same
     data with a scale mixture of rbf (whose joint gram is built outside the
-    kernel and factored by the plain-A entry);
+    kernel and factored by the plain-A entry); each graphed against its
+    eager chain as in phase 12;
 14. the reference's 50x50 noisy-input golden at float64 (7500^2 joint
-    system): MAE < 1.0e-5, gradient errors < 1.1e-4 / 2.6e-4.
+    system): MAE < 1.0e-5, gradient errors < 1.1e-4 / 2.6e-4; graphed
+    against its eager chain as in phase 12.
 
 The 2D paths and reduced rank:
 
@@ -1065,10 +1076,10 @@ def sensor_graphs_vs_eager(label, card, gp, train, test, route,
         log(f"{label} on {card}: {times}; report {out['report_s']:.1f} s")
         return out
     # one profile each: the graphed and the eager train, the graphed test
-    host_tg, dev_tg = api_calls(train)
-    host_te, dev_te = api_calls(lambda: eager(train))
+    host_tg, dev_tg, _ = api_calls(train)
+    host_te, dev_te, _ = api_calls(lambda: eager(train))
     train()
-    host_qg, dev_qg = api_calls(test)
+    host_qg, dev_qg, _ = api_calls(test)
 
     def split(use):
         p = {}
@@ -1883,6 +1894,95 @@ def plain_posterior(name, x, y, var, xq, scale, dtype, dev):
     return mean[:, 0], torch.clamp(1.0 - (w * w).sum(0), min=0.0)
 
 
+def exact_graphs_vs_eager(label, card, gp, train, test) -> dict:
+    """An exact GP with graphs (``models/exact_graph.py``) against its eager
+    chain (the same model with its graphs set aside), on the card, after
+    its captures: (a) a graphed ``train()`` and ``test()`` (a test and every
+    output it gives, on the host) bit for bit the eager ones: the state (L,
+    alpha, Dinv) and the outputs; (b) train and test ms graphed and eager,
+    alternated, medians of TIMED_RUNS with their ranges; (c) the host's
+    CUDA API calls a train and a test; (d) the device's busy ms and idle
+    share a train and a test, graphed and eager (``torch.profiler``); (e)
+    the variance graph's replay alone (the whitening and its reduction),
+    CUDA events, median of REPS; (f) each captured graph's warm-up and
+    capture ms and pool MiB. ``train`` refits the same data every call.
+    Returns them, with the wall seconds the report took."""
+    t_start = time.perf_counter()
+    graphs = gp._graphs
+    check(graphs is not None, f"{label}: the model on the card has no graphs")
+
+    def eager(fn):
+        gp._graphs = None
+        try:
+            return fn()
+        finally:
+            gp._graphs = graphs
+
+    check(train(), f"{label}: graphed train")
+    state_g = bank_copy(gp.state)
+    out_g = test()
+    check(eager(train), f"{label}: eager train")
+    same_state = bits(state_g, tuple(gp.state))
+    same_test = bits(out_g, eager(test))
+    del state_g
+    check(train(), f"{label}: graphed train")
+    log(f"{label} graphed vs eager on the card: state (L, alpha, Dinv) bit "
+        f"for bit {same_state}, test outputs bit for bit {same_test}")
+    check(same_state and same_test,
+          f"{label}: a graphed step differs from the eager chain")
+    t_g, t_e, q_g, q_e = [], [], [], []
+    for _ in range(TIMED_RUNS):
+        t_e.append(timed(lambda: eager(train))[1])
+        t_g.append(timed(train)[1])
+        q_g.append(timed(test)[1])
+        q_e.append(timed(lambda: eager(test))[1])
+    prof = {"train": api_calls(train),
+            "train_eager": api_calls(lambda: eager(train))}
+    train()
+    prof.update(test=api_calls(test), test_eager=api_calls(
+        lambda: eager(test)))
+    wall = {"train": t_g, "train_eager": t_e, "test": q_g, "test_eager": q_e}
+    out = {}
+    for k, v in wall.items():
+        host, dev_k, busy = prof[k]
+        out[f"{k}_ms"] = {"median": statistics.median(v),
+                          "range": [min(v), max(v)]}
+        out[f"{k}_api_calls"] = sum(host.values())
+        out[f"{k}_kernels"] = sum(c for c, _ in dev_k.values())
+        out[f"{k}_device_busy_ms"] = busy
+        out[f"{k}_idle"] = 1.0 - busy / statistics.median(v)
+    out["train_api"], out["test_api"] = prof["train"][0], prof["test"][0]
+    variance = [g for g in graphs.captures
+                if g.key[0] == "variance" and g.graph is not None]
+    out["variance_graph_ms"] = cuda_ms(variance[-1].replay) \
+        if variance else None
+    out["captures"] = [capture_record(g) for g in graphs.captures]
+    out["report_s"] = time.perf_counter() - t_start
+
+    def line(k):
+        m = out[f"{k}_ms"]
+        return (f"{m['median']:.4f} ms ({m['range'][0]:.4f}-"
+                f"{m['range'][1]:.4f}), {out[f'{k}_api_calls']} API calls, "
+                f"{out[f'{k}_kernels']} kernels, device busy "
+                f"{out[f'{k}_device_busy_ms']:.4f} ms (idle "
+                f"{100 * out[f'{k}_idle']:.1f}%)")
+
+    log(f"{label} on {card}, medians of {TIMED_RUNS} alternated: train "
+        f"graphed {line('train')} vs eager {line('train_eager')}; test "
+        f"graphed {line('test')} vs eager {line('test_eager')}; the "
+        f"variance graph's replay (whitening + reduction) "
+        + ("not run" if out["variance_graph_ms"] is None else
+           f"{out['variance_graph_ms']:.4f} ms (CUDA events, median of "
+           f"{REPS})") + f"; report {out['report_s']:.1f} s")
+    log(f"{label} host CUDA API calls: train {out['train_api']}; test "
+        f"{out['test_api']}")
+    for c in out["captures"]:
+        log(f"{label} graph {c['key']}: warm-up {c['warmup_ms']:.2f} ms, "
+            f"capture {c['capture_ms']:.2f} ms, pool {c['pool_mib']:.1f} "
+            f"MiB, replays {c['replays']}")
+    return out
+
+
 def run_exact_gp(dev, card):
     """Phase 12. Returns (launch counts, timings, errors)."""
     from erl_gaussian_process_tpu_torch.kernels import KernelSetting
@@ -1901,10 +2001,22 @@ def run_exact_gp(dev, card):
                                kernel=KernelSetting(x_dim=2, scale=scale),
                                max_num_samples=x.shape[0])
     gp = VanillaGaussianProcess(setting, dtype=np.float32, device=dev)
-    check(gp.train(x.T, y, var), "exact GP warm-up train")   # not counted
-    gp.test(xq.T).get_mean()
+
+    def train():
+        return gp.train(x.T, y, var)
+
+    def first_test():
+        r = gp.test(xq.T)
+        return r.get_mean(), r.get_variance()
+
+    # the captures (not counted): the fit's graph, the test's and the
+    # variance's (4096 queries whiten by substitution in every query: the
+    # L^-1 path takes batches of at most 512)
+    ok, capture_train_ms = timed(train)
+    check(ok, "exact GP first train (its capture)")
+    _, capture_test_ms = timed(first_test)
     reset_launch_counts()
-    ok, train_ms = timed(lambda: gp.train(x.T, y, var))
+    ok, train_ms = timed(train)
     check(ok, "exact GP train")
     res, test_ms = timed(lambda: gp.test(xq.T))
     (mean, var_k), var_ms = timed(lambda: (res.get_mean(), res.get_variance()))
@@ -1919,8 +2031,10 @@ def run_exact_gp(dev, card):
         f"f64 fit: mean MAE {mae_k:.3e} (plain f32 {mae_p:.3e}; gate <= "
         f"{POSTERIOR_FACTOR:g}x; the JAX TPU test's class "
         f"{JAX_TPU_POSTERIOR_MAE:g}), variance max error {ve_k:.3e} (plain "
-        f"f32 {ve_p:.3e}); train {train_ms:.3f} ms, test {test_ms:.3f} ms + "
-        f"mean and variance {var_ms:.3f} ms on {card}; launches {counts}")
+        f"f32 {ve_p:.3e}); first train (its capture) {capture_train_ms:.3f} "
+        f"ms, first test {capture_test_ms:.3f} ms; then train "
+        f"{train_ms:.3f} ms, test {test_ms:.3f} ms + mean and variance "
+        f"{var_ms:.3f} ms on {card}; launches {counts}")
     check(np.isfinite(mean).all() and np.isfinite(var_k).all()
           and mean.shape == (xq.shape[0],), "exact GP output not finite")
     check(mae_k <= POSTERIOR_FACTOR * mae_p and ve_k <= POSTERIOR_FACTOR * ve_p,
@@ -1928,28 +2042,30 @@ def run_exact_gp(dev, card):
           f"{ve_p}")
     check(counts["chol_gram"] == 1 and counts["trsv"] == 2
           and counts["gram"] >= 1, f"exact GP launches {counts}")
-
-    def first_test():
-        r = gp.test(xq.T)
-        return r.get_mean(), r.get_variance()
-
-    # 4096 queries whiten by substitution in every query (the L^-1 path
-    # takes batches of at most 512)
-    tests = [test_ms + var_ms] + [timed(first_test)[1]
-                                  for _ in range(TIMED_RUNS - 1)]
-    shape = (x.shape[0], xq.shape[0])
-    g_launches, g_wheres, g_kernels = gram_profile(first_test, shape)
-    log(f"exact GP test (with mean and variance) {statistics.median(tests):.3f}"
-        f" ms (median of {TIMED_RUNS}, range {min(tests):.3f}-"
-        f"{max(tests):.3f}) on {card}; under torch.profiler {g_launches} gram "
-        f"launch, {g_wheres} where ops over the {shape} gram; kernels "
-        f"{g_kernels}")
-    check(g_launches == 1 and g_wheres == 0,
+    del res
+    graphs = exact_graphs_vs_eager(f"exact GP f32 n={x.shape[0]}", card, gp,
+                                   train, first_test)
+    # the test's chain under torch.profiler, run eagerly (the graph replays
+    # the same launches; a trace of the replay lost its first ~100 kernels,
+    # the gram among them, in one card run)
+    test_graph = next(g for g in gp._graphs.captures if g.key[0] == "test")
+    captured = {w.__name__: k for w, k in test_graph.launches.items()}
+    held, gp._graphs = gp._graphs, None
+    try:
+        shape = (x.shape[0], xq.shape[0])
+        g_launches, g_wheres, g_kernels = gram_profile(first_test, shape)
+    finally:
+        gp._graphs = held
+    log(f"exact GP test's chain under torch.profiler on {card}: {g_launches}"
+        f" gram launch, {g_wheres} where ops over the {shape} gram; kernels "
+        f"{g_kernels}; the test graph captured {captured}")
+    check(g_launches == 1 and g_wheres == 0
+          and captured == {"cross_gram_cuda": 1},
           f"exact GP test: {g_launches} gram launches, {g_wheres} where ops "
-          "over the gram")
-    return counts, {"exact_gp_train_ms": train_ms,
-                    "exact_gp_test_ms": statistics.median(tests),
-                    "exact_gp_test_ms_range": [min(tests), max(tests)]}, \
+          f"over the gram, the test graph captured {captured}")
+    return counts, {"exact_gp_first_train_ms": capture_train_ms,
+                    "exact_gp_first_test_ms": capture_test_ms,
+                    "exact_gp_graphs": graphs}, \
         {"mae": float(mae_k), "mae_plain_f32": float(mae_p),
          "var_err": float(ve_k), "var_err_plain_f32": float(ve_p)}
 
@@ -1961,10 +2077,11 @@ FIT_PARTS = (("update", "chol_update"), ("diagonal", "chol_diag"),
 
 
 def profile_exact_fit(dev, card):
-    """Phase 12b: one exact-GP ``train`` (n = 8192, float32) under
-    ``torch.profiler``: launches and device ms of the factorization's update,
-    diagonal and apply kernels and of the substitution. The substitution is
-    one launch per direction. Returns {part: [launches, device ms]}."""
+    """Phase 12b: one exact-GP ``train`` (n = 8192, float32; its eager
+    chain) under ``torch.profiler``: launches and device ms of the
+    factorization's update, diagonal and apply kernels and of the
+    substitution. The substitution is one launch per direction. Returns
+    {part: [launches, device ms]}."""
     from torch.profiler import ProfilerActivity, profile
 
     from erl_gaussian_process_tpu_torch.kernels import KernelSetting
@@ -1978,6 +2095,9 @@ def profile_exact_fit(dev, card):
     gp = VanillaGaussianProcess(VanillaGPSetting(
         kernel_type=kern, kernel=KernelSetting(x_dim=2, scale=scale),
         max_num_samples=x.shape[0]), dtype=np.float32, device=dev)
+    # the fit's chain, eagerly: a graph replays the same launches (phase
+    # 12 counts them), and a trace of a replay lost its first kernels once
+    gp._graphs = None
     check(gp.train(x.T, y, var), "exact GP train before the profile")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2061,17 +2181,22 @@ def run_nigp(dev, card):
         gp = NoisyInputGaussianProcess(setting, dtype=np.float32, device=dev)
         name = gp._kernel
         check(name == (mix if kt == "mix" else kern), f"kernel {name}")
-        if label == "rbf":       # warm-up, not counted
-            gp.train(x.T, y, g_ref, vx, vy, vg)
-            gp.test(xq.T, True).get_mean()
-        reset_launch_counts()
-        ok, train_ms = timed(lambda: gp.train(x.T, y, g_ref, vx, vy, vg))
-        check(ok, f"NIGP {label} train")
+
+        def train():
+            return gp.train(x.T, y, g_ref, vx, vy, vg)
 
         def predict():
             r = gp.test(xq.T, True)
             return (r.get_mean(), r.get_gradient().T, r.get_mean_variance(),
                     r.get_gradient_variance().T, r.get_covariance().T)
+
+        # the captures (not counted): the fit's, the test's, the variance's
+        ok, capture_train_ms = timed(train)
+        check(ok, f"NIGP {label} first train (its capture)")
+        _, capture_test_ms = timed(predict)
+        reset_launch_counts()
+        ok, train_ms = timed(train)
+        check(ok, f"NIGP {label} train")
         got, test_ms = timed(predict)
         counts[label] = launch_counts()
         ref64 = [t.cpu().numpy() for t in nigp_plain_outputs(
@@ -2092,16 +2217,21 @@ def run_nigp(dev, card):
                   f"NIGP {label} {w}: error {ek} > {POSTERIOR_FACTOR} x "
                   f"plain f32 {ep}")
         errors[label] = errs
-        timings[f"nigp_{label}_train_ms"] = train_ms
-        timings[f"nigp_{label}_test_ms"] = test_ms
+        timings[f"nigp_{label}_first_train_ms"] = capture_train_ms
+        timings[f"nigp_{label}_first_test_ms"] = capture_test_ms
         log(f"NIGP f32 {label} n={n} d={d} (joint {(1 + d) * n}^2), "
             f"{xq.shape[0]} queries vs the plain f64 fit (MAE for mean and "
             f"gradient, max error for the rest; plain f32 in brackets, gate "
             f"<= {POSTERIOR_FACTOR:g}x): "
             + ", ".join(f"{w} {e[0]:.3e} ({e[1]:.3e})"
                         for w, e in errs.items())
-            + f"; train {train_ms:.3f} ms, test {test_ms:.3f} ms on {card}; "
-            f"launches {counts[label]}")
+            + f"; first train (its capture) {capture_train_ms:.3f} ms, "
+            f"first test {capture_test_ms:.3f} ms; then train "
+            f"{train_ms:.3f} ms, test {test_ms:.3f} ms on {card}; launches "
+            f"{counts[label]}")
+        timings[f"nigp_{label}_graphs"] = exact_graphs_vs_eager(
+            f"NIGP f32 {label} joint {(1 + d) * n}^2", card, gp, train,
+            predict)
     check(counts["rbf"]["chol_gram_joint"] == 1 and counts["rbf"]["trsv"] == 2,
           f"NIGP launches {counts['rbf']}")
     check(counts["mixture"]["chol"] == 1 and counts["mixture"]["trsv"] == 2,
@@ -2127,12 +2257,23 @@ def run_nigp_golden(dev, card):
 
     setting, pts, z, grad, noise, qt, zt, gt = nigp_golden_workload()
     gp = NoisyInputGaussianProcess(setting, dtype=np.float64, device=dev)
+
+    def train():
+        return gp.train(pts, z, grad, var_x=noise, var_y=noise,
+                        var_grad=noise)
+
+    def predict():
+        r = gp.test(qt, predict_gradient=True)
+        return r.get_mean(0), r.get_gradient(0)
+
+    # the captures (not counted): the fit's graph and the test's
+    ok, capture_train_ms = timed(train)
+    check(ok, "NIGP golden first train (its capture)")
+    _, capture_test_ms = timed(predict)
     reset_launch_counts()
-    ok, train_ms = timed(lambda: gp.train(pts, z, grad, var_x=noise,
-                                          var_y=noise, var_grad=noise))
+    ok, train_ms = timed(train)
     check(ok, "NIGP golden train")
-    res, test_ms = timed(lambda: gp.test(qt, predict_gradient=True))
-    mean, g = res.get_mean(0), res.get_gradient(0)
+    (mean, g), test_ms = timed(predict)
     counts = launch_counts()
     got = (np.abs(mean - zt).mean(), np.abs(g[0] - gt[0]).mean(),
            np.abs(g[1] - gt[1]).mean())
@@ -2140,13 +2281,18 @@ def run_nigp_golden(dev, card):
         f" my {got[2]:.6e} (bounds {NIGP_GOLDEN_BOUNDS}); deviation from the "
         f"recorded values "
         + ", ".join(f"{a - r:.3e}" for a, r in zip(got, NIGP_GOLDEN_RECORDED))
-        + f" (reported); train {train_ms:.3f} ms, test {test_ms:.3f} ms on "
+        + f" (reported); first train (its capture) {capture_train_ms:.3f} "
+        f"ms, first test {capture_test_ms:.3f} ms; then train "
+        f"{train_ms:.3f} ms, test (mean and gradient) {test_ms:.3f} ms on "
         f"{card}; launches {counts}")
     check(all(a < b for a, b in zip(got, NIGP_GOLDEN_BOUNDS)),
           f"NIGP golden: {got} not under {NIGP_GOLDEN_BOUNDS}")
     check(counts["chol_gram_joint"] == 1, f"NIGP golden launches {counts}")
-    return counts, {"nigp_golden_train_ms": train_ms,
-                    "nigp_golden_test_ms": test_ms}, \
+    graphs = exact_graphs_vs_eager("NIGP golden f64 joint 7500^2", card, gp,
+                                   train, predict)
+    return counts, {"nigp_golden_first_train_ms": capture_train_ms,
+                    "nigp_golden_first_test_ms": capture_test_ms,
+                    "nigp_golden_graphs": graphs}, \
         tuple(float(v) for v in got)
 
 
@@ -4331,11 +4477,15 @@ def eager_predict(m, xq, with_grad):
 
 def api_calls(fn) -> tuple:
     """({CUDA runtime/driver API call: count}, {kernel: (count, device
-    ms)}) of one ``fn()`` by ``torch.profiler`` (host and device). A trace
-    with no device event is taken again, up to PROFILE_ATTEMPTS times, as
-    in :func:`device_kernels` (a sensor GP's eager train and graphed test
-    came back without one once each in a whole-script card run)."""
+    ms)}, the device's busy ms) of one ``fn()`` by ``torch.profiler`` (host
+    and device; busy: the time in which at least one kernel ran, kernels
+    that overlap on two streams counted once). A trace with no device event
+    is taken again, up to PROFILE_ATTEMPTS times, as in
+    :func:`device_kernels` (a sensor GP's eager train and graphed test came
+    back without one once each in a whole-script card run)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from erl_gaussian_process_tpu_torch.profiling import busy_ms
 
     for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
@@ -4356,7 +4506,10 @@ def api_calls(fn) -> tuple:
                               "cudaStreamSynchronize")}
     dev = {e.key: (e.count, e.self_device_time_total / 1e3) for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA}
-    return host, dev
+    busy = busy_ms([(e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA])
+    return host, dev, busy
 
 
 def run_examples() -> dict:
@@ -4510,11 +4663,11 @@ def run_graphs(dev, card, hotel0, slice_ref, pps_ref, ref_ms):
     k = GRAPH_PROFILE_POSES
     pm = new_map()
     pm.update(sensors[0], pts[0], masks[0])          # the capture
-    host_g, dev_g = api_calls(lambda: [pm.update(sensors[i], pts[i],
+    host_g, dev_g, _ = api_calls(lambda: [pm.update(sensors[i], pts[i],
                                                  masks[i])
                                        for i in range(1, 1 + k)])
     em = new_map()
-    host_e, dev_e = api_calls(lambda: eager_chain(
+    host_e, dev_e, _ = api_calls(lambda: eager_chain(
         em, sensors[1:1 + k], pts[1:1 + k], masks[1:1 + k]))
     fitc_g = sum(c for name, (c, _) in dev_g.items()
                  if any(f in name for f in FITC_KERNELS))

@@ -818,7 +818,11 @@ static int run_chol(Src src, T* L, T* Dinv, T* ws, long long ws_half,
     const size_t stride = (size_t)nt * kTile * kTile;
     const int b = j & 1;  // the buffer and events of this column's parity
     T* wj = ws + b * ws_half;
-    EGP_TRY(cudaStreamWaitEvent(la->side, la->applied[b], 0));
+    // columns 0 and 1 write this call's own workspace; the events of their
+    // parity were last recorded by an earlier call on these same in-order
+    // streams, so a wait on them orders nothing, and a CUDA graph's
+    // capture may wait only on events recorded inside it
+    if (j >= 2) EGP_TRY(cudaStreamWaitEvent(la->side, la->applied[b], 0));
     EGP_TRY(launch_update(src, L, wj, n, j, nt, ns, j >= 2 ? pps[j] : 1,
                           la->side));
     EGP_TRY(cudaEventRecord(la->updated[b], la->side));

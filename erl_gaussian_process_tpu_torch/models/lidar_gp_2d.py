@@ -356,7 +356,9 @@ class LidarGaussianProcess2D:
         the bank, on the bank's device, and its train set the stored
         scan's partition. ``[]`` when untrained. The routed predict of
         :meth:`test` does not use them. On a model with graphs the views
-        hold a copy of the bank, which the next train does not overwrite."""
+        hold a copy of the bank, which the next train does not overwrite.
+        The views have no graphs of their own (``models/exact_graph.py``):
+        a view runs its steps eagerly."""
         if not self._trained or self.bank is None:
             return []
         xs, ys, vs, ms = self._assemble_bank_arrays()
@@ -369,6 +371,7 @@ class LidarGaussianProcess2D:
         for b in range(len(self.partitions)):
             g = VanillaGaussianProcess(self.setting.gp, dtype=self.dtype,
                                        device=self.device)
+            g._graphs = None
             n_b = int(ms[b].sum())
             g._train_set = VanillaTrainSet(xs[b], ys[b], vs[b], n_b)
             g.state = VanillaGPState(x=bank.x[b], mask=bank.mask[b],

@@ -27,11 +27,17 @@ system of its Hilbert basis (:func:`nigp_rr_fit`; gradient observations
 are linear observations of the basis weights) by
 ``gp_core.cholesky_fit(robust=False)``'s route, and every variance and
 covariance above takes the opposite sign (``+||.||^2``).
+
+On a CUDA device each fit, each test (ktest, the mean and the gradient,
+:func:`nigp_test_step`) and each variance query is one replay of a CUDA
+graph (``models/exact_graph.py``), as each is one jit in the JAX package;
+the model's state is then the fit graph's buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import NamedTuple, Optional
 
@@ -54,6 +60,7 @@ from erl_gaussian_process_tpu_torch.kernels.reduced_rank import (
     rr_ktest_joint,
     rr_train_system,
 )
+from erl_gaussian_process_tpu_torch.models.exact_graph import ExactGraphs
 from erl_gaussian_process_tpu_torch.models.gp_core import (
     DEFAULT_DEVICE,
     host_jitter_retry,
@@ -189,6 +196,34 @@ def nigp_gradient(state: NoisyInputGPState, ktest, num_test: int, d: int):
     return g.reshape(d, num_test, -1).permute(1, 0, 2)
 
 
+def nigp_test_step(state: NoisyInputGPState, xq, scale, *, kernel: str,
+                   with_test_grad: bool, with_train_grad: bool, d: int):
+    """``test``'s chain (:func:`nigp_ktest`, :func:`nigp_mean` and, with
+    test gradients, :func:`nigp_gradient`): (ktest, the mean[, the
+    gradient])."""
+    ktest = nigp_ktest(state, xq, scale, kernel=kernel,
+                       with_test_grad=with_test_grad,
+                       with_train_grad=with_train_grad)
+    return _test_outputs(state, ktest, xq.shape[0], with_test_grad, d)
+
+
+def nigp_rr_test_step(state: NoisyInputGPState, xq, freq, sqrt_s, origin,
+                      half, inv_sqrt_vol, *, with_test_grad: bool, d: int):
+    """A reduced-rank model's ``test`` chain: ktest in the joint layout
+    (``kernels.reduced_rank.rr_ktest_joint``, rows = #basis), the mean[,
+    the gradient]."""
+    ktest = rr_ktest_joint(xq, freq, sqrt_s, origin, half, inv_sqrt_vol,
+                           with_test_grad=with_test_grad)
+    return _test_outputs(state, ktest, xq.shape[0], with_test_grad, d)
+
+
+def _test_outputs(state, ktest, num_test: int, with_test_grad: bool, d: int):
+    mean = nigp_mean(state, ktest, num_test)
+    if not with_test_grad:
+        return ktest, mean
+    return ktest, mean, nigp_gradient(state, ktest, num_test, d)
+
+
 def _varcov_from_whitened(at, ktest, scale, d: int, reduced_rank: bool):
     m = ktest.shape[1] // (1 + d)
     cols = at.mT.reshape(1 + d, m, -1)             # (1+d, m, N)
@@ -316,24 +351,39 @@ class NoisyInputGPSetting:
 
 class NigpTestResult:
     """Lazy test result: ktest at construction, the whitening deferred to
-    the first variance query."""
+    the first variance query. ``xq`` (m, d), a host array.
 
-    def __init__(self, gp: "NoisyInputGaussianProcess", xq: torch.Tensor,
+    On a model with graphs the construction replays the test graph (ktest,
+    the mean and the gradient) and the first variance query a variance
+    graph; ktest, the mean and the gradient are the graphs' buffers until
+    another test of the same shape copies them out (``exact_graph.Held``).
+    """
+
+    def __init__(self, gp: "NoisyInputGaussianProcess", xq,
                  will_predict_gradient: bool):
         self._gp = gp
         self._xq = xq
         self._with_grad = will_predict_gradient
-        if gp._basis is not None:
+        self._varcov = None
+        self._held = None
+        if gp._graphs is not None:
+            self._held = gp._graphs.test(
+                gp.state, *gp._test_step(will_predict_gradient), xq,
+                gp._rr_consts())
+        elif gp._basis is not None:
             # rows = #basis, columns in the same joint layout
-            self._ktest = rr_ktest_joint(
-                xq, *gp._basis.consts(xq.device),
+            self._ktest_eager = rr_ktest_joint(
+                gp._tensor(xq), *gp._rr_consts(),
                 with_test_grad=will_predict_gradient)
         else:
-            self._ktest = nigp_ktest(
-                gp.state, xq, gp._scale, kernel=gp._kernel,
+            self._ktest_eager = nigp_ktest(
+                gp.state, gp._tensor(xq), gp._scale, kernel=gp._kernel,
                 with_test_grad=will_predict_gradient,
                 with_train_grad=not gp.setting.no_gradient_observation)
-        self._varcov = None
+
+    @property
+    def _ktest(self) -> torch.Tensor:
+        return self._ktest_eager if self._held is None else self._held.ktest
 
     @property
     def num_test(self):
@@ -345,33 +395,47 @@ class NigpTestResult:
 
     def get_mean(self, y_index: int = 0, parallel: bool = True):
         del parallel
-        mean = nigp_mean(self._gp.state, self._ktest, self.num_test)
+        if ExactGraphs.serves(self._held, self._gp.state):
+            mean = self._held.outputs[1]
+        else:
+            mean = nigp_mean(self._gp.state, self._ktest, self.num_test)
         return mean[:, y_index].cpu().numpy()
 
     def get_gradient(self, y_index: int = 0, parallel: bool = True):
         del parallel
         assert self._with_grad, "TestResult built without gradient support"
-        g = nigp_gradient(self._gp.state, self._ktest, self.num_test,
-                          self._gp._x_dim)
+        if ExactGraphs.serves(self._held, self._gp.state):
+            g = self._held.outputs[2]
+        else:
+            g = nigp_gradient(self._gp.state, self._ktest, self.num_test,
+                              self._gp._x_dim)
         return g[:, :, y_index].mT.cpu().numpy()  # (d, m) as the reference
 
     def _prepare(self):
         if self._varcov is None:
             gp = self._gp
             d = gp._x_dim if self._with_grad else 0
+            rr = gp.reduced_rank_kernel
             gp._var_queries += 1
             # the product whitening only beats the solve while the query
             # batch is thin
-            if gp._var_queries >= 2 and self._ktest.shape[1] <= 512:
-                if gp._L_inv is None:
-                    gp._L_inv = nigp_l_inv(gp.state)
+            fast = gp._var_queries >= 2 and self._ktest.shape[1] <= 512
+            if fast and gp._L_inv is None:
+                gp._L_inv = gp._l_inv()
+            if ExactGraphs.serves(self._held, gp.state):
+                body = nigp_variance_cov_fast if fast else nigp_variance_cov
+                out = gp._graphs.variance(
+                    self._held, "fast" if fast else "variance",
+                    functools.partial(body, scale=gp._scale, d=d,
+                                      reduced_rank=rr),
+                    gp._L_inv if fast else None)
+                self._varcov = tuple(t.cpu() for t in out)
+            elif fast:
                 self._varcov = nigp_variance_cov_fast(
-                    gp._L_inv, self._ktest, gp._scale, d=d,
-                    reduced_rank=gp.reduced_rank_kernel)
+                    gp._L_inv, self._ktest, gp._scale, d=d, reduced_rank=rr)
             else:
                 self._varcov = nigp_variance_cov(
-                    gp.state, self._ktest, gp._scale, d=d,
-                    reduced_rank=gp.reduced_rank_kernel)
+                    gp.state, self._ktest, gp._scale, d=d, reduced_rank=rr)
         return self._varcov
 
     def get_mean_variance(self, parallel: bool = True):
@@ -393,7 +457,9 @@ class NigpTestResult:
 class NoisyInputGaussianProcess:
     """Stateful wrapper mirroring the reference binding API. Reference
     layout: x (d, n), y (n, q), grad (d*q, n), var_* (n,), grad_flag (n,).
-    The state lives on ``device``."""
+    The state lives on ``device``; on a CUDA device it is the fit graph's
+    buffers (``models/exact_graph.py``), which the next fit overwrites:
+    copy what you keep (``state_dict`` returns copies)."""
 
     Setting = NoisyInputGPSetting
     TestResult = NigpTestResult
@@ -413,6 +479,8 @@ class NoisyInputGaussianProcess:
         self._L_inv = None
         self._var_queries = 0
         self._train_set: Optional[NigpTrainSet] = None
+        self._graphs = ExactGraphs(self.device) \
+            if self.device.type == "cuda" else None
 
     def _setup_kernel(self):
         """Resolve the kernel family; a reduced-rank kernel type builds its
@@ -515,35 +583,26 @@ class NoisyInputGaussianProcess:
                          0 if ts is None else ts.num_samples)
             return False
         self._x_dim, self._y_dim = ts.x_dim, ts.y_dim
-        t = self._tensor
-        x, y, smask, vx = t(ts.xp), t(ts.yp), t(ts.sample_mask), t(ts.vx)
         jit = self.dtype.type
-        rr = None if self._basis is None else self._basis.consts(self.device)
+        rr = self._basis is not None
+        kw = {} if rr else dict(scale=self._scale, kernel=self._kernel)
         if self.setting.no_gradient_observation:
-            if rr is not None:
-                self.state = host_jitter_retry(
-                    lambda j: nigp_rr_fit_nograd(x, y, vx, t(ts.vy + jit(j)),
-                                                 smask, *rr),
-                    lambda st: (st.alpha,))
-            else:
-                self.state = host_jitter_retry(
-                    lambda j: nigp_fit_nograd(x, y, vx, t(ts.vy + jit(j)),
-                                              smask, self._scale,
-                                              kernel=self._kernel),
-                    lambda st: (st.alpha,))
-        elif rr is not None:
-            grad, gmask = t(ts.gradp), t(ts.gmask)
-            self.state = host_jitter_retry(
-                lambda j: nigp_rr_fit(x, y, grad, vx, t(ts.vy + jit(j)),
-                                      t(ts.vg + jit(j)), smask, gmask, *rr),
-                lambda st: (st.alpha,))
+            body = nigp_rr_fit_nograd if rr else nigp_fit_nograd
+
+            def feeds(j):
+                return ts.xp, ts.yp, ts.vx, ts.vy + jit(j), ts.sample_mask
         else:
-            grad, gmask = t(ts.gradp), t(ts.gmask)
-            self.state = host_jitter_retry(
-                lambda j: nigp_fit(x, y, grad, vx, t(ts.vy + jit(j)),
-                                   t(ts.vg + jit(j)), smask, gmask,
-                                   self._scale, kernel=self._kernel),
-                lambda st: (st.alpha,))
+            body = nigp_rr_fit if rr else nigp_fit
+
+            def feeds(j):
+                return (ts.xp, ts.yp, ts.gradp, ts.vx, ts.vy + jit(j),
+                        ts.vg + jit(j), ts.sample_mask, ts.gmask)
+        static = (body.__name__, *kw.values())
+        body = functools.partial(body, **kw)
+        consts = self._rr_consts()
+        self.state = host_jitter_retry(
+            lambda j: self._fit(static, body, feeds(j), consts),
+            lambda st: (st.alpha,))
         self._trained = True
         self._L_inv = None
         self._var_queries = 0
@@ -604,6 +663,41 @@ class NoisyInputGaussianProcess:
                                        padv(var_y), padv(var_grad), gmask, n)
         return self._fit_train_set()
 
+    def _rr_consts(self) -> tuple:
+        """A reduced-rank basis's constants on the device, else ()."""
+        return () if self._basis is None else self._basis.consts(self.device)
+
+    def _fit(self, static: tuple, body, feeds: tuple, consts: tuple):
+        """``body(*feeds, *consts)``: one replay of its graph on a model with
+        graphs, else on new tensors of the host arrays ``feeds``."""
+        if self._graphs is not None:
+            return self._graphs.fit(static, body, feeds, consts)
+        return body(*map(self._tensor, feeds), *consts)
+
+    def _test_step(self, with_test_grad: bool) -> tuple:
+        """(the key of a test graph, less the queries' shape, and its body
+        (:func:`nigp_test_step` or :func:`nigp_rr_test_step`))."""
+        rr = self._basis is not None
+        with_train_grad = not self.setting.no_gradient_observation
+        if rr:
+            body = functools.partial(nigp_rr_test_step,
+                                     with_test_grad=with_test_grad,
+                                     d=self._x_dim)
+        else:
+            body = functools.partial(
+                nigp_test_step, scale=self._scale, kernel=self._kernel,
+                with_test_grad=with_test_grad,
+                with_train_grad=with_train_grad, d=self._x_dim)
+        return ("nigp", self._kernel, self._scale, with_test_grad,
+                with_train_grad, rr), body
+
+    def _l_inv(self) -> torch.Tensor:
+        """L^-1 of the joint system (:func:`nigp_l_inv`), through its graph
+        on a model with graphs."""
+        if self._graphs is not None:
+            return self._graphs.l_inv(self.state, nigp_l_inv)
+        return nigp_l_inv(self.state)
+
     def test(self, mat_x_test, predict_gradient: bool = False
              ) -> Optional[NigpTestResult]:
         if not self._trained:
@@ -611,7 +705,8 @@ class NoisyInputGaussianProcess:
         xq = np.asarray(mat_x_test, self.dtype)
         if xq.ndim == 1:
             xq = xq[None, :]
-        return NigpTestResult(self, self._tensor(xq.T), predict_gradient)
+        return NigpTestResult(self, np.ascontiguousarray(xq.T),
+                              predict_gradient)
 
     def get_memory_usage(self) -> int:
         """Bytes held by the state's tensors."""
@@ -627,7 +722,7 @@ class NoisyInputGaussianProcess:
             "x_dim": self._x_dim,
             "y_dim": self._y_dim,
             "state": None if self.state is None else {
-                k: v.detach().cpu().numpy()
+                k: v.detach().to("cpu", copy=True).numpy()
                 for k, v in self.state._asdict().items() if k != "dinv"},
             "train_set": None if ts is None else {
                 "x": ts.xp, "y": ts.yp, "grad": ts.gradp,
@@ -636,6 +731,10 @@ class NoisyInputGaussianProcess:
         }
 
     def load_state_dict(self, dd):
+        """Load a ``state_dict``; a model with graphs drops them (its state
+        is then the loaded tensors)."""
+        if self._graphs is not None:
+            self._graphs.clear()
         self.setting = NoisyInputGPSetting.from_dict(dd["setting"])
         self._setup_kernel()
         self._trained = bool(dd["trained"])

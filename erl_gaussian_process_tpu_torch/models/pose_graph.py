@@ -180,9 +180,10 @@ class GraphTable:
     static shape: at most ``size`` kept, the least recently used released
     first. Every graph kept is appended to ``captures`` (a list that the
     tables of one model share: the record of what was captured, released
-    graphs included)."""
+    graphs included), unless ``captures`` is None (a table of groups of
+    graphs, whose graphs their owner records)."""
 
-    def __init__(self, captures: list, size: int = MAX_GRAPHS):
+    def __init__(self, captures: Optional[list], size: int = MAX_GRAPHS):
         self._graphs: collections.OrderedDict = collections.OrderedDict()
         self.captures = captures
         self.size = size
@@ -195,7 +196,8 @@ class GraphTable:
 
     def keep(self, g: CapturedGraph) -> CapturedGraph:
         self._graphs[g.key] = g
-        self.captures.append(g)
+        if self.captures is not None:
+            self.captures.append(g)
         while len(self._graphs) > self.size:
             self._graphs.popitem(last=False)[1].release()
         return g
@@ -215,10 +217,26 @@ class GraphTable:
         return self._graphs.values()
 
 
-def _to_device(dst: torch.Tensor, a: np.ndarray) -> None:
-    """Copy host array ``a`` into the static tensor ``dst`` without waiting
-    (pageable memory: CUDA stages it before the call returns)."""
-    dst.copy_(torch.from_numpy(np.ascontiguousarray(a)), non_blocking=True)
+def feed(dst: torch.Tensor, a) -> None:
+    """Copy a host array (pageable: CUDA stages it before the call returns)
+    or a tensor into the static tensor ``dst`` without waiting."""
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    dst.copy_(a, non_blocking=True)
+
+
+def empty_like(a, device) -> torch.Tensor:
+    """A static tensor on ``device`` of the shape and dtype of ``a`` (a host
+    array or a tensor)."""
+    if isinstance(a, torch.Tensor):
+        return torch.empty(a.shape, dtype=a.dtype, device=device)
+    return torch.empty(a.shape, device=device,
+                       dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
+
+
+def same(a: tuple, b: tuple) -> bool:
+    """Whether two tuples hold the same objects."""
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
 
 
 def _fresh(t: torch.Tensor) -> torch.Tensor:
@@ -298,7 +316,7 @@ class PoseGraphs:
         g = self._updates.get(key) or self._capture_update(
             key, c, n, float(scale), bool(collect_datasets), kw)
         for dst, a in zip(g.inputs, (sensor_positions, points, point_masks)):
-            _to_device(dst, a)
+            feed(dst, a)
         for gen, s in zip(self._generators, seeds):
             gen.manual_seed(s)
         g.replay()
@@ -338,7 +356,7 @@ class PoseGraphs:
 
             g = self._predicts.keep(capture(key, self.device, run, run,
                                             inputs))
-        _to_device(g.inputs[0], xq)
+        feed(g.inputs[0], xq)
         g.replay()
         mean, grad = g.outputs
         return mean.clone(), None if grad is None else grad.clone()

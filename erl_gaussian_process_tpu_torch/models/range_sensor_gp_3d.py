@@ -286,7 +286,8 @@ class RangeSensorGaussianProcess3D:
         set the stored scan's partition. ``[]`` when untrained. The routed
         predict of :meth:`test` does not use them. On a model with graphs
         the views hold a copy of the bank, which the next train does not
-        overwrite."""
+        overwrite. The views have no graphs of their own
+        (``models/exact_graph.py``): a view runs its steps eagerly."""
         if not self._trained or self.bank is None:
             return []
         xs, ys, vs, ms = self._assemble_bank_arrays()
@@ -303,6 +304,7 @@ class RangeSensorGaussianProcess3D:
                 b = i * C + j
                 g = VanillaGaussianProcess(self.setting.gp, dtype=self.dtype,
                                            device=self.device)
+                g._graphs = None
                 n_b = int(ms[b].sum())
                 g._train_set = VanillaTrainSet(xs[b], ys[b], vs[b], n_b)
                 g.state = VanillaGPState(x=bank.x[b], mask=bank.mask[b],

@@ -72,6 +72,9 @@ from erl_gaussian_process_tpu_torch.models.batch_gp import (
 from erl_gaussian_process_tpu_torch.models.pose_graph import (
     CapturedGraph,
     GraphTable,
+    empty_like,
+    feed,
+    same,
 )
 
 _LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
@@ -82,23 +85,6 @@ MAX_SLOTS = 4096  # the largest routed bucket (Bp * C query slots) graphed
 
 def _bank_of(outputs) -> BankState:
     return outputs.bank if isinstance(outputs, RRFitParts) else outputs
-
-
-def _same(a: tuple, b: tuple) -> bool:
-    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
-
-
-def _empty_like(a: np.ndarray, device) -> torch.Tensor:
-    return torch.empty(a.shape, device=device,
-                       dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
-
-
-def _feed(dst: torch.Tensor, a) -> None:
-    """Copy a host array (pageable: CUDA stages it before the call returns)
-    or a tensor into the static tensor ``dst`` without waiting."""
-    if isinstance(a, np.ndarray):
-        a = torch.from_numpy(np.ascontiguousarray(a))
-    dst.copy_(a, non_blocking=True)
 
 
 class SensorGraphs:
@@ -134,9 +120,9 @@ class SensorGraphs:
         g = self._fits.get(key)
         arrays = (*feeds, *tables)
         if g is None:
-            inputs = tuple(_empty_like(a, self.device) for a in arrays)
+            inputs = tuple(empty_like(a, self.device) for a in arrays)
             for dst, a in zip(inputs, arrays):
-                _feed(dst, a)
+                feed(dst, a)
 
             def run():
                 return body(*inputs)
@@ -146,10 +132,10 @@ class SensorGraphs:
             self._prune()
         else:
             for dst, a in zip(g.inputs, feeds):
-                _feed(dst, a)
-            if not _same(self._tables.get(key, ()), tables):
+                feed(dst, a)
+            if not same(self._tables.get(key, ()), tables):
                 for dst, a in zip(g.inputs[len(feeds):], tables):
-                    _feed(dst, a)
+                    feed(dst, a)
         self._tables[key] = tables
         g.replay()
         if not isinstance(g.outputs, RRFitParts):
@@ -175,7 +161,7 @@ class SensorGraphs:
         """(token, the train graph whose outputs ``state`` is, or None):
         the part of a routed key that names the bank."""
         for g in self._fits.values():
-            if g.outputs is not None and _same(tuple(state),
+            if g.outputs is not None and same(tuple(state),
                                                tuple(_bank_of(g.outputs))):
                 return ("fit", g.key), g
         return ("bank", tuple(None if t is None else
@@ -201,7 +187,7 @@ class SensorGraphs:
                 self._routed.drop(lambda r, old=old: r.key[0] != old)
         else:
             self._banks.move_to_end(token)
-            if not _same(tuple(None if r is None else r() for r in held[1]),
+            if not same(tuple(None if r is None else r() for r in held[1]),
                          tuple(state)):
                 for dst, src in zip(held[0], state):
                     if dst is not None:
@@ -227,10 +213,10 @@ class SensorGraphs:
         g = self._routed.get(key)
         if g is None:
             bank = self._bank(token, fit, state)
-            inputs = (_empty_like(qs, self.device),
-                      _empty_like(mids, self.device))
+            inputs = (empty_like(qs, self.device),
+                      empty_like(mids, self.device))
             for dst, a in zip(inputs, (qs, mids)):
-                _feed(dst, a)
+                feed(dst, a)
 
             def run():
                 mean, var = body(bank, inputs[1], inputs[0])
@@ -240,5 +226,5 @@ class SensorGraphs:
                                                         run, run, inputs))
         self._bank(token, fit, state)
         for dst, a in zip(g.inputs, (qs, mids)):
-            _feed(dst, a)
+            feed(dst, a)
         return g

@@ -11,11 +11,17 @@ A reduced-rank kernel type (``reduced_rank_*``) fits the (m, m)
 information system of its Hilbert basis instead (:func:`rr_fit`: the
 blocked Cholesky and the blocked substitution, as the exact fit), and its
 variance is ``+||.||^2``.
+
+On a CUDA device each fit, each test (ktest and the mean,
+:func:`vanilla_test_step`) and each variance query is one replay of a
+CUDA graph (``models/exact_graph.py``), as each is one jit in the JAX
+package; the model's state is then the fit graph's buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import NamedTuple, Optional
 
@@ -35,6 +41,7 @@ from erl_gaussian_process_tpu_torch.kernels.reduced_rank import (
     rr_features,
     rr_train_system,
 )
+from erl_gaussian_process_tpu_torch.models.exact_graph import ExactGraphs
 from erl_gaussian_process_tpu_torch.models.gp_core import (
     DEFAULT_DEVICE,
     host_jitter_retry,
@@ -90,6 +97,23 @@ def vanilla_ktest(state: VanillaGPState, xq, scale, *, kernel: str):
 
 def vanilla_mean(state: VanillaGPState, ktest):
     return mean_from_ktest(ktest, state.alpha)
+
+
+def vanilla_test_step(state: VanillaGPState, xq, scale, *, kernel: str):
+    """``test``'s chain (:func:`vanilla_ktest`, :func:`vanilla_mean`): (ktest,
+    the mean)."""
+    ktest = vanilla_ktest(state, xq, scale, kernel=kernel)
+    return ktest, vanilla_mean(state, ktest)
+
+
+def rr_test_step(state: VanillaGPState, xq, freq, sqrt_s, origin, half,
+                 inv_sqrt_vol):
+    """A reduced-rank model's ``test`` chain: (the whitened features of the
+    queries as ktest, rows = #basis, the mean)."""
+    mask = torch.ones(xq.shape[:-1], dtype=torch.bool, device=xq.device)
+    ktest = rr_features(xq, mask, freq, sqrt_s, origin, half,
+                        inv_sqrt_vol).mT
+    return ktest, vanilla_mean(state, ktest)
 
 
 def vanilla_variance(state: VanillaGPState, ktest, *, reduced_rank=False):
@@ -227,18 +251,31 @@ class VanillaTestResult:
     """Lazy test result (the reference's TestResult): ktest at
     construction, the whitening deferred to the first variance query. A
     reduced-rank model's ktest is the whitened feature matrix, rows =
-    #basis."""
+    #basis. ``xq`` (m, x_dim), a host array.
 
-    def __init__(self, gp: "VanillaGaussianProcess", xq: torch.Tensor):
+    On a model with graphs the construction replays the test graph (ktest
+    and the mean) and the first variance query a variance graph; ktest and
+    the mean are the graphs' buffers until another test of the same shape
+    copies them out (``exact_graph.Held``)."""
+
+    def __init__(self, gp: "VanillaGaussianProcess", xq):
         self._gp = gp
         self._xq = xq
-        if gp._basis is not None:
-            self._ktest = gp._basis.features(xq).mT
-        else:
-            self._ktest = vanilla_ktest(gp.state, xq, gp._scale,
-                                        kernel=gp._kernel)
         self._mean = None
         self._var = None
+        self._held = None
+        if gp._graphs is not None:
+            self._held = gp._graphs.test(gp.state, *gp._test_step(), xq,
+                                         gp._rr_consts())
+        elif gp._basis is not None:
+            self._ktest_eager = gp._basis.features(gp._tensor(xq)).mT
+        else:
+            self._ktest_eager = vanilla_ktest(gp.state, gp._tensor(xq),
+                                              gp._scale, kernel=gp._kernel)
+
+    @property
+    def _ktest(self) -> torch.Tensor:
+        return self._ktest_eager if self._held is None else self._held.ktest
 
     @property
     def num_test(self):
@@ -251,33 +288,44 @@ class VanillaTestResult:
     def get_mean(self, y_index: int = 0, parallel: bool = True):
         del parallel
         if self._mean is None:
-            self._mean = vanilla_mean(self._gp.state, self._ktest)
+            if ExactGraphs.serves(self._held, self._gp.state):
+                self._mean = self._held.outputs[1].cpu()
+            else:
+                self._mean = vanilla_mean(self._gp.state, self._ktest)
         return self._mean[:, y_index].cpu().numpy()
 
     def get_variance(self, parallel: bool = True):
         del parallel
         if self._var is None:
             gp = self._gp
+            rr = gp.reduced_rank_kernel
             gp._var_queries += 1
             # the product whitening only beats the solve while the query
             # batch is thin
-            if gp._var_queries >= 2 and self._ktest.shape[1] <= 512:
-                if gp._L_inv is None:
-                    gp._L_inv = vanilla_l_inv(gp.state)
-                self._var = vanilla_variance_fast(
-                    gp._L_inv, self._ktest,
-                    reduced_rank=gp.reduced_rank_kernel)
+            fast = gp._var_queries >= 2 and self._ktest.shape[1] <= 512
+            if fast and gp._L_inv is None:
+                gp._L_inv = gp._l_inv()
+            if ExactGraphs.serves(self._held, gp.state):
+                body = vanilla_variance_fast if fast else vanilla_variance
+                self._var = gp._graphs.variance(
+                    self._held, "fast" if fast else "variance",
+                    functools.partial(body, reduced_rank=rr),
+                    gp._L_inv if fast else None).cpu()
+            elif fast:
+                self._var = vanilla_variance_fast(gp._L_inv, self._ktest,
+                                                  reduced_rank=rr)
             else:
-                self._var = vanilla_variance(
-                    gp.state, self._ktest,
-                    reduced_rank=gp.reduced_rank_kernel)
+                self._var = vanilla_variance(gp.state, self._ktest,
+                                             reduced_rank=rr)
         return self._var.cpu().numpy()
 
 
 class VanillaGaussianProcess:
     """Stateful wrapper mirroring the reference class API. Inputs follow the
     reference layout: ``x`` (x_dim, n) column-major, ``y`` (n, y_dim),
-    ``var`` (n,). The state lives on ``device``."""
+    ``var`` (n,). The state lives on ``device``; on a CUDA device it is the
+    fit graph's buffers (``models/exact_graph.py``), which the next fit
+    overwrites: copy what you keep (``state_dict`` returns copies)."""
 
     Setting = VanillaGPSetting
     TestResult = VanillaTestResult
@@ -298,6 +346,8 @@ class VanillaGaussianProcess:
         self._L_inv = None
         self._var_queries = 0
         self._train_set: Optional[VanillaTrainSet] = None
+        self._graphs = ExactGraphs(self.device) \
+            if self.device.type == "cuda" else None
 
     def _setup_kernel(self):
         """Resolve the kernel family; a reduced-rank kernel type builds its
@@ -351,20 +401,17 @@ class VanillaGaussianProcess:
             _LOG.warning("num_samples = %d, it should be > 0.",
                          0 if ts is None else ts.num_samples)
             return False
-        x, y, mask = self._tensor(ts.xp), self._tensor(ts.yp), \
-            self._tensor(ts.mask)
         if self._basis is not None:
-            consts = self._basis.consts(self.device)
-            self.state = host_jitter_retry(
-                lambda j: rr_fit(x, y, self._tensor(ts.vp + self.dtype.type(j)),
-                                 mask, *consts),
-                lambda st: (st.alpha,))
+            static, body = ("rr",), rr_fit
         else:
-            self.state = host_jitter_retry(
-                lambda j: vanilla_fit(
-                    x, y, self._tensor(ts.vp + self.dtype.type(j)), mask,
-                    self._scale, kernel=self._kernel),
-                lambda st: (st.alpha,))
+            static = ("exact", self._kernel, self._scale)
+            body = functools.partial(vanilla_fit, scale=self._scale,
+                                     kernel=self._kernel)
+        consts = self._rr_consts()
+        self.state = host_jitter_retry(
+            lambda j: self._fit(static, body, (
+                ts.xp, ts.yp, ts.vp + self.dtype.type(j), ts.mask), consts),
+            lambda st: (st.alpha,))
         self._n = ts.num_samples
         self._trained = True
         self._L_inv = None
@@ -404,6 +451,32 @@ class VanillaGaussianProcess:
         self._train_set = VanillaTrainSet(xp, yp, vp, n)
         return self._fit_train_set()
 
+    def _rr_consts(self) -> tuple:
+        """A reduced-rank basis's constants on the device, else ()."""
+        return () if self._basis is None else self._basis.consts(self.device)
+
+    def _fit(self, static: tuple, body, feeds: tuple, consts: tuple):
+        """``body(*feeds, *consts)``: one replay of its graph on a model with
+        graphs, else on new tensors of the host arrays ``feeds``."""
+        if self._graphs is not None:
+            return self._graphs.fit(static, body, feeds, consts)
+        return body(*map(self._tensor, feeds), *consts)
+
+    def _test_step(self) -> tuple:
+        """(the key of a test graph, less the queries' shape, and its body
+        (:func:`vanilla_test_step` or :func:`rr_test_step`))."""
+        rr = self._basis is not None
+        body = rr_test_step if rr else functools.partial(
+            vanilla_test_step, scale=self._scale, kernel=self._kernel)
+        return ("vanilla", self._kernel, self._scale, rr), body
+
+    def _l_inv(self) -> torch.Tensor:
+        """L^-1 of the state (:func:`vanilla_l_inv`), through its graph on a
+        model with graphs."""
+        if self._graphs is not None:
+            return self._graphs.l_inv(self.state, vanilla_l_inv)
+        return vanilla_l_inv(self.state)
+
     def test(self, mat_x_test) -> Optional[VanillaTestResult]:
         """x (x_dim, m) column-major (or (m,) for 1-D inputs)."""
         if not self._trained:
@@ -411,7 +484,7 @@ class VanillaGaussianProcess:
         xq = np.asarray(mat_x_test, dtype=self.dtype)
         if xq.ndim == 1:
             xq = xq[None, :]
-        return VanillaTestResult(self, self._tensor(xq.T))
+        return VanillaTestResult(self, np.ascontiguousarray(xq.T))
 
     def get_memory_usage(self) -> int:
         """Bytes held by the state's tensors."""
@@ -428,7 +501,7 @@ class VanillaGaussianProcess:
             "x_dim": self._x_dim,
             "y_dim": self._y_dim,
             "state": None if self.state is None else {
-                k: v.detach().cpu().numpy()
+                k: v.detach().to("cpu", copy=True).numpy()
                 for k, v in self.state._asdict().items() if k != "dinv"},
             "train_set": None if ts is None else {
                 "x": ts.xp, "y": ts.yp, "var": ts.vp,
@@ -436,6 +509,10 @@ class VanillaGaussianProcess:
         }
 
     def load_state_dict(self, d: dict):
+        """Load a ``state_dict``; a model with graphs drops them (its state
+        is then the loaded tensors)."""
+        if self._graphs is not None:
+            self._graphs.clear()
         self.setting = VanillaGPSetting.from_dict(d["setting"])
         self._setup_kernel()
         self._L_inv = None

@@ -1249,8 +1249,10 @@ def test_rr_fits_on_the_card_run_the_chol_and_trsv_kernels(cuda, dtype,
         outs[str(dev)] = (vr.get_mean(), vr.get_variance(), nr.get_mean(),
                           nr.get_gradient(), nr.get_mean_variance())
     after = launch_counts()
-    assert after["chol"] == before["chol"] + 2
-    assert after["trsv"] >= before["trsv"] + 4
+    # each model's first fit is a graph: its capture runs the fit once
+    # eagerly (counted), then the replay counts the launches it captured
+    assert after["chol"] == before["chol"] + 4
+    assert after["trsv"] >= before["trsv"] + 8
     tol = 1e-3 if dtype == np.float32 else 1e-9
     for a, b in zip(*outs.values()):
         assert np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1.0)
@@ -1703,3 +1705,140 @@ def test_loaded_artifacts_replay_graphs_bit_for_bit(cuda):
         ref, _ = predict.eager(st_g, L_qm, a, q)
         assert _bits(mean, ref)
     assert len(predict.captures) == 2
+
+
+# -- the exact GPs' CUDA graphs ----------------------------------------------
+
+EXACT_VARIANTS = ["vanilla", "vanilla_rr", "nigp", "nigp_mix", "nigp_nograd",
+                  "nigp_rr", "nigp_rr_nograd"]
+
+
+def _exact_case(cuda, variant, dtype):
+    """(a model with graphs on the card, its two train calls of one shape,
+    its two query batches of 64, and what a result gives) for one variant
+    of ``VanillaGaussianProcess`` / ``NoisyInputGaussianProcess``: exact or
+    reduced-rank (a 16 x 16 basis), with or without gradient observations,
+    a scale mixture (the plain-A Cholesky)."""
+    from erl_gaussian_process_tpu_torch.kernels import ReducedRankSetting
+    from erl_gaussian_process_tpu_torch.models import (
+        NoisyInputGaussianProcess,
+        NoisyInputGPSetting,
+        VanillaGaussianProcess,
+        VanillaGPSetting,
+    )
+
+    nigp, rr = variant.startswith("nigp"), "_rr" in variant
+    grad = nigp and not variant.endswith("nograd")
+    rng = np.random.default_rng(5)
+    n = 300 if nigp else 600
+    x = rng.uniform(-0.9, 0.9, (2, n))
+    ys = [np.sin(3 * x[0]) * np.cos(2 * x[1]), np.cos(2 * x[0]) * x[1]]
+    gs = [np.stack([3 * np.cos(3 * x[0]) * np.cos(2 * x[1]),
+                    -2 * np.sin(3 * x[0]) * np.sin(2 * x[1])]),
+          np.stack([-2 * np.sin(2 * x[0]) * x[1], np.cos(2 * x[0])])]
+    queries = [rng.uniform(-0.8, 0.8, (2, 64)) for _ in range(2)]
+    if rr:
+        kt, ks = ("rr_rbf" if nigp else "rr_matern32"), ReducedRankSetting(
+            x_dim=2, scale=0.6, num_basis=[16, 16], boundary=[2.0, 2.0],
+            coord_origin=[0.0, 0.0])
+    elif variant == "nigp_mix":
+        register_scale_mixture("rbf", 0.5, (0.7, 0.3))
+        kt, ks = "rbf", KernelSetting(x_dim=2, scale=0.5, scale_mix=0.5,
+                                      weights=[0.7, 0.3])
+    else:
+        kt, ks = "rbf", KernelSetting(x_dim=2, scale=0.5)
+    if nigp:
+        gp = NoisyInputGaussianProcess(NoisyInputGPSetting(
+            kernel_type=kt, kernel=ks, max_num_samples=n + 20,
+            no_gradient_observation=not grad), dtype=dtype, device=cuda)
+        trains = [lambda k=k: gp.train(x, ys[k], gs[k], 1e-4, 1e-2, 1e-2)
+                  for k in range(2)]
+        tests = [lambda q=q: gp.test(q, True) for q in queries]
+
+        def outputs(r):
+            out = (r.get_mean_variance(), r.get_mean(0))
+            return out + ((r.get_gradient_variance(), r.get_covariance(),
+                           r.get_gradient(0)) if grad else ())
+    else:
+        gp = VanillaGaussianProcess(VanillaGPSetting(
+            kernel_type=kt, kernel=ks, max_num_samples=n + 20), dtype=dtype,
+            device=cuda)
+        trains = [lambda k=k: gp.train(x, ys[k], 1e-2) for k in range(2)]
+        tests = [lambda q=q: gp.test(q) for q in queries]
+
+        def outputs(r):
+            return r.get_variance(), r.get_mean(0)
+    assert gp._graphs is not None
+    return gp, trains, tests, outputs
+
+
+def _state_copy(gp):
+    return tuple(None if t is None else t.clone() for t in gp.state)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("variant", EXACT_VARIANTS)
+def test_exact_graphs_equal_the_eager_chain(cuda, variant, dtype):
+    """The graphed fit and test of each exact-GP variant (twice: the
+    capture, then a replay on other data of the same shape; the second
+    variance query takes the L^-1 path) against the same model's eager
+    chain (its graphs set aside), bit for bit: L, alpha, Dinv, ktest,
+    means, gradients, variances and covariances."""
+    gp, trains, tests, outputs = _exact_case(cuda, variant, dtype)
+    for train in trains:
+        got = []
+        for graphed in (True, False):
+            run = (lambda f: f()) if graphed else (lambda f: _eager(gp, f))
+            assert run(train)
+            state = _state_copy(gp)
+            res = [run(t) for t in tests]
+            got.append((state, [r.k_test for r in res],
+                        [run(lambda r=r: outputs(r)) for r in res]))
+        assert _bits(got[0][0], got[1][0])
+        for a, b in zip(got[0][1], got[1][1]):
+            assert _bits(a, b)
+        for a, b in zip(got[0][2], got[1][2]):
+            assert _bits(tuple(a), tuple(b))
+    kinds = sorted(g.key[0] for g in gp._graphs.captures)
+    assert kinds == ["fast", "fit", "l_inv", "test", "variance"], kinds
+
+
+def test_exact_graph_replays_launch_the_fit_once(cuda):
+    """After the capture, N graphed exact-GP trains launch the gram-fused
+    Cholesky N times and the substitution 2N times (the replays add what
+    the graph captured), and N graphed tests the gram N times."""
+    gp, trains, tests, outputs = _exact_case(cuda, "vanilla", np.float32)
+    assert trains[0]()
+    tests[0]().get_mean()
+    fit = gp._graphs.captures[0]
+    assert fit.key[0] == "fit" and \
+        {w.__name__: k for w, k in fit.launches.items()} == \
+        {"chol_blocked_gram": 1, "substitute_cuda": 2}
+    before = launch_counts()
+    for k in range(4):
+        assert trains[k % 2]()
+        tests[k % 2]().get_mean()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["chol_gram"] - before["chol_gram"] == 4
+    assert after["trsv"] - before["trsv"] == 8
+    assert after["gram"] - before["gram"] == 4
+    assert fit.replays == 5
+
+
+def test_graphed_exact_test_makes_no_synchronising_call(cuda):
+    """Once its graphs are captured, a test (ktest and the mean) and its
+    variance are input copies and replays: nothing waits for the card
+    until the host reads a result."""
+    gp, trains, tests, outputs = _exact_case(cuda, "nigp", np.float32)
+    assert trains[0]()
+    outputs(tests[0]())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = tests[0]()
+        # the variance graph is captured: the body is not called again
+        gp._graphs.variance(res._held, "variance", None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

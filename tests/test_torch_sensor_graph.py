@@ -17,7 +17,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.utils._pytree as pytree
 
 import erl_gaussian_process_tpu.models.batch_gp as jbatch
 import erl_gaussian_process_tpu.models.lidar_gp_2d as jlidar
@@ -42,6 +41,7 @@ from erl_gaussian_process_tpu_torch.ops import (
 )
 from erl_gaussian_process_tpu_torch.ops._library import note_launch
 from erl_gaussian_process_tpu_torch.utils.loaders import load_lidar_log
+from torch_graph_standin import eager_graphs  # noqa: F401 (fixture)
 
 DATA = os.path.join(os.path.dirname(__file__), os.pardir, "data", "double",
                     "train.dat")
@@ -192,46 +192,6 @@ def _owned(gp) -> bool:
 def _same_result(a, b):
     for x, y in zip(a, b):
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
-
-
-class _StaticGraph:
-    """Stand-in for a captured graph on the CPU: a replay runs the captured
-    function again and copies its results into the outputs of the first
-    run, so the outputs are static buffers that each replay overwrites,
-    as a CUDA graph's are."""
-
-    def __init__(self, key, run, inputs):
-        self.key, self.graph, self.inputs = key, run, inputs
-        self.outputs, self.replays = None, 0
-
-    def replay(self):
-        out = self.graph()
-        if self.outputs is None:
-            self.outputs = out
-        else:
-            for dst, src in zip(pytree.tree_leaves(self.outputs),
-                                pytree.tree_leaves(out)):
-                if dst is not None:
-                    dst.copy_(src)
-        self.replays += 1
-
-    def release(self):
-        self.graph, self.inputs, self.outputs = None, (), ()
-
-
-@pytest.fixture
-def eager_graphs(monkeypatch):
-    """Captures on the CPU become :class:`_StaticGraph` (after the warm-up
-    run, as on the card); returns the list of captures made."""
-    made = []
-
-    def capture(key, device, warm, run, inputs, generators=()):
-        warm()
-        made.append(_StaticGraph(key, run, inputs))
-        return made[-1]
-
-    monkeypatch.setattr(pg, "capture", capture)
-    return made
 
 
 # -- (a) the captured bodies against train / train_scan_batch / test --------
