@@ -464,14 +464,17 @@ def fitc_against_truth(args):
 PROFILE_ATTEMPTS = 3
 
 
-def device_kernels(fn) -> dict:
+def device_kernels(fn, expect=()) -> dict:
     """{kernel name: (launches, device ms)} of one ``fn()`` on the card, by
     ``torch.profiler``, recorded after a warm-up call of its own (as
-    :func:`gram_profile`). A trace with no device event at all is taken
-    again, up to PROFILE_ATTEMPTS times: in whole-script card runs one
-    profile of a late phase came back empty now and then (the FITC split
-    at the 2D map's shape once, the reduced-rank fit once), though the
-    same call had launched its kernels (the wrappers' counts)."""
+    :func:`gram_profile`). A trace with no device event at all, or with
+    no kernel whose name holds one of ``expect``, is taken again, up to
+    PROFILE_ATTEMPTS times: in whole-script card runs one profile of a
+    late phase came back empty now and then (the FITC split at the 2D
+    map's shape once, the reduced-rank fit once), and one gloo rank's
+    trace of a sensor GP's train and test lost the train's bank fit once,
+    though the same calls had launched their kernels (the wrappers'
+    counts)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(PROFILE_ATTEMPTS):
@@ -486,9 +489,11 @@ def device_kernels(fn) -> dict:
         found = {e.key: (e.count, e.self_device_time_total / 1e3)
                  for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA}
-        if found:
+        missing = [x for x in expect if not any(x in k for k in found)]
+        if found and not missing:
             return found
-        log(f"torch.profiler returned no device event (attempt "
+        log(f"torch.profiler returned no device event"
+            f"{' of ' + ', '.join(missing) if found else ''} (attempt "
             f"{attempt + 1} of {PROFILE_ATTEMPTS})")
     return found
 
@@ -3884,33 +3889,188 @@ def allreduce_ms(mesh, state) -> float:
     return cuda_ms(lambda: (all_reduce(mesh, dq), all_reduce(mesh, da)))
 
 
+def mesh_replay(m, sensors, pts, masks) -> tuple:
+    """(samples used, ms/pose) of hotel-0 pose by pose through ``update``
+    on the map ``m``, the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    used = [m.update(sensors[i], pts[i], masks[i])
+            for i in range(len(sensors))]
+    torch.cuda.synchronize()
+    return (torch.stack(used).cpu(),
+            1e3 * (time.perf_counter() - t0) / len(sensors))
+
+
+def map_state(m) -> dict:
+    return {k: getattr(m.state, k).cpu() for k in STATE_KEYS}
+
+
+def eager_mesh_map(mesh, hotel0):
+    """A hotel-0 map on the mesh with its graphs set aside: the eager
+    mesh chain, every kernel and collective launched one by one."""
+    m = mesh_map(mesh, hotel0)
+    m._graphs = None
+    return m
+
+
+def capture_records(maps) -> list:
+    """Each captured graph of the maps or models: key, warm-up and
+    capture ms, pool MiB, launches a replay, replays."""
+    return [{"key": g.key[:3], "warmup_ms": g.warmup_ms,
+             "capture_ms": g.capture_ms, "pool_mb": g.pool_bytes / 2**20,
+             "launches": {w.__name__: n for w, n in g.launches.items()},
+             "replays": g.replays}
+            for m in maps for g in m._graphs.captures]
+
+
 def mesh_job_update(mesh, w):
-    """(a) hotel-0 pose by pose through ``update`` on the mesh: the
-    replay's state, samples used, wrapper counts and ms/pose, the
-    all_reduce's ms. (FITC's launches a pose by torch.profiler are phase
-    5's; the profiler's first session costs a fresh process ~10 s.)"""
+    """(a) hotel-0 on the NCCL mesh, the eager chain (the maps' graphs set
+    aside) and the graphs (one replay a chunk, the all_reduce pair
+    inside): pose by pose through ``update``, each run's state, samples
+    used, wrapper counts and ms/pose (the graphed run's capture
+    included); at c = PPS through ``update_batch`` and the sharded
+    predict of the drift grid, both ways; ms/pose after the capture,
+    graphed and eager alternated (medians of GRAPH_TIMING_REPLAYS); by
+    torch.profiler over GRAPH_PROFILE_POSES poses each way, the host CUDA
+    API calls and kernels a pose, the device ms a pose and the NCCL
+    kernels' device ms inside a replay; each graph's capture cost; the
+    all_reduce's event ms. Every collective in a graph is captured after
+    the same collectives ran eagerly in its warm-up; a capture whose
+    collective did not join back to the capturing stream raises at
+    ``capture_end``, and the eager collective at the end checks that the
+    process group still works after the replays."""
+    import torch.distributed as dist
+
     from erl_gaussian_process_tpu_torch.ops import (
+        cross_gram_cuda,
+        fitc_update_cuda,
         launch_counts,
         reset_launch_counts,
     )
 
     h = w["hotel0"]
     sensors, pts, masks = h["sensors"], h["pts"], h["masks"]
-    warm = mesh_map(mesh, h)
+    b, k = len(sensors), GRAPH_PROFILE_POSES
+    warm = eager_mesh_map(mesh, h)
     for i in range(2):
         warm.update(sensors[i], pts[i], masks[i])
-    reset_launch_counts()
-    m = mesh_map(mesh, h)
+    out = {}
+    for way, make in (("eager", eager_mesh_map), ("graphed", mesh_map)):
+        reset_launch_counts()
+        m = make(mesh, h)
+        used, ms = mesh_replay(m, sensors, pts, masks)
+        out[way] = {"ms_per_pose": ms, "counts": launch_counts(),
+                    "n_used": used, "state": map_state(m),
+                    "graphs": m._graphs is not None}
+        if way == "graphed":
+            out[way]["fitc_replayed"] = graph_launches((m,),
+                                                       fitc_update_cuda)
+            graphed = m
+    out["allreduce_ms"] = allreduce_ms(mesh, graphed.state)
+
+    # c = PPS and the sharded predict of the drift grid, both ways
+    for way, make in (("eager", eager_mesh_map), ("graphed", mesh_map)):
+        reset_launch_counts()
+        m = make(mesh, h)
+        used = m.update_batch(sensors, pts, masks, poses_per_step=PPS)
+        lo = m.predict(h["grid"])[0]
+        torch.cuda.synchronize()
+        out[f"{way}_pps"] = {"counts": launch_counts(), "n_used": used.cpu(),
+                             "state": map_state(m), "lo_grid": lo.cpu()}
+        if way == "graphed":
+            out["graphed_pps"]["gram_replayed"] = graph_launches(
+                (m,), cross_gram_cuda)
+            graphed_pps = m
+
+    # ms/pose after the capture, graphed and eager alternated, pose by
+    # pose and at c = PPS
+    times = {"graphed": [], "eager": [], "graphed_pps": [], "eager_pps": []}
+    for _ in range(GRAPH_TIMING_REPLAYS):
+        for way, make in (("graphed", mesh_map), ("eager", eager_mesh_map)):
+            m = make(mesh, h)
+            m.update(sensors[0], pts[0], masks[0])
+            _, ms = timed(lambda: [m.update(sensors[i], pts[i], masks[i])
+                                   for i in range(1, b)])
+            times[way].append(ms / (b - 1))
+            m = make(mesh, h)
+            m.update_batch(sensors[:PPS], pts[:PPS], masks[:PPS],
+                           poses_per_step=PPS)
+            _, ms = timed(lambda: m.update_batch(
+                sensors[PPS:], pts[PPS:], masks[PPS:], poses_per_step=PPS))
+            times[f"{way}_pps"].append(ms / (b - PPS))
+    out["times"] = times
+
+    # the profiler over k poses each way
+    prof = {}
+    for way, make in (("graphed", mesh_map), ("eager", eager_mesh_map)):
+        m = make(mesh, h)
+        m.update(sensors[0], pts[0], masks[0])
+        host, dev, busy = api_calls(lambda: [m.update(sensors[i], pts[i],
+                                                      masks[i])
+                                             for i in range(1, 1 + k)])
+        prof[way] = {
+            "host_api_calls_per_pose": sum(host.values()) / k,
+            "graph_launches": host.get("cudaGraphLaunch", 0),
+            "kernels_per_pose": sum(c for c, _ in dev.values()) / k,
+            "device_ms_per_pose": sum(ms for _, ms in dev.values()) / k,
+            "busy_ms_per_pose": busy / k,
+            "nccl_ms_per_pose": sum(ms for name, (_, ms) in dev.items()
+                                    if "nccl" in name.lower()) / k,
+            "nccl_kernels_per_pose": sum(c for name, (c, _) in dev.items()
+                                         if "nccl" in name.lower()) / k,
+            "fitc_kernels": sum(c for name, (c, _) in dev.items()
+                                if any(f in name for f in FITC_KERNELS)),
+            "host": host}
+    out["profile"] = prof
+    out["captures"] = capture_records((graphed, graphed_pps))
+    t = torch.ones(4, device=mesh.device)
+    dist.all_reduce(t)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    used = [m.update(sensors[i], pts[i], masks[i])
-            for i in range(len(sensors))]
-    torch.cuda.synchronize()
-    out = {"ms_per_pose": 1e3 * (time.perf_counter() - t0) / len(sensors),
-           "counts": launch_counts(), "n_used": torch.stack(used).cpu(),
-           "state": {k: getattr(m.state, k).cpu()
-                     for k in ("qm", "alpha", "qm_c", "alpha_c")}}
-    out["allreduce_ms"] = allreduce_ms(mesh, m.state)
+    out["eager_collective_after_replays"] = float(t.sum()) == 4.0 * mesh.size
+    return out
+
+
+def mesh_job_sensor_graphs(mesh, w):
+    """(a) the 3D lidar protocol and frame 0 of data/double/train.dat on
+    the NCCL mesh: each GP's train and test graphed (the rank's bank fit
+    and the gathers inside the train's replay; the capture, then a
+    replay) against the same model's eager mesh chain (its graphs set
+    aside), bit for bit: bank, means, valid masks; the wrapper counts of
+    one replayed train and test; each train's ms, graphed and eager
+    (medians of MESH_TRAINS); each graph's capture cost."""
+    from erl_gaussian_process_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    out = {}
+    for name, (gp, scan, queries) in sensor_mesh_models(mesh, w).items():
+        gp.train(*scan)                               # the captures
+        gp.test(queries, False, True).get_mean()
+        reset_launch_counts()
+        ok = gp.train(*scan)
+        bank = {k: getattr(gp.bank, k).clone() for k in ("L", "L_inv",
+                                                        "alpha")}
+        pred, valid = gp.test(queries, False, True).get_mean()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        graphs, gp._graphs = gp._graphs, None
+        ok_e = gp.train(*scan)
+        pred_e, valid_e = gp.test(queries, False, True).get_mean()
+        eager_ms = statistics.median(
+            timed(lambda: gp.train(*scan))[1] for _ in range(MESH_TRAINS))
+        same = same_bits(bank, {k: getattr(gp.bank, k)
+                                for k in ("L", "L_inv", "alpha")}) and \
+            same_bits(pred, pred_e) and same_bits(valid, valid_e)
+        gp._graphs = graphs
+        out[name] = {
+            "ok": ok and ok_e, "graphs": graphs is not None,
+            "same_as_eager": same, "counts": counts,
+            "train_ms": statistics.median(
+                timed(lambda: gp.train(*scan))[1]
+                for _ in range(MESH_TRAINS)),
+            "eager_train_ms": eager_ms,
+            "captures": capture_records((gp,))}
     return out
 
 
@@ -3943,7 +4103,8 @@ def mesh_job_batch(mesh, w):
     torch.cuda.synchronize()
     out = {"ms_per_pose": 1e3 * (time.perf_counter() - t0) / len(sensors),
            "lo": {k: m.predict(h[k])[0].cpu()
-                  for k in ("sel", "traj", "grid")}}
+                  for k in ("sel", "traj", "grid")},
+           "graphs": m._graphs is not None}
     L_qm, a = m.sp_gp._prepared()
     out["lo_one"] = spgp_predict(
         m.state, L_qm, a, m._tensor(h["grid"]), m.sp_gp._scale,
@@ -3952,12 +4113,33 @@ def mesh_job_batch(mesh, w):
                state={k: getattr(m.state, k).cpu() for k in ("qm", "alpha")})
     kernels = device_kernels(lambda: (
         m.update_batch(sensors[:PPS], pts[:PPS], masks[:PPS],
-                       poses_per_step=PPS), m.predict(h["grid"])))
+                       poses_per_step=PPS), m.predict(h["grid"])),
+        expect=(*FITC_KERNELS, "gram_kernel"))
     out["fitc_per_chunk"] = fitc_count(kernels)
     out["gram_per_predict"] = sum(c for k, (c, _) in kernels.items()
                                   if "gram_kernel" in k)
     out["allreduce_ms"] = allreduce_ms(mesh, m.state)
     return out
+
+
+def sensor_mesh_models(mesh, w) -> dict:
+    """{name: (model on the mesh, its train's arguments, its test
+    queries)}: the 3D lidar protocol's RangeSensorGaussianProcess3D and
+    frame 0 of data/double/train.dat through LidarGaussianProcess2D."""
+    from erl_gaussian_process_tpu_torch.models import (
+        LidarGaussianProcess2D,
+        RangeSensorGaussianProcess3D,
+    )
+
+    setting, R, t, ranges, q, gt, _ = w["lidar"]
+    f = w["frame2d"]
+    return {"gp3d": (RangeSensorGaussianProcess3D(
+                         setting, dtype=np.float32, mesh=mesh,
+                         device=mesh.device), (R, t, ranges), q),
+            "gp2d": (LidarGaussianProcess2D(
+                         lidar2d_setting(f.angles, False), dtype=np.float64,
+                         mesh=mesh, device=mesh.device),
+                     (np.eye(2), np.zeros(2), f.ranges), f.angles)}
 
 
 def mesh_job_sensor(mesh, w):
@@ -3966,37 +4148,25 @@ def mesh_job_sensor(mesh, w):
     on the mesh: each GP's gathered bank, its test, its wrapper counts for
     one train and one test, its bank fits a train and grams a test by
     torch.profiler, its train's ms (median of MESH_TRAINS)."""
-    from erl_gaussian_process_tpu_torch.models import (
-        LidarGaussianProcess2D,
-        RangeSensorGaussianProcess3D,
-    )
     from erl_gaussian_process_tpu_torch.ops import (
         launch_counts,
         reset_launch_counts,
     )
 
-    setting, R, t, ranges, q, gt, _ = w["lidar"]
-    f = w["frame2d"]
-    gps = {"gp3d": (RangeSensorGaussianProcess3D(
-                        setting, dtype=np.float32, mesh=mesh,
-                        device=mesh.device), (R, t, ranges), q),
-           "gp2d": (LidarGaussianProcess2D(
-                        lidar2d_setting(f.angles, False), dtype=np.float64,
-                        mesh=mesh, device=mesh.device),
-                    (np.eye(2), np.zeros(2), f.ranges), f.angles)}
     out = {}
-    for name, (gp, scan, queries) in gps.items():
+    for name, (gp, scan, queries) in sensor_mesh_models(mesh, w).items():
         gp.train(*scan)                         # warm-up, not counted
         gp.test(queries, False, True).get_mean()
         reset_launch_counts()
         ok = gp.train(*scan)
         pred, valid = gp.test(queries, False, True).get_mean()
         r = {"ok": ok, "counts": launch_counts(), "pred": pred,
-             "valid": valid,
+             "valid": valid, "graphs": gp._graphs is not None,
              "bank": {k: getattr(gp.bank, k).cpu()
                       for k in ("L", "L_inv", "alpha")}}
         kernels = device_kernels(lambda: (
-            gp.train(*scan), gp.test(queries, False, True).get_mean()))
+            gp.train(*scan), gp.test(queries, False, True).get_mean()),
+            expect=("bank_fit", "gram_kernel"))
         r["fits_per_train"] = sum(c for k, (c, _) in kernels.items()
                                   if "bank_fit" in k)
         r["grams_per_test"] = sum(c for k, (c, _) in kernels.items()
@@ -4008,7 +4178,8 @@ def mesh_job_sensor(mesh, w):
 
 
 MESH_JOBS = {"update": mesh_job_update, "batch": mesh_job_batch,
-             "sensor": mesh_job_sensor}
+             "sensor": mesh_job_sensor,
+             "sensor_graphs": mesh_job_sensor_graphs}
 
 
 def mesh_rank(rank, size, work):
@@ -4215,9 +4386,10 @@ def mesh_kernel_rows(dev, card, hotel0, lidar) -> dict:
 def run_mesh(dev, card, hotel0, slice_ref, pps_ref, lidar, frame2d,
              ref_ms) -> tuple:
     """Phase 23: the mesh. (a) NCCL, one rank on the card: hotel-0 pose by
-    pose through ``update(mesh=)``, Q_M, alpha, their compensations and
-    the samples used bit for bit phase 4's pose-by-pose replay
-    (``slice_ref``); (b) gloo, two ranks on ``cuda:0`` (their collectives
+    pose through ``update(mesh=)``, eager and graphed, Q_M, alpha, their
+    compensations and the samples used bit for bit phase 4's pose-by-pose
+    replay (``slice_ref``), at c = PPS and the sharded predict phase 19's,
+    the sensor GPs' graphed trains their eager mesh chain's; (b) gloo, two ranks on ``cuda:0`` (their collectives
     staged through the host): hotel-0 through ``update_batch
     (poses_per_step=PPS)`` (FITC at 1152 x 4096 a rank), the samples used
     equal to phase 19's (``pps_ref``: its replay's state, samples used and
@@ -4232,7 +4404,9 @@ def run_mesh(dev, card, hotel0, slice_ref, pps_ref, lidar, frame2d,
     gloo rank by torch.profiler: a PPS-pose chunk 3 FITC, a train 1 bank
     fit, a predict >= 1 gram. Reported: ms/pose beside phases 4 and
     19 (``ref_ms``), the all_reduce's ms an update, the spawn-and-init
-    time. Returns (launches by row, timings)."""
+    time. Returns (launches by row: the mesh rows' and the NCCL rank's
+    graphed runs' by the rows of their shapes, timings, the graphed NCCL
+    states)."""
     import tempfile
 
     from erl_gaussian_process_tpu_torch.models import (
@@ -4250,36 +4424,118 @@ def run_mesh(dev, card, hotel0, slice_ref, pps_ref, lidar, frame2d,
     with tempfile.TemporaryDirectory() as tmp:
         nccl, timings["nccl_wall_s"] = mesh_world(
             1, "nccl", os.path.join(tmp, "nccl"),
-            {"device": "cuda", "jobs": ["update"], "hotel0": hotel0})
+            {"device": "cuda", "jobs": ["update", "sensor_graphs"],
+             "hotel0": hotel0, "lidar": lidar, "frame2d": frame2d})
         gloo, timings["gloo_wall_s"] = mesh_world(
             2, "gloo", os.path.join(tmp, "gloo"),
             {"device": "cuda", "jobs": ["batch", "sensor"], "hotel0": hotel0,
              "lidar": lidar, "frame2d": frame2d})
 
-    # (a) NCCL, world of one
+    # (a) NCCL, world of one: the eager chain and the graphs
     a = nccl[0]["update"]
+    ae, ag = a["eager"], a["graphed"]
     b = len(hotel0["sensors"])
     check(nccl[0]["device"] == "cuda:0" and not nccl[0]["host_staging"],
           f"NCCL rank: {nccl[0]['device']}")
-    check(same_bits(a["n_used"], slice_ref["n_used"]),
-          "mesh NCCL D=1: samples used differ from phase 4's replay")
-    check(same_bits(a["state"], {k: getattr(slice_ref["state"], k)
-                                 for k in a["state"]}),
-          "mesh NCCL D=1: Q_M, alpha or their compensations differ from "
-          "phase 4's replay")
-    check(a["counts"]["fitc"] == b,
-          f"mesh NCCL D=1: FITC launches {a['counts']['fitc']} != {b}")
-    log(f"mesh (a) NCCL, 1 rank: {b} poses through update(mesh=), Q_M, "
-        "alpha, compensations and samples used bit for bit phase 4's; FITC "
-        f"{a['counts']['fitc']} launches")
+    check(not ae["graphs"] and ag["graphs"],
+          "mesh NCCL D=1: the map on an NCCL mesh built no graphs")
+    check(same_bits(ag["state"], ae["state"])
+          and same_bits(ag["n_used"], ae["n_used"]),
+          "mesh NCCL D=1: the graphed replay differs from the eager chain")
+    phase4 = {k: getattr(slice_ref["state"], k) for k in STATE_KEYS}
+    for way, r in (("eager", ae), ("graphed", ag)):
+        check(same_bits(r["n_used"], slice_ref["n_used"]),
+              f"mesh NCCL D=1 {way}: samples used differ from phase 4's "
+              "replay")
+        check(same_bits(r["state"], phase4),
+              f"mesh NCCL D=1 {way}: Q_M, alpha or their compensations "
+              "differ from phase 4's replay")
+    check(ae["counts"]["fitc"] == b,
+          f"mesh NCCL D=1 eager: FITC launches {ae['counts']['fitc']} != {b}")
+    replayed, warm_ups = ag["fitc_replayed"]
+    check(replayed == b and ag["counts"]["fitc"] == b + warm_ups,
+          f"mesh NCCL D=1 graphed: FITC {ag['counts']['fitc']} launches, "
+          f"{replayed} by replays, {warm_ups} by the warm-up")
+    ep, gp_ = a["eager_pps"], a["graphed_pps"]
+    for way, r in (("eager", ep), ("graphed", gp_)):
+        check(same_bits(r["n_used"], pps_ref["n_used"])
+              and same_bits(r["state"], {k: getattr(pps_ref["state"], k)
+                                         for k in STATE_KEYS}),
+              f"mesh NCCL D=1 {way} poses_per_step={PPS}: state or samples "
+              "used differ from phase 19's replay")
+        check(same_bits(r["lo_grid"], pps_ref["lo_grid"]),
+              f"mesh NCCL D=1 {way}: the sharded predict of the drift grid "
+              "differs from phase 19's one-card predict")
+    chunks = -(-b // PPS)
+    check(gp_["counts"]["fitc"] == chunks + 1
+          and gp_["gram_replayed"][0] >= 1,
+          f"mesh NCCL D=1 graphed poses_per_step={PPS}: counts "
+          f"{gp_['counts']}, gram by replays and warm-ups "
+          f"{gp_['gram_replayed']}")
+    pg, pe = a["profile"]["graphed"], a["profile"]["eager"]
+    k = GRAPH_PROFILE_POSES
+    check(pg["graph_launches"] == k and pg["fitc_kernels"] == 3 * k,
+          f"mesh NCCL D=1: {k} graphed poses made {pg['graph_launches']} "
+          f"graph launches and ran {pg['fitc_kernels']} FITC kernels")
+    # at D = 1 NCCL's in-place all_reduce launches nothing: the replay
+    # holds the NCCL kernels the eager chain launches, whatever their count
+    check(pg["nccl_kernels_per_pose"] == pe["nccl_kernels_per_pose"],
+          f"mesh NCCL D=1: NCCL kernels a pose, graphed {pg} against eager "
+          f"{pe}")
+    check(a["eager_collective_after_replays"],
+          "mesh NCCL D=1: an eager all_reduce after the replays failed")
+    g_ms, e_ms, g4_ms, e4_ms = (statistics.median(a["times"][way]) for way in
+                                ("graphed", "eager", "graphed_pps",
+                                 "eager_pps"))
+    idle = 1.0 - pg["device_ms_per_pose"] / g_ms
+    log(f"mesh (a) NCCL, 1 rank: {b} poses through update(mesh=), eager and "
+        "graphed, Q_M, alpha, compensations and samples used bit for bit "
+        f"phase 4's; FITC {ae['counts']['fitc']} launches eager, "
+        f"{replayed} by {len(a['captures'])} graph(s)' replays + {warm_ups} "
+        f"warm-up; at poses_per_step={PPS} both bit for bit phase 19's, "
+        "the graphed and eager sharded predicts of the drift grid bit for "
+        f"bit phase 19's one-card predict; {k} graphed poses by "
+        f"torch.profiler: {pg['graph_launches']} graph launches, host CUDA "
+        f"API calls a pose {pg['host_api_calls_per_pose']:g} (eager "
+        f"{pe['host_api_calls_per_pose']:g}), kernels a pose "
+        f"{pg['kernels_per_pose']:g} (eager {pe['kernels_per_pose']:g}), "
+        f"device {pg['device_ms_per_pose']:.4f} ms a pose (eager "
+        f"{pe['device_ms_per_pose']:.4f}), the all_reduce pair's NCCL "
+        f"kernels {pg['nccl_kernels_per_pose']:g} a pose (eager "
+        f"{pe['nccl_kernels_per_pose']:g}), {pg['nccl_ms_per_pose']:.4f} ms "
+        f"device inside a replay (eager {pe['nccl_ms_per_pose']:.4f}); "
+        f"graphed host API "
+        f"{pg['host']}; an eager all_reduce after the replays ok")
+    for c in a["captures"]:
+        log(f"mesh graph {c['key']}: warm-up {c['warmup_ms']:.2f} ms, "
+            f"capture {c['capture_ms']:.2f} ms, pool {c['pool_mb']:.1f} MiB, "
+            f"launches a replay {c['launches']}, replays {c['replays']}")
+    sg = nccl[0]["sensor_graphs"]
+    for name, c in sg.items():
+        check(c["ok"] and c["graphs"] and c["same_as_eager"],
+              f"mesh NCCL D=1 {name}: the graphed train or test differs "
+              f"from the eager mesh chain ({c['ok']}, {c['graphs']})")
+        check(c["counts"]["bank_fit"] == 1,
+              f"mesh NCCL D=1 {name}: a replayed train's counts "
+              f"{c['counts']}")
+        log(f"mesh (a) NCCL {name}: graphed train and test bit for bit the "
+            f"eager mesh chain; train {c['train_ms']:.4f} ms graphed, "
+            f"{c['eager_train_ms']:.4f} ms eager (medians of "
+            f"{MESH_TRAINS}); graphs "
+            + "; ".join(f"{g['key'][:2]} warm-up {g['warmup_ms']:.2f} ms "
+                        f"capture {g['capture_ms']:.2f} ms pool "
+                        f"{g['pool_mb']:.1f} MiB replays {g['replays']}"
+                        for g in c["captures"]))
 
     # (b) gloo, two ranks on one card
-    chunks = -(-b // PPS)
     r0 = gloo[0]["batch"]
     for r, res in enumerate(gloo):
         check(res["device"] == "cuda:0" and res["host_staging"],
               f"gloo rank {r}: {res['device']}, staging "
               f"{res['host_staging']}")
+        check(not res["batch"]["graphs"]
+              and not any(c["graphs"] for c in res["sensor"].values()),
+              f"gloo rank {r}: a model on a host-staged mesh built graphs")
         c = res["batch"]
         check(same_bits(c["state"], r0["state"])
               and same_bits(c["lo"], r0["lo"]),
@@ -4380,7 +4636,20 @@ def run_mesh(dev, card, hotel0, slice_ref, pps_ref, lidar, frame2d,
           f"mesh 2D MAE {mae}")
 
     timings.update({
-        "nccl_d1_update_ms_per_pose": a["ms_per_pose"],
+        "nccl_d1_update_ms_per_pose": ae["ms_per_pose"],
+        "nccl_d1_graphed_update_ms_per_pose": ag["ms_per_pose"],
+        "nccl_d1_after_capture_ms_per_pose": {
+            way: {"median": statistics.median(v), "range": [min(v), max(v)]}
+            for way, v in a["times"].items()},
+        "nccl_d1_device_idle_share": idle,
+        "nccl_d1_profile": {way: {key: v for key, v in r.items()
+                                  if key != "host"}
+                            for way, r in a["profile"].items()},
+        "nccl_d1_captures": a["captures"],
+        "nccl_d1_sensor_graphs": {
+            name: {key: c[key] for key in ("train_ms", "eager_train_ms",
+                                           "captures")}
+            for name, c in sg.items()},
         "phase4_update_ms_per_pose": ref_ms["update"],
         "gloo_d2_pps_ms_per_pose": [res["batch"]["ms_per_pose"]
                                     for res in gloo],
@@ -4390,7 +4659,8 @@ def run_mesh(dev, card, hotel0, slice_ref, pps_ref, lidar, frame2d,
                                  for res in gloo],
         "spawn_init_s": {"nccl": [res["init_s"] for res in nccl],
                          "gloo": [res["init_s"] for res in gloo]},
-        "job_s": {"nccl": [res["update_s"] for res in nccl],
+        "job_s": {"nccl": [[res["update_s"], res["sensor_graphs_s"]]
+                           for res in nccl],
                   "gloo": [[res["batch_s"], res["sensor_s"]]
                            for res in gloo]},
         "train_ms": {name: [res["sensor"][name]["train_ms"]
@@ -4399,8 +4669,16 @@ def run_mesh(dev, card, hotel0, slice_ref, pps_ref, lidar, frame2d,
         "phase19_drift_f64": drift64_19, "cond_qm_f64": conds,
         "sign_agreement_f64": signs64,
         "mse": mse, "mae_2d": mae})
-    log(f"mesh on {card}: NCCL D=1 update {a['ms_per_pose']:.4f} ms/pose "
-        f"(phase 4: {ref_ms['update']:.4f}, median), gloo D=2 "
+    log(f"mesh on {card}: NCCL D=1 update eager {ae['ms_per_pose']:.4f} "
+        f"ms/pose, graphed {ag['ms_per_pose']:.4f} (capture included); "
+        f"after the capture (medians of {GRAPH_TIMING_REPLAYS}) graphed "
+        f"{g_ms:.4f} (range {min(a['times']['graphed']):.4f}-"
+        f"{max(a['times']['graphed']):.4f}), eager {e_ms:.4f} (range "
+        f"{min(a['times']['eager']):.4f}-{max(a['times']['eager']):.4f}); "
+        f"at poses_per_step={PPS} graphed {g4_ms:.4f}, eager {e4_ms:.4f} "
+        f"(phase 19: {ref_ms['pps']:.4f}); "
+        f"device idle {100 * idle:.1f}% graphed (phase 4: "
+        f"{ref_ms['update']:.4f}, median), gloo D=2 "
         f"poses_per_step={PPS} {timings['gloo_d2_pps_ms_per_pose']} ms/pose "
         f"a rank (phase 19: {ref_ms['pps']:.4f}, median), one replay a "
         "world; all_reduce "
@@ -4409,12 +4687,27 @@ def run_mesh(dev, card, hotel0, slice_ref, pps_ref, lidar, frame2d,
         f"spawn to mesh {timings['spawn_init_s']} s, jobs "
         f"{timings['job_s']} s; worlds "
         f"{timings['nccl_wall_s']:.2f} / {timings['gloo_wall_s']:.2f} s")
+    # the mesh rows (their shapes are a gloo rank's): the gloo ranks' runs;
+    # the NCCL rank's graphed runs (each counted from 0) by the one-card
+    # rows of their shapes, as D = 1 shards nothing: the pose-by-pose map
+    # (FITC at N = 2048), the map at c = PPS (N = PPS x 2048) and its
+    # predict of the drift grid (1152 x 2048), one replayed 3D train (the
+    # 736-member bank)
+    nccl_graphed = {"fitc": ag["counts"]["fitc"],
+                    "fitc_8192": gp_["counts"]["fitc"],
+                    "gram": gp_["counts"]["gram"],
+                    "bank_fit": sg["gp3d"]["counts"]["bank_fit"]}
+    log(f"mesh (a) NCCL D=1 graphed launches by the one-card row of their "
+        f"shape: {nccl_graphed}")
     launches = {
         "fitc_mesh": sum(res["batch"]["counts"]["fitc"] for res in gloo),
         "bank_fit_mesh": sum(res["sensor"]["gp3d"]["counts"]["bank_fit"]
                              for res in gloo),
-        "gram_mesh": sum(res["batch"]["counts"]["gram"] for res in gloo)}
-    return launches, timings
+        "gram_mesh": sum(res["batch"]["counts"]["gram"] for res in gloo),
+        **nccl_graphed}
+    mesh_states = {"c1": (ag["state"], ag["n_used"]),
+                   "pps": (gp_["state"], gp_["n_used"])}
+    return launches, timings, mesh_states
 
 
 # -- phase 24: the map's CUDA graphs (models/pose_graph.py) ------------------
@@ -4543,14 +4836,17 @@ def run_examples() -> dict:
     return out
 
 
-def run_graphs(dev, card, hotel0, slice_ref, pps_ref, ref_ms):
+def run_graphs(dev, card, hotel0, slice_ref, pps_ref, ref_ms, mesh_states):
     """Phase 24: the map's CUDA graphs against the eager functional chain,
     bit for bit (hotel-0 through ``update`` (``slice_ref``, phase 4) and
     ``update_batch``, at ``poses_per_step`` = PPS (``pps_ref``, phase 19),
     the 2D map), the graphed predicts against the eager ones, a graphed
     pose with the sync debug mode at "error", the profiler's counts, times
     and capture costs, the examples on the card. ``ref_ms``: phase 4's
-    and 19's ms/pose, for the log. Returns the timings."""
+    and 19's ms/pose, for the log. ``mesh_states``: phase 23's graphed
+    NCCL replays at c = 1 and PPS ((state, samples used) each), held bit
+    for bit to this phase's one-card graphed replays. Returns the
+    timings."""
     from erl_gaussian_process_tpu_torch.geometry import Aabb
     from erl_gaussian_process_tpu_torch.geometry.simulators import (
         reference_space_2d,
@@ -4594,6 +4890,14 @@ def run_graphs(dev, card, hotel0, slice_ref, pps_ref, ref_ms):
         f"graph(s), {warm_ups} by the warm-up)")
     check(same_update, "graphed update differs from the eager chain")
     check(same_batch, "graphed update_batch differs from the eager chain")
+    mesh_st, mesh_used = mesh_states["c1"]
+    same_mesh = same_bits(mesh_st, {k: getattr(mb.state, k)
+                                    for k in STATE_KEYS}) and \
+        same_bits(mesh_used, used_b)
+    log("phase 23's graphed NCCL replay (D = 1) against this one-card "
+        f"graphed update_batch: bit for bit {same_mesh}")
+    check(same_mesh, "the graphed NCCL mesh replay differs from the "
+          "one-card graphed replay")
     check(replayed == b and counts["fitc"] == replayed + warm_ups,
           f"graphed update_batch launches {counts}")
 
@@ -4604,9 +4908,17 @@ def run_graphs(dev, card, hotel0, slice_ref, pps_ref, ref_ms):
     same4 = all(same_state(st4, st) and bool(torch.equal(used4, n))
                 for st, n in ((pps_ref["state"], pps_ref["n_used"]),
                               (m4.state, used_4)))
+    mesh_st, mesh_used = mesh_states["pps"]
+    same4_mesh = same_bits(mesh_st, {k: getattr(m4.state, k)
+                                     for k in STATE_KEYS}) and \
+        same_bits(mesh_used, used_4)
     log(f"graphs vs the eager chain, hotel-0 at poses_per_step={PPS} "
-        f"(phase 19's replay and a fresh one): bit for bit {same4}")
+        f"(phase 19's replay and a fresh one): bit for bit {same4}; phase "
+        f"23's graphed NCCL replay at poses_per_step={PPS} against the fresh "
+        f"one: bit for bit {same4_mesh}")
     check(same4, f"graphed poses_per_step={PPS} differs from the eager chain")
+    check(same4_mesh, f"the graphed NCCL mesh replay at poses_per_step={PPS} "
+          "differs from the one-card graphed replay")
 
     # the predicts, graphed against eager on the same prepare
     sel, traj = h["sel"], h["traj"]
@@ -4722,11 +5034,7 @@ def run_graphs(dev, card, hotel0, slice_ref, pps_ref, ref_ms):
         f"{100 * idle:.1f}%; cached predict of {len(sel)} points graphed "
         f"{timings['predict_graphed_ms']:.4f} ms, eager "
         f"{timings['predict_eager_ms']:.4f} ms (medians of {TIMED_RUNS})")
-    captures = [{"key": g.key[:3], "warmup_ms": g.warmup_ms,
-                 "capture_ms": g.capture_ms, "pool_mb": g.pool_bytes / 2**20,
-                 "launches": {w.__name__: n for w, n in g.launches.items()},
-                 "replays": g.replays}
-                for m in (mb, m4, m2) for g in m._graphs.captures]
+    captures = capture_records((mb, m4, m2))
     for c in captures:
         log(f"graph {c['key']}: warm-up {c['warmup_ms']:.2f} ms, capture "
             f"{c['capture_ms']:.2f} ms, pool {c['pool_mb']:.1f} MiB, "
@@ -4865,7 +5173,7 @@ def main() -> int:
               "sel": hits[rng.choice(len(hits), min(2000, len(hits)),
                                      replace=False)].astype(np.float32)}
     kern.update(mesh_kernel_rows(dev, card, hotel0, lidar))
-    mesh_launches, mesh_timings = run_mesh(
+    mesh_launches, mesh_timings, mesh_states = run_mesh(
         dev, card, hotel0, slice_ref, pps_ref, lidar, frames[0],
         {"update": timings["update_ms_per_pose"],
          "pps": pps_timings["pps_ms_per_pose"]})
@@ -4873,7 +5181,7 @@ def main() -> int:
     graph_timings = run_graphs(
         dev, card, hotel0, slice_ref, pps_ref,
         {"update": timings["update_ms_per_pose"],
-         "pps": pps_timings["pps_ms_per_pose"]})
+         "pps": pps_timings["pps_ms_per_pose"]}, mesh_states)
     log(json.dumps({"graph_timings": graph_timings, "card": card}))
 
     # FITC's bound at its timed shape, M=1152, N=2048, d=3 (fitc_bound();
@@ -4916,9 +5224,11 @@ def main() -> int:
         "trsv_rr": sum(c["trsv"] for c in rr_fits),
         # hotel-0 at poses_per_step = PPS (N = PPS x 2048),
         # the SPGP scale sweep's K_MN
-        "fitc_8192": pps_fitc, "gram_sweep": sweep_grams,
-        # the mesh's ranks (phase 23, gloo, two ranks)
-        **mesh_launches})
+        "fitc_8192": pps_fitc, "gram_sweep": sweep_grams})
+    # the mesh (phase 23): its rows, and the NCCL rank's graphed runs added
+    # to the rows of their shapes
+    for name, n in mesh_launches.items():
+        launches[name] = launches.get(name, 0) + n
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched by its path: {launches}")
     chol_src = "erl_gaussian_process_tpu_torch/csrc/chol.cu"

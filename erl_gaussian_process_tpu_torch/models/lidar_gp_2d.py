@@ -21,8 +21,12 @@ offline replay (:meth:`~LidarGaussianProcess2D.train_scan_batch`) runs
 eagerly.
 
 With ``mesh=``, a train shards the bank's members over the ranks
-(``parallel/mesh.sharded_bank_fit``) and runs eagerly; a reduced-rank fit
-stays on each rank whole, as in the JAX package.
+(``parallel/mesh.sharded_bank_fit``): on a mesh whose collectives run on
+the card (NCCL, ``parallel.mesh.runs_graphs``) each rank replays it as one graph,
+the rank's bank fit and the gathers inside, and the routed test, which
+reads the replicated bank, takes the one-card graphs; on a mesh that
+stages its collectives through the host (gloo) both run eagerly. A
+reduced-rank fit stays on each rank whole, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
 )
 from erl_gaussian_process_tpu_torch.parallel.mesh import (
     model_device,
+    runs_graphs,
     sharded_bank_fit,
 )
 from erl_gaussian_process_tpu_torch.utils.serialization import (
@@ -270,7 +275,7 @@ class LidarGaussianProcess2D:
         self._scan_fit_cache = None
         self._angles = None     # the frame's angles on the device
         self._graphs = SensorGraphs(self.device) \
-            if self.device.type == "cuda" and mesh is None else None
+            if runs_graphs(self.device, mesh) else None
         angles = self.sensor_frame.angles_in_frame
         n = angles.shape[0]
         self.partitions = []
@@ -548,10 +553,10 @@ class LidarGaussianProcess2D:
 
     def train(self, rotation, translation, ranges) -> bool:
         """Store the scan, map its distances, and fit its partition bank in
-        one launch (reference Train). On a CUDA model without a mesh,
-        ``self.bank`` is then the outputs of the train's graph, which the
-        next train of that shape overwrites in place: clone a bank to keep
-        it."""
+        one launch (reference Train). On a CUDA model with graphs (without
+        a mesh, or on an NCCL one), ``self.bank`` is then the outputs
+        of the train's graph, which the next train of that shape overwrites
+        in place: clone a bank to keep it."""
         self._trained = False
         self.sensor_frame.update_ranges(rotation, translation, ranges)
         if not self.sensor_frame.is_valid():

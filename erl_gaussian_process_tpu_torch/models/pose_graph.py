@@ -37,16 +37,30 @@ products, ``predict_prepared_step``) as one replay of a captured graph:
   ``captured`` (``ops/_library.note_launch``); each replay adds the launches
   its graph captured to the wrappers' ``launches``: the counts are the
   kernels the replays ran.
+- **On a mesh** (``parallel/mesh.py``) whose collectives run on the card
+  (NCCL, ``parallel.mesh.runs_graphs``), each rank replays the same graphs: a chunk
+  samples its c poses replicated, from the same seeds on every rank, then
+  runs the rank's shard of the FITC update, the ``all_reduce`` pair and
+  the Kahan add (JAX's ``sharded_update_many``); a predict without a
+  gradient runs the rank's block of queries and the gather into a static
+  output (JAX's ``sharded_spgp_predict``); a predict with a gradient runs
+  the one-card graph, as the eager map does. The capture's warm-up runs the
+  same collectives first, so the communicator exists before the capture.
+  The graph keys are the same on every rank and the tables drop graphs the
+  same way, so the ranks capture, replay and release in lockstep: a rank
+  whose peer does not replay waits inside its graph for ever, and only the
+  caller's own bound (a world's join) ends it.
 
 Capture errors raise with their cause; nothing falls back to the eager
-chain. The CPU map and the map with ``mesh=`` run eagerly and build none
-of this.
+chain. The CPU map and a map on a mesh that stages its collectives through
+the host (gloo) run eagerly and build none of this.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import gc
 import time
 from typing import Callable, Optional
@@ -58,6 +72,10 @@ from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     SpGpState,
     spgp_update,
 )
+from erl_gaussian_process_tpu_torch.parallel.mesh import (
+    sharded_spgp_predict,
+    sharded_spgp_update,
+)
 
 MAX_GRAPHS = 4  # graphs kept of each kind (update, predict)
 
@@ -65,13 +83,16 @@ MAX_GRAPHS = 4  # graphs kept of each kind (update, predict)
 def pose_chunk_body(state: SpGpState, sensor_positions, points, point_masks,
                     aabb_min, aabb_max, scale, *, kernel, diagonal_qm,
                     zero_threshold: float = 0.0, generators=None, u=None,
-                    collect_datasets: bool = False, **sample_kw):
+                    collect_datasets: bool = False, mesh=None, **sample_kw):
     """The captured body of one chunk of c poses: each pose sampled by
     ``sample_pose`` (pose i from ``generators[i]``, or from the fractions
     ``u[i]`` when ``u`` (c, n, free_slots) is given), the c datasets
     concatenated into one ``spgp_update`` whose new Q_M, alpha and Kahan
-    terms are written into ``state``'s own tensors. Plain tensor code: run
-    eagerly it is the same chain as ``update_batch_steps`` on one chunk.
+    terms are written into ``state``'s own tensors; with ``mesh``, into
+    ``sharded_spgp_update`` (the samples sharded over the ranks, the
+    increments summed by the ``all_reduce`` pair). Plain tensor code: run
+    eagerly it is the same chain as ``update_batch_steps`` (``mesh=``) on
+    one chunk.
 
     sensor_positions (c, d); points (c, n, d); point_masks (c, n). Returns
     (n_used (c,), the dataset (pts, y, mask) the update consumed when
@@ -89,9 +110,11 @@ def pose_chunk_body(state: SpGpState, sensor_positions, points, point_masks,
              for i in range(c)]
     pts, y, var, mask = (chunk[0] if c == 1 else
                          tuple(torch.cat(t) for t in zip(*chunk)))
-    spgp_update(state, pts, y, var, mask, scale, kernel=kernel,
-                diagonal_qm=diagonal_qm, zero_threshold=zero_threshold,
-                out=state, block=chunk[0][0].shape[0])
+    update = spgp_update if mesh is None else functools.partial(
+        sharded_spgp_update, mesh)
+    update(state, pts, y, var, mask, scale, kernel=kernel,
+           diagonal_qm=diagonal_qm, zero_threshold=zero_threshold, out=state,
+           block=chunk[0][0].shape[0])
     n_used = torch.stack([torch.sum(m) for *_, m in chunk])
     return n_used, ((pts, y, mask) if collect_datasets else None)
 
@@ -247,10 +270,12 @@ class PoseGraphs:
     """One map's graphs and the static buffers they share (see the module
     docstring). ``captures`` lists every graph captured, the dropped ones
     released: key, warm-up and capture ms, pool bytes, launches a replay,
-    replays."""
+    replays. ``mesh``: the map's mesh (an NCCL ``parallel.mesh.Mesh``)
+    or None."""
 
-    def __init__(self, device):
+    def __init__(self, device, mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
         self.state: Optional[SpGpState] = None
         self.box: Optional[tuple] = None
         self._generators: list = []
@@ -295,7 +320,8 @@ class PoseGraphs:
         def body(st):
             return pose_chunk_body(st, *inputs, *self.box, scale,
                                    generators=gens,
-                                   collect_datasets=collect_datasets, **kw)
+                                   collect_datasets=collect_datasets,
+                                   mesh=self.mesh, **kw)
 
         return self._updates.keep(capture(
             key, dev, lambda: body(SpGpState(*map(_fresh, self.state))),
@@ -327,7 +353,10 @@ class PoseGraphs:
         """``predict_prepared_step`` through its graph: ``prepared`` the
         map's cached (L_qm, alpha_solved), copied into the static pair
         whenever it is another object than the last one; xq (q, d) host
-        array. Returns new tensors (mean (q, 1), grad (q, d, 1) | None)."""
+        array. On a mesh, a predict without the gradient is
+        ``sharded_spgp_predict`` (the queries sharded, the means
+        gathered). Returns new tensors (mean (q, 1), grad (q, d, 1) |
+        None)."""
         from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
             predict_prepared_step,
         )
@@ -349,6 +378,11 @@ class PoseGraphs:
                                   device=self.device),)
 
             def run():
+                if self.mesh is not None and not with_grad:
+                    return sharded_spgp_predict(
+                        self.mesh, self.state, *self._prepared[1:],
+                        inputs[0], scale, kernel=kernel, with_var=False,
+                        zero_threshold=zero_threshold)
                 return predict_prepared_step(
                     self.state, *self._prepared[1:], inputs[0], scale,
                     kernel=kernel, with_grad=with_grad,

@@ -17,8 +17,12 @@ routed predict is one replay of a CUDA graph (``models/sensor_graph.py``),
 as each is one jit in the JAX package; the offline replay
 (:meth:`~RangeSensorGaussianProcess3D.train_scan_batch`) runs eagerly.
 With ``mesh=``, a train shards the bank's members over the ranks
-(``parallel/mesh.sharded_bank_fit``) and runs eagerly; a reduced-rank fit
-stays on each rank whole, as in the JAX package.
+(``parallel/mesh.sharded_bank_fit``): on a mesh whose collectives run on
+the card (NCCL, ``parallel.mesh.runs_graphs``) each rank replays it as one graph,
+the rank's bank fit and the gathers inside, and the routed test, which
+reads the replicated bank, takes the one-card graphs; on a mesh that
+stages its collectives through the host (gloo) both run eagerly. A
+reduced-rank fit stays on each rank whole, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
 )
 from erl_gaussian_process_tpu_torch.parallel.mesh import (
     model_device,
+    runs_graphs,
     sharded_bank_fit,
 )
 from erl_gaussian_process_tpu_torch.utils.serialization import (
@@ -231,7 +236,7 @@ class RangeSensorGaussianProcess3D:
         self.mapped_distances = None
         self._scan_fit_cache = None
         self._graphs = SensorGraphs(self.device) \
-            if self.device.type == "cuda" and mesh is None else None
+            if runs_graphs(self.device, mesh) else None
 
     def _setup_kernel(self):
         """Resolve the partition GPs' kernel. A reduced-rank kernel type
@@ -515,9 +520,9 @@ class RangeSensorGaussianProcess3D:
 
     def train(self, rotation, translation, ranges) -> bool:
         """One scan -> one flattened padded bank fit (reference Train). On
-        a CUDA model without a mesh, ``self.bank`` is then the outputs of
-        the train's graph, which the next train overwrites in place: clone
-        a bank to keep it."""
+        a CUDA model with graphs (without a mesh, or on an NCCL one),
+        ``self.bank`` is then the outputs of the train's graph, which the
+        next train overwrites in place: clone a bank to keep it."""
         self._trained = False
         if not self.store_data(rotation, translation, ranges):
             return False

@@ -6,10 +6,12 @@ package's one-dispatch jits of the 3D range-sensor GP and the 2D lidar GP
 (``models/batch_gp.py`` ``_predict_segmented`` and
 ``_predict_segmented_rr``).
 
-On a CUDA device without ``mesh=``, ``RangeSensorGaussianProcess3D`` and
-``LidarGaussianProcess2D`` run each scan train (the gather and the bank fit
-on the device) and the device half of each routed predict as one replay
-of a graph captured with ``models/pose_graph.capture``:
+On a CUDA device, without ``mesh=`` or on a mesh whose collectives run on
+the card (NCCL, ``parallel/mesh.runs_graphs``),
+``RangeSensorGaussianProcess3D`` and ``LidarGaussianProcess2D`` run each
+scan train (the gather and the bank fit on the device) and the device half
+of each routed predict as one replay of a graph captured with
+``models/pose_graph.capture``:
 
 - **Trains.** A graph per shape and per the settings a graph bakes (the
   kernel, its scale, the mapping, the integer settings), keyed by the
@@ -31,6 +33,12 @@ of a graph captured with ``models/pose_graph.capture``:
   (``batch_gp.bank_fit_rr_parts``); after the replay the host reads the
   one flag the eager fit reads, and only a bank with a failed member runs
   the jitter ladder, eagerly (``ladder_runs`` counts those trains).
+- **On a mesh.** A train's body is ``parallel/mesh.sharded_bank_fit``: the
+  rank's block of members through the bank fit and the three gathers
+  (JAX's ``sharded_bank_fit``), all in the rank's graph; the capture's
+  warm-up runs the gathers first. Every rank captures and replays the same
+  trains in the same order (the keys are the same on every rank). The
+  routed predicts read the replicated bank and hold no collective.
 - **Routed predicts.** A graph per (bank, bucket (Bp, C), kernel, scale,
   fused, reduced rank, dtype), for a bucket of at most ``max_slots``
   query slots (Bp * C); a larger bucket runs the eager chain. A replay
@@ -49,8 +57,8 @@ of a graph captured with ``models/pose_graph.capture``:
 
 Each capture runs its body once eagerly first (``capture``'s warm-up);
 capture errors raise with their cause, and no failure falls back to the
-eager chain. The CPU model and the model with ``mesh=`` build none of
-this.
+eager chain. The CPU model and a model on a mesh that stages its
+collectives through the host (gloo) build none of this.
 """
 
 from __future__ import annotations

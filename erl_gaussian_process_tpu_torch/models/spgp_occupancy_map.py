@@ -7,13 +7,15 @@ with log-odds, caps it at ``max_num_samples``, compacts the actives into a
 CUDA). ``sample_pose``/``update_step`` are the functional core; the class
 wraps them with the reference's API.
 
-On a CUDA device (without ``mesh=``) the class runs the JAX package's
+On a CUDA device (without ``mesh=``, or on a mesh whose collectives run
+on the card: NCCL, ``parallel.mesh.runs_graphs``) the class runs the JAX package's
 design, one dispatch a pose: each chunk of ``poses_per_step`` poses and
 each prepared predict is one replay of a CUDA graph captured over static
 state buffers (``models/pose_graph.py``), and ``sp_gp.state`` is those
 buffers, updated in place. The functional steps below stay eager: they are
 the reference the graphs are held to. The tiered prepare stays eager too
-(its tiers are host decisions), and so do the CPU map and the mesh.
+(its tiers are host decisions), and so do the CPU map and a mesh that
+stages its collectives through the host (gloo).
 
 Randomness: the JAX package draws each pose's free-sample positions from
 ``fold_in(key, step)``. PyTorch cannot reproduce those bits, so here each
@@ -26,7 +28,9 @@ With ``mesh=`` (``parallel/mesh.py``) every rank of the mesh runs the same
 calls: updates shard the FITC update's sample axis over the ranks (the
 sampler runs replicated from the same seeds, so every rank and the one-card
 map consume the same datasets), and predictions without a gradient shard
-the query axis.
+the query axis. On an NCCL mesh each rank replays one graph a chunk
+and one a predict, the collectives inside them (JAX's
+``sharded_update_many`` and ``sharded_spgp_predict``, each one jit).
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
 )
 from erl_gaussian_process_tpu_torch.parallel.mesh import (
     model_device,
+    runs_graphs,
     sharded_spgp_predict,
     sharded_spgp_update,
 )
@@ -262,8 +267,9 @@ class SpGpOccupancyMap:
         ``predict`` without a gradient shards the queries
         (``parallel/mesh.py``).
 
-        On a CUDA device without a mesh, updates and predicts replay CUDA
-        graphs (``models/pose_graph.py``): ``state`` is the graphs' static
+        On a CUDA device, without a mesh or on an NCCL one
+        (``parallel.mesh.runs_graphs``), updates and predicts replay CUDA graphs
+        (``models/pose_graph.py``): ``state`` is the graphs' static
         buffers, overwritten in place by every update, so a state held from
         before an update is not a snapshot (copy it, or use
         ``state_dict``)."""
@@ -282,8 +288,8 @@ class SpGpOccupancyMap:
                 1, int(np.ceil(s.free_points_per_meter * s.max_distance)))
         self.free_slots = int(free_slots_per_ray)
         self._generator = torch.Generator(device=self.device)
-        self._graphs = PoseGraphs(self.device) \
-            if self.device.type == "cuda" and mesh is None else None
+        self._graphs = PoseGraphs(self.device, mesh) \
+            if runs_graphs(self.device, mesh) else None
         self._set_boundary(map_boundary)
         self._online_buf: list = []
 

@@ -32,6 +32,14 @@ card (gloo ranks on ``cuda:0``) is a layout this module must take. **Host
 staging**: gloo moves tensors through host memory; on a CUDA mesh over gloo
 (``Mesh.host_staging``) each collective copies its tensors to the host
 explicitly, runs there, and copies the result back. NCCL runs on the card.
+
+**CUDA graphs.** A mesh whose collectives run on the card (NCCL;
+:func:`runs_graphs`) can be captured: the models built on it replay each
+step as one CUDA graph a rank, its collectives inside
+(``models/pose_graph.py``, ``models/sensor_graph.py``), as the JAX package
+jits each of these functions over its mesh. Every rank then captures and
+replays the same graphs in the same order. A host-staged mesh and a CPU
+mesh run eagerly.
 """
 
 from __future__ import annotations
@@ -121,6 +129,21 @@ def model_device(mesh: Optional[Mesh], device) -> torch.device:
     return mesh.device
 
 
+def runs_graphs(device: torch.device, mesh: Optional[Mesh]) -> bool:
+    """Whether a model on ``device`` (``model_device(mesh, ...)``) replays
+    its steps as CUDA graphs: on a card, without a mesh or on one whose
+    collectives run on the card (NCCL; not ``host_staging``).
+
+    On a mesh of several ranks a replay holds its collectives, and a rank
+    whose peer never replays the same graph waits inside its replay for
+    ever: the process group's timeout does not reach captured work. The
+    caller bounds the world (a join with a time limit that kills the
+    ranks, as ``parallel/spawn.py`` does). A capture that holds a
+    collective of more than one rank has not yet been run."""
+    return device.type == "cuda" and not (mesh is not None
+                                          and mesh.host_staging)
+
+
 def all_reduce(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over the mesh (JAX's ``psum``), on every rank."""
     if mesh.host_staging:
@@ -131,13 +154,19 @@ def all_reduce(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+# all_gather_into_tensor is all_gather_single from torch 2.13 on
+_gather_into = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
 def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """Every rank's ``t`` (the same shape on each) concatenated along axis
-    0 in rank order, on every rank."""
-    src = t.cpu() if mesh.host_staging else t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src)
-    return torch.cat(parts).to(mesh.device)
+    0 in rank order, on every rank: one collective into one output of
+    static shape (what a capture holds)."""
+    src = (t.cpu() if mesh.host_staging else t).contiguous()
+    out = src.new_empty((mesh.size * src.shape[0], *src.shape[1:]))
+    _gather_into(out, src)
+    return out.to(mesh.device)
 
 
 def _pad_axis(arrs, axis: int, mult: int):
@@ -181,8 +210,8 @@ def sharded_bank_fit(mesh: Mesh, x, y, var, mask, scale, *,
 
 def sharded_spgp_update(mesh: Mesh, state: SpGpState, x, y, var, mask,
                         scale, *, kernel: str, diagonal_qm: bool = False,
-                        zero_threshold: float = 0.0,
-                        block: int = 0) -> SpGpState:
+                        zero_threshold: float = 0.0, block: int = 0,
+                        out: Optional[SpGpState] = None) -> SpGpState:
     """FITC rank-N update with the N sample axis sharded over the mesh.
 
     Each rank runs ``spgp_update``'s increment on its block of samples
@@ -193,13 +222,15 @@ def sharded_spgp_update(mesh: Mesh, state: SpGpState, x, y, var, mask,
     are masked: their weight is exactly 0. The pseudo-point state is
     replicated. x (n, d); y (n, q); var/mask (n,). ``block``: the samples of
     one pose of a fused update (``spgp_update``); each rank's plain version
-    sums its shard in blocks of that many samples."""
+    sums its shard in blocks of that many samples. ``out``: as
+    ``spgp_update``'s (the static state of a captured chunk)."""
     (x, y, var, mask), _ = _pad_axis([x, y, var, mask], 0, mesh.size)
     return spgp_update(state, _shard(mesh, x), _shard(mesh, y),
                        _shard(mesh, var), _shard(mesh, mask), scale,
                        kernel=kernel, diagonal_qm=diagonal_qm,
                        zero_threshold=zero_threshold,
-                       reduce=lambda t: all_reduce(mesh, t), block=block)
+                       reduce=lambda t: all_reduce(mesh, t), out=out,
+                       block=block)
 
 
 def sharded_update_step(mesh: Mesh, state: SpGpState, seed: int, step: int,

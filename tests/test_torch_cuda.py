@@ -1470,11 +1470,12 @@ def test_artifact_round_trip_on_the_card(cuda):
 
 # -- the sensor GPs' and the loaded artifacts' CUDA graphs -------------------
 
-def _sensor_case(cuda, kind, dtype, **kw):
+def _sensor_case(cuda, kind, dtype, mesh=None, **kw):
     """(graphed model on the card, the same model's eager chain as a
     function of a callable, scans, train pose, test queries) for the 3D
     range-sensor GP (a 40 x 20 analytic scan) or the 2D lidar GP (the
-    logged scans), plain or reduced rank (``kind`` ending in "_rr")."""
+    logged scans), plain or reduced rank (``kind`` ending in "_rr"), on
+    ``mesh`` when given."""
     import os
 
     from erl_gaussian_process_tpu_torch.models import (
@@ -1503,7 +1504,7 @@ def _sensor_case(cuda, kind, dtype, **kw):
                  gp=gp_kw, mapping=dict(type="inverse_sqrt"))
         d.update(kw)
         gp = RangeSensorGaussianProcess3D(RangeSensorGP3DSetting.from_dict(d),
-                                          dtype=dtype, device=cuda)
+                                          dtype=dtype, mesh=mesh, device=cuda)
         dirs = gp.sensor_frame.ray_directions_in_frame()
         az = np.arctan2(dirs[..., 1], dirs[..., 0])
         el = np.arctan2(dirs[..., 2], np.hypot(dirs[..., 0], dirs[..., 1]))
@@ -1529,7 +1530,7 @@ def _sensor_case(cuda, kind, dtype, **kw):
              mapping=dict(type="identity"))
     d.update(kw)
     gp = LidarGaussianProcess2D(LidarGP2DSetting.from_dict(d), dtype=dtype,
-                                device=cuda)
+                                mesh=mesh, device=cuda)
     return (gp, np.stack([fr.ranges for fr in frames]), (np.eye(2),
                                                           np.zeros(2)),
             f.angles)
@@ -1842,3 +1843,140 @@ def test_graphed_exact_test_makes_no_synchronising_call(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# -- the mesh's CUDA graphs: an NCCL world of one rank on the card ----------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A one-rank NCCL process group in this process and its mesh on
+    cuda:0 (NCCL takes one rank a card). Its collectives are captured into
+    the models' graphs (``runs_graphs``)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from erl_gaussian_process_tpu_torch.parallel import make_mesh
+    from erl_gaussian_process_tpu_torch.parallel.mesh import runs_graphs
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card with python -m "
+                    "pytest --noconftest -m cuda tests/test_torch_cuda.py")
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh(1)
+        assert not mesh.host_staging and runs_graphs(mesh.device, mesh)
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def hotel0_16():
+    """hotel-0's first 16 poses (float32), its drift grid and its map."""
+    from erl_gaussian_process_tpu_torch.workloads import (
+        FREE_SLOTS_PER_RAY,
+        hotel0_query_grid,
+        hotel0_workload,
+    )
+
+    sensors, pts, masks, _, _, setting, pseudo, lo, hi = hotel0_workload(
+        n_poses=16)
+
+    def make(mesh=None, device="cuda"):
+        return SpGpOccupancyMap(setting, pseudo, Aabb.from_min_max(lo, hi),
+                                seed=0, dtype=np.float32,
+                                free_slots_per_ray=FREE_SLOTS_PER_RAY,
+                                mesh=mesh, device=device)
+
+    return make, sensors, pts, masks, hotel0_query_grid(lo, hi)
+
+
+def _run_map(m, sensors, pts, masks, c):
+    if c == 1:
+        used = torch.stack([m.update(sensors[i], pts[i], masks[i])
+                            for i in range(len(sensors))])
+    else:
+        used = m.update_batch(sensors, pts, masks, poses_per_step=c)
+    torch.cuda.synchronize()
+    return used
+
+
+@pytest.mark.parametrize("c", [1, 4])
+def test_mesh_map_graphs_equal_eager_mesh_and_one_card(nccl_mesh, hotel0_16,
+                                                       c):
+    """hotel-0's first 16 poses through the map on the NCCL mesh, graphed
+    (one replay a chunk, the all_reduce pair inside it) against the same
+    mesh map run eagerly and the one-card graphed map, bit for bit: Q_M,
+    alpha, their compensations and the samples used. A replay launches
+    FITC once."""
+    make, sensors, pts, masks, _ = hotel0_16
+    graphed, eager, one = make(nccl_mesh), make(nccl_mesh), make()
+    eager._graphs = None
+    assert graphed._graphs is not None and graphed._graphs.mesh is nccl_mesh
+    before = launch_counts()["fitc"]
+    used = _run_map(graphed, sensors, pts, masks, c)
+    ups = [g for g in graphed._graphs.captures if g.key[0] == "update"]
+    assert len(ups) == 1 and ups[0].launches == {fitc_update_cuda: 1}
+    assert ups[0].replays == len(sensors) // c
+    assert launch_counts()["fitc"] - before == len(sensors) // c + 1
+    for other in (eager, one):
+        assert _bits(used, _run_map(other, sensors, pts, masks, c))
+        for k in ("qm", "alpha", "qm_c", "alpha_c"):
+            assert _bits(getattr(graphed.state, k), getattr(other.state, k))
+
+
+def test_mesh_graphed_sharded_predict(nccl_mesh, hotel0_16):
+    """The graphed sharded predict (the rank's queries through the gram and
+    the gather, one replay) of hotel-0's drift grid against the eager
+    sharded predict and the one-card graphed predict on the same state,
+    bit for bit; a predict with the gradient replays the one-card graph
+    (no collective), bit for bit the one-card map's."""
+    make, sensors, pts, masks, grid = hotel0_16
+    m, one = make(nccl_mesh), make()
+    for x in (m, one):
+        x.update_batch(sensors, pts, masks, poses_per_step=4)
+    before = launch_counts()["gram"]
+    lo = m.predict(grid)[0]
+    lo_again = m.predict(grid)[0]
+    keys = [g.key for g in m._graphs.captures if g.key[0] == "predict"]
+    assert keys == [("predict", len(grid), False, m.sp_gp._kernel,
+                     float(m.sp_gp._scale), 0.0)]
+    assert launch_counts()["gram"] - before == 3
+    graphs, m._graphs = m._graphs, None
+    ref = m.predict(grid)[0]
+    m._graphs = graphs
+    assert _bits(lo, ref) and _bits(lo_again, ref)
+    assert _bits(lo, one.predict(grid)[0])
+    q = grid[::37]
+    assert _bits(m.predict(q, True), one.predict(q, True))
+
+
+@pytest.mark.parametrize("kind", ["3d", "2d"])
+def test_mesh_sensor_graphs_equal_eager_mesh_train(nccl_mesh, kind):
+    """The 3D lidar and 2D lidar GPs on the NCCL mesh: each train one
+    replay (the rank's bank fit and the three gathers inside), bit for
+    bit the same model's eager mesh train and the one-card graphed
+    train; the routed test on the gathered bank too."""
+    gp, scans, pose, q = _sensor_case(torch.device("cuda"), kind, np.float32,
+                                      mesh=nccl_mesh)
+    one = _sensor_case(torch.device("cuda"), kind, np.float32)[0]
+    assert gp._graphs is not None
+    for s in range(2):
+        before = launch_counts()["bank_fit"]
+        assert gp.train(*pose, scans[s]) and one.train(*pose, scans[s])
+        bank = tuple(t.clone() if t is not None else None for t in gp.bank)
+        got = _result(gp, q)
+        torch.cuda.synchronize()
+        if s == 1:
+            assert launch_counts()["bank_fit"] - before == 2
+        assert _bits(bank, tuple(one.bank))
+        assert _bits(got, _result(one, q))
+        assert _eager(gp, lambda: gp.train(*pose, scans[s]))
+        assert _bits(bank, tuple(gp.bank))
+        assert _bits(got, _eager(gp, lambda: _result(gp, q)))
+    fits = [g for g in gp._graphs.captures if g.key[0] == "fit"]
+    assert len(fits) == 1 and fits[0].replays == 2

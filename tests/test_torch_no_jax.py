@@ -159,6 +159,7 @@ assert exact_graph.MAX_STATES > 0 and exact_graph.MAX_QUERIES > 0
 import datetime
 import torch.distributed as dist
 from erl_gaussian_process_tpu_torch.parallel import make_mesh
+from erl_gaussian_process_tpu_torch.parallel.mesh import runs_graphs
 from erl_gaussian_process_tpu_torch.parallel.spawn import spawn_world
 dist.init_process_group(
     "gloo", init_method="file://" + os.path.join(tempfile.mkdtemp(), "s"),
@@ -173,6 +174,8 @@ assert ms.predict(np.array([[0.0, 0.0]]))[0].shape == (1,)
 gps = RangeSensorGaussianProcess3D(gp.setting, dtype=np.float32, mesh=mesh,
                                    device="cpu")
 assert gps.train(np.eye(3), np.zeros(3), ranges)
+assert not runs_graphs(mesh.device, mesh)
+assert ms._graphs is None and gps._graphs is None
 dist.destroy_process_group()
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "yaml",
@@ -194,13 +197,17 @@ def test_port_runs_without_jax_or_yaml():
     "chip_smoke.py", "main_path_ab.py",
     "erl_gaussian_process_tpu_torch/models/pose_graph.py",
     "erl_gaussian_process_tpu_torch/models/exact_graph.py",
+    "erl_gaussian_process_tpu_torch/models/sensor_graph.py",
+    "erl_gaussian_process_tpu_torch/parallel/mesh.py",
+    "tests/torch_graph_standin.py", "tests/test_torch_cuda.py",
     *(f"erl_gaussian_process_tpu_torch/examples/{name}.py" for name in (
         "gp_regression", "occupancy_mapping_2d", "replica_hotel_3d",
         "deploy_serving"))])
 def test_card_scripts_import_no_jax(script):
     """The scripts and modules run on the card's machine (no JAX, no
     PyYAML) name neither, nor the JAX package, in any import statement:
-    the two scripts, the CUDA-graph modules and the example scripts."""
+    the two scripts, the CUDA-graph modules, the mesh, the card tests, the
+    capture stand-in the gloo ranks install, and the example scripts."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, script)) as f:
         tree = ast.parse(f.read())

@@ -3,10 +3,14 @@ on gloo CPU ranks, against the JAX package's sharded functions on its
 virtual 8-device mesh (``tests/test_parallel.py``'s cases, shapes and
 tolerances) and against the port's one-process classes.
 
-Each world size (8 ranks, and 2 and 4 for the weak-scaling shapes) is
-spawned once for the module: its ranks initialise gloo over a
-``FileStore`` in a temporary directory, run every case of that size, and
-each rank saves its results. The tests then hold the results to their
+Each world size (8 ranks, and 2 and 4 for the weak-scaling shapes and the
+graphed mesh) is spawned once for the module: its ranks initialise gloo
+over a ``FileStore`` in a temporary directory, install the eager capture
+stand-in (``tests/torch_graph_standin.py``), run every case of that size,
+and each rank saves its results. The graphed cases give the CPU models
+the graphs a capturable (NCCL) mesh builds on the card, so the ranks run
+the captured bodies, their routing and their lockstep, each replay rerunning
+its body's collectives. The tests then hold the results to their
 references, and every rank's results to rank 0's (the outputs come back
 replicated). The ranks import this module, so it keeps JAX out of module
 scope: JAX is imported inside the tests and fixtures that need it.
@@ -17,6 +21,7 @@ import datetime
 import numpy as np
 import pytest
 import torch
+import torch_graph_standin
 
 from erl_gaussian_process_tpu_torch.geometry import Aabb, LidarFrame3DSetting
 from erl_gaussian_process_tpu_torch.geometry.lidar_frame_2d import (
@@ -32,8 +37,14 @@ from erl_gaussian_process_tpu_torch.models import (
     VanillaGPSetting,
 )
 from erl_gaussian_process_tpu_torch.models.batch_gp import bank_fit
+from erl_gaussian_process_tpu_torch.models.pose_graph import (
+    PoseGraphs,
+    pose_chunk_body,
+)
+from erl_gaussian_process_tpu_torch.models.sensor_graph import SensorGraphs
 from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     SpGpSetting,
+    SpGpState,
     spgp_init,
     spgp_predict,
     spgp_prepare,
@@ -41,6 +52,7 @@ from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
 )
 from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
     SpGpOccupancyMapSetting,
+    step_seed,
 )
 from erl_gaussian_process_tpu_torch.parallel import (
     make_mesh,
@@ -52,6 +64,8 @@ from erl_gaussian_process_tpu_torch.parallel.mesh import (
     Mesh,
     _pad_axis,
     all_reduce,
+    runs_graphs,
+    sharded_update_many,
     sharded_update_step,
 )
 from erl_gaussian_process_tpu_torch.parallel.spawn import spawn_world
@@ -403,6 +417,185 @@ def _case_dead(mesh, extra):
     all_reduce(mesh, torch.ones(3))
 
 
+# -- the graphed mesh (models/pose_graph.py, models/sensor_graph.py) --------
+
+GRAPH_C = 4  # poses a chunk of the graphed chunk and map cases
+STATE_KEYS = ("qm", "alpha", "qm_c", "alpha_c")
+
+
+def _step_map():
+    setting = _step_setting()
+    return setting, SpGpOccupancyMap(
+        setting, _step_pseudo(), Aabb.from_min_max([-2.0] * 3, [2.0] * 3),
+        seed=STEP_SEED, dtype=np.float64, free_slots_per_ray=STEP_SLOTS,
+        device="cpu")
+
+
+def _state_out(st):
+    return {k: getattr(st, k) for k in STATE_KEYS}
+
+
+def _case_graph_body(mesh, extra):
+    """The graphed chunk's body (``pose_chunk_body`` with ``mesh=``) on the
+    step map: the 5 poses one by one with JAX's draws, beside the eager
+    ``sharded_update_step`` with the same draws; GRAPH_C poses from the
+    generators the map seeds, beside the eager ``sharded_update_many``;
+    and GRAPH_C poses with JAX's draws (for JAX's sharded_update_many)."""
+    setting, m = _step_map()
+    kw = _step_kw(setting)
+    sensors, pts, masks = (_t(a) for a in _step_scans())
+    u = _t(extra["step_u"])
+    args = (m._aabb_min, m._aabb_max, 0.6)
+
+    def fresh():
+        return SpGpState(*(t.clone() for t in m.sp_gp.state))
+
+    body, eager, used, used_eager = fresh(), m.sp_gp.state, [], []
+    for i in range(STEP_POSES):
+        sl = slice(i, i + 1)
+        used.append(pose_chunk_body(body, sensors[sl], pts[sl], masks[sl],
+                                    *args, u=u[sl], mesh=mesh, **kw)[0])
+        eager, n = sharded_update_step(mesh, eager, STEP_SEED, i + 1,
+                                       sensors[i], pts[i], masks[i], *args,
+                                       u=u[i], **kw)
+        used_eager.append(n)
+    c = GRAPH_C
+    gens = [torch.Generator() for _ in range(c)]
+    for i, g in enumerate(gens):
+        g.manual_seed(step_seed(STEP_SEED, 1 + i))
+    chunk = fresh()
+    used_c = pose_chunk_body(chunk, sensors[:c], pts[:c], masks[:c], *args,
+                             generators=gens, mesh=mesh, **kw)[0]
+    many, used_many = sharded_update_many(
+        mesh, m.sp_gp.state, STEP_SEED, 1, sensors[:c], pts[:c], masks[:c],
+        *args, generator=torch.Generator(), **kw)
+    chunk_u = fresh()
+    used_u = pose_chunk_body(chunk_u, sensors[:c], pts[:c], masks[:c], *args,
+                             u=u[:c], mesh=mesh, **kw)[0]
+    return {"c1": _state_out(body), "c1_used": torch.cat(used),
+            "c1_eager": _state_out(eager),
+            "c1_eager_used": torch.stack(used_eager),
+            "c": _state_out(chunk), "c_used": used_c,
+            "c_eager": _state_out(many), "c_eager_used": used_many,
+            "c_jax_draws": _state_out(chunk_u), "c_jax_draws_used": used_u}
+
+
+def _graph_map_run(m):
+    """3 poses through ``update``, 5 through ``update_batch`` at GRAPH_C
+    (padded to 8), the predicts of 27 points (padded on the mesh) without
+    and of 9 with the gradient."""
+    sensors, pts, masks = _many_inputs(8, np.float64)
+    used = [m.update(sensors[i], pts[i], masks[i]) for i in range(3)]
+    used = torch.cat([torch.stack(used),
+                      m.update_batch(sensors[3:], pts[3:], masks[3:],
+                                     poses_per_step=GRAPH_C)])
+    q = _scan_batches(1)[0][1][::5]
+    return {**_state_out(m.state), "used": used, "lo": m.predict(q)[0],
+            "grad": m.predict(q[:9], True)[1]}
+
+
+def _case_graph_map(mesh, extra):
+    """The map on the mesh, routed through the graphs a capturable mesh
+    builds (``PoseGraphs`` with the mesh), beside the same calls on the
+    eager mesh map (the CPU mesh's own: no graphs)."""
+    eager = _make_map(mesh, np.float64)
+    graphed = _make_map(mesh, np.float64)
+    graphed._graphs = PoseGraphs("cpu", mesh)
+    return {"graphed": _graph_map_run(graphed),
+            "eager": _graph_map_run(eager),
+            "keys": [g.key for g in graphed._graphs.captures],
+            "replays": [g.replays for g in graphed._graphs.captures],
+            "cpu_mesh_graphs": [eager._graphs is not None,
+                                _lidar2d(mesh)._graphs is not None,
+                                _gp3d(mesh)._graphs is not None]}
+
+
+def _case_graph_predict(mesh, extra):
+    """The graphed sharded predict (``PoseGraphs.predict`` on the mesh) of
+    the predict case's 40 queries, beside the eager sharded predict."""
+    pseudo, x, y, xq = (_t(a) for a in _predict_inputs())
+    st = spgp_init(pseudo, 0.4, kernel="matern32")
+    n = x.shape[0]
+    st = spgp_update(st, x, y, torch.full((n,), 1e-3, dtype=x.dtype),
+                     torch.ones(n, dtype=torch.bool), 0.4, kernel="matern32")
+    L_qm, a = spgp_prepare(st)
+    g = PoseGraphs("cpu", mesh)
+    g.bind(st, torch.zeros(2, dtype=x.dtype), torch.zeros(2, dtype=x.dtype))
+    mean, grad = g.predict((L_qm, a), xq.numpy(), 0.4, kernel="matern32",
+                           with_grad=False)
+    again, _ = g.predict((L_qm, a), xq.numpy(), 0.4, kernel="matern32",
+                         with_grad=False)
+    eager, _ = sharded_spgp_predict(mesh, st, L_qm, a, xq, 0.4,
+                                    kernel="matern32", with_var=False)
+    return {"mean": mean, "again": again, "eager": eager,
+            "grad_none": grad is None}
+
+
+def _sensor_runs(make, mesh, train, test):
+    """Two trains (the capture, then a replay) and their tests on a model
+    given the graphs a capturable mesh builds, and on the eager mesh
+    model: the banks (cloned: a graph's outputs are static) and tests."""
+    out = {}
+    for name in ("graphed", "eager"):
+        gp = make(mesh)
+        if name == "graphed":
+            gp._graphs = SensorGraphs("cpu")
+        runs = []
+        for s in range(2):
+            assert train(gp, s)
+            runs.append({"bank": {k: getattr(gp.bank, k).clone()
+                                  for k in ("L", "L_inv", "alpha",
+                                            "trained")},
+                         "test": test(gp)})
+        out[name] = runs
+        if name == "graphed":
+            out["fits"] = [g.replays for g in gp._graphs.captures
+                           if g.key[0] == "fit"]
+    return out
+
+
+def _train3(gp, s):
+    return gp.train(np.eye(3), np.zeros(3), _gp3d_scan(gp) * (1 + 0.01 * s))
+
+
+def _test3(gp):
+    q = gp.sensor_frame.ray_directions_in_frame().reshape(-1, 3)[::7]
+    res = gp.test(q, True, True)
+    return [*res.get_mean(), res.get_variance()[0]]
+
+
+def _train2(gp, s):
+    ang = gp.sensor_frame.angles_in_frame
+    return gp.train(np.eye(2), np.zeros(2),
+                    2.0 + 0.3 * np.sin(4 * ang + 0.1 * s))
+
+
+def _test2(gp):
+    return list(gp.test(np.linspace(-2.0, 2.0, 57), True, True).get_mean())
+
+
+# the sensor GPs of the graphed case: (model, train(gp, s), test(gp))
+GRAPH_SENSORS = {"gp3d": (_gp3d, _train3, _test3),
+                 "gp2d": (_lidar2d, _train2, _test2)}
+
+
+def _case_graph_sensors(mesh, extra):
+    """The 3D range-sensor GP and the 2D lidar GP on the mesh, graphed
+    (the sharded bank fit in the train's body) and eager."""
+    return {name: _sensor_runs(make, mesh, train, test)
+            for name, (make, train, test) in GRAPH_SENSORS.items()}
+
+
+def _case_graph_keys(mesh, extra):
+    """Every capture this rank made, in order (the stand-in's record)."""
+    return [g.key for g in extra["captures"]]
+
+
+GRAPH_CASES = {"graph_body": _case_graph_body, "graph_map": _case_graph_map,
+               "graph_predict": _case_graph_predict,
+               "graph_sensors": _case_graph_sensors,
+               "graph_keys": _case_graph_keys}
+
 CASES = {
     "dead": {"dead": _case_dead},
     WORLD: {"mesh": _case_mesh, "bank": _case_bank(0, 16, 12),
@@ -412,13 +605,14 @@ CASES = {
             "many_f64": _case_many(16, np.float64),
             "many_f32": _case_many(8, np.float32), "lidar2d": _case_lidar2d,
             "gp3d": _case_gp3d, "step": _case_step, "weak": _case_weak},
-    2: {"weak": _case_weak},
-    4: {"weak": _case_weak},
+    2: {"weak": _case_weak, **GRAPH_CASES},
+    4: {"weak": _case_weak, **GRAPH_CASES},
 }
 
 
 def _rank_cases(rank, size, extra, cases):
     torch.set_num_threads(1)
+    extra = dict(extra, captures=torch_graph_standin.install())
     mesh = make_mesh(size, device="cpu")
     return {name: _np_out(case(mesh, extra))
             for name, case in CASES[cases].items()}
@@ -779,27 +973,12 @@ def test_sharded_update_step_matches_jax_sharded_step(worlds):
     used equal, Q_M and alpha to 1e-10 of their maximum."""
     import jax.numpy as jnp
 
-    import erl_gaussian_process_tpu.models.spgp_occupancy_map as jmap
-    from erl_gaussian_process_tpu.geometry import Aabb as JaxAabb
-    from erl_gaussian_process_tpu.kernels import (
-        KernelSetting as JaxKernelSetting,
-    )
-    from erl_gaussian_process_tpu.models.sparse_pseudo_input_gp import (
-        SpGpSetting as JaxSpGpSetting,
-    )
     from erl_gaussian_process_tpu.parallel import make_mesh as jax_make_mesh
     from erl_gaussian_process_tpu.parallel.mesh import (
         sharded_update_step as jax_sharded_update_step,
     )
 
-    js = jmap.SpGpOccupancyMapSetting(
-        sp_gp=JaxSpGpSetting(kernel_type="matern32",
-                             kernel=JaxKernelSetting(x_dim=3, scale=0.6),
-                             max_num_samples=256), **STEP_SETTING)
-    jm = jmap.SpGpOccupancyMap(js, _step_pseudo(),
-                               JaxAabb.from_min_max([-2.0] * 3, [2.0] * 3),
-                               seed=STEP_SEED, dtype=np.float64,
-                               free_slots_per_ray=STEP_SLOTS)
+    js, jm = _jax_step_map()
     mesh = jax_make_mesh(8)
     st, used = jm.sp_gp.state, []
     for i, (o, p, mk) in enumerate(zip(*_step_scans())):
@@ -810,6 +989,31 @@ def test_sharded_update_step_matches_jax_sharded_step(worlds):
         used.append(int(n_used))
     got = _res(worlds, "step")
     np.testing.assert_array_equal(got["used"], used)
+    _close_to_jax_state(got, st)
+
+
+def _jax_step_map():
+    """The step case's map in the JAX package: (setting, map)."""
+    import erl_gaussian_process_tpu.models.spgp_occupancy_map as jmap
+    from erl_gaussian_process_tpu.geometry import Aabb as JaxAabb
+    from erl_gaussian_process_tpu.kernels import (
+        KernelSetting as JaxKernelSetting,
+    )
+    from erl_gaussian_process_tpu.models.sparse_pseudo_input_gp import (
+        SpGpSetting as JaxSpGpSetting,
+    )
+
+    js = jmap.SpGpOccupancyMapSetting(
+        sp_gp=JaxSpGpSetting(kernel_type="matern32",
+                             kernel=JaxKernelSetting(x_dim=3, scale=0.6),
+                             max_num_samples=256), **STEP_SETTING)
+    return js, jmap.SpGpOccupancyMap(
+        js, _step_pseudo(), JaxAabb.from_min_max([-2.0] * 3, [2.0] * 3),
+        seed=STEP_SEED, dtype=np.float64, free_slots_per_ray=STEP_SLOTS)
+
+
+def _close_to_jax_state(got, st):
+    """Q_M and alpha to 1e-10 of their maximum (the step case's gate)."""
     for name in ("qm", "alpha"):
         ref = np.asarray(getattr(st, name))
         _close(got[name], ref, 0, 1e-10 * np.abs(ref).max())
@@ -825,3 +1029,160 @@ def test_a_dead_rank_fails_the_world(tmp_path):
         run_world(2, str(tmp_path), {}, cases="dead", timeout_s=10)
     assert "rank 0:" in str(err.value) and "rank 1:" in str(err.value)
     assert (datetime.datetime.now() - t0).total_seconds() < 60
+
+
+# -- the graphed mesh: the bodies and routing a capturable mesh replays -----
+
+GRAPH_SIZES = (2, 4)
+
+
+@pytest.mark.parametrize("D", GRAPH_SIZES)
+def test_graphed_mesh_chunk_body_matches_eager_and_jax(worlds, D):
+    """The graphed chunk's body on D gloo ranks: at c = 1 (5 poses, JAX's
+    draws) bit for bit the eager sharded_update_step and within the step
+    case's gate (1e-10 of the maximum) of JAX's sharded_update_step; at
+    c = GRAPH_C from the map's generators bit for bit the eager
+    sharded_update_many, and with JAX's draws within that gate of JAX's
+    sharded_update_many; the samples used equal."""
+    import jax.numpy as jnp
+
+    from erl_gaussian_process_tpu.parallel import make_mesh as jax_make_mesh
+    from erl_gaussian_process_tpu.parallel.mesh import (
+        sharded_update_many as jax_sharded_update_many,
+        sharded_update_step as jax_sharded_update_step,
+    )
+
+    got = _res(worlds, "graph_body", D)
+    _assert_same(got["c1"], got["c1_eager"], f"D={D} c=1")
+    _assert_same(got["c1_used"], got["c1_eager_used"], f"D={D} c=1 used")
+    _assert_same(got["c"], got["c_eager"], f"D={D} c={GRAPH_C}")
+    _assert_same(got["c_used"], got["c_eager_used"], f"D={D} used")
+    mesh = jax_make_mesh(D)
+    sensors, pts, masks = (jnp.asarray(a) for a in _step_scans())
+    js, jm = _jax_step_map()
+    st, used = jm.sp_gp.state, []
+    for i in range(STEP_POSES):
+        st, n_used = jax_sharded_update_step(
+            mesh, st, jm.key, i + 1, sensors[i], pts[i], masks[i],
+            jm._aabb_min, jm._aabb_max, np.float64(0.6), **_step_kw(js))
+        used.append(int(n_used))
+    np.testing.assert_array_equal(got["c1_used"], used)
+    _close_to_jax_state(got["c1"], st)
+    js, jm = _jax_step_map()
+    st, used = jax_sharded_update_many(
+        mesh, jm.sp_gp.state, jm.key, 1, sensors[:GRAPH_C], pts[:GRAPH_C],
+        masks[:GRAPH_C], jm._aabb_min, jm._aabb_max, np.float64(0.6),
+        **_step_kw(js))
+    np.testing.assert_array_equal(got["c_jax_draws_used"], np.asarray(used))
+    _close_to_jax_state(got["c_jax_draws"], st)
+
+
+@pytest.mark.parametrize("D", GRAPH_SIZES)
+def test_graphed_mesh_map_matches_eager_mesh_map(worlds, D):
+    """The map on D gloo ranks routed through the graphs of a capturable
+    mesh (3 poses through update, 5 through update_batch at GRAPH_C, the
+    sharded predict, the gradient predict on the one-card graph), bit for
+    bit the eager mesh map: Q_M, alpha, their compensations, the samples
+    used, the log-odds and gradients. A graph a shape: an update at c = 1
+    and at GRAPH_C, a predict with and without the gradient."""
+    got = _res(worlds, "graph_map", D)
+    _assert_same(got["graphed"], got["eager"], f"D={D}")
+    assert [k[:3] for k in got["keys"]] == [
+        ["update", 135, 1], ["update", 135, GRAPH_C], ["predict", 27, False],
+        ["predict", 9, True]], got["keys"]
+    assert got["replays"] == [3, 2, 1, 1]
+    assert got["cpu_mesh_graphs"] == [False, False, False]
+
+
+@pytest.mark.parametrize("D", GRAPH_SIZES)
+def test_graphed_sharded_predict_matches_eager_and_jax(worlds, D):
+    """The graphed sharded predict of 40 queries on D gloo ranks (capture,
+    then a replay) bit for bit the eager sharded predict, and within the
+    eager mesh's tolerance (1e-10, 1e-12) of JAX's sharded_spgp_predict."""
+    import jax.numpy as jnp
+
+    from erl_gaussian_process_tpu.models.sparse_pseudo_input_gp import (
+        spgp_init as jax_spgp_init,
+        spgp_prepare as jax_spgp_prepare,
+        spgp_update as jax_spgp_update,
+    )
+    from erl_gaussian_process_tpu.parallel import (
+        make_mesh as jax_make_mesh,
+        sharded_spgp_predict as jax_sharded_spgp_predict,
+    )
+
+    got = _res(worlds, "graph_predict", D)
+    _assert_same(got["mean"], got["eager"], f"D={D}")
+    _assert_same(got["again"], got["eager"], f"D={D} replay")
+    assert got["grad_none"] and got["mean"].shape == (40, 1)
+    pseudo, x, y, xq = (jnp.asarray(a) for a in _predict_inputs())
+    n = x.shape[0]
+    st = jax_spgp_update(jax_spgp_init(pseudo, 0.4, kernel="matern32"), x, y,
+                         jnp.full((n,), 1e-3), jnp.ones(n, bool), 0.4,
+                         kernel="matern32")
+    L_qm, a = jax_spgp_prepare(st)
+    mean_j, _ = jax_sharded_spgp_predict(jax_make_mesh(D), st, L_qm, a, xq,
+                                         0.4, kernel="matern32",
+                                         with_var=False)
+    _close(got["mean"], mean_j, 1e-10, 1e-12)
+
+
+@pytest.mark.parametrize("D", GRAPH_SIZES)
+@pytest.mark.parametrize("name", sorted(GRAPH_SENSORS))
+def test_graphed_mesh_sensor_train_matches_eager_and_jax(worlds, name, D):
+    """The 3D range-sensor GP and the 2D lidar GP on D gloo ranks, each
+    train one replay of the sharded bank fit (the capture, then a replay
+    on another scan): banks and tests bit for bit the eager mesh model's,
+    and the replay's bank within the bank case's gate (1e-12 of each
+    result's maximum) of JAX's sharded_bank_fit on the same inputs."""
+    import jax.numpy as jnp
+
+    from erl_gaussian_process_tpu.parallel import (
+        make_mesh as jax_make_mesh,
+        sharded_bank_fit as jax_sharded_bank_fit,
+    )
+
+    got = _res(worlds, "graph_sensors", D)[name]
+    _assert_same(got["graphed"], got["eager"], f"D={D} {name}")
+    assert got["fits"] == [2]
+    make, train, _ = GRAPH_SENSORS[name]
+    ref = make(None)
+    assert train(ref, 1)
+    inputs = ref._gather_scans(ref.sensor_frame.ranges[None])
+    jst = jax_sharded_bank_fit(jax_make_mesh(D),
+                               *(jnp.asarray(t.numpy()) for t in inputs),
+                               ref._scale, kernel=ref._kernel)
+    bank = got["graphed"][1]["bank"]
+    for k in ("L", "alpha"):
+        r = np.asarray(getattr(jst, k))
+        _close(bank[k], r, 0, 1e-12 * np.abs(r).max())
+    np.testing.assert_array_equal(bank["trained"], np.asarray(jst.trained))
+
+
+def test_graphed_mesh_ranks_capture_in_lockstep(worlds):
+    """Every rank of a world captured the same graphs in the same order
+    (updates, predicts, trains and routed tests): the keys hold only what
+    is the same on every rank."""
+    for D in GRAPH_SIZES:
+        keys = [res["graph_keys"] for res in worlds[D]]
+        assert len(keys) == D
+        for r, k in enumerate(keys[1:], 1):
+            assert k == keys[0], (D, r)
+        kinds = {k[0] if isinstance(k[0], str) else k[0][0] for k in keys[0]}
+        assert kinds == {"update", "predict", "fit"}, kinds
+
+
+def test_only_a_capturable_mesh_builds_graphs():
+    """``runs_graphs``, the one predicate the models read: a CUDA mesh
+    over NCCL can be captured; a CUDA mesh over gloo (its collectives
+    staged through the host) and a CPU mesh cannot, and a CPU mesh's map
+    and sensor GPs build no graphs."""
+    cuda0, cpu_dev = torch.device("cuda", 0), torch.device("cpu")
+    nccl = Mesh(0, 1, cuda0)
+    staged = Mesh(0, 2, cuda0, host_staging=True)
+    cpu = Mesh(0, 1, cpu_dev)
+    assert runs_graphs(cuda0, None) and runs_graphs(cuda0, nccl)
+    assert not runs_graphs(cuda0, staged)
+    assert not runs_graphs(cpu_dev, None) and not runs_graphs(cpu_dev, cpu)
+    assert _make_map(cpu, np.float64)._graphs is None
+    assert _lidar2d(cpu)._graphs is None and _gp3d(cpu)._graphs is None

@@ -4,7 +4,8 @@ graph modules: a capture runs its warm-up, and its graph's replay runs the
 captured function again and copies the results into the outputs of its
 first run, so the outputs are static buffers that each replay overwrites,
 as a CUDA graph's are. Import the ``eager_graphs`` fixture into a test
-module to use it."""
+module to use it, or call :func:`install` in a process of its own (a rank
+of a spawned world)."""
 
 import pytest
 import torch.utils._pytree as pytree
@@ -35,10 +36,10 @@ class StaticGraph:
         self.graph, self.inputs, self.outputs = None, (), ()
 
 
-@pytest.fixture
-def eager_graphs(monkeypatch):
-    """Captures on the CPU become :class:`StaticGraph` (after the warm-up
-    run, as on the card); returns the list of captures made."""
+def install(set_attr=setattr) -> list:
+    """Make captures on the CPU :class:`StaticGraph` (after the warm-up
+    run, as on the card), by ``set_attr(pose_graph, "capture", ...)``;
+    returns the list of captures made."""
     made = []
 
     def capture(key, device, warm, run, inputs, generators=()):
@@ -46,5 +47,11 @@ def eager_graphs(monkeypatch):
         made.append(StaticGraph(key, run, inputs))
         return made[-1]
 
-    monkeypatch.setattr(pg, "capture", capture)
+    set_attr(pg, "capture", capture)
     return made
+
+
+@pytest.fixture
+def eager_graphs(monkeypatch):
+    """:func:`install` for one test; returns the list of captures made."""
+    return install(monkeypatch.setattr)
