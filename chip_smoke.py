@@ -233,9 +233,29 @@ The map's CUDA graphs (``models/pose_graph.py``):
     scripts (``erl_gaussian_process_tpu_torch/examples/``) at their smoke
     sizes on the card, exit 0.
 
+The surface the port took over from the JAX package last:
+
+25. each name called once on the card: ``kernels.pairwise_dist`` at
+    float32 and float64 against its CPU result (8 ulps of the largest
+    distance); ``models.spgp_init`` and ``models.spgp_update`` at hotel-0's
+    width (M = 1152, N = 2048, var 0.1), one FITC launch, against the same
+    call on CPU tensors (the plain FITC; FITC_TOL of the increment);
+    ``fitc_delta(reduce=)`` bit for bit the products wrapped; the SPGP's
+    ``update`` and getters with ``parallel=True`` bit for bit the calls
+    without; ``models.vanilla_fit`` (n = 1024) and ``models.nigp_fit``
+    (n = 256 with gradients) at float64, one gram-fused and one joint
+    Cholesky launch, within 1e-10 of their CPU fits; a graphed hotel-0
+    map's ``predict`` and ``predict_gradient`` with ``parallel=True`` bit
+    for bit the calls without, through the same two graphs; the host's
+    ``Aabb.contains``, ``TriangleMesh.box(inward=True)``,
+    ``surface_points``, ``is_mixture_setting`` and ``kernel_names``; the
+    phase's wall time beside the card's name and power limit.
+
 The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits non-zero before doing anything.
+last line is ``{"ok": true, "device": {...}}``. ``main`` starts with
+``utils/backend.require_backend`` (CUDA initialized and one op run on
+``cuda:0`` under a deadline): without a usable card the script exits 2
+before doing anything.
 """
 
 import json
@@ -5045,12 +5065,202 @@ def run_graphs(dev, card, hotel0, slice_ref, pps_ref, ref_ms, mesh_states):
     return timings
 
 
+def rel_err(got, ref, scale=None) -> float:
+    """max |got - ref| over max |scale| (default: over max |ref|), with
+    ``got`` moved to ``ref``'s device."""
+    scale = ref if scale is None else scale
+    return float((got.to(ref.device) - ref).abs().max() / scale.abs().max())
+
+
+def run_api_gaps(dev, card, hotel0) -> dict:
+    """Phase 25: the names and keywords the port took over from the JAX
+    package last, each called on the card (see the module docstring).
+    Returns the phase's errors and its wall seconds."""
+    from erl_gaussian_process_tpu_torch.geometry import Aabb
+    from erl_gaussian_process_tpu_torch.geometry.simulators import (
+        TriangleMesh,
+        replica_hotel_like_mesh,
+    )
+    from erl_gaussian_process_tpu_torch.kernels import (
+        is_mixture_setting,
+        kernel_names,
+        pairwise_dist,
+        register_scale_mixture,
+    )
+    from erl_gaussian_process_tpu_torch.models import (
+        SparsePseudoInputGaussianProcess,
+        nigp_fit,
+        spgp_init,
+        spgp_update,
+        vanilla_fit,
+    )
+    from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
+        fitc_delta,
+        pad_pseudo_points,
+    )
+    from erl_gaussian_process_tpu_torch.ops import launch_counts
+
+    t0 = time.perf_counter()
+    h = hotel0
+    setting, kernel = h["setting"], "matern32"
+    scale = float(setting.sp_gp.kernel.scale)
+    errs = {}
+
+    def launched(name, fn):
+        """fn() and the launches of kernel ``name`` it made."""
+        before = launch_counts()[name]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, launch_counts()[name] - before
+
+    # kernels.pairwise_dist: the pseudo points against 2000 hit points
+    for dt in (torch.float32, torch.float64):
+        p = torch.as_tensor(np.ascontiguousarray(h["pseudo"].T), dtype=dt)
+        q = torch.as_tensor(h["sel"], dtype=dt)
+        ref = pairwise_dist(p, q)
+        got = pairwise_dist(p.to(dev), q.to(dev))
+        err = float((got.cpu() - ref).abs().max())
+        tol = 8 * torch.finfo(dt).eps * float(ref.max())
+        errs[f"pairwise_dist_{str(dt)[6:]}"] = err
+        check(got.shape == (p.shape[0], q.shape[0]) and err <= tol,
+              f"pairwise_dist {dt} on the card: max err {err} > {tol}")
+
+    # models.spgp_init / spgp_update at hotel-0's width (M = 1152, N = 2048,
+    # pose 0's hits and random free points, var 0.1: FITC_VAR), one FITC
+    # launch, against the plain FITC (the same call on CPU tensors); the
+    # error is over the increment max |Q_M - Q_M0|
+    dt = torch.float32
+    rng = np.random.default_rng(25)
+    p_pad = pad_pseudo_points(np.ascontiguousarray(h["pseudo"].T))
+    n = 2048
+    x = rng.uniform(h["lo"], h["hi"], (n, 3))
+    hit = h["pts"][0][h["masks"][0]]
+    x[:len(hit)] = hit
+    y = np.where(np.arange(n) < len(hit), 1.0, -1.0)[:, None]
+    host = [torch.as_tensor(a, dtype=dt) for a in (x, y, np.full(n, 0.1))]
+    host.append(torch.ones(n, dtype=torch.bool))
+    st0 = spgp_init(torch.as_tensor(p_pad, dtype=dt), scale, kernel=kernel)
+    ref = spgp_update(st0, *host, scale, kernel=kernel)
+    on = [a.to(dev) for a in host]
+    st0_dev = spgp_init(torch.as_tensor(p_pad, dtype=dt, device=dev), scale,
+                        kernel=kernel)
+    st, fitc_n = launched("fitc", lambda: spgp_update(
+        st0_dev, *on, scale, kernel=kernel))
+    errs["spgp_update_qm"] = rel_err(st.qm, ref.qm, ref.qm - st0.qm)
+    errs["spgp_update_alpha"] = rel_err(st.alpha, ref.alpha)
+    check(fitc_n == 1, f"spgp_update: {fitc_n} FITC launches, not 1")
+    check(max(errs["spgp_update_qm"], errs["spgp_update_alpha"])
+          <= FITC_TOL[dt], f"spgp_update on the card against plain: {errs}")
+
+    # fitc_delta(reduce=): each product wrapped, bit for bit 3 x the call
+    # without on the same inputs
+    args = (st0_dev.pseudo, st0_dev.L_km, *on, scale)
+    tripled = fitc_delta(*args, kernel=kernel, L_inv=st0_dev.L_inv,
+                         reduce=lambda t: 3 * t)
+    once = fitc_delta(*args, kernel=kernel, L_inv=st0_dev.L_inv)
+    check(all(bits(a, 3 * b) for a, b in zip(tripled, once)),
+          "fitc_delta(reduce=) is not the products wrapped")
+
+    # the SPGP's update and getters with parallel=True, bit for bit the
+    # calls without (float32, the hotel-0 pseudo points and setting)
+    gps = [SparsePseudoInputGaussianProcess(setting.sp_gp, h["pseudo"],
+                                            dtype=np.float32, device=dev)
+           for _ in range(2)]
+    xt, yt = x[:1024].T.astype(np.float32), y[:1024, 0].astype(np.float32)
+    check(gps[0].update(xt, yt, 0.1, parallel=True)
+          and gps[1].update(xt, yt, 0.1), "SPGP update returned False")
+    check(bits(tuple(gps[0].state), tuple(gps[1].state)),
+          "SPGP update(parallel=True) differs from update()")
+    res = gps[0].test(h["sel"].T, True)
+    check(bits(res.get_mean(0, parallel=True), res.get_mean(0))
+          and bits(res.get_gradient(0, parallel=True), res.get_gradient(0))
+          and bits(res.get_variance(parallel=True), res.get_variance()),
+          "an SPGP getter with parallel=True differs from the call without")
+
+    # models.vanilla_fit / nigp_fit at float64: one gram-fused and one
+    # joint Cholesky launch each, against their CPU fits (plain)
+    dt = torch.float64
+    xv = torch.as_tensor(rng.uniform(-3, 3, (1024, 2)), dtype=dt)
+    yv = torch.sin(xv[:, :1]) * torch.cos(xv[:, 1:])
+    var, mask = torch.full((1024,), 0.1, dtype=dt), torch.arange(1024) < 1000
+    fit_args = (xv, yv, var, mask)
+    ref = vanilla_fit(*fit_args, 0.3, kernel="rbf")
+    got, chol_n = launched("chol_gram", lambda: vanilla_fit(
+        *(a.to(dev) for a in fit_args), 0.3, kernel="rbf"))
+    errs["vanilla_fit_L"] = rel_err(got.L, ref.L)
+    errs["vanilla_fit_alpha"] = rel_err(got.alpha, ref.alpha)
+    xn = xv[:256]
+    gn = torch.stack([torch.cos(xn[:, 0]) * torch.cos(xn[:, 1]),
+                      -torch.sin(xn[:, 0]) * torch.sin(xn[:, 1])], -1)
+    nigp_args = (xn, yv[:256], gn[..., None], torch.full((256,), 1e-2,
+                 dtype=dt), torch.full((256,), 1e-2, dtype=dt),
+                 torch.full((256,), 1e-1, dtype=dt), mask[:256],
+                 torch.arange(256) % 3 > 0)
+    ref = nigp_fit(*nigp_args, 0.5, kernel="rbf")
+    got, joint_n = launched("chol_gram_joint", lambda: nigp_fit(
+        *(a.to(dev) for a in nigp_args), 0.5, kernel="rbf"))
+    errs["nigp_fit_L"] = rel_err(got.L, ref.L)
+    errs["nigp_fit_alpha"] = rel_err(got.alpha, ref.alpha)
+    check(chol_n == 1 and joint_n == 1,
+          f"vanilla_fit / nigp_fit: {chol_n} / {joint_n} Cholesky launches")
+    check(max(errs[k] for k in errs if "_fit_" in k) <= 1e-10,
+          f"vanilla_fit / nigp_fit on the card against their CPU fits: "
+          f"{errs}")
+
+    # a graphed hotel-0 map after 8 poses: predict(..., parallel=True) and
+    # predict_gradient(parallel=True) replay the graphs of the calls
+    # without, bit for bit
+    m = mesh_map(dev, h)
+    m.update_batch(h["sensors"][:8], h["pts"][:8], h["masks"][:8])
+    sel = h["sel"]
+    for grad in (False, True):
+        check(bits(m.predict(sel, grad, True), m.predict(sel, grad)),
+              f"graphed predict(parallel=True), gradient {grad}, differs")
+    check(bits(m.predict_gradient(sel, parallel=True),
+               m.predict_gradient(sel)),
+          "graphed predict_gradient(parallel=True) differs")
+    check(len(m._graphs._predicts) == 2,
+          "parallel= captured a predict graph of its own")
+
+    # the host's names: Aabb.contains, TriangleMesh.box(inward=),
+    # surface_points, is_mixture_setting, kernel_names
+    box = Aabb.from_min_max(h["lo"], h["hi"])
+    mesh = replica_hotel_like_mesh(h["lo"], h["hi"])
+    surf = mesh.surface_points(4, rng=0)
+    hull = Aabb.from_min_max(mesh.vertices.min(0) - 1e-9,
+                             mesh.vertices.max(0) + 1e-9)
+    shell = TriangleMesh.box(h["lo"], h["hi"], inward=True)
+    plain_shell = TriangleMesh.box(h["lo"], h["hi"])
+    mixture = register_scale_mixture(*MIXTURE)
+    check(box.contains(np.stack([h["lo"], h["hi"]])).all()
+          and not box.contains(np.asarray(h["hi"])[None] + 1.0).any()
+          and surf.shape == (4 * mesh.num_triangles, 3)
+          and hull.contains(surf).all()
+          and bits(shell.triangles, plain_shell.triangles)
+          and not is_mixture_setting(setting.sp_gp.kernel)
+          and {kernel, mixture} <= set(kernel_names()),
+          "a host name of the JAX package's surface misbehaved")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log(f"phase 25 (the surface taken over last) on {card}: "
+        f"{seconds:.2f} s; launches spgp_update FITC {fitc_n}, vanilla_fit "
+        f"gram-fused Cholesky {chol_n}, nigp_fit joint Cholesky {joint_n}; "
+        f"errors {errs}; every parallel= call bit for bit the call without")
+    return {"seconds": seconds, "errors": errs}
+
+
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on an "
-              "NVIDIA GPU", file=sys.stderr)
-        return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from erl_gaussian_process_tpu_torch.utils.backend import require_backend
+
+    t0 = time.perf_counter()
+    try:
+        platform = require_backend()
+    except RuntimeError as e:
+        print(f"chip_smoke: {e}; this script runs only on an NVIDIA GPU",
+              file=sys.stderr, flush=True)
+        os._exit(2)   # a probe that timed out leaves its thread in CUDA
+    t_probe = time.perf_counter() - t0
     from erl_gaussian_process_tpu_torch.models.gp_core import (
         use_full_fp32_matmul,
     )
@@ -5062,6 +5272,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     log(card)
+    log(f"require_backend: {platform!r} in {t_probe:.3f} s")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
@@ -5183,6 +5394,8 @@ def main() -> int:
         {"update": timings["update_ms_per_pose"],
          "pps": pps_timings["pps_ms_per_pose"]}, mesh_states)
     log(json.dumps({"graph_timings": graph_timings, "card": card}))
+    api_gaps = run_api_gaps(dev, card, hotel0)
+    log(json.dumps({"api_gaps": api_gaps, "card": card}))
 
     # FITC's bound at its timed shape, M=1152, N=2048, d=3 (fitc_bound();
     # the bank kernels' are computed in check_bank_kernels, the gram's in

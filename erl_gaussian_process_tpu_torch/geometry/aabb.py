@@ -29,6 +29,11 @@ class Aabb:
     def dim(self):
         return self.center.shape[0]
 
+    def contains(self, pts):
+        """pts (n, d) -> (n,) bool: inside or on the boundary."""
+        pts = np.asarray(pts)
+        return np.all((pts >= self.min()) & (pts <= self.max()), axis=-1)
+
     def __eq__(self, other):
         if not isinstance(other, Aabb):
             return NotImplemented

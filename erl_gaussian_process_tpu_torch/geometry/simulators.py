@@ -162,14 +162,34 @@ class TriangleMesh:
 
         return raycast_mesh(self.triangles, origin, directions, max_range)
 
+    def surface_points(self, per_triangle: int, rng=None) -> np.ndarray:
+        """``per_triangle`` * F points drawn uniformly on the surface
+        (triangles picked by area), for map-quality gates; ``rng`` seeds
+        ``np.random.default_rng``, whose draws (pick, then barycentric
+        pairs) are those of the JAX package's sampler."""
+        rng = np.random.default_rng(rng)
+        t = self.triangles
+        area = 0.5 * np.linalg.norm(
+            np.cross(t[:, 1] - t[:, 0], t[:, 2] - t[:, 0]), axis=1)
+        n = per_triangle * self.num_triangles
+        pick = rng.choice(self.num_triangles, n, p=area / area.sum())
+        u = rng.uniform(0, 1, (n, 2))
+        flip = u.sum(1) > 1          # fold the unit square onto the triangle
+        u[flip] = 1.0 - u[flip]
+        tp = t[pick]
+        return (tp[:, 0] + u[:, :1] * (tp[:, 1] - tp[:, 0])
+                + u[:, 1:] * (tp[:, 2] - tp[:, 0]))
+
     @staticmethod
     def _quad(a, b, c, d):
         """Two triangles for the quad a-b-c-d."""
         return [[a, b, c], [a, c, d]]
 
     @classmethod
-    def box(cls, vmin, vmax) -> "TriangleMesh":
-        """Axis-aligned box (the raycaster is double-sided)."""
+    def box(cls, vmin, vmax, inward: bool = False) -> "TriangleMesh":
+        """Axis-aligned box. ``inward`` (a room shell) changes nothing: the
+        raycaster is double-sided."""
+        del inward
         x0, y0, z0 = vmin
         x1, y1, z1 = vmax
         v = np.array([[x0, y0, z0], [x1, y0, z0], [x1, y1, z0], [x0, y1, z0],

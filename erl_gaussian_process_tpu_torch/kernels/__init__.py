@@ -6,6 +6,8 @@ unit-variance (``k(x, x) = 1``)."""
 from erl_gaussian_process_tpu_torch.kernels.base import (
     KernelSetting,
     get_kernel,
+    is_mixture_setting,
+    kernel_names,
     mixture_params,
     register_kernel,
     resolve_kernel_name,
@@ -27,14 +29,17 @@ from erl_gaussian_process_tpu_torch.kernels.reduced_rank import (
 from erl_gaussian_process_tpu_torch.kernels.stationary import (
     cross_gram,
     kernel_fn,
+    pairwise_dist,
+    pairwise_sqdist,
     register_scale_mixture,
     train_gram,
 )
-from erl_gaussian_process_tpu_torch.ops.gram import pairwise_sqdist
 
 __all__ = [
     "KernelSetting",
     "get_kernel",
+    "is_mixture_setting",
+    "kernel_names",
     "mixture_params",
     "register_kernel",
     "register_scale_mixture",
@@ -46,6 +51,7 @@ __all__ = [
     "gradient_prior_variance",
     "joint_mask",
     "kernel_fn",
+    "pairwise_dist",
     "pairwise_sqdist",
     "train_gram",
     "train_gram_with_gradient",

@@ -76,6 +76,13 @@ def _mixture_terms(ks):
     return mix, [float(v) for v in w]
 
 
+def is_mixture_setting(ks) -> bool:
+    """True when the setting asks for a scale mixture (non-empty
+    ``weights``; the neutral values are scale_mix=1, weights=[])."""
+    _, w = _mixture_terms(ks)
+    return len(w) > 0
+
+
 def validate_kernel_setting(ks, context: str = "") -> None:
     """For code paths that cannot take a scale mixture (the reduced-rank
     basis is single-scale): raises on non-empty ``weights``, and on the
@@ -163,3 +170,8 @@ def register_kernel(name: str, **fns: Callable) -> None:
 
 def get_kernel(name: str) -> Dict[str, Callable]:
     return _REGISTRY[resolve_kernel_name(name)]
+
+
+def kernel_names() -> List[str]:
+    """The registered kernel names, sorted (mixtures once materialized)."""
+    return sorted(_REGISTRY)

@@ -56,6 +56,12 @@ def register_scale_mixture(base: str, scale_mix: float, weights: tuple) -> str:
     return name
 
 
+def pairwise_dist(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Euclidean distances, the square root of :func:`pairwise_sqdist`.
+    x1: (..., m, d), x2: (..., n, d) -> (..., m, n)."""
+    return torch.sqrt(pairwise_sqdist(x1, x2))
+
+
 def kernel_fn(name: str):
     """Return the plain k(x1, x2, scale) -> (n, m) of a kernel name."""
     return get_kernel(name)["cross"]

@@ -24,6 +24,7 @@ from erl_gaussian_process_tpu_torch.models.noisy_input_gp import (
     NoisyInputGaussianProcess,
     NoisyInputGPSetting,
     NoisyInputGPState,
+    nigp_fit,
 )
 from erl_gaussian_process_tpu_torch.models.range_sensor_gp_3d import (
     RangeSensorGaussianProcess3D,
@@ -33,6 +34,8 @@ from erl_gaussian_process_tpu_torch.models.sparse_pseudo_input_gp import (
     SparsePseudoInputGaussianProcess,
     SpGpSetting,
     SpGpState,
+    spgp_init,
+    spgp_update,
 )
 from erl_gaussian_process_tpu_torch.models.spgp_occupancy_map import (
     SpGpOccupancyMap,
@@ -42,6 +45,7 @@ from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
     VanillaGaussianProcess,
     VanillaGPSetting,
     VanillaGPState,
+    vanilla_fit,
 )
 
 __all__ = [
@@ -69,4 +73,8 @@ __all__ = [
     "bank_fit_rr",
     "bank_predict",
     "bank_predict_assigned",
+    "nigp_fit",
+    "spgp_init",
+    "spgp_update",
+    "vanilla_fit",
 ]

@@ -176,9 +176,11 @@ def spgp_update(state: SpGpState, x, y, var, mask, scale, *, kernel: str,
 
 
 def fitc_delta(pseudo, L_km, x, y, var, mask, scale, *, kernel: str,
-               diagonal_qm: bool = False, zero_threshold: float = 0.0,
-               L_inv=None):
+               diagonal_qm: bool = False, reduce=lambda t: t,
+               zero_threshold: float = 0.0, L_inv=None):
     """The per-column FITC increment (dQ_M (M, M|1), dalpha (M, q)).
+    ``reduce`` wraps each of the two accumulated products (a sum over
+    ranks, for a sharded caller).
 
     ``zero_threshold`` > 0: sub-threshold K_MN entries are zeroed before
     the solve. ``L_inv``: when given, beta is the product ``L_inv @ kmn``
@@ -197,11 +199,11 @@ def fitc_delta(pseudo, L_km, x, y, var, mask, scale, *, kernel: str,
     inv = torch.where(mask, 1.0 / (lam + var), torch.zeros_like(lam))
     ksc = kmn * inv[None, :]
     if diagonal_qm:
-        dqm = torch.sum(ksc * kmn, dim=1, keepdim=True)
+        dqm = reduce(torch.sum(ksc * kmn, dim=1, keepdim=True))
     else:
-        dqm = ksc @ kmn.T
+        dqm = reduce(ksc @ kmn.T)
     yv = torch.where(mask[:, None], y, torch.zeros_like(y))
-    return dqm, ksc @ yv
+    return dqm, reduce(ksc @ yv)
 
 
 def spgp_prepare(state: SpGpState, jitter: float = 0.0, *,
@@ -360,18 +362,23 @@ class SpGpTestResult:
             zero_threshold=gp._zero_threshold, li_qm=li)
         self.num_test = xq.shape[0]
 
-    def get_mean(self, y_index: int = 0) -> torch.Tensor:
+    def get_mean(self, y_index: int = 0,
+                 parallel: bool = True) -> torch.Tensor:
+        del parallel    # the reference's OpenMP switch; nothing to switch
         return self._mean[:, y_index]
 
-    def get_gradient(self, y_index: int = 0) -> torch.Tensor:
+    def get_gradient(self, y_index: int = 0,
+                     parallel: bool = True) -> torch.Tensor:
         """The mean's gradient at each query, (d, m); needs
         ``predict_gradient=True`` at ``test``."""
+        del parallel
         if self._grad is None:
             raise ValueError("get_gradient: test(..., predict_gradient=True) "
                              "computes the gradient")
         return self._grad[:, :, y_index].T
 
-    def get_variance(self) -> torch.Tensor:
+    def get_variance(self, parallel: bool = True) -> torch.Tensor:
+        del parallel
         return self._var
 
 
@@ -502,9 +509,11 @@ class SparsePseudoInputGaussianProcess:
             self._li = (L_qm, tri_inv(L_qm))
         return self._li[1]
 
-    def update(self, x, y, var) -> bool:
+    def update(self, x, y, var, parallel: bool = True) -> bool:
         """Accumulate one batch. x (d, n); y (n, q) or (n,); var (n,) or
-        scalar (reference: Update -> UpdateDense)."""
+        scalar (reference: Update -> UpdateDense). ``parallel`` is the
+        reference's OpenMP switch, accepted and ignored."""
+        del parallel
         np_dt = numpy_dtype(self.dtype)
         x = np.asarray(x, np_dt)
         if x.ndim == 1:

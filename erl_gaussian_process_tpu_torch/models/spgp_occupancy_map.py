@@ -455,10 +455,13 @@ class SpGpOccupancyMap:
         self._commit(out[0], b)
         return (out[1], out[2]) if collect_datasets else out[1][:b]
 
-    def predict(self, points, compute_gradient: bool = False):
+    def predict(self, points, compute_gradient: bool = False,
+                parallel: bool = True):
         """logodd (n,) and its gradient (n, d) | None, as device tensors
         (reference Predict). With a mesh, a predict without a gradient
-        shards the queries over the ranks."""
+        shards the queries over the ranks. ``parallel`` is the reference's
+        OpenMP switch, accepted and ignored."""
+        del parallel
         self.flush_online()
         if self._graphs is not None:
             self._bind()
@@ -483,7 +486,8 @@ class SpGpOccupancyMap:
             zero_threshold=self.sp_gp._zero_threshold)
         return mean[:, 0], None if grad is None else grad[:, :, 0]
 
-    def predict_gradient(self, points):
+    def predict_gradient(self, points, parallel: bool = True):
+        del parallel
         return self.predict(points, compute_gradient=True)[1]
 
     def generate_dataset(self, sensor_position, points, seed=None):

@@ -36,6 +36,11 @@ from erl_gaussian_process_tpu_torch.ops import (
     fitc_update_plain,
     launch_counts,
 )
+from erl_gaussian_process_tpu_torch.utils.backend import (
+    probe_backend,
+    probe_backend_subprocess,
+    require_backend,
+)
 
 pytestmark = pytest.mark.cuda
 FAMILIES = ["rbf", "ou", "matern32", "mixture"]
@@ -467,6 +472,36 @@ def test_map_graphs_equal_the_eager_chain(cuda, dtype, c):
         assert (got[1] is None) == (not grad)
         if grad:
             assert torch.equal(got[1], g[:, :, 0])
+
+
+def test_graphed_predict_ignores_the_parallel_keyword(cuda):
+    """``predict``/``predict_gradient`` with ``parallel`` (the reference's
+    OpenMP switch, ignored) replay the graph the call without it replays,
+    bit for bit."""
+    make, sensors, pts, masks = _graph_map_case(cuda, np.float32)
+    m = make()
+    m.update_batch(sensors, pts, masks)
+    q = np.random.default_rng(5).uniform(-1.5, 1.5, (77, 3)).astype(
+        np.float32)
+    for grad in (False, True):
+        ref = m.predict(q, grad)
+        for parallel in (True, False):
+            got = m.predict(q, grad, parallel)
+            assert torch.equal(got[0], ref[0])
+            assert (got[1] is None) == (not grad)
+            if grad:
+                assert torch.equal(got[1], ref[1])
+    assert torch.equal(m.predict_gradient(q, parallel=True),
+                       m.predict_gradient(q))
+    assert len(m._graphs._predicts) == 2
+
+
+def test_require_backend_on_the_card(cuda):
+    """The deadline-bounded probe initializes CUDA and adds on cuda:0, in
+    this process and in a child interpreter."""
+    assert require_backend() == "gpu"
+    assert probe_backend(30.0) == (True, "gpu")
+    assert probe_backend_subprocess(120.0) == (True, "gpu")
 
 
 def test_graphed_pose_makes_no_synchronising_call(cuda):
