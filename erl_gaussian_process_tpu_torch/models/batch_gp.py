@@ -42,6 +42,7 @@ from erl_gaussian_process_tpu_torch.ops.bank import (
     bank_fit_cuda,
 )
 from erl_gaussian_process_tpu_torch.ops.gram import cross_gram_batched_cuda
+from erl_gaussian_process_tpu_torch.utils.timing import count, span
 
 
 class BankState(NamedTuple):
@@ -256,7 +257,14 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
 
     ``profile``: pass a dict to record per-phase wall-clock seconds (keys
     ``host_group``, ``h2d``, ``device``, ``d2h_scatter``, plus the bucket
-    shape ``bucket``). Profiling synchronizes between phases.
+    shape ``bucket``). Profiling synchronizes between phases. The phases
+    are also spans (``utils.timing.span``), which open and close at the
+    same statements and synchronize nothing, so under a profiler they
+    show where the host spends a call while the card runs on:
+    ``egp.bank.group``, ``egp.bank.h2d``, ``egp.bank.predict``, then
+    ``d2h_scatter`` as ``egp.bank.readback`` and ``egp.bank.scatter``.
+    Each call that answers a query counts the path it took:
+    ``bank.routed_graphed`` or ``bank.routed_eager``.
 
     ``graphs`` (a ``models/sensor_graph.SensorGraphs``): the device half
     runs as one replay of the graph captured for this bucket, kernel and
@@ -266,17 +274,18 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
     prof = profile is not None
     if prof:
         t0 = time.perf_counter()
-    q = np.asarray(q)
-    idx = np.asarray(idx)
-    m = q.shape[0]
-    dev = state.x.device
-    dtype = np.dtype(np.float32 if state.alpha.dtype == torch.float32
-                     else np.float64)
-    q_dim = state.alpha.shape[2]
-    mean_out = np.zeros((m, q_dim), dtype)
-    var_out = np.full((m,), 1.0, dtype)
-    ok, slots, svalid, member_ids = group_queries(
-        idx, state.trained.cpu().numpy())
+    with span("egp.bank.group"):
+        q = np.asarray(q)
+        idx = np.asarray(idx)
+        m = q.shape[0]
+        dev = state.x.device
+        dtype = np.dtype(np.float32 if state.alpha.dtype == torch.float32
+                         else np.float64)
+        q_dim = state.alpha.shape[2]
+        mean_out = np.zeros((m, q_dim), dtype)
+        var_out = np.full((m,), 1.0, dtype)
+        ok, slots, svalid, member_ids = group_queries(
+            idx, state.trained.cpu().numpy())
     if slots is None:
         return mean_out, var_out, ok
     if prof:
@@ -291,35 +300,42 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
         return _predict_segmented(bank, mids, qs, scale, kernel=kernel,
                                   fused=fused, reduced_rank=reduced_rank)
 
-    q_host = q[slots].astype(dtype, copy=False)
-    g = None if graphs is None else graphs.routed(
-        state, segmented, q_host, member_ids,
-        (kernel, float(scale), reduced_rank, basis is not None))
-    if g is None:
-        qs = torch.as_tensor(q_host, device=dev)
-        mids = torch.as_tensor(member_ids, device=dev)
+    with span("egp.bank.h2d"):
+        q_host = q[slots].astype(dtype, copy=False)
+        g = None if graphs is None else graphs.routed(
+            state, segmented, q_host, member_ids,
+            (kernel, float(scale), reduced_rank, basis is not None))
+        if g is None:
+            qs = torch.as_tensor(q_host, device=dev)
+            mids = torch.as_tensor(member_ids, device=dev)
+        if prof:
+            _sync(dev)
+    count("bank.routed_eager" if g is None else "bank.routed_graphed")
     if prof:
-        _sync(dev)
         t2 = time.perf_counter()
         profile["h2d"] = t2 - t1
-    if g is not None:
-        g.replay()
-    else:
-        mean_seg, var_seg = segmented(state, mids, qs)
+    with span("egp.bank.predict"):
+        if g is not None:
+            g.replay()
+        else:
+            mean_seg, var_seg = segmented(state, mids, qs)
+        if prof:
+            _sync(dev)
     if prof:
-        _sync(dev)
         t3 = time.perf_counter()
         profile["device"] = t3 - t2
-    if g is not None:
-        out = g.outputs.cpu().numpy()
-        Bp, C = slots.shape
-        mean_seg = out[:Bp * C * q_dim].reshape(Bp, C, q_dim)
-        var_seg = out[Bp * C * q_dim:].reshape(Bp, C)
-    else:
-        mean_seg = mean_seg.cpu().numpy()
-        var_seg = var_seg.cpu().numpy()
-    mean_out[slots[svalid]] = mean_seg[svalid]
-    var_out[slots[svalid]] = var_seg[svalid]
+    with span("egp.bank.readback"):
+        if g is not None:
+            out = g.outputs.cpu().numpy()
+            Bp, C = slots.shape
+            mean_seg = out[:Bp * C * q_dim].reshape(Bp, C, q_dim)
+            var_seg = out[Bp * C * q_dim:].reshape(Bp, C)
+        else:
+            mean_seg = mean_seg.cpu().numpy()
+            var_seg = var_seg.cpu().numpy()
+    with span("egp.bank.scatter"):
+        mean_out[slots[svalid]] = mean_seg[svalid]
+        var_out[slots[svalid]] = var_seg[svalid]
     if prof:
         profile["d2h_scatter"] = time.perf_counter() - t3
     return mean_out, var_out, ok

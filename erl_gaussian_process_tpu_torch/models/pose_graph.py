@@ -37,6 +37,10 @@ products, ``predict_prepared_step``) as one replay of a captured graph:
   ``captured`` (``ops/_library.note_launch``); each replay adds the launches
   its graph captured to the wrappers' ``launches``: the counts are the
   kernels the replays ran.
+- **Spans and counters** (``utils.timing``). A capture is the span
+  ``egp.graph.capture`` and adds its warm-up's and capture's ms to
+  ``graph.capture_ms``; a replay is ``egp.graph.replay``; the copies of a
+  step's inputs and seeds before it are ``egp.graph.feed``.
 - **On a mesh** (``parallel/mesh.py``) whose collectives run on the card
   (NCCL, ``parallel.mesh.runs_graphs``), each rank replays the same graphs: a chunk
   samples its c poses replicated, from the same seeds on every rank, then
@@ -76,6 +80,7 @@ from erl_gaussian_process_tpu_torch.parallel.mesh import (
     sharded_spgp_predict,
     sharded_spgp_update,
 )
+from erl_gaussian_process_tpu_torch.utils.timing import count, span
 
 MAX_GRAPHS = 4  # graphs kept of each kind (update, predict)
 
@@ -143,7 +148,8 @@ class CapturedGraph:
     replays: int = 0
 
     def replay(self) -> None:
-        self.graph.replay()
+        with span("egp.graph.replay"):
+            self.graph.replay()
         self.replays += 1
         for wrapper, k in self.launches.items():
             wrapper.launches += k
@@ -163,39 +169,46 @@ def capture(key, device, warm: Callable, run: Callable, inputs: tuple,
     Python's cyclic garbage collector is held off during the capture: a
     graph that a collected reference cycle held would be destroyed inside
     the capture, and freeing a graph is an operation a capturing stream
-    does not permit (it invalidates the capture)."""
-    wrappers = _counted_wrappers()
-    stream = torch.cuda.Stream(device)
-    stream.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(stream):
-        t0 = time.perf_counter()
-        warm()
-        torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        reserved = torch.cuda.memory_reserved(device)
-        before = [w.captured for w in wrappers]
-        graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            graph.register_generator_state(g)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            graph.capture_begin(capture_error_mode="thread_local")
+    does not permit (it invalidates the capture).
+
+    Adds the warm-up's and the capture's ms to ``graph.capture_ms``
+    (``utils.timing.count``)."""
+    with span("egp.graph.capture"):
+        wrappers = _counted_wrappers()
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            t0 = time.perf_counter()
+            warm()
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            reserved = torch.cuda.memory_reserved(device)
+            before = [w.captured for w in wrappers]
+            graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                graph.register_generator_state(gen)
+            collecting = gc.isenabled()
+            gc.disable()
             try:
-                out = run()
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = run()
+                finally:
+                    graph.capture_end()
             finally:
-                graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-        t2 = time.perf_counter()
-    torch.cuda.current_stream(device).wait_stream(stream)
-    launches = {w: w.captured - n for w, n in zip(wrappers, before)
-                if w.captured > n}
-    return CapturedGraph(
-        key=key, graph=graph, inputs=inputs, outputs=out, launches=launches,
-        warmup_ms=1e3 * (t1 - t0), capture_ms=1e3 * (t2 - t1),
-        pool_bytes=torch.cuda.memory_reserved(device) - reserved)
+                if collecting:
+                    gc.enable()
+            t2 = time.perf_counter()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        launches = {w: w.captured - n for w, n in zip(wrappers, before)
+                    if w.captured > n}
+        g = CapturedGraph(
+            key=key, graph=graph, inputs=inputs, outputs=out,
+            launches=launches, warmup_ms=1e3 * (t1 - t0),
+            capture_ms=1e3 * (t2 - t1),
+            pool_bytes=torch.cuda.memory_reserved(device) - reserved)
+    count("graph.capture_ms", g.warmup_ms + g.capture_ms)
+    return g
 
 
 class GraphTable:
@@ -341,10 +354,12 @@ class PoseGraphs:
                tuple(sorted(kw.items())))
         g = self._updates.get(key) or self._capture_update(
             key, c, n, float(scale), bool(collect_datasets), kw)
-        for dst, a in zip(g.inputs, (sensor_positions, points, point_masks)):
-            feed(dst, a)
-        for gen, s in zip(self._generators, seeds):
-            gen.manual_seed(s)
+        with span("egp.graph.feed"):
+            for dst, a in zip(g.inputs,
+                              (sensor_positions, points, point_masks)):
+                feed(dst, a)
+            for gen, s in zip(self._generators, seeds):
+                gen.manual_seed(s)
         g.replay()
         return g.outputs
 

@@ -70,6 +70,7 @@ from erl_gaussian_process_tpu_torch.utils.serialization import (
     load_pytree,
     save_pytree,
 )
+from erl_gaussian_process_tpu_torch.utils.timing import span
 
 
 def _grid_partitions(coords: np.ndarray, group_size: int, overlap: int,
@@ -163,18 +164,20 @@ class RangeSensorGP3DTestResult:
     def __init__(self, gp: "RangeSensorGaussianProcess3D",
                  directions: np.ndarray, directions_are_local: bool,
                  un_map: bool):
-        d = np.asarray(directions, gp.dtype)
-        if d.ndim == 1:
-            d = d[None, :]
-        if d.shape[0] == 3 and d.shape[1] != 3:
-            d = d.T  # accept the reference's (3, m) layout
-        if not directions_are_local:
-            d = gp.sensor_frame.dir_world_to_frame(d)
-        coords, idx = gp.route_directions(d)
-        mean, var, valid = bank_predict_assigned(
-            gp.bank, coords, idx, gp._scale, kernel=gp._kernel,
-            reduced_rank=gp.reduced_rank_kernel, basis=gp._basis,
-            graphs=gp._graphs)
+        with span("egp.rsgp.test"):
+            d = np.asarray(directions, gp.dtype)
+            if d.ndim == 1:
+                d = d[None, :]
+            if d.shape[0] == 3 and d.shape[1] != 3:
+                d = d.T  # accept the reference's (3, m) layout
+            with span("egp.rsgp.route"):
+                if not directions_are_local:
+                    d = gp.sensor_frame.dir_world_to_frame(d)
+                coords, idx = gp.route_directions(d)
+            mean, var, valid = bank_predict_assigned(
+                gp.bank, coords, idx, gp._scale, kernel=gp._kernel,
+                reduced_rank=gp.reduced_rank_kernel, basis=gp._basis,
+                graphs=gp._graphs)
         self._gp = gp
         self._mean = mean[:, 0]
         self._var = var
@@ -354,11 +357,12 @@ class RangeSensorGaussianProcess3D:
     def store_data(self, rotation, translation, ranges) -> bool:
         """Store a scan (pose, ranges and mapped distances) without
         training (reference StoreData; Train = StoreData + fit)."""
-        self.sensor_frame.update_ranges(rotation, translation, ranges)
-        if not self.sensor_frame.is_valid():
-            return False
-        self.mapped_distances = np.asarray(
-            self.mapping.map(self.sensor_frame.ranges), self.dtype)
+        with span("egp.rsgp.frame"):
+            self.sensor_frame.update_ranges(rotation, translation, ranges)
+            if not self.sensor_frame.is_valid():
+                return False
+            self.mapped_distances = np.asarray(
+                self.mapping.map(self.sensor_frame.ranges), self.dtype)
         return True
 
     def _assemble_bank_arrays(self):
@@ -523,12 +527,13 @@ class RangeSensorGaussianProcess3D:
         a CUDA model with graphs (without a mesh, or on an NCCL one),
         ``self.bank`` is then the outputs of the train's graph, which the
         next train overwrites in place: clone a bank to keep it."""
-        self._trained = False
-        if not self.store_data(rotation, translation, ranges):
-            return False
-        self.bank = self._fit_scans(self.sensor_frame.ranges[None],
-                                    graphed=True)
-        self._trained = True
+        with span("egp.rsgp.train"):
+            self._trained = False
+            if not self.store_data(rotation, translation, ranges):
+                return False
+            self.bank = self._fit_scans(self.sensor_frame.ranges[None],
+                                        graphed=True)
+            self._trained = True
         return True
 
     def search_partition(self, coords: np.ndarray) -> np.ndarray:

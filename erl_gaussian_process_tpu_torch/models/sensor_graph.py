@@ -54,6 +54,8 @@ of each routed predict as one replay of a graph captured with
   another bank (``use_scan_bank``, a loaded checkpoint, a bank the jitter
   ladder replaced). The queries and member ids go into static inputs
   without blocking, and the mean and variance come back in one copy.
+  Each call counts its path: ``bank.routed_graphed`` or
+  ``bank.routed_eager``.
 
 Each capture runs its body once eagerly first (``capture``'s warm-up);
 capture errors raise with their cause, and no failure falls back to the
@@ -84,6 +86,7 @@ from erl_gaussian_process_tpu_torch.models.pose_graph import (
     feed,
     same,
 )
+from erl_gaussian_process_tpu_torch.utils.timing import span
 
 _LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
 
@@ -139,11 +142,12 @@ class SensorGraphs:
                                                    inputs))
             self._prune()
         else:
-            for dst, a in zip(g.inputs, feeds):
-                feed(dst, a)
-            if not same(self._tables.get(key, ()), tables):
-                for dst, a in zip(g.inputs[len(feeds):], tables):
+            with span("egp.graph.feed"):
+                for dst, a in zip(g.inputs, feeds):
                     feed(dst, a)
+                if not same(self._tables.get(key, ()), tables):
+                    for dst, a in zip(g.inputs[len(feeds):], tables):
+                        feed(dst, a)
         self._tables[key] = tables
         g.replay()
         if not isinstance(g.outputs, RRFitParts):
@@ -233,6 +237,7 @@ class SensorGraphs:
             return self._routed.keep(pose_graph.capture(key, self.device,
                                                         run, run, inputs))
         self._bank(token, fit, state)
-        for dst, a in zip(g.inputs, (qs, mids)):
-            feed(dst, a)
+        with span("egp.graph.feed"):
+            for dst, a in zip(g.inputs, (qs, mids)):
+                feed(dst, a)
         return g

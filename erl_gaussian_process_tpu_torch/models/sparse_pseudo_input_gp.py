@@ -51,6 +51,7 @@ from erl_gaussian_process_tpu_torch.utils.serialization import (
     load_pytree,
     save_pytree,
 )
+from erl_gaussian_process_tpu_torch.utils.timing import count, span
 
 _LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
 
@@ -473,32 +474,40 @@ class SparsePseudoInputGaussianProcess:
         2. else the exact float64 host refactorization from the
            compensated accumulators (posterior unchanged, INFO log);
         3. only if that fails too: the escalating jitter ladder, which
-           changes the effective noise and warns."""
+           changes the effective noise and warns.
+
+        A miss counts the tier that served it (``spgp.prepare.tier1``-``3``,
+        ``utils.timing.count``)."""
         if self._cache is not None:
             return self._cache
-        diag = self.setting.diagonal_qm
-        r = spgp_prepare(self.state, 0.0, diagonal_qm=diag)
-        ok = bool(torch.isfinite(r[1]).all())
-        if ok and not diag:
-            dl = torch.abs(torch.diagonal(r[0])).double().cpu().numpy()
-            dmin = dl.min()
-            ok = dmin > 0 and (dl.max() / dmin) ** 2 <= \
-                cond_escalate_threshold(numpy_dtype(self.dtype))
-        if ok:
-            self._cache = r
-            return r
-        exact = spgp_prepare_exact_host(self.state, diagonal_qm=diag)
-        if exact is not None and bool(torch.isfinite(exact[1]).all()):
-            _LOG.info(
-                "chol(Q_M) numerically indefinite or ill-conditioned at %s — "
-                "exact float64 host refactorization from the compensated "
-                "accumulators (posterior unchanged; see "
-                "spgp_prepare_exact_host)", self.dtype)
-            self._cache = exact
-        else:
-            self._cache = host_jitter_retry(
-                lambda j: spgp_prepare(self.state, j, diagonal_qm=diag),
-                lambda r: (r[1],), jitters=(1e-10, 1e-8, 1e-6, 1e-4, 1e-2))
+        with span("egp.spgp.prepare"):
+            diag = self.setting.diagonal_qm
+            r = spgp_prepare(self.state, 0.0, diagonal_qm=diag)
+            ok = bool(torch.isfinite(r[1]).all())
+            if ok and not diag:
+                dl = torch.abs(torch.diagonal(r[0])).double().cpu().numpy()
+                dmin = dl.min()
+                ok = dmin > 0 and (dl.max() / dmin) ** 2 <= \
+                    cond_escalate_threshold(numpy_dtype(self.dtype))
+            if ok:
+                count("spgp.prepare.tier1")
+                self._cache = r
+                return r
+            exact = spgp_prepare_exact_host(self.state, diagonal_qm=diag)
+            if exact is not None and bool(torch.isfinite(exact[1]).all()):
+                _LOG.info(
+                    "chol(Q_M) numerically indefinite or ill-conditioned at "
+                    "%s — exact float64 host refactorization from the "
+                    "compensated accumulators (posterior unchanged; see "
+                    "spgp_prepare_exact_host)", self.dtype)
+                count("spgp.prepare.tier2")
+                self._cache = exact
+            else:
+                self._cache = host_jitter_retry(
+                    lambda j: spgp_prepare(self.state, j, diagonal_qm=diag),
+                    lambda r: (r[1],),
+                    jitters=(1e-10, 1e-8, 1e-6, 1e-4, 1e-2))
+                count("spgp.prepare.tier3")
         return self._cache
 
     def _prepared_inv(self):

@@ -70,6 +70,7 @@ from erl_gaussian_process_tpu_torch.utils.serialization import (
     load_pytree,
     save_pytree,
 )
+from erl_gaussian_process_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass
@@ -273,25 +274,26 @@ class SpGpOccupancyMap:
         buffers, overwritten in place by every update, so a state held from
         before an update is not a snapshot (copy it, or use
         ``state_dict``)."""
-        self.setting = setting or SpGpOccupancyMapSetting()
-        self.device = model_device(mesh, device)
-        self.mesh = mesh
-        self.sp_gp = SparsePseudoInputGaussianProcess(
-            self.setting.sp_gp, pseudo_points, dtype=dtype,
-            device=self.device)
-        self.dtype = self.sp_gp.dtype
-        self.seed = int(seed)
-        self.step = 0
-        s = self.setting
-        if free_slots_per_ray is None:
-            free_slots_per_ray = max(
-                1, int(np.ceil(s.free_points_per_meter * s.max_distance)))
-        self.free_slots = int(free_slots_per_ray)
-        self._generator = torch.Generator(device=self.device)
-        self._graphs = PoseGraphs(self.device, mesh) \
-            if runs_graphs(self.device, mesh) else None
-        self._set_boundary(map_boundary)
-        self._online_buf: list = []
+        with span("egp.map.init"):
+            self.setting = setting or SpGpOccupancyMapSetting()
+            self.device = model_device(mesh, device)
+            self.mesh = mesh
+            self.sp_gp = SparsePseudoInputGaussianProcess(
+                self.setting.sp_gp, pseudo_points, dtype=dtype,
+                device=self.device)
+            self.dtype = self.sp_gp.dtype
+            self.seed = int(seed)
+            self.step = 0
+            s = self.setting
+            if free_slots_per_ray is None:
+                free_slots_per_ray = max(
+                    1, int(np.ceil(s.free_points_per_meter * s.max_distance)))
+            self.free_slots = int(free_slots_per_ray)
+            self._generator = torch.Generator(device=self.device)
+            self._graphs = PoseGraphs(self.device, mesh) \
+                if runs_graphs(self.device, mesh) else None
+            self._set_boundary(map_boundary)
+            self._online_buf: list = []
 
     def _set_boundary(self, map_boundary: Aabb) -> None:
         self.map_boundary = map_boundary
@@ -425,34 +427,38 @@ class SpGpOccupancyMap:
                 "collect_datasets with mesh=: replay on one card (the "
                 "datasets are the same, each pose drawn from its own seed)")
         self.flush_online()
-        sp = np.asarray(sensor_positions, numpy_dtype(self.dtype))
-        p = np.asarray(points, numpy_dtype(self.dtype))
-        if point_masks is None:
-            point_masks = np.isfinite(p).all(axis=-1)
-        point_masks = np.asarray(point_masks, bool)
-        b = sp.shape[0]
-        pad = -b % int(poses_per_step)
-        if pad:
-            sp = np.concatenate([sp, np.zeros((pad,) + sp.shape[1:],
-                                              sp.dtype)])
-            p = np.concatenate([p, np.zeros((pad,) + p.shape[1:], p.dtype)])
-            point_masks = np.concatenate(
-                [point_masks, np.zeros((pad,) + point_masks.shape[1:], bool)])
-        p = np.where(point_masks[..., None], p, p.dtype.type(0))
-        if self._graphs is not None:
-            n_used, data = self._update_graphed(
-                sp, p, point_masks, int(poses_per_step), collect_datasets)
-            out = (self.sp_gp.state, n_used, data)
-        else:
-            out = update_batch_steps(
-                self.sp_gp.state, self.seed, self.step + 1, self._tensor(sp),
-                self._tensor(p),
-                torch.as_tensor(point_masks, device=self.device),
-                self._aabb_min, self._aabb_max, self.sp_gp._scale,
-                generator=self._generator, poses_per_step=poses_per_step,
-                collect_datasets=collect_datasets, mesh=self.mesh,
-                **self._step_kw())
-        self._commit(out[0], b)
+        with span("egp.map.update"):
+            with span("egp.map.inputs"):
+                sp = np.asarray(sensor_positions, numpy_dtype(self.dtype))
+                p = np.asarray(points, numpy_dtype(self.dtype))
+                if point_masks is None:
+                    point_masks = np.isfinite(p).all(axis=-1)
+                point_masks = np.asarray(point_masks, bool)
+                b = sp.shape[0]
+                pad = -b % int(poses_per_step)
+                if pad:
+                    sp = np.concatenate(
+                        [sp, np.zeros((pad,) + sp.shape[1:], sp.dtype)])
+                    p = np.concatenate(
+                        [p, np.zeros((pad,) + p.shape[1:], p.dtype)])
+                    point_masks = np.concatenate(
+                        [point_masks,
+                         np.zeros((pad,) + point_masks.shape[1:], bool)])
+                p = np.where(point_masks[..., None], p, p.dtype.type(0))
+            if self._graphs is not None:
+                n_used, data = self._update_graphed(
+                    sp, p, point_masks, int(poses_per_step), collect_datasets)
+                out = (self.sp_gp.state, n_used, data)
+            else:
+                out = update_batch_steps(
+                    self.sp_gp.state, self.seed, self.step + 1,
+                    self._tensor(sp), self._tensor(p),
+                    torch.as_tensor(point_masks, device=self.device),
+                    self._aabb_min, self._aabb_max, self.sp_gp._scale,
+                    generator=self._generator, poses_per_step=poses_per_step,
+                    collect_datasets=collect_datasets, mesh=self.mesh,
+                    **self._step_kw())
+            self._commit(out[0], b)
         return (out[1], out[2]) if collect_datasets else out[1][:b]
 
     def predict(self, points, compute_gradient: bool = False,

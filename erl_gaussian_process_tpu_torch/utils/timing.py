@@ -1,23 +1,67 @@
 """Phase timers (counterpart of ``erl_gaussian_process_tpu/utils/timing.py``:
-the reference's ERL_BLOCK_TIMER scopes and ``ReportTime`` helper).
+the reference's ERL_BLOCK_TIMER scopes and ``ReportTime`` helper), and the
+program's spans and counters.
 
 PyTorch launches CUDA work asynchronously, so every timer here waits for
 the card before it reads a clock: :class:`BlockTimer` synchronizes the
 current CUDA device when one is in use, and :func:`report_time` times each
 call with CUDA events once CUDA is in use.
+
+:func:`span` and :func:`count` wait for nothing. A span is a host range
+on the profiler's clock, the one the card's kernels and copies are traced
+on, opened only while a profiler records (``torch.profiler.profile``,
+:class:`trace` with a ``log_dir``, ``torch.autograd.profiler.emit_nvtx``);
+otherwise it is one shared no-op context, so a closed span costs a flag
+test. An open span is torch's ``_RecordFunctionFast`` (a
+``RecordFunction`` without ``torch.profiler.record_function``'s
+dispatcher calls, several times cheaper under a profiler). A span's
+parent is the span open around it on the same thread. Counters are plain
+numbers in one dict, always on.
+
 The JAX module's ``warn_if_x64_disabled`` has no counterpart: torch has no
 x64 switch, a float64 tensor is float64.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Callable
 
 import torch
+from torch.autograd import profiler as _profiler
 
 logger = logging.getLogger("erl_gaussian_process_tpu_torch")
+
+_NO_SPAN = contextlib.nullcontext()
+_RANGE = torch._C._profiler._RecordFunctionFast
+_COUNTERS: dict = {}
+
+
+def span(name: str):
+    """``with span("egp.layer.phase"): ...``: the block as a host range
+    named ``name`` in the trace of a profiler that is recording, else
+    nothing (see the module docstring)."""
+    if _profiler._is_profiler_enabled:
+        return _RANGE(name)
+    return _NO_SPAN
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` (an int, or a float such as milliseconds) to the counter
+    ``name``."""
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> dict:
+    """A copy of every counter: name -> the sum counted since the process
+    started or :func:`reset_counters`."""
+    return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    _COUNTERS.clear()
 
 
 def _leaves(tree):
@@ -76,7 +120,9 @@ class trace:
     """Profiler scope: a :class:`BlockTimer`, and with ``log_dir`` a
     ``torch.profiler`` trace of the block (CPU, plus CUDA when available)
     written as a Chrome trace to ``log_dir/trace.json`` (``chrome://tracing``
-    or Perfetto open it)."""
+    or Perfetto open it). The program's spans (:func:`span`, ``egp.*``)
+    appear in it as host ranges, beside the operators and kernels they
+    enclose."""
 
     def __init__(self, log_dir: str | None = None, msg: str = "trace"):
         self.log_dir = log_dir
