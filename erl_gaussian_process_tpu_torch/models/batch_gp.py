@@ -15,6 +15,15 @@ have m = #basis rows, and its predicts take ``+||.||^2`` for the variance.
 Those are batched library products and factorizations, as the JAX package
 leaves them to XLA. The sharded bank fit over several ranks is
 ``parallel/mesh.sharded_bank_fit``.
+
+A routed predict groups its queries by member in one of two ways, which
+share the batched predict (:func:`_predict_rows`) and nothing else:
+:func:`group_queries` on the host, into a bucket whose shape follows the
+queries (:func:`bank_predict_assigned`, the public entry, and the CPU
+model's path), and :func:`group_chunks` on the device, into rows of
+``ROUTE_CHUNK`` slots whose number depends only on the query count and
+the bank's size (:func:`bank_predict_chunked`, the body of the 3D sensor
+GP's graphed test, ``models/sensor_graph.SensorGraphs.routed_test``).
 """
 
 from __future__ import annotations
@@ -43,6 +52,13 @@ from erl_gaussian_process_tpu_torch.ops.bank import (
 )
 from erl_gaussian_process_tpu_torch.ops.gram import cross_gram_batched_cuda
 from erl_gaussian_process_tpu_torch.utils.timing import count, span
+
+# The device-routed test (:func:`bank_predict_chunked`): queries padded to a
+# multiple of ROUTE_PAD, grouped into rows of ROUTE_CHUNK slots (chosen on
+# an H100 among 16, 32 and 64, which were within noise of each other;
+# PERF.md §6).
+ROUTE_PAD = 1024
+ROUTE_CHUNK = 32
 
 
 class BankState(NamedTuple):
@@ -190,6 +206,19 @@ def _predict_segmented_rr(state: BankState, mids, qs, basis):
     return mean, torch.sum(at * at, dim=1)
 
 
+def _predict_rows(state: BankState, mids, qs, scale, *, kernel: str,
+                  reduced_rank: bool = False, basis=None):
+    """The routed predict of grouped queries, either grouping's: member
+    mids[r] answers qs[r] (rows, C, d). ``basis``: the reduced-rank
+    predict (:func:`_predict_segmented_rr`); else :func:`_predict_segmented`,
+    fused when the state holds L^-1."""
+    if basis is not None:
+        return _predict_segmented_rr(state, mids, qs, basis)
+    return _predict_segmented(state, mids, qs, scale, kernel=kernel,
+                              fused=state.L_inv is not None,
+                              reduced_rank=reduced_rank)
+
+
 def _next_pow2(v: int) -> int:
     return 1 << max(0, int(v - 1).bit_length())
 
@@ -292,13 +321,10 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
         t1 = time.perf_counter()
         profile["host_group"] = t1 - t0
         profile["bucket"] = tuple(int(v) for v in slots.shape)
-    fused = state.L_inv is not None
 
     def segmented(bank, mids, qs):
-        if basis is not None:
-            return _predict_segmented_rr(bank, mids, qs, basis)
-        return _predict_segmented(bank, mids, qs, scale, kernel=kernel,
-                                  fused=fused, reduced_rank=reduced_rank)
+        return _predict_rows(bank, mids, qs, scale, kernel=kernel,
+                             reduced_rank=reduced_rank, basis=basis)
 
     with span("egp.bank.h2d"):
         q_host = q[slots].astype(dtype, copy=False)
@@ -339,6 +365,76 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
     if prof:
         profile["d2h_scatter"] = time.perf_counter() - t3
     return mean_out, var_out, ok
+
+
+def chunk_rows(m: int, members: int, chunk: int) -> int:
+    """The rows of ``chunk`` slots that always hold m queries grouped by
+    member over ``members`` members: sum_b ceil(c_b / chunk) <= m / chunk
+    + members."""
+    return -(-m // chunk) + members
+
+
+def group_chunks(key, members: int, chunk: int):
+    """The device-routed test's grouping, fixed-shape tensor code with no
+    host sync (a CUDA graph captures it): key (m,) int64 names each query's
+    member, ``members`` (B) for a query no member answers.
+
+    Member b's c_b queries fill ceil(c_b / chunk) consecutive rows of
+    ``chunk`` slots, in their order (a stable sort, as
+    :func:`group_queries`); R = :func:`chunk_rows` rows. Returns (src (R,
+    chunk): the query in each slot, m for an empty slot; mids (R,): each
+    row's member, 0 for an unused row; slot (m,): each query's flat slot
+    in (R * chunk), R * chunk for a query no member answers)."""
+    m = key.shape[0]
+    dev = key.device
+    R = chunk_rows(m, members, chunk)
+    counts = torch.zeros(members + 1, dtype=torch.int64, device=dev) \
+        .index_add_(0, key, torch.ones_like(key))[:members]
+    rows = torch.div(counts + (chunk - 1), chunk, rounding_mode="floor")
+    first_row = torch.cumsum(rows, 0) - rows
+    first_rank = torch.cumsum(counts, 0) - counts
+    order = torch.argsort(key, stable=True)
+    member = key[order]
+    answered = member < members
+    member = torch.clamp(member, max=members - 1)
+    rank = torch.arange(m, device=dev) - first_rank[member]
+    row = first_row[member] + torch.div(rank, chunk, rounding_mode="floor")
+    flat = torch.where(answered, row * chunk + rank % chunk, R * chunk)
+    # one dump slot and one dump row past the end take what no slot holds
+    src = torch.full((R * chunk + 1,), m, dtype=torch.int64, device=dev)
+    src[flat] = order
+    mids = torch.zeros(R + 1, dtype=torch.int64, device=dev)
+    mids[torch.where(answered, row, R)] = member
+    slot = torch.empty_like(flat)
+    slot[order] = flat
+    return src[:-1].view(R, chunk), mids[:-1], slot
+
+
+def bank_predict_chunked(state: BankState, q, idx, scale, *, kernel: str,
+                         reduced_rank: bool = False, basis=None):
+    """The routed predict on the device, every shape fixed by the query
+    count and the bank's size: q (m, d) and idx (m,) int64 tensors on the
+    bank's device, idx -1 (unresolved) or a member, which answers when it
+    is trained.
+
+    Returns one tensor (q_dim + 2, m): the mean's rows, the variance and
+    the valid flag (1 or 0); a query no member answers reads mean 0,
+    variance 1, valid 0, as :func:`bank_predict_assigned` gives it. The
+    queries are grouped by :func:`group_chunks` in rows of ``ROUTE_CHUNK``
+    slots, answered row by row by :func:`_predict_rows` and gathered back
+    by their slots."""
+    B = state.trained.shape[0]
+    ok = (idx >= 0) & (idx < B)
+    ok = ok & state.trained[torch.where(ok, idx, 0)]
+    src, mids, slot = group_chunks(torch.where(ok, idx, B), B, ROUTE_CHUNK)
+    qs = torch.cat([q, torch.zeros_like(q[:1])])[src]
+    mean, var = _predict_rows(state, mids, qs, scale, kernel=kernel,
+                              reduced_rank=reduced_rank, basis=basis)
+    mean = mean.reshape(-1, mean.shape[-1])
+    mean = torch.cat([mean, torch.zeros_like(mean[:1])])[slot]
+    var = var.reshape(-1)
+    var = torch.cat([var, torch.ones_like(var[:1])])[slot]
+    return torch.cat([mean.mT, var[None], ok.to(var.dtype)[None]])
 
 
 class BatchGPBank:

@@ -6,14 +6,18 @@ The reference's OpenMP grid loop becomes one flattened bank of all
 row x col partitions: a scan train is the hit mask, distance mapping and
 partition gather on the model's device followed by ONE launch of the bank
 fit kernel (``ops/bank.py``); a test routes each query to its partition
-on the host and answers all partitions in one batched predict
-(``models/batch_gp.bank_predict_assigned``). Frames and partition search
-are host numpy, as in the JAX package. A reduced-rank ``gp.kernel_type``
+and answers all partitions in one batched predict. Frames and partition
+search are host numpy, as in the JAX package, on the CPU model
+(``models/batch_gp.bank_predict_assigned``); on a model with graphs only
+the frame coordinates are, and the rest of the routing runs on the device
+(:meth:`~RangeSensorGaussianProcess3D._route_tensor`,
+``models/batch_gp.bank_predict_chunked``). A reduced-rank ``gp.kernel_type``
 fits each partition's basis information system instead
 (``models/batch_gp.bank_fit_rr_core``) and predicts with ``+||.||^2``.
 On a CUDA device each scan train
-(:meth:`~RangeSensorGaussianProcess3D.train`) and the device half of each
-routed predict is one replay of a CUDA graph (``models/sensor_graph.py``),
+(:meth:`~RangeSensorGaussianProcess3D.train`) and each routed test or
+``compute_occ``, from the frame coordinates on, is one replay of a CUDA
+graph (``models/sensor_graph.py``),
 as each is one jit in the JAX package; the offline replay
 (:meth:`~RangeSensorGaussianProcess3D.train_scan_batch`) runs eagerly.
 With ``mesh=``, a train shards the bank's members over the ranks
@@ -44,6 +48,7 @@ from erl_gaussian_process_tpu_torch.models.batch_gp import (
     bank_fit_rr_finish,
     bank_fit_rr_parts,
     bank_predict_assigned,
+    bank_predict_chunked,
     bank_state_from_numpy,
 )
 from erl_gaussian_process_tpu_torch.models.gp_core import DEFAULT_DEVICE
@@ -170,14 +175,7 @@ class RangeSensorGP3DTestResult:
                 d = d[None, :]
             if d.shape[0] == 3 and d.shape[1] != 3:
                 d = d.T  # accept the reference's (3, m) layout
-            with span("egp.rsgp.route"):
-                if not directions_are_local:
-                    d = gp.sensor_frame.dir_world_to_frame(d)
-                coords, idx = gp.route_directions(d)
-            mean, var, valid = bank_predict_assigned(
-                gp.bank, coords, idx, gp._scale, kernel=gp._kernel,
-                reduced_rank=gp.reduced_rank_kernel, basis=gp._basis,
-                graphs=gp._graphs)
+            mean, var, valid = gp._routed_predict(d, directions_are_local)
         self._gp = gp
         self._mean = mean[:, 0]
         self._var = var
@@ -203,7 +201,8 @@ class RangeSensorGP3DTestResult:
 
 class RangeSensorGaussianProcess3D:
     """The bank lives on ``device`` (the mesh's device with a ``mesh``);
-    frames, partition tables and query routing stay on the host."""
+    frames and partition tables stay on the host, and so does the query
+    routing of a model without graphs."""
 
     Setting = RangeSensorGP3DSetting
     TestResult = RangeSensorGP3DTestResult
@@ -238,6 +237,7 @@ class RangeSensorGaussianProcess3D:
         self.bank: Optional[BankState] = None
         self.mapped_distances = None
         self._scan_fit_cache = None
+        self._route_bounds = None
         self._graphs = SensorGraphs(self.device) \
             if runs_graphs(self.device, mesh) else None
 
@@ -559,6 +559,65 @@ class RangeSensorGaussianProcess3D:
         return coords, np.where(ok, self.search_partition(coords),
                                 -1).astype(np.int32)
 
+    def _route_tensor(self, coords: torch.Tensor) -> torch.Tensor:
+        """:meth:`route_directions` after the frame coordinates, as tensor
+        code on the device with no host sync (the routed test's graph
+        runs it): coords (m, 2), NaN where the frame maps no direction ->
+        the member of each (m,) int64, -1 outside the frame. The frame's
+        bounds are compared in the coordinates' dtype and the partition
+        search keeps the first match (row [left, right), col [left,
+        right]), as the host's comparisons and ``argmax`` do."""
+        if self._route_bounds is None:
+            self._route_bounds = tuple(
+                torch.as_tensor(b, device=self.device)
+                for b in (self._row_bounds, self._col_bounds))
+        rb, cb = self._route_bounds
+        rc, cc = coords[:, :1], coords[:, 1:]
+        rok = (rc >= rb[:, 0]) & (rc < rb[:, 1])
+        cok = (cc >= cb[:, 0]) & (cc <= cb[:, 1])
+        ok = self.sensor_frame.coords_in_frame(coords) & rok.any(1) \
+            & cok.any(1)
+        idx = torch.argmax(rok.to(torch.uint8), 1) * len(self.col_partitions) \
+            + torch.argmax(cok.to(torch.uint8), 1)
+        return torch.where(ok, idx, -1)
+
+    def _routed_predict(self, dirs: np.ndarray, directions_are_local: bool,
+                        profile: Optional[dict] = None):
+        """(mean (m, 1), var (m,), valid (m,)) numpy of the directions (m,
+        3), in the sensor frame when ``directions_are_local``, else the
+        world's: :meth:`test`'s and :meth:`compute_occ`'s routed predict.
+        Without graphs, routed on the host (:meth:`route_directions`) and
+        answered by ``bank_predict_assigned``; with graphs, the frame
+        coordinates on the host and the rest one replay of
+        ``SensorGraphs.routed_test``. ``profile``: either's phase split."""
+        frame = self.sensor_frame
+        with span("egp.rsgp.route"):
+            if not directions_are_local:
+                dirs = frame.dir_world_to_frame(dirs)
+            if self._graphs is None:
+                coords, idx = self.route_directions(dirs)
+            else:
+                coords, ok = frame.compute_frame_coords(dirs)
+                coords = np.where(ok[:, None], coords,
+                                  coords.dtype.type(np.nan))
+        if self._graphs is None:
+            return bank_predict_assigned(
+                self.bank, coords, idx, self._scale, kernel=self._kernel,
+                reduced_rank=self.reduced_rank_kernel, basis=self._basis,
+                profile=profile)
+
+        def body(bank, q):
+            return bank_predict_chunked(
+                bank, q, self._route_tensor(q), self._scale,
+                kernel=self._kernel, reduced_rank=self.reduced_rank_kernel,
+                basis=self._basis)
+
+        return self._graphs.routed_test(
+            self.bank, coords, body,
+            (self._kernel, self._scale, self.reduced_rank_kernel,
+             self._basis is not None, tuple(vars(frame.setting).values())),
+            profile=profile)
+
     def test(self, directions, directions_are_local: bool, un_map: bool
              ) -> Optional[RangeSensorGP3DTestResult]:
         if not self._trained:
@@ -574,11 +633,7 @@ class RangeSensorGaussianProcess3D:
         p = np.atleast_2d(np.asarray(pos_local, self.dtype))
         dist = np.linalg.norm(p, axis=-1)
         dirs = p / np.where(dist > 0, dist, 1.0)[:, None]
-        coords, idx = self.route_directions(dirs)
-        mean, var, valid = bank_predict_assigned(
-            self.bank, coords, idx, self._scale, kernel=self._kernel,
-            reduced_rank=self.reduced_rank_kernel, basis=self._basis,
-            graphs=self._graphs)
+        mean, var, valid = self._routed_predict(dirs, True)
         mean = mean[:, 0]
         valid = valid & (var <= self.setting.max_valid_range_var)
         a = dist * self.setting.occ_test_temperature

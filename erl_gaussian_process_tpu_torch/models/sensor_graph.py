@@ -39,23 +39,34 @@ of each routed predict as one replay of a graph captured with
   warm-up runs the gathers first. Every rank captures and replays the same
   trains in the same order (the keys are the same on every rank). The
   routed predicts read the replicated bank and hold no collective.
-- **Routed predicts.** A graph per (bank, bucket (Bp, C), kernel, scale,
-  fused, reduced rank, dtype), for a bucket of at most ``max_slots``
-  query slots (Bp * C); a larger bucket runs the eager chain. A replay
-  saves the same launches whatever the bucket, while a capture's warm-up,
-  pool and the number of buckets grow with it: the bucket follows the
-  queries (the members they touch, the most a member gets), and on a
-  trajectory the 3D lidar's 10 000-query test (656-720 x 128-256) met a
-  new one every few scans, each capture costing more than its replays
-  saved. The 2D lidar's buckets (16 x 32) and the 3D ``compute_occ`` on a
-  scan's own points (464 x 2) are graphed. The bank a graph reads is a
-  train graph's outputs when the model's bank is those (no copy), else a
-  static copy of the model's bank, copied again whenever the model holds
-  another bank (``use_scan_bank``, a loaded checkpoint, a bank the jitter
-  ladder replaced). The queries and member ids go into static inputs
-  without blocking, and the mean and variance come back in one copy.
-  Each call counts its path: ``bank.routed_graphed`` or
-  ``bank.routed_eager``.
+- **The 3D routed test** (:meth:`SensorGraphs.routed_test`: the 3D sensor
+  GP's ``test`` and ``compute_occ``). The host computes the queries'
+  frame coordinates (numpy, in the model's dtype, as the CPU model
+  routes); the rest is one replay: the frame's bounds, the partition
+  search, the bank's trained mask, the grouping into fixed-shape rows
+  (``batch_gp.group_chunks``), the batched predict and the gather back
+  (``batch_gp.bank_predict_chunked``). The queries are padded to a
+  multiple of ``batch_gp.ROUTE_PAD``, so a graph per (bank, padded count,
+  dtype, kernel, scale, reduced rank, frame settings): a trajectory's
+  10 000-query tests share one. The coordinates go in with one copy from
+  a pinned buffer, and the mean, variance and valid flag come back with
+  one copy into another; each call that answers a query counts
+  ``bank.routed_graphed``.
+- **The 2D lidar GP's routed predicts** (:meth:`SensorGraphs.routed`,
+  grouped on the host by ``batch_gp.group_queries``). A graph per (bank,
+  bucket (Bp, C), kernel, scale, fused, reduced rank, dtype), for a
+  bucket of at most ``max_slots`` query slots (Bp * C); a larger bucket
+  runs the eager chain: the bucket follows the queries, and graphing
+  buckets that change from scan to scan lost on the card (a capture cost
+  more than its replays saved). Its buckets (16 x 32) are graphed. The
+  queries and member ids go into static inputs without blocking, and the
+  mean and variance come back in one copy. Each call counts its path:
+  ``bank.routed_graphed`` or ``bank.routed_eager``.
+- **The bank a routed graph reads** is a train graph's outputs when the
+  model's bank is those (no copy), else a static copy of the model's
+  bank, copied again whenever the model holds another bank
+  (``use_scan_bank``, a loaded checkpoint, a bank the jitter ladder
+  replaced).
 
 Each capture runs its body once eagerly first (``capture``'s warm-up);
 capture errors raise with their cause, and no failure falls back to the
@@ -67,6 +78,7 @@ from __future__ import annotations
 
 import collections
 import logging
+import time
 import weakref
 from typing import Callable, Optional
 
@@ -75,9 +87,13 @@ import torch
 
 from erl_gaussian_process_tpu_torch.models import pose_graph
 from erl_gaussian_process_tpu_torch.models.batch_gp import (
+    ROUTE_CHUNK,
+    ROUTE_PAD,
     BankState,
     RRFitParts,
+    _sync,
     bank_fit_rr_finish,
+    chunk_rows,
 )
 from erl_gaussian_process_tpu_torch.models.pose_graph import (
     CapturedGraph,
@@ -86,12 +102,14 @@ from erl_gaussian_process_tpu_torch.models.pose_graph import (
     feed,
     same,
 )
-from erl_gaussian_process_tpu_torch.utils.timing import span
+from erl_gaussian_process_tpu_torch.utils.timing import count, span
 
 _LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
 
 MAX_GRAPHS = 8  # graphs kept of each kind (trains, routed predicts)
-MAX_SLOTS = 4096  # the largest routed bucket (Bp * C query slots) graphed
+# the largest host-grouped routed bucket (Bp * C query slots) graphed: the
+# 2D lidar GP's (the 3D test groups on the device, in rows of fixed shape)
+MAX_SLOTS = 4096
 
 
 def _bank_of(outputs) -> BankState:
@@ -102,7 +120,7 @@ class SensorGraphs:
     """One sensor GP's graphs (see the module docstring). ``captures``
     lists every graph captured, the dropped ones released: key, warm-up
     and capture ms, pool bytes, launches a replay, replays. ``max_slots``:
-    the largest routed bucket graphed (None: every bucket)."""
+    the largest host-grouped routed bucket graphed (None: every bucket)."""
 
     def __init__(self, device, size: int = MAX_GRAPHS,
                  max_slots: Optional[int] = MAX_SLOTS):
@@ -241,3 +259,98 @@ class SensorGraphs:
             for dst, a in zip(g.inputs, (qs, mids)):
                 feed(dst, a)
         return g
+
+    def routed_test(self, state: BankState, coords: np.ndarray,
+                    body: Callable, settings: tuple,
+                    profile: Optional[dict] = None) -> tuple:
+        """The 3D routed test of ``state``'s bank as one replay: coords (m,
+        d) the queries' frame coordinates on the host, NaN where the frame
+        maps none; ``body(bank, q)`` the graph's function of the static
+        bank and the padded coordinates (mp, d) on the device, returning
+        ``batch_gp.bank_predict_chunked``'s (q_dim + 2, mp); ``settings``
+        what it bakes. Returns numpy (mean (m, q_dim), var (m,), valid
+        (m,) bool), new arrays.
+
+        The phases are ``bank_predict_assigned``'s spans, as their names
+        say: ``egp.bank.group`` the graph's lookup, ``egp.bank.h2d`` the
+        coordinates into the pinned buffer and the copy in (a capture at
+        a graph's first use), ``egp.bank.predict`` the replay,
+        ``egp.bank.readback`` the copy out and the wait for the card,
+        ``egp.bank.scatter`` the outputs cut to m. ``profile``: the same
+        phases' seconds, synchronized between them, under
+        ``bank_predict_assigned``'s keys, and ``bucket`` the rows'
+        shape."""
+        prof = profile is not None
+        if prof:
+            t0 = time.perf_counter()
+        with span("egp.bank.group"):
+            m = coords.shape[0]
+            mp = max(1, -(-m // ROUTE_PAD)) * ROUTE_PAD
+            token, fit = self._token(state)
+            key = (token, "chunked", mp, coords.dtype.str, *settings)
+            g = self._routed.get(key)
+        if prof:
+            t1 = time.perf_counter()
+            profile["host_group"] = t1 - t0
+            profile["bucket"] = (chunk_rows(mp, state.trained.shape[0],
+                                            ROUTE_CHUNK), ROUTE_CHUNK)
+        with span("egp.bank.h2d"):
+            if g is None:
+                bank = self._bank(token, fit, state)
+                pin = self.device.type == "cuda"
+                dtype = bank.alpha.dtype
+                host_in = torch.empty((mp, coords.shape[1]), dtype=dtype,
+                                      pin_memory=pin)
+                host_out = torch.empty((bank.alpha.shape[2] + 2, mp),
+                                       dtype=dtype, pin_memory=pin)
+                q = torch.empty(host_in.shape, dtype=dtype,
+                                device=self.device)
+                _stage(host_in, q, coords)
+
+                def run():
+                    return body(bank, q)
+
+                g = self._routed.keep(pose_graph.capture(
+                    key, self.device, run, run, (q, host_in, host_out)))
+            else:
+                self._bank(token, fit, state)
+                with span("egp.graph.feed"):
+                    _stage(g.inputs[1], g.inputs[0], coords)
+            if prof:
+                _sync(self.device)
+        if prof:
+            t2 = time.perf_counter()
+            profile["h2d"] = t2 - t1
+        with span("egp.bank.predict"):
+            g.replay()
+            if prof:
+                _sync(self.device)
+        if prof:
+            t3 = time.perf_counter()
+            profile["device"] = t3 - t2
+        host_out = g.inputs[2]
+        with span("egp.bank.readback"):
+            host_out.copy_(g.outputs, non_blocking=True)
+            _sync(self.device)
+        with span("egp.bank.scatter"):
+            out = host_out.numpy()[:, :m]
+            qd = out.shape[0] - 2
+            mean, var = out[:qd].T.copy(), out[qd].copy()
+            valid = out[qd + 1] > 0
+        if valid.any():
+            count("bank.routed_graphed")
+        if prof:
+            profile["d2h_scatter"] = time.perf_counter() - t3
+        return mean, var, valid
+
+
+def _stage(host: torch.Tensor, dst: torch.Tensor, coords: np.ndarray):
+    """coords into the head of the (pinned) host buffer, NaN past it (a
+    padded query routes nowhere), and the buffer into ``dst`` without
+    blocking: the caller reads the results back, which waits for the
+    copy, before the next call writes the buffer again."""
+    h = host.numpy()
+    m = coords.shape[0]
+    h[:m] = coords
+    h[m:] = np.nan
+    dst.copy_(host, non_blocking=True)

@@ -794,9 +794,10 @@ def test_batched_gram_kernel_matches_plain(cuda, fam, dtype, tol, c):
 
 def test_cuda_sensor_gp_never_calls_the_plain_versions(cuda, monkeypatch):
     """A CUDA train and test of the 3D sensor GP run the kernels only: the
-    plain versions are patched to raise. The first train captures its
-    graph; the next is one replay, one bank-fit launch; the test's bucket
-    is too large to graph and runs eagerly, one gram launch."""
+    plain versions are patched to raise. The first train and test capture
+    their graphs; the next train is one replay, one bank-fit launch, and
+    the next test (routed and grouped on the device) one replay, one gram
+    launch."""
     import erl_gaussian_process_tpu_torch.ops.bank as bank_ops
     import erl_gaussian_process_tpu_torch.ops.gram as gram_ops
     from erl_gaussian_process_tpu_torch.models import (
@@ -1597,14 +1598,31 @@ def _result(gp, q):
     return r._mean, r._var, r._valid
 
 
+def _same_test(kind, got, want) -> bool:
+    """A graphed test against the eager chain's: bit for bit for the 2D
+    GPs; the 3D GP's device-routed test groups its queries into rows of
+    another shape than the host's bucket, so its products may round
+    otherwise: valid flags exact, means and variances within 1e-4
+    (float32) or 1e-12 (float64) of their magnitude
+    (tests/test_torch_routed_chunks.py)."""
+    if not kind.startswith("3d"):
+        return _bits(got, want)
+    tol = 1e-4 if got[0].dtype == np.float32 else 1e-12
+    return np.array_equal(got[2], want[2]) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1e-300)
+        for a, b in zip(got[:2], want[:2]))
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("kind", ["3d", "3d_rr", "2d", "2d_rr"])
 def test_sensor_graphs_equal_the_eager_chain(cuda, kind, dtype):
     """The graphed ``train`` and ``test`` (twice: the capture, then a
     replay) against the same model's eager chain on the card, bit for bit:
-    banks, means, variances and valid masks; a replay is one bank-fit
-    launch (plain) and one batched gram launch. ``train_scan_batch``
-    (eager) too."""
+    banks, and the 2D GPs' means, variances and valid masks (the 3D GP's
+    device-routed test: ``_same_test``); a replay is one bank-fit launch
+    (plain) and one batched gram launch. ``train_scan_batch`` (eager)
+    too."""
     gp, scans, pose, q = _sensor_case(cuda, kind, dtype)
     for s in range(2):
         before = launch_counts()
@@ -1615,7 +1633,7 @@ def test_sensor_graphs_equal_the_eager_chain(cuda, kind, dtype):
         counts = launch_counts()
         assert _eager(gp, lambda: gp.train(*pose, scans[s]))
         assert _bits(bank, tuple(gp.bank))
-        assert _bits(got, _eager(gp, lambda: _result(gp, q)))
+        assert _same_test(kind, got, _eager(gp, lambda: _result(gp, q)))
         if s == 1 and not kind.endswith("_rr"):
             assert counts["bank_fit"] - before["bank_fit"] == 1
             assert counts["gram_batched"] - before["gram_batched"] == 1
@@ -1625,6 +1643,50 @@ def test_sensor_graphs_equal_the_eager_chain(cuda, kind, dtype):
     stacked = gp.train_scan_batch(scans)
     assert _bits(tuple(stacked),
                  tuple(_eager(gp, lambda: gp.train_scan_batch(scans))))
+
+
+@pytest.mark.parametrize("name,gate", [("lidar", 4.2e-4), ("depth", 2.2e-4)])
+def test_device_routed_test_matches_the_host_path(cuda, name, gate):
+    """The reference protocols' tests (10 000 lidar directions, the depth
+    image's) on the card: each graphed test is one replay of one graph,
+    captured once, holding one gram launch and counting one
+    ``bank.routed_graphed``; valid flags equal to the host path's (the
+    same model's graphs set aside), ranges and variances within 1e-4 of
+    their magnitude, both under the protocol's MSE gate."""
+    from erl_gaussian_process_tpu_torch.models import (
+        RangeSensorGaussianProcess3D,
+    )
+    from erl_gaussian_process_tpu_torch.ops import cross_gram_batched_cuda
+    from erl_gaussian_process_tpu_torch.utils import timing
+    from erl_gaussian_process_tpu_torch.workloads import (
+        depth3d_reference_workload,
+        lidar3d_reference_workload,
+    )
+
+    make = {"lidar": lidar3d_reference_workload,
+            "depth": depth3d_reference_workload}[name]
+    setting, R, t, ranges, q, gt, _ = make()
+    gp = RangeSensorGaussianProcess3D(setting, dtype=np.float32, device=cuda)
+
+    def answers():
+        r = gp.test(q, False, True)
+        return (*r.get_mean(), r.get_variance()[0])
+
+    assert gp.train(R, t, ranges)
+    answers()
+    before = timing.counters().get("bank.routed_graphed", 0)
+    pred, valid, var = answers()
+    assert timing.counters().get("bank.routed_graphed", 0) == before + 1
+    (g,) = [g for g in gp._graphs.captures if g.key[1] == "chunked"]
+    assert g.replays == 2 and g.launches == {cross_gram_batched_cuda: 1}
+    hpred, hvalid, hvar = _eager(gp, answers)
+    np.testing.assert_array_equal(valid, hvalid)
+    assert valid.any()
+    for a, b in ((pred, hpred), (var, hvar)):
+        assert np.abs(a[valid] - b[valid]).max() <= \
+            1e-4 * np.abs(b[valid]).max()
+    for p, v in ((pred, valid), (hpred, hvalid)):
+        assert np.mean((p[v] - gt[v]) ** 2) <= gate
 
 
 def test_sensor_graph_replays_launch_the_bank_fit_once(cuda):
@@ -1667,8 +1729,8 @@ def test_sensor_graph_sees_a_changed_scalar(cuda, kind):
 @pytest.mark.parametrize("kind", ["3d", "2d"])
 def test_sensor_graph_scan_batch_leaves_the_trained_bank(cuda, kind):
     """``train`` of scan A, then ``train_scan_batch`` of scan B alone (S =
-    1, the train's own shape): the bank and ``test`` stay scan A's, bit for
-    bit the eager chain's ``test`` of A."""
+    1, the train's own shape): the bank and ``test`` stay scan A's, the
+    eager chain's ``test`` of A (``_same_test``)."""
     gp, scans, pose, q = _sensor_case(cuda, kind, np.float32)
     assert gp.train(*pose, scans[0])
     _result(gp, q)
@@ -1676,7 +1738,7 @@ def test_sensor_graph_scan_batch_leaves_the_trained_bank(cuda, kind):
     gp.train_scan_batch(scans[1:2])
     got = _result(gp, q)
     assert _bits(bank, tuple(gp.bank))
-    assert _bits(got, _eager(gp, lambda: _result(gp, q)))
+    assert _same_test(kind, got, _eager(gp, lambda: _result(gp, q)))
     assert gp._graphs._routed.get(next(iter(gp._graphs._routed))) \
         .replays == 2
 
@@ -1995,7 +2057,8 @@ def test_mesh_sensor_graphs_equal_eager_mesh_train(nccl_mesh, kind):
     """The 3D lidar and 2D lidar GPs on the NCCL mesh: each train one
     replay (the rank's bank fit and the three gathers inside), bit for
     bit the same model's eager mesh train and the one-card graphed
-    train; the routed test on the gathered bank too."""
+    train; the routed test on the gathered bank too (against the eager
+    mesh chain: ``_same_test``)."""
     gp, scans, pose, q = _sensor_case(torch.device("cuda"), kind, np.float32,
                                       mesh=nccl_mesh)
     one = _sensor_case(torch.device("cuda"), kind, np.float32)[0]
@@ -2012,6 +2075,6 @@ def test_mesh_sensor_graphs_equal_eager_mesh_train(nccl_mesh, kind):
         assert _bits(got, _result(one, q))
         assert _eager(gp, lambda: gp.train(*pose, scans[s]))
         assert _bits(bank, tuple(gp.bank))
-        assert _bits(got, _eager(gp, lambda: _result(gp, q)))
+        assert _same_test(kind, got, _eager(gp, lambda: _result(gp, q)))
     fits = [g for g in gp._graphs.captures if g.key[0] == "fit"]
     assert len(fits) == 1 and fits[0].replays == 2

@@ -194,6 +194,26 @@ def _same_result(a, b):
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
 
 
+def _routed_result(case, a, b):
+    """A routed test's or ``compute_occ``'s outputs of the graphed model
+    (b) against the eager model's (a): bit for bit, but for a float32 3D
+    model, whose graph groups the queries on the device into rows of
+    another shape than the host's bucket (``batch_gp.group_chunks``), so
+    its products may round otherwise: valid flags and distances exact, the
+    rest within TOL (tests/test_torch_routed_chunks.py)."""
+    if not (case.kind.startswith("3d") and case.dtype == np.float32):
+        _same_result(a, b)
+        return
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        if x.dtype == bool:
+            np.testing.assert_array_equal(x, y)
+        else:
+            fin = np.isfinite(x)
+            np.testing.assert_array_equal(fin, np.isfinite(y))
+            _close(y[fin], x[fin], TOL[np.float32])
+
+
 # -- (a) the captured bodies against train / train_scan_batch / test --------
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -203,9 +223,10 @@ def test_graphed_steps_equal_the_eager_model(frames, eager_graphs, kind,
     """The graphed routing (static inputs, the bodies run as captured,
     static outputs) against the eager CPU model, bit for bit: the bank of
     each ``train``, ``test``'s mean, variance and valid mask, the
-    ``compute_occ`` result, and (plain kernels) ``train_scan_batch``
-    (eager, no graph) and each scan's slice against its own ``train``; the
-    body called directly gives the same bank."""
+    ``compute_occ`` result (a float32 3D model's within TOL:
+    ``_routed_result``), and (plain kernels) ``train_scan_batch`` (eager,
+    no graph) and each scan's slice against its own ``train``; the body
+    called directly gives the same bank."""
     case = Case(kind, dtype, frames)
     ref, got = case.new(), case.new(graphed=True)
     for s in range(2):
@@ -213,7 +234,7 @@ def test_graphed_steps_equal_the_eager_model(frames, eager_graphs, kind,
         assert got.train(*case.pose, case.scans[s])
         _same_bank(ref.bank, got.bank)
         assert _owned(got)
-        _same_result(case.result(ref), case.result(got))
+        _routed_result(case, case.result(ref), case.result(got))
         assert len(got._graphs._routed)
     body = ref._scan_step(torch.as_tensor(case.scans[1:2].astype(dtype)),
                           torch.as_tensor(ref._scan_scalars()),
@@ -223,8 +244,7 @@ def test_graphed_steps_equal_the_eager_model(frames, eager_graphs, kind,
     occ = (case.queries[::7] * 2.0 if kind.startswith("3d") else
            np.stack([np.cos(case.queries[::7]),
                      np.sin(case.queries[::7])], -1) * 2.0)
-    for a, b in zip(ref.compute_occ(occ), got.compute_occ(occ)):
-        assert a.tobytes() == b.tobytes()
+    _routed_result(case, ref.compute_occ(occ), got.compute_occ(occ))
     if kind.endswith("_rr"):
         assert len(got._graphs._fits) == 1
         return
@@ -476,10 +496,13 @@ def test_gps_views_survive_the_next_train(frames, eager_graphs, kind):
 
 
 def test_a_large_routed_bucket_runs_eagerly(frames, eager_graphs):
-    """A routed bucket of more than ``max_slots`` query slots (Bp * C) runs
-    the eager chain and is never captured; a smaller one is captured at
-    its first use and replayed after; ``max_slots=None`` graphs every
-    bucket. Every answer is the eager model's, bit for bit."""
+    """The 2D lidar GP's host-grouped buckets (the only ones ``max_slots``
+    limits: the 3D test groups on the device,
+    tests/test_torch_routed_chunks.py): a routed bucket of more than
+    ``max_slots`` query slots (Bp * C) runs the eager chain and is never
+    captured; a smaller one is captured at its first use and replayed
+    after; ``max_slots=None`` graphs every bucket. Every answer is the
+    eager model's, bit for bit."""
     case = Case("2d", np.float64, frames)
     ref, got = case.new(), case.new(graphed=True, max_slots=64)
     for m in (ref, got):

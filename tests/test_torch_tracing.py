@@ -2,9 +2,11 @@
 timing.py`` ``span`` and ``count``) on the CPU: with no profiler recording
 a span opens no profiler range; under ``torch.profiler`` the map
 update, the scan train and the routed test emit their spans nested as
-their layers are; the routed test counts the path each call took and the
-SPGP prepare the tier that served it; and ``bank_predict_assigned``'s
-``profile=`` phases open and close at the statements its spans do."""
+their layers are, on the host path and on the graphed (device-routed)
+one; the routed test counts the path each call took and the SPGP prepare
+the tier that served it; and the ``profile=`` phases of
+``bank_predict_assigned`` and ``SensorGraphs.routed_test`` open and close
+at the statements their spans do."""
 
 import types
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 import erl_gaussian_process_tpu_torch.models.batch_gp as batch_gp
+import erl_gaussian_process_tpu_torch.models.sensor_graph as sensor_graph
 from erl_gaussian_process_tpu_torch.geometry import Aabb
 from erl_gaussian_process_tpu_torch.kernels import KernelSetting
 from erl_gaussian_process_tpu_torch.models import (
@@ -149,14 +152,24 @@ def test_routed_counters_count_by_path(eager_graphs):
     gp.test(queries, True, False)
     assert _delta(before, "bank.routed_eager") == 2
     assert _delta(before, "bank.routed_graphed") == 0
-    # with graphs (the CPU stand-in): a bucket within max_slots replays,
-    # a larger one runs eagerly
-    for max_slots, path in ((None, "bank.routed_graphed"),
-                            (1, "bank.routed_eager")):
+    # with graphs (the CPU stand-in) the 3D test is one replay whatever
+    # max_slots, which limits only host-grouped buckets
+    for max_slots in (None, 1):
         gp._graphs = SensorGraphs("cpu", max_slots=max_slots)
         assert gp.train(*pose, ranges)
         before = timing.counters()
         gp.test(queries, True, False)
+        assert _delta(before, "bank.routed_graphed") == 1
+        assert _delta(before, "bank.routed_eager") == 0
+    # a host-grouped bucket within max_slots replays, a larger one runs
+    # eagerly
+    coords, idx = gp.route_directions(queries)
+    for max_slots, path in ((None, "bank.routed_graphed"),
+                            (1, "bank.routed_eager")):
+        before = timing.counters()
+        batch_gp.bank_predict_assigned(
+            gp.bank, coords, idx, gp._scale, kernel=gp._kernel,
+            graphs=SensorGraphs("cpu", max_slots=max_slots))
         assert _delta(before, path) == 1
         assert _delta(before, "bank.routed_graphed") \
             + _delta(before, "bank.routed_eager") == 1
@@ -239,6 +252,82 @@ def test_profile_phases_open_and_close_with_the_spans(monkeypatch):
     assert log == ["clock", "egp.bank.group", "clock", "egp.bank.h2d",
                    "clock", "egp.bank.predict", "clock", "egp.bank.readback",
                    "egp.bank.scatter", "clock"]
+
+
+def test_graphed_test_spans_keep_their_order(eager_graphs):
+    """The device-routed test (graphs through the CPU stand-in) under the
+    profiler: the route, then the five phases in order, each inside the
+    test, as on the host path; the copy in holds the graph's feed from the
+    second test on."""
+    gp, pose, ranges, queries = _lidar()
+    gp._graphs = SensorGraphs("cpu")
+    assert gp.train(*pose, ranges)
+    gp.test(queries, True, False)           # the capture
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        res = gp.test(queries, True, False)
+    assert res._valid.any()
+    spans = _host_spans(prof)
+    (test,) = spans["egp.rsgp.test"]
+    (route,) = spans["egp.rsgp.route"]
+    assert all(len(spans[name]) == 1 for name in BANK_PHASES)
+    phases = [route] + [spans[name][0] for name in BANK_PHASES]
+    assert all(_inside(p, test) for p in phases)
+    assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
+    (feed,) = spans["egp.graph.feed"]
+    assert _inside(feed, spans["egp.bank.h2d"][0])
+
+
+def test_routed_test_profile_phases_open_and_close_with_the_spans(
+        monkeypatch, eager_graphs):
+    """``SensorGraphs.routed_test(profile=)``: the keys of
+    ``bank_predict_assigned``'s profile, the rows' shape as the bucket, and
+    each clock reading between the phases' spans."""
+    gp, pose, ranges, queries = _lidar()
+    gp._graphs = SensorGraphs("cpu")
+    assert gp.train(*pose, ranges)
+    coords, ok = gp.sensor_frame.compute_frame_coords(queries)
+    coords = np.where(ok[:, None], coords, np.float32(np.nan))
+    log, stack = [], []
+
+    class Span:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            stack.append(self.name)
+            log.append(self.name)
+
+        def __exit__(self, *exc):
+            stack.pop()
+
+    def clock():
+        assert not stack, f"a profile= clock read inside {stack}"
+        log.append("clock")
+        return float(len(log))
+
+    def body(bank, q):
+        return batch_gp.bank_predict_chunked(
+            bank, q, gp._route_tensor(q), gp._scale, kernel=gp._kernel)
+
+    monkeypatch.setattr(sensor_graph, "span", Span)
+    monkeypatch.setattr(sensor_graph, "time",
+                        types.SimpleNamespace(perf_counter=clock))
+    for k in range(2):
+        log.clear()
+        profile = {}
+        mean, var, valid = gp._graphs.routed_test(gp.bank, coords, body, (),
+                                                  profile=profile)
+        assert valid.any() and mean.shape == (len(queries), 1)
+        assert set(profile) == {"host_group", "h2d", "device",
+                                "d2h_scatter", "bucket"}
+        assert profile["bucket"] == (
+            batch_gp.chunk_rows(batch_gp.ROUTE_PAD, gp.bank.x.shape[0],
+                                batch_gp.ROUTE_CHUNK), batch_gp.ROUTE_CHUNK)
+        h2d = ["egp.bank.h2d"] + (["egp.graph.feed"] if k else [])
+        assert log == ["clock", "egp.bank.group", "clock", *h2d, "clock",
+                       "egp.bank.predict", "clock", "egp.bank.readback",
+                       "egp.bank.scatter", "clock"]
 
 
 @pytest.mark.parametrize("name", ["egp.map.update", "egp.bank.group"])
