@@ -214,12 +214,19 @@ def host_jitter_retry(fit_once, check_arrays, jitters=(0.0, 1e-10, 1e-8,
                                                        1e-6, 1e-4, 1e-2)):
     """``fit_once(jitter)`` retried with the next jitter level while any of
     ``check_arrays(result)`` holds non-finite values. When the retry
-    escalates, the effective observation noise changes, hence the warning."""
+    escalates, the effective observation noise changes, hence the warning.
+    The finite check waits for the device (span ``egp.fit.check``); a fit
+    that escalated counts once in ``fit.jitter``."""
+    from erl_gaussian_process_tpu_torch.utils.timing import count, span
+
     result = None
     for j in jitters:
         result = fit_once(j)
-        ok = all(bool(torch.isfinite(torch.as_tensor(a)).all())
-                 for a in check_arrays(result))
+        with span("egp.fit.check"):
+            ok = all(bool(torch.isfinite(torch.as_tensor(a)).all())
+                     for a in check_arrays(result))
+        if j == jitters[0] and not ok:
+            count("fit.jitter")
         if ok:
             if j > 0:
                 _LOG.warning(

@@ -16,6 +16,14 @@ On a CUDA device each fit, each test (ktest and the mean,
 :func:`vanilla_test_step`) and each variance query is one replay of a
 CUDA graph (``models/exact_graph.py``), as each is one jit in the JAX
 package; the model's state is then the fit graph's buffers.
+
+Spans (``utils.timing.span``): ``egp.exact.train`` (a fit, with
+``egp.exact.inputs``, the reset and the padded host arrays, and the
+jitter retry's ``egp.fit.check``), ``egp.exact.test`` (a test's feed and
+replay), ``egp.exact.mean`` and ``egp.exact.variance`` (each with
+``egp.exact.readback``, its copy to the host). Counters: ``exact.var_solve``
+and ``exact.var_product``, the whitening that served a variance query
+(the factor's substitution or the product with L^-1).
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from erl_gaussian_process_tpu_torch.utils.serialization import (
     load_pytree,
     save_pytree,
 )
+from erl_gaussian_process_tpu_torch.utils.timing import count, span
 
 _LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
 
@@ -264,14 +273,15 @@ class VanillaTestResult:
         self._mean = None
         self._var = None
         self._held = None
-        if gp._graphs is not None:
-            self._held = gp._graphs.test(gp.state, *gp._test_step(), xq,
-                                         gp._rr_consts())
-        elif gp._basis is not None:
-            self._ktest_eager = gp._basis.features(gp._tensor(xq)).mT
-        else:
-            self._ktest_eager = vanilla_ktest(gp.state, gp._tensor(xq),
-                                              gp._scale, kernel=gp._kernel)
+        with span("egp.exact.test"):
+            if gp._graphs is not None:
+                self._held = gp._graphs.test(gp.state, *gp._test_step(), xq,
+                                             gp._rr_consts())
+            elif gp._basis is not None:
+                self._ktest_eager = gp._basis.features(gp._tensor(xq)).mT
+            else:
+                self._ktest_eager = vanilla_ktest(
+                    gp.state, gp._tensor(xq), gp._scale, kernel=gp._kernel)
 
     @property
     def _ktest(self) -> torch.Tensor:
@@ -287,37 +297,48 @@ class VanillaTestResult:
 
     def get_mean(self, y_index: int = 0, parallel: bool = True):
         del parallel
-        if self._mean is None:
-            if ExactGraphs.serves(self._held, self._gp.state):
-                self._mean = self._held.outputs[1].cpu()
-            else:
-                self._mean = vanilla_mean(self._gp.state, self._ktest)
-        return self._mean[:, y_index].cpu().numpy()
+        with span("egp.exact.mean"):
+            if self._mean is None:
+                if ExactGraphs.serves(self._held, self._gp.state):
+                    mean = self._held.outputs[1]
+                else:
+                    mean = vanilla_mean(self._gp.state, self._ktest)
+                with span("egp.exact.readback"):
+                    self._mean = mean.cpu()
+            return self._mean[:, y_index].numpy()
 
     def get_variance(self, parallel: bool = True):
         del parallel
-        if self._var is None:
-            gp = self._gp
-            rr = gp.reduced_rank_kernel
-            gp._var_queries += 1
-            # the product whitening only beats the solve while the query
-            # batch is thin
-            fast = gp._var_queries >= 2 and self._ktest.shape[1] <= 512
-            if fast and gp._L_inv is None:
-                gp._L_inv = gp._l_inv()
-            if ExactGraphs.serves(self._held, gp.state):
-                body = vanilla_variance_fast if fast else vanilla_variance
-                self._var = gp._graphs.variance(
-                    self._held, "fast" if fast else "variance",
-                    functools.partial(body, reduced_rank=rr),
-                    gp._L_inv if fast else None).cpu()
-            elif fast:
-                self._var = vanilla_variance_fast(gp._L_inv, self._ktest,
-                                                  reduced_rank=rr)
-            else:
-                self._var = vanilla_variance(gp.state, self._ktest,
-                                             reduced_rank=rr)
-        return self._var.cpu().numpy()
+        with span("egp.exact.variance"):
+            if self._var is None:
+                self._var = self._variance()
+            return self._var.numpy()
+
+    def _variance(self) -> torch.Tensor:
+        """The variance on the host, through the whitening that serves
+        this query (counted by which)."""
+        gp = self._gp
+        rr = gp.reduced_rank_kernel
+        gp._var_queries += 1
+        # the product whitening only beats the solve while the query
+        # batch is thin
+        fast = gp._var_queries >= 2 and self._ktest.shape[1] <= 512
+        count("exact.var_product" if fast else "exact.var_solve")
+        if fast and gp._L_inv is None:
+            gp._L_inv = gp._l_inv()
+        if ExactGraphs.serves(self._held, gp.state):
+            body = vanilla_variance_fast if fast else vanilla_variance
+            var = gp._graphs.variance(
+                self._held, "fast" if fast else "variance",
+                functools.partial(body, reduced_rank=rr),
+                gp._L_inv if fast else None)
+        elif fast:
+            var = vanilla_variance_fast(gp._L_inv, self._ktest,
+                                        reduced_rank=rr)
+        else:
+            var = vanilla_variance(gp.state, self._ktest, reduced_rank=rr)
+        with span("egp.exact.readback"):
+            return var.cpu()
 
 
 class VanillaGaussianProcess:
@@ -425,12 +446,19 @@ class VanillaGaussianProcess:
         is empty, else fits it. ``train(x, y, var)`` is the binding's: reset,
         store the data, fit. x (x_dim, n); y (n, y_dim) or (n,); var (n,) or
         a scalar."""
-        if mat_x_train is None:
-            if self._trained:
-                _LOG.warning("The model has been trained. Please reset the "
-                             "model before training.")
-                return False
+        with span("egp.exact.train"):
+            if mat_x_train is None:
+                if self._trained:
+                    _LOG.warning("The model has been trained. Please reset "
+                                 "the model before training.")
+                    return False
+                return self._fit_train_set()
+            with span("egp.exact.inputs"):
+                self._store_train_set(mat_x_train, mat_y_train, vec_var_y)
             return self._fit_train_set()
+
+    def _store_train_set(self, mat_x_train, mat_y_train, vec_var_y) -> None:
+        """``train(x, y, var)``'s reset and padded host arrays."""
         x = np.asarray(mat_x_train, dtype=self.dtype)
         if x.ndim == 1:
             x = x[None, :]
@@ -449,7 +477,6 @@ class VanillaGaussianProcess:
         vp = np.zeros((nmax,), self.dtype)
         vp[:n] = var
         self._train_set = VanillaTrainSet(xp, yp, vp, n)
-        return self._fit_train_set()
 
     def _rr_consts(self) -> tuple:
         """A reduced-rank basis's constants on the device, else ()."""

@@ -1,12 +1,14 @@
 """The port's spans and counters (``erl_gaussian_process_tpu_torch/utils/
 timing.py`` ``span`` and ``count``) on the CPU: with no profiler recording
 a span opens no profiler range; under ``torch.profiler`` the map
-update, the scan train and the routed test emit their spans nested as
-their layers are, on the host path and on the graphed (device-routed)
-one; the routed test counts the path each call took and the SPGP prepare
-the tier that served it; and the ``profile=`` phases of
-``bank_predict_assigned`` and ``SensorGraphs.routed_test`` open and close
-at the statements their spans do."""
+update, the scan train, the routed test and the exact GP's fit and test
+emit their spans nested as their layers are, on the host path and on the
+graphed one; the routed test counts the path each call took, the SPGP
+prepare the tier that served it, the jitter retry the fits that escalated
+and the exact GP the whitening of each variance query; and the
+``profile=`` phases of ``bank_predict_assigned`` and
+``SensorGraphs.routed_test`` open and close at the statements their spans
+do."""
 
 import types
 
@@ -18,13 +20,17 @@ import erl_gaussian_process_tpu_torch.models.batch_gp as batch_gp
 import erl_gaussian_process_tpu_torch.models.sensor_graph as sensor_graph
 from erl_gaussian_process_tpu_torch.geometry import Aabb
 from erl_gaussian_process_tpu_torch.kernels import KernelSetting
+import erl_gaussian_process_tpu_torch.models.gp_core as gp_core
 from erl_gaussian_process_tpu_torch.models import (
     RangeSensorGaussianProcess3D,
     RangeSensorGP3DSetting,
     SpGpOccupancyMap,
     SpGpOccupancyMapSetting,
     SpGpSetting,
+    VanillaGaussianProcess,
+    VanillaGPSetting,
 )
+from erl_gaussian_process_tpu_torch.models.exact_graph import ExactGraphs
 from erl_gaussian_process_tpu_torch.models.sensor_graph import SensorGraphs
 from erl_gaussian_process_tpu_torch.utils import timing
 from test_torch_spgp import _ill_conditioned_gp
@@ -337,3 +343,102 @@ def test_span_records_under_the_profiler(name):
         with timing.span(name):
             torch.ones(4).sum()
     assert name in _host_spans(prof)
+
+
+def _exact_gp(n=48, dtype=np.float64):
+    """A CPU exact GP on n samples of a 2D surface: (model, queries)."""
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-1, 1, (2, n))
+    gp = VanillaGaussianProcess(VanillaGPSetting(
+        kernel_type="rbf", kernel=KernelSetting(x_dim=2, scale=0.4),
+        max_num_samples=n), dtype=dtype, device="cpu")
+    assert gp.train(x, np.sin(3 * x[0]) * np.cos(3 * x[1]), 1e-3)
+    return gp, x, rng.uniform(-1, 1, (2, 20))
+
+
+def _run_exact(gp, x, xq):
+    """A fit, ``train()`` refused after it, a test read back."""
+    gp.train(x, np.cos(2 * x[0]), 1e-3)
+    gp.train()
+    res = gp.test(xq)
+    return res.get_mean(0), res.get_variance()
+
+
+@pytest.mark.parametrize("graphed", [False, True])
+def test_exact_spans_nest_under_the_profiler(eager_graphs, graphed):
+    gp, x, xq = _exact_gp()
+    if graphed:
+        gp._graphs = ExactGraphs("cpu")
+        _run_exact(gp, x, xq)           # the captures
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _run_exact(gp, x, xq)
+    spans = _host_spans(prof)
+    trains = spans["egp.exact.train"]
+    assert len(trains) == 2             # train(x, y, var) and train()
+    (inputs,) = spans["egp.exact.inputs"]
+    (check,) = spans["egp.fit.check"]
+    assert _inside(inputs, trains[0]) and _inside(check, trains[0])
+    assert inputs[1] <= check[0]
+    (test,) = spans["egp.exact.test"]
+    (mean,) = spans["egp.exact.mean"]
+    (var,) = spans["egp.exact.variance"]
+    assert trains[1][1] <= test[0] and test[1] <= mean[0] \
+        and mean[1] <= var[0]
+    reads = sorted(spans["egp.exact.readback"])
+    assert len(reads) == 2
+    assert _inside(reads[0], mean) and _inside(reads[1], var)
+    # the fit, the test and the variance were replays on the graphed path
+    assert sum(g.replays for g in eager_graphs) == (6 if graphed else 0)
+    assert not timing._profiler._is_profiler_enabled
+
+
+def test_exact_path_opens_no_range_without_a_profiler(monkeypatch):
+    def refuse(name, *a, **k):
+        raise AssertionError(f"a profiler range {name!r} with no profiler")
+
+    monkeypatch.setattr(timing, "_RANGE", refuse)
+    gp, x, xq = _exact_gp()
+    mean, var = _run_exact(gp, x, xq)
+    assert np.isfinite(mean).all() and np.isfinite(var).all()
+
+
+def test_fit_jitter_counts_fits_that_escalated():
+    def fit(bad):
+        def once(j):
+            return torch.tensor(np.nan if j < bad else 1.0)
+        return once
+
+    before = timing.counters()
+    for bad in (0.0, 0.0, 1e-8, 1.0):   # clean, clean, two rungs, all fail
+        gp_core.host_jitter_retry(fit(bad), lambda a: (a,))
+    assert _delta(before, "fit.jitter") == 2
+    # a float32 fit at no noise over duplicated points escalates
+    x = np.repeat(np.linspace(-1, 1, 8), 8)[None]
+    gp = VanillaGaussianProcess(VanillaGPSetting(
+        kernel_type="rbf", kernel=KernelSetting(x_dim=1, scale=0.5),
+        max_num_samples=64), dtype=np.float32, device="cpu")
+    before = timing.counters()
+    assert gp.train(x, np.sin(x[0]), 0.0)
+    assert _delta(before, "fit.jitter") == 1
+    assert np.isfinite(gp.state.alpha.numpy()).all()
+
+
+def test_variance_counters_name_the_whitening(eager_graphs):
+    for graphed in (False, True):
+        gp, x, xq = _exact_gp()
+        if graphed:
+            gp._graphs = ExactGraphs("cpu")
+            _run_exact(gp, x, xq)
+        wide = np.tile(xq, (1, 30))      # 600 queries
+        before = timing.counters()
+        gp.train(x, np.cos(2 * x[0]), 1e-3)
+        gp.test(xq).get_variance()       # the first query solves
+        res = gp.test(xq)
+        res.get_variance()               # a thin second one multiplies
+        res.get_variance()               # a result read again counts nothing
+        gp.test(wide).get_variance()     # a wide one solves
+        assert _delta(before, "exact.var_solve") == 2
+        assert _delta(before, "exact.var_product") == 1
+        gp.test(xq).get_mean(0)          # a mean alone counts neither
+        assert _delta(before, "exact.var_solve") == 2
