@@ -102,6 +102,12 @@ The exact GPs' paths:
     residuals, no worse than 4x the plain solve's; kernel, plain and
     library times (``torch.linalg.cholesky``,
     ``torch.linalg.solve_triangular``);
+11b. the whitening of many right-hand sides (``ops/trsm.py``) at the
+    exact-GP cell's shape, n = 8192 against the 100 x 100 grid: the kernel,
+    the 64-row loop it replaced and ``torch.linalg.solve_triangular`` timed
+    beside the 3xTF32 and FP32 SIMT bounds, each one's error against the
+    float64 solve; the kernel within 2x the loop's error and under the
+    FP32 SIMT floor (10.0 ms);
 12. the exact GP: ``VanillaGaussianProcess`` (float32) trains on 8192
     points and tests 4096 queries, each fit, test and variance query one
     replay of a CUDA graph (``models/exact_graph.py``; the first train and
@@ -2022,6 +2028,70 @@ def check_chol_kernels(dev, card):
         f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) on "
         f"{card}")
     return out
+
+
+TRSM_SHAPE = (8192, 10_000)   # the exact-GP cell: its fit against the grid
+TRSM_ERR_FACTOR = 2.0         # error vs float64, against the 64-row loop's
+TRSM_MAX_MS = 10.0            # the FP32 SIMT floor of the same work
+PEAK_TF32 = 495e12            # dense TF32 tensor-core peak (3xTF32: a third)
+
+
+def check_whiten_kernel(dev, card):
+    """Phase 11b: the whitening of many right-hand sides (``ops/trsm.py``)
+    at the exact-GP cell's shape, n = 8192 samples of U(-1, 1)^2 (rbf 0.1,
+    noise 1e-3, the gram-fused Cholesky and its Dinv) against the 100 x 100
+    grid (m = 10 000): the kernel, the 64-row loop it replaced (its plain
+    version) and ``torch.linalg.solve_triangular`` timed (CUDA events,
+    median of 20), each one's max error against the float64 solve relative
+    to the solution's largest entry; the kernel no worse than 2x the loop
+    and under the FP32 SIMT floor (n^2 m operations at 67 TFLOP/s; 3xTF32's
+    is 3 n^2 m at 495). Returns {"trsm": row}."""
+    from erl_gaussian_process_tpu_torch.ops import (
+        chol_blocked_gram,
+        solve_lower_many,
+        solve_lower_many_plain,
+    )
+
+    n, m = TRSM_SHAPE
+    rng = np.random.default_rng(22)
+    x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)), device=dev)
+    L, D = chol_blocked_gram("rbf", x.float(),
+                             torch.full((n,), 1e-3, device=dev),
+                             torch.ones(n, dtype=torch.bool, device=dev), 0.1,
+                             return_dinv=True)
+    g = torch.linspace(-1, 1, 100, dtype=torch.float64, device=dev)
+    xq = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    B = torch.exp(-0.5 * torch.cdist(x, xq) ** 2 / 0.1 ** 2).float()
+    ref = torch.linalg.solve_triangular(L.double(), B.double(), upper=False)
+    scale = float(ref.abs().max())
+    errs = {}
+    for name, fn in (("kernel", solve_lower_many),
+                     ("plain", solve_lower_many_plain)):
+        errs[name] = float((fn(L, D, B).double() - ref).abs().max()) / scale
+    errs["library"] = float((torch.linalg.solve_triangular(
+        L, B, upper=False).double() - ref).abs().max()) / scale
+    del ref
+    ms = cuda_ms(lambda: solve_lower_many(L, D, B))
+    plain_ms = cuda_ms(lambda: solve_lower_many_plain(L, D, B))
+    lib_ms = cuda_ms(lambda: torch.linalg.solve_triangular(L, B,
+                                                           upper=False))
+    ops = float(n) * n * m
+    b_ms = 1e3 * 3 * ops / PEAK_TF32
+    simt_ms = 1e3 * ops / PEAK_FLOPS[torch.float32]
+    log(f"trsm f32 n={n} m={m}: kernel {ms:.4f} ms, plain (64-row loop) "
+        f"{plain_ms:.4f} ms, torch.linalg.solve_triangular {lib_ms:.4f} ms; "
+        f"bound {b_ms:.4f} ms at 3xTF32 ({100 * b_ms / ms:.1f}% of it), "
+        f"{simt_ms:.4f} ms at FP32 SIMT; error vs float64: kernel "
+        f"{errs['kernel']:.3e}, plain {errs['plain']:.3e}, library "
+        f"{errs['library']:.3e} on {card}")
+    check(errs["kernel"] <= TRSM_ERR_FACTOR * errs["plain"],
+          f"trsm: error {errs['kernel']} > {TRSM_ERR_FACTOR} x the loop's "
+          f"{errs['plain']}")
+    check(ms <= TRSM_MAX_MS, f"trsm: {ms} ms, over the FP32 SIMT floor")
+    return {"trsm": {"max_abs_err": errs["kernel"], "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": "operations",
+                     "simt_floor_ms": simt_ms}}
 
 
 def plain_posterior(name, x, y, var, xq, scale, dtype, dev):
@@ -5468,6 +5538,7 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms (median of {REPS})")
 
     kern.update(check_chol_kernels(dev, card))
+    kern.update(check_whiten_kernel(dev, card))
     exact_counts, exact_timings, exact_err = run_exact_gp(dev, card)
     fit_profile = profile_exact_fit(dev, card)
     nigp_counts, nigp_timings, nigp_err = run_nigp(dev, card)
@@ -5548,7 +5619,7 @@ def main() -> int:
             sensor_counts["lidar_default_grouping"]["bank_fit"],
         "bank_chol": sensor_counts["batch_gp_bank"]["bank_chol"],
     }
-    for name in ("chol", "chol_gram", "chol_gram_joint", "trsv"):
+    for name in ("chol", "chol_gram", "chol_gram_joint", "trsv", "trsm"):
         launches[name] = sum(c[name] for c in exact_all)
     # the 2D paths' shapes: the 2D map (FITC and the predict's gram), the
     # 2D lidar GP's trains and tests, the reduced-rank fits
@@ -5590,6 +5661,9 @@ def main() -> int:
                chol_src, "erl_gaussian_process_tpu/ops/pallas_chol.py:502"),
            "trsv": ("erl_gaussian_process_tpu_torch/csrc/trsv.cu",
                     "erl_gaussian_process_tpu/ops/pallas_trsv.py:99"),
+           "trsm": ("erl_gaussian_process_tpu_torch/csrc/trsm.cu",
+                    "none (erl_gaussian_process_tpu/ops/blocked_solve.py "
+                    "was XLA's)"),
            "fitc_2d": MAP2D_SRC, "gram_2d": gram_src,
            "bank_fit_2d": ("erl_gaussian_process_tpu_torch/csrc/bank.cu",
                            "erl_gaussian_process_tpu/ops/pallas_bank.py:249"),

@@ -4,11 +4,12 @@
 The exact GPs' single large systems (``cholesky_fit(robust=False)`` and
 :func:`solve_with_L`) run the hand-written blocked Cholesky and
 triangular-solve kernels (``ops/chol.py``, ``ops/trsv.py``) on the card
-and their plain versions on the CPU. The banks' small systems
-(``robust=True``), :func:`whiten` and the SPGP's factorizations are plain
-torch (cuSOLVER/cuBLAS on the card, LAPACK on the CPU), as the JAX package
-leaves them to XLA. A failed Cholesky is signalled the way the JAX package
-signals it, with NaN: ``torch.linalg.cholesky`` would raise, so
+and their plain versions on the CPU; so does :func:`whiten` of one float32
+factor with its tile inverses (``ops/trsm.py``). The banks' small systems
+(``robust=True``), the other whitenings and the SPGP's factorizations
+are plain torch (cuSOLVER/cuBLAS on the card, LAPACK on the CPU), as the
+JAX package leaves them to XLA. A failed Cholesky is signalled the way the
+JAX package signals it, with NaN: ``torch.linalg.cholesky`` would raise, so
 :func:`cholesky_nan` uses ``cholesky_ex`` and fills a factor whose ``info``
 is non-zero with NaN, on the device and without a host sync.
 """
@@ -178,24 +179,25 @@ def whiten(L: torch.Tensor, ktest: torch.Tensor, dinv=None) -> torch.Tensor:
     (``ops/chol.py``): then the block forward substitution
     X_k = Dinv_k (B_k - L[k, :k] X[:k]) with the factor's own tile inverses,
     as the JAX package whitens at float32 on its TPU
-    (``ops/blocked_solve.py``). Its products round as the factorization's
+    (``ops/blocked_solve.py``): ``ops/trsm.solve_lower_many``, the 3xTF32
+    tensor-core kernel on the card (counted in ``whiten.kernel``), its
+    plain 64-row loop on the CPU. Its products round as the factorization's
     did, so for queries near the training points, where 1 - ||L^{-1} k||^2
     cancels, the rounding cancels too: on the H100 at the exact-GP shape
     (n = 8192, 4096 queries, f32) the variance's max error against the f64
-    fit is 2.9e-6 this way and 1.9e-5 by a triangular solve with the same
-    factor (PERF.md). Float64 keeps the triangular solve."""
+    fit is 1.2e-6 this way (2.9e-6 by the plain loop) and 1.9e-5 by a
+    triangular solve with the same factor (PERF.md). Float64 keeps the
+    triangular solve."""
     if dinv is None or L.dim() != 2 or L.dtype != torch.float32:
         return torch.linalg.solve_triangular(L, ktest, upper=False)
-    n = L.shape[0]
-    tile = dinv.shape[1]
-    out = torch.empty_like(ktest)
-    for lo in range(0, n, tile):
-        hi = min(n, lo + tile)
-        rhs = ktest[lo:hi]
-        if lo:
-            rhs = torch.addmm(rhs, L[lo:hi, :lo], out[:lo], alpha=-1.0)
-        torch.matmul(dinv[lo:hi, :hi - lo], rhs, out=out[lo:hi])
-    return out
+    from erl_gaussian_process_tpu_torch.ops.trsm import solve_lower_many
+
+    if L.device.type == "cuda":
+        from erl_gaussian_process_tpu_torch.utils.timing import count
+
+        count("whiten.kernel")
+        L, dinv, ktest = L.contiguous(), dinv.contiguous(), ktest.contiguous()
+    return solve_lower_many(L, dinv, ktest)
 
 
 def with_tile_inverses(state):

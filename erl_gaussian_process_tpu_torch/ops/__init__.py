@@ -37,6 +37,10 @@ from erl_gaussian_process_tpu_torch.ops.gram import (
     cross_gram_cuda,
     cross_gram_plain,
 )
+from erl_gaussian_process_tpu_torch.ops.trsm import (
+    solve_lower_many,
+    solve_lower_many_plain,
+)
 from erl_gaussian_process_tpu_torch.ops.trsv import (
     cho_solve_vec,
     inverses_from_chol_dinv,
@@ -51,7 +55,7 @@ WRAPPERS = {"gram": cross_gram_cuda, "gram_batched": cross_gram_batched_cuda,
             "bank_chol": bank_cholesky_solve_cuda, "chol": chol_blocked,
             "chol_gram": chol_blocked_gram,
             "chol_gram_joint": chol_blocked_gram_joint,
-            "trsv": substitute_cuda}
+            "trsv": substitute_cuda, "trsm": solve_lower_many}
 
 
 def launch_counts() -> dict:
@@ -89,6 +93,8 @@ __all__ = [
     "reset_launch_counts",
     "solve_alpha",
     "solve_lower",
+    "solve_lower_many",
+    "solve_lower_many_plain",
     "solve_lower_t",
     "substitute_cuda",
     "substitute_plain",

@@ -2,9 +2,9 @@
 
 ``csrc/gram.cu`` and ``csrc/gram_f64.cu`` (the gram kernel of
 ``csrc/gram.cuh`` at each dtype), ``csrc/fitc.cu``, ``csrc/bank.cu``,
-``csrc/chol.cu`` and ``csrc/trsv.cu`` (with the shared ``csrc/family.cuh``,
-``csrc/async_copy.cuh``, ``csrc/mma_tf32.cuh`` and ``csrc/sub_block.cuh``)
-compile with ``nvcc`` into ONE shared library with a
+``csrc/chol.cu``, ``csrc/trsv.cu`` and ``csrc/trsm.cu`` (with the shared
+``csrc/family.cuh``, ``csrc/async_copy.cuh``, ``csrc/mma_tf32.cuh`` and
+``csrc/sub_block.cuh``) compile with ``nvcc`` into ONE shared library with a
 plain C interface, loaded with ``ctypes``. Nothing is built when this module is imported: the
 first call of :func:`load_library` builds, into
 ``erl_gaussian_process_tpu_torch/_build/<hash>/``, where the hash covers the
@@ -34,7 +34,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 _COMPILED = ("gram.cu", "gram_f64.cu", "fitc.cu", "bank.cu", "chol.cu",
-             "trsv.cu")
+             "trsv.cu", "trsm.cu")
 _SOURCES = ("family.cuh", "gram.cuh", "async_copy.cuh", "mma_tf32.cuh",
             "sub_block.cuh") + _COMPILED
 # sm_90a: the Hopper target. No --use_fast_math: the kernels need the
@@ -149,6 +149,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         # L, inv, b, x, words, n, q, trans, grid, device, stream
         fn.argtypes = [_P] * 5 + [_I] * 5 + [_P]
         fn.restype = _I
+    # n -> floats of the solve's scratch
+    lib.egp_trsm_scratch_floats.argtypes = [_I]
+    lib.egp_trsm_scratch_floats.restype = ctypes.c_longlong
+    # L, dinv, b, x, scratch, n, m, device, stream
+    lib.egp_trsm_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+    lib.egp_trsm_f32.restype = _I
 
 
 def _run(cmd: list) -> tuple:

@@ -1059,6 +1059,157 @@ def test_trsv_kernel_matches_plain(cuda, dtype, q, with_dinv):
                                      else None), x)
 
 
+# -- the whitening of many right-hand sides (ops/trsm.py) --------------------
+
+def _rbf64(a, b, scale):
+    d2 = torch.cdist(a.double(), b.double()) ** 2
+    return torch.exp(-0.5 * d2 / scale ** 2)
+
+
+def _whiten_case(cuda, case):
+    """(L, dinv, B) float32 on the card for one of the whitening's shapes:
+    the exact-GP cell's rbf fit (8192 samples of U(-1, 1)^2, scale 0.1,
+    noise 1e-3) against its 100 x 100 grid or 4096 queries of it; the
+    NIGP's joint value/gradient factor (7680) against 1024 queries with
+    gradients; a ragged exact fit (520) against 7 queries; the
+    reduced-rank models' (256, 256) factor against 300 columns."""
+    from erl_gaussian_process_tpu_torch.ops import (
+        chol_blocked,
+        chol_blocked_gram,
+        chol_blocked_gram_joint,
+    )
+
+    rng = np.random.default_rng(22)
+    if case in ("exact_grid", "exact_4096", "ragged"):
+        n = 520 if case == "ragged" else 8192
+        x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)), device=cuda)
+        L, dinv = chol_blocked_gram(
+            "rbf", x.float(), torch.full((n,), 1e-3, device=cuda),
+            torch.ones(n, dtype=torch.bool, device=cuda), 0.1,
+            return_dinv=True)
+        g = torch.linspace(-1, 1, 100, dtype=torch.float64, device=cuda)
+        xq = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1)
+        xq = xq.reshape(-1, 2)
+        if case != "exact_grid":
+            xq = xq[torch.as_tensor(rng.choice(
+                len(xq), 4096 if case == "exact_4096" else 7,
+                replace=False), device=cuda)]
+        return L, dinv, _rbf64(x, xq, 0.1).float()
+    if case == "nigp_joint":
+        from erl_gaussian_process_tpu_torch.kernels.gradient import (
+            cross_gram_with_gradient,
+        )
+        from erl_gaussian_process_tpu_torch.workloads import nigp_workload
+
+        x, _, _, vx, vy, vg, xq, scale, kern = nigp_workload()
+        x, xq = (torch.as_tensor(a, device=cuda) for a in (x, xq))
+        sm = torch.ones(len(x), dtype=torch.bool, device=cuda)
+        L, dinv = chol_blocked_gram_joint(
+            kern, x, torch.as_tensor(vx + vy, device=cuda),
+            torch.as_tensor(vg, device=cuda), sm, sm, scale,
+            return_dinv=True)
+        return L, dinv, cross_gram_with_gradient(kern, x, xq, scale, sm, sm,
+                                                 True).contiguous()
+    L, dinv = chol_blocked(_spd(cuda, 256, torch.float32, seed=5),
+                           return_dinv=True)
+    return L, dinv, torch.as_tensor(rng.standard_normal((256, 300)),
+                                    dtype=torch.float32, device=cuda)
+
+
+@pytest.mark.parametrize("case", ["exact_grid", "exact_4096", "nigp_joint",
+                                  "ragged", "reduced_rank"])
+def test_trsm_kernel_against_float64(cuda, case):
+    """The whitening kernel at each shape that runs it, against the float64
+    triangular solve of the same factor: its max error relative to the
+    solution's largest entry no worse than 2x that of the 64-row loop it
+    replaced (the plain version, on the card); finite, one launch a solve,
+    bitwise repeatable."""
+    from erl_gaussian_process_tpu_torch.ops import (
+        solve_lower_many,
+        solve_lower_many_plain,
+    )
+
+    L, dinv, B = _whiten_case(cuda, case)
+    before = launch_counts()["trsm"]
+    X = solve_lower_many(L, dinv, B)
+    torch.cuda.synchronize()
+    assert launch_counts()["trsm"] == before + 1
+    P = solve_lower_many_plain(L, dinv, B)
+    ref = torch.linalg.solve_triangular(L.double(), B.double(), upper=False)
+    scale = float(ref.abs().max())
+    err_k = float((X.double() - ref).abs().max()) / scale
+    err_p = float((P.double() - ref).abs().max()) / scale
+    assert bool(torch.isfinite(X).all())
+    assert err_k <= 2 * err_p, (err_k, err_p)
+    assert torch.equal(solve_lower_many(L, dinv, B), X)
+
+
+def test_exact_gp_variance_through_the_kernel(cuda):
+    """The exact GP at the benchmark cell's shape (8192 samples, the 100 x
+    100 grid, float32): its variance, a replay of the variance graph, is
+    within 2e-4 of the float64 posterior variance and equals the eager
+    whitening bit for bit; ``whiten.kernel`` and the kernel's launches
+    count it, and the 3D sensor GP's routed test (whose bank whitens a
+    batch) counts in neither."""
+    from erl_gaussian_process_tpu_torch.models import (
+        RangeSensorGaussianProcess3D,
+        VanillaGaussianProcess,
+        VanillaGPSetting,
+    )
+    from erl_gaussian_process_tpu_torch.models.vanilla_gp import (
+        vanilla_variance,
+    )
+    from erl_gaussian_process_tpu_torch.utils import timing
+    from erl_gaussian_process_tpu_torch.workloads import (
+        lidar3d_reference_workload,
+    )
+
+    rng = np.random.default_rng(23)
+    n = 8192
+    x = rng.uniform(-1, 1, (2, n))
+    y = 2 * np.sin(10 * x[0]) * np.cos(10 * x[1]) + \
+        rng.normal(0, np.sqrt(1e-3), n)
+    g = np.linspace(-1, 1, 100)
+    xq = np.stack([a.ravel() for a in np.meshgrid(g, g, indexing="ij")])
+    gp = VanillaGaussianProcess(VanillaGPSetting(
+        kernel=KernelSetting(x_dim=2, scale=0.1), max_num_samples=n),
+        dtype=np.float32, device=cuda)
+    assert gp._graphs is not None
+    assert gp.train(x, y, 1e-3)
+    before = (timing.counters().get("whiten.kernel", 0),
+              launch_counts()["trsm"])
+    var = gp.test(xq).get_variance()      # the variance graph's capture
+    res = gp.test(xq)                     # a replay of the test graph...
+    got = res.get_variance()              # ... and of the variance graph
+    torch.cuda.synchronize()
+    # the capture's warm-up and capture route once each; the replays add
+    # the launch the graph captured
+    assert timing.counters()["whiten.kernel"] - before[0] == 2
+    assert launch_counts()["trsm"] - before[1] == 3
+    eager = vanilla_variance(gp.state, res._ktest).cpu().numpy()
+    assert eager.tobytes() == got.tobytes() and var.tobytes() == \
+        got.tobytes()
+    xt = torch.as_tensor(x.T, device=cuda)
+    K = _rbf64(xt, xt, 0.1) + 1e-3 * torch.eye(n, dtype=torch.float64,
+                                               device=cuda)
+    ks = _rbf64(xt, torch.as_tensor(xq.T, device=cuda), 0.1)
+    w = torch.linalg.solve_triangular(torch.linalg.cholesky(K), ks,
+                                      upper=False)
+    ref = torch.clamp(1 - (w * w).sum(0), min=0).cpu().numpy()
+    assert np.abs(got.ravel() - ref).max() <= 2e-4
+    setting, R, t, ranges, q, _, _ = lidar3d_reference_workload()
+    sgp = RangeSensorGaussianProcess3D(setting, dtype=np.float32,
+                                       device=cuda)
+    assert sgp.train(R, t, ranges)
+    before = (timing.counters().get("whiten.kernel", 0),
+              launch_counts()["trsm"])
+    for _ in range(2):
+        sgp.test(q, False, True).get_mean()
+    torch.cuda.synchronize()
+    assert (timing.counters().get("whiten.kernel", 0),
+            launch_counts()["trsm"]) == before
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_exact_gps_on_the_card_match_the_cpu(cuda, dtype, monkeypatch):
     """A small exact GP and noisy-input GP trained and tested on the card
