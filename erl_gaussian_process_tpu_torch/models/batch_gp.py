@@ -22,8 +22,8 @@ share the batched predict (:func:`_predict_rows`) and nothing else:
 queries (:func:`bank_predict_assigned`, the public entry, and the CPU
 model's path), and :func:`group_chunks` on the device, into rows of
 ``ROUTE_CHUNK`` slots whose number depends only on the query count and
-the bank's size (:func:`bank_predict_chunked`, the body of the 3D sensor
-GP's graphed test, ``models/sensor_graph.SensorGraphs.routed_test``).
+the bank's size (:func:`bank_predict_chunked`, the body of both sensor
+GPs' graphed test, ``models/sensor_graph.SensorGraphs.routed_test``).
 """
 
 from __future__ import annotations
@@ -269,7 +269,7 @@ def group_queries(idx: np.ndarray, trained: np.ndarray):
 
 def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
                           reduced_rank: bool = False, basis=None,
-                          profile: dict | None = None, graphs=None):
+                          profile: dict | None = None):
     """Per-query routed prediction: query j is answered by bank member
     idx[j]. q (m, d) and idx (m,) host arrays; idx may be -1 (unresolved,
     flagged invalid) or name an untrained member (invalid too).
@@ -292,14 +292,9 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
     show where the host spends a call while the card runs on:
     ``egp.bank.group``, ``egp.bank.h2d``, ``egp.bank.predict``, then
     ``d2h_scatter`` as ``egp.bank.readback`` and ``egp.bank.scatter``.
-    Each call that answers a query counts the path it took:
-    ``bank.routed_graphed`` or ``bank.routed_eager``.
-
-    ``graphs`` (a ``models/sensor_graph.SensorGraphs``): the device half
-    runs as one replay of the graph captured for this bucket, kernel and
-    bank (the queries and member ids copied into its static inputs, one
-    copy of the results back), bit for bit the eager predict; eagerly for
-    a bucket too large to graph (``SensorGraphs.max_slots``)."""
+    Each call that answers a query counts ``bank.routed_eager`` (a sensor
+    GP with graphs routes through ``SensorGraphs.routed_test`` instead,
+    which counts ``bank.routed_graphed``)."""
     prof = profile is not None
     if prof:
         t0 = time.perf_counter()
@@ -322,43 +317,28 @@ def bank_predict_assigned(state: BankState, q, idx, scale, *, kernel: str,
         profile["host_group"] = t1 - t0
         profile["bucket"] = tuple(int(v) for v in slots.shape)
 
-    def segmented(bank, mids, qs):
-        return _predict_rows(bank, mids, qs, scale, kernel=kernel,
-                             reduced_rank=reduced_rank, basis=basis)
-
     with span("egp.bank.h2d"):
-        q_host = q[slots].astype(dtype, copy=False)
-        g = None if graphs is None else graphs.routed(
-            state, segmented, q_host, member_ids,
-            (kernel, float(scale), reduced_rank, basis is not None))
-        if g is None:
-            qs = torch.as_tensor(q_host, device=dev)
-            mids = torch.as_tensor(member_ids, device=dev)
+        qs = torch.as_tensor(q[slots].astype(dtype, copy=False), device=dev)
+        mids = torch.as_tensor(member_ids, device=dev)
         if prof:
             _sync(dev)
-    count("bank.routed_eager" if g is None else "bank.routed_graphed")
+    count("bank.routed_eager")
     if prof:
         t2 = time.perf_counter()
         profile["h2d"] = t2 - t1
     with span("egp.bank.predict"):
-        if g is not None:
-            g.replay()
-        else:
-            mean_seg, var_seg = segmented(state, mids, qs)
+        mean_seg, var_seg = _predict_rows(state, mids, qs, scale,
+                                          kernel=kernel,
+                                          reduced_rank=reduced_rank,
+                                          basis=basis)
         if prof:
             _sync(dev)
     if prof:
         t3 = time.perf_counter()
         profile["device"] = t3 - t2
     with span("egp.bank.readback"):
-        if g is not None:
-            out = g.outputs.cpu().numpy()
-            Bp, C = slots.shape
-            mean_seg = out[:Bp * C * q_dim].reshape(Bp, C, q_dim)
-            var_seg = out[Bp * C * q_dim:].reshape(Bp, C)
-        else:
-            mean_seg = mean_seg.cpu().numpy()
-            var_seg = var_seg.cpu().numpy()
+        mean_seg = mean_seg.cpu().numpy()
+        var_seg = var_seg.cpu().numpy()
     with span("egp.bank.scatter"):
         mean_out[slots[svalid]] = mean_seg[svalid]
         var_out[slots[svalid]] = var_seg[svalid]

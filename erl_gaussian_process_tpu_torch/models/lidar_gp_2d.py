@@ -5,9 +5,13 @@ reference: LidarGaussianProcess2D, src/lidar_gp_2d.cpp).
 A scan train is the hit and continuity masks, the distance mapping and the
 partition gather on the model's device (:func:`_gather_scan`), then ONE
 launch of the bank fit kernel (``ops/bank.py``); a test routes each query
-angle to its partition on the host and answers every partition in one
-batched predict (``models/batch_gp.bank_predict_assigned``). The frame
-and the partition tables are host numpy, as in the JAX package.
+angle to its partition and answers every partition in one batched
+predict. The frame and the partition tables are host numpy, as in the JAX
+package, and so is the routing of the CPU model
+(``models/batch_gp.bank_predict_assigned``); on a model with graphs only
+the sensor-frame angles are, and the rest of the routing runs on the
+device (:meth:`~LidarGaussianProcess2D._route_tensor`,
+``models/batch_gp.bank_predict_chunked``).
 
 A reduced-rank ``gp.kernel_type`` threads through the whole class: the
 bank fit solves each partition's information system over one shared
@@ -15,10 +19,10 @@ Hilbert basis (``models/batch_gp.bank_fit_rr_core``) and the routed
 predict takes ``+||.||^2`` for the variance.
 
 On a CUDA device each scan train (:meth:`~LidarGaussianProcess2D.train`)
-and the device half of each routed predict is one replay of a CUDA graph
-(``models/sensor_graph.py``), as each is one jit in the JAX package; the
-offline replay (:meth:`~LidarGaussianProcess2D.train_scan_batch`) runs
-eagerly.
+and each routed test or ``compute_occ``, from the sensor-frame angles on,
+is one replay of a CUDA graph (``models/sensor_graph.py``), as each is one
+jit in the JAX package; the offline replay
+(:meth:`~LidarGaussianProcess2D.train_scan_batch`) runs eagerly.
 
 With ``mesh=``, a train shards the bank's members over the ranks
 (``parallel/mesh.sharded_bank_fit``): on a mesh whose collectives run on
@@ -49,6 +53,7 @@ from erl_gaussian_process_tpu_torch.models.batch_gp import (
     bank_fit_rr_finish,
     bank_fit_rr_parts,
     bank_predict_assigned,
+    bank_predict_chunked,
     bank_state_from_numpy,
 )
 from erl_gaussian_process_tpu_torch.models.gp_core import DEFAULT_DEVICE
@@ -254,7 +259,8 @@ class LidarGP2DTestResult:
 
 class LidarGaussianProcess2D:
     """The bank lives on ``device`` (the mesh's device with a ``mesh``); the
-    frame, the partition tables and the query routing stay on the host."""
+    frame and the partition tables stay on the host, and so does the query
+    routing of a model without graphs."""
 
     Setting = LidarGP2DSetting
     TestResult = LidarGP2DTestResult
@@ -606,14 +612,42 @@ class LidarGaussianProcess2D:
         idx[~ok.any(axis=1)] = -1
         return idx
 
+    def _route_tensor(self, angles: torch.Tensor,
+                      bounds: torch.Tensor) -> torch.Tensor:
+        """:meth:`search_partition` as tensor code on the device with no
+        host sync (the routed test's graph runs it): angles (m,), NaN for
+        no angle; bounds (P, 2) the partition table's [coord_left,
+        coord_right] -> the partition of each (m,) int64, -1 when none (a
+        NaN is in no partition). Compared in the angles' dtype, the first
+        match kept, as the host's comparisons and ``argmax`` do."""
+        a = angles[:, None]
+        ok = (a >= bounds[:, 0]) & (a <= bounds[:, 1])
+        return torch.where(ok.any(1), torch.argmax(ok.to(torch.uint8), 1),
+                           -1)
+
     def _route(self, angles_local: np.ndarray):
         """(mean (m, 1), var (m,), valid (m,)) of sensor-frame angles, each
-        answered by its partition's member."""
-        return bank_predict_assigned(
-            self.bank, angles_local[:, None],
-            self.search_partition(angles_local), self._scale,
-            kernel=self._kernel, reduced_rank=self.reduced_rank_kernel,
-            basis=self._basis, graphs=self._graphs)
+        answered by its partition's member: without graphs, routed on the
+        host (:meth:`search_partition`) and answered by
+        ``bank_predict_assigned``; with graphs, one replay of
+        ``SensorGraphs.routed_test``, the partition bounds its input."""
+        if self._graphs is None:
+            return bank_predict_assigned(
+                self.bank, angles_local[:, None],
+                self.search_partition(angles_local), self._scale,
+                kernel=self._kernel, reduced_rank=self.reduced_rank_kernel,
+                basis=self._basis)
+
+        def body(bank, q, bounds):
+            return bank_predict_chunked(
+                bank, q, self._route_tensor(q[:, 0], bounds), self._scale,
+                kernel=self._kernel, reduced_rank=self.reduced_rank_kernel,
+                basis=self._basis)
+
+        return self._graphs.routed_test(
+            self.bank, angles_local[:, None], body,
+            (self._kernel, self._scale, self.reduced_rank_kernel,
+             self._basis is not None), tables=(self._part_bounds,))
 
     def test(self, angles, angles_are_local: bool, un_map: bool
              ) -> Optional[LidarGP2DTestResult]:

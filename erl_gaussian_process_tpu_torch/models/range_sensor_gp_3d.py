@@ -581,15 +581,14 @@ class RangeSensorGaussianProcess3D:
             + torch.argmax(cok.to(torch.uint8), 1)
         return torch.where(ok, idx, -1)
 
-    def _routed_predict(self, dirs: np.ndarray, directions_are_local: bool,
-                        profile: Optional[dict] = None):
+    def _routed_predict(self, dirs: np.ndarray, directions_are_local: bool):
         """(mean (m, 1), var (m,), valid (m,)) numpy of the directions (m,
         3), in the sensor frame when ``directions_are_local``, else the
         world's: :meth:`test`'s and :meth:`compute_occ`'s routed predict.
         Without graphs, routed on the host (:meth:`route_directions`) and
         answered by ``bank_predict_assigned``; with graphs, the frame
         coordinates on the host and the rest one replay of
-        ``SensorGraphs.routed_test``. ``profile``: either's phase split."""
+        ``SensorGraphs.routed_test``."""
         frame = self.sensor_frame
         with span("egp.rsgp.route"):
             if not directions_are_local:
@@ -603,8 +602,7 @@ class RangeSensorGaussianProcess3D:
         if self._graphs is None:
             return bank_predict_assigned(
                 self.bank, coords, idx, self._scale, kernel=self._kernel,
-                reduced_rank=self.reduced_rank_kernel, basis=self._basis,
-                profile=profile)
+                reduced_rank=self.reduced_rank_kernel, basis=self._basis)
 
         def body(bank, q):
             return bank_predict_chunked(
@@ -615,8 +613,7 @@ class RangeSensorGaussianProcess3D:
         return self._graphs.routed_test(
             self.bank, coords, body,
             (self._kernel, self._scale, self.reduced_rank_kernel,
-             self._basis is not None, tuple(vars(frame.setting).values())),
-            profile=profile)
+             self._basis is not None, tuple(vars(frame.setting).values())))
 
     def test(self, directions, directions_are_local: bool, un_map: bool
              ) -> Optional[RangeSensorGP3DTestResult]:

@@ -9,8 +9,9 @@ package's one-dispatch jits of the 3D range-sensor GP and the 2D lidar GP
 On a CUDA device, without ``mesh=`` or on a mesh whose collectives run on
 the card (NCCL, ``parallel/mesh.runs_graphs``),
 ``RangeSensorGaussianProcess3D`` and ``LidarGaussianProcess2D`` run each
-scan train (the gather and the bank fit on the device) and the device half
-of each routed predict as one replay of a graph captured with
+scan train (the gather and the bank fit on the device) and each routed
+test, from the sensor-frame coordinates on, as one replay of a graph
+captured with
 ``models/pose_graph.capture``:
 
 - **Trains.** A graph per shape and per the settings a graph bakes (the
@@ -39,29 +40,22 @@ of each routed predict as one replay of a graph captured with
   warm-up runs the gathers first. Every rank captures and replays the same
   trains in the same order (the keys are the same on every rank). The
   routed predicts read the replicated bank and hold no collective.
-- **The 3D routed test** (:meth:`SensorGraphs.routed_test`: the 3D sensor
+- **The routed test** (:meth:`SensorGraphs.routed_test`: either sensor
   GP's ``test`` and ``compute_occ``). The host computes the queries'
-  frame coordinates (numpy, in the model's dtype, as the CPU model
-  routes); the rest is one replay: the frame's bounds, the partition
-  search, the bank's trained mask, the grouping into fixed-shape rows
+  sensor-frame coordinates (numpy, in the model's dtype, as the CPU model
+  routes: the 3D GP's frame coordinates, the 2D GP's angles); the rest is
+  one replay: the partition search (the 3D GP's frame bounds too), the
+  bank's trained mask, the grouping into fixed-shape rows
   (``batch_gp.group_chunks``), the batched predict and the gather back
   (``batch_gp.bank_predict_chunked``). The queries are padded to a
   multiple of ``batch_gp.ROUTE_PAD``, so a graph per (bank, padded count,
-  dtype, kernel, scale, reduced rank, frame settings): a trajectory's
-  10 000-query tests share one. The coordinates go in with one copy from
-  a pinned buffer, and the mean, variance and valid flag come back with
-  one copy into another; each call that answers a query counts
-  ``bank.routed_graphed``.
-- **The 2D lidar GP's routed predicts** (:meth:`SensorGraphs.routed`,
-  grouped on the host by ``batch_gp.group_queries``). A graph per (bank,
-  bucket (Bp, C), kernel, scale, fused, reduced rank, dtype), for a
-  bucket of at most ``max_slots`` query slots (Bp * C); a larger bucket
-  runs the eager chain: the bucket follows the queries, and graphing
-  buckets that change from scan to scan lost on the card (a capture cost
-  more than its replays saved). Its buckets (16 x 32) are graphed. The
-  queries and member ids go into static inputs without blocking, and the
-  mean and variance come back in one copy. Each call counts its path:
-  ``bank.routed_graphed`` or ``bank.routed_eager``.
+  dtype, table shapes, kernel, scale, reduced rank, frame settings): a
+  trajectory's tests of one query count share one. The 2D GP's partition
+  bounds are a static input, copied whenever the model holds a new table
+  (with ``partition_on_hit_rays`` it changes from scan to scan). The
+  coordinates go in with one copy from a pinned buffer, and the mean,
+  variance and valid flag come back with one copy into another; each call
+  that answers a query counts ``bank.routed_graphed``.
 - **The bank a routed graph reads** is a train graph's outputs when the
   model's bank is those (no copy), else a static copy of the model's
   bank, copied again whenever the model holds another bank
@@ -78,25 +72,21 @@ from __future__ import annotations
 
 import collections
 import logging
-import time
 import weakref
-from typing import Callable, Optional
+from typing import Callable
 
 import numpy as np
 import torch
 
 from erl_gaussian_process_tpu_torch.models import pose_graph
 from erl_gaussian_process_tpu_torch.models.batch_gp import (
-    ROUTE_CHUNK,
     ROUTE_PAD,
     BankState,
     RRFitParts,
     _sync,
     bank_fit_rr_finish,
-    chunk_rows,
 )
 from erl_gaussian_process_tpu_torch.models.pose_graph import (
-    CapturedGraph,
     GraphTable,
     empty_like,
     feed,
@@ -106,10 +96,7 @@ from erl_gaussian_process_tpu_torch.utils.timing import count, span
 
 _LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
 
-MAX_GRAPHS = 8  # graphs kept of each kind (trains, routed predicts)
-# the largest host-grouped routed bucket (Bp * C query slots) graphed: the
-# 2D lidar GP's (the 3D test groups on the device, in rows of fixed shape)
-MAX_SLOTS = 4096
+MAX_GRAPHS = 8  # graphs kept of each kind (trains, routed tests)
 
 
 def _bank_of(outputs) -> BankState:
@@ -119,21 +106,18 @@ def _bank_of(outputs) -> BankState:
 class SensorGraphs:
     """One sensor GP's graphs (see the module docstring). ``captures``
     lists every graph captured, the dropped ones released: key, warm-up
-    and capture ms, pool bytes, launches a replay, replays. ``max_slots``:
-    the largest host-grouped routed bucket graphed (None: every bucket)."""
+    and capture ms, pool bytes, launches a replay, replays."""
 
-    def __init__(self, device, size: int = MAX_GRAPHS,
-                 max_slots: Optional[int] = MAX_SLOTS):
+    def __init__(self, device, size: int = MAX_GRAPHS):
         self.device = torch.device(device)
         self.captures: list = []
         self._fits = GraphTable(self.captures, size)
         self._routed = GraphTable(self.captures, size)
-        self._tables: dict = {}       # fit key -> the tables last copied
+        self._tables: dict = {}       # graph key -> the tables last copied
         # static copies of banks that are no train graph's outputs:
         # token -> (bank, the bank last copied into it)
         self._banks: collections.OrderedDict = collections.OrderedDict()
         self.size = size
-        self.max_slots = max_slots
         self.ladder_runs = 0
 
     # -- trains ------------------------------------------------------------
@@ -147,11 +131,8 @@ class SensorGraphs:
         (``body`` returning ``batch_gp.RRFitParts``) its bank after
         ``batch_gp.bank_fit_rr_finish``."""
         g = self._fits.get(key)
-        arrays = (*feeds, *tables)
         if g is None:
-            inputs = tuple(empty_like(a, self.device) for a in arrays)
-            for dst, a in zip(inputs, arrays):
-                feed(dst, a)
+            inputs = self._static((*feeds, *tables))
 
             def run():
                 return body(*inputs)
@@ -163,9 +144,7 @@ class SensorGraphs:
             with span("egp.graph.feed"):
                 for dst, a in zip(g.inputs, feeds):
                     feed(dst, a)
-                if not same(self._tables.get(key, ()), tables):
-                    for dst, a in zip(g.inputs[len(feeds):], tables):
-                        feed(dst, a)
+                self._feed_tables(g, len(feeds), tables)
         self._tables[key] = tables
         g.replay()
         if not isinstance(g.outputs, RRFitParts):
@@ -178,13 +157,29 @@ class SensorGraphs:
                       self.ladder_runs)
         return bank
 
+    def _static(self, arrays: tuple) -> tuple:
+        """Static tensors on the device holding copies of ``arrays`` (host
+        arrays): a new graph's inputs."""
+        inputs = tuple(empty_like(a, self.device) for a in arrays)
+        for dst, a in zip(inputs, arrays):
+            feed(dst, a)
+        return inputs
+
+    def _feed_tables(self, g, at: int, tables: tuple) -> None:
+        """``tables`` (host arrays) into ``g``'s static inputs from ``at``
+        on, unless they are the objects last copied into them."""
+        if not same(self._tables.get(g.key, ()), tables):
+            for dst, a in zip(g.inputs[at:], tables):
+                feed(dst, a)
+
     def _prune(self) -> None:
         """A train graph's outputs go with it when the table drops it: so
-        do the routed predicts that read them."""
+        do the routed tests that read them."""
         kept = set(self._fits)
-        self._tables = {k: v for k, v in self._tables.items() if k in kept}
         self._routed.drop(lambda r: r.key[0][0] != "fit"
                           or r.key[0][1] in kept)
+        kept.update(self._routed)
+        self._tables = {k: v for k, v in self._tables.items() if k in kept}
 
     # -- routed predicts ---------------------------------------------------
     def _token(self, state: BankState):
@@ -226,47 +221,18 @@ class SensorGraphs:
                 self._banks[token] = held
         return held[0]
 
-    def routed(self, state: BankState, body: Callable, qs: np.ndarray,
-               mids: np.ndarray, settings: tuple) -> Optional[CapturedGraph]:
-        """The graph of the routed predict ``body(bank, mids, qs)`` ->
-        (mean (Bp, C, q), var (Bp, C)) for ``state``'s bank, with the host
-        queries qs (Bp, C, d) and member ids mids (Bp,) copied into its
-        static inputs; ``settings`` the kernel's, baked by the capture.
-        The caller replays it; its output is the mean and the variance
-        flattened into one tensor. None for a bucket of more than
-        ``max_slots`` query slots: the caller runs ``body`` eagerly."""
-        if self.max_slots is not None and \
-                qs.shape[0] * qs.shape[1] > self.max_slots:
-            return None
-        token, fit = self._token(state)
-        key = (token, qs.shape, qs.dtype.str, *settings)
-        g = self._routed.get(key)
-        if g is None:
-            bank = self._bank(token, fit, state)
-            inputs = (empty_like(qs, self.device),
-                      empty_like(mids, self.device))
-            for dst, a in zip(inputs, (qs, mids)):
-                feed(dst, a)
-
-            def run():
-                mean, var = body(bank, inputs[1], inputs[0])
-                return torch.cat([mean.reshape(-1), var.reshape(-1)])
-
-            return self._routed.keep(pose_graph.capture(key, self.device,
-                                                        run, run, inputs))
-        self._bank(token, fit, state)
-        with span("egp.graph.feed"):
-            for dst, a in zip(g.inputs, (qs, mids)):
-                feed(dst, a)
-        return g
-
     def routed_test(self, state: BankState, coords: np.ndarray,
                     body: Callable, settings: tuple,
-                    profile: Optional[dict] = None) -> tuple:
-        """The 3D routed test of ``state``'s bank as one replay: coords (m,
-        d) the queries' frame coordinates on the host, NaN where the frame
-        maps none; ``body(bank, q)`` the graph's function of the static
-        bank and the padded coordinates (mp, d) on the device, returning
+                    tables: tuple = ()) -> tuple:
+        """The routed test of ``state``'s bank as one replay: coords (m, d)
+        the queries' sensor-frame coordinates on the host, NaN where the
+        frame maps none; ``tables`` host arrays (the 2D GP's partition
+        bounds), copied into static inputs only when they are other objects
+        than the last ones copied, their shapes part of the graph's key (a
+        table need not match the bank's member count: one rebuilt after
+        the train does not); ``body(bank, q, *tables)`` the graph's
+        function of the static bank, the padded coordinates (mp, d) and
+        the tables on the device, returning
         ``batch_gp.bank_predict_chunked``'s (q_dim + 2, mp); ``settings``
         what it bakes. Returns numpy (mean (m, q_dim), var (m,), valid
         (m,) bool), new arrays.
@@ -276,24 +242,14 @@ class SensorGraphs:
         coordinates into the pinned buffer and the copy in (a capture at
         a graph's first use), ``egp.bank.predict`` the replay,
         ``egp.bank.readback`` the copy out and the wait for the card,
-        ``egp.bank.scatter`` the outputs cut to m. ``profile``: the same
-        phases' seconds, synchronized between them, under
-        ``bank_predict_assigned``'s keys, and ``bucket`` the rows'
-        shape."""
-        prof = profile is not None
-        if prof:
-            t0 = time.perf_counter()
+        ``egp.bank.scatter`` the outputs cut to m."""
         with span("egp.bank.group"):
             m = coords.shape[0]
             mp = max(1, -(-m // ROUTE_PAD)) * ROUTE_PAD
             token, fit = self._token(state)
-            key = (token, "chunked", mp, coords.dtype.str, *settings)
+            key = (token, "chunked", mp, coords.dtype.str,
+                   tuple(t.shape for t in tables), *settings)
             g = self._routed.get(key)
-        if prof:
-            t1 = time.perf_counter()
-            profile["host_group"] = t1 - t0
-            profile["bucket"] = (chunk_rows(mp, state.trained.shape[0],
-                                            ROUTE_CHUNK), ROUTE_CHUNK)
         with span("egp.bank.h2d"):
             if g is None:
                 bank = self._bank(token, fit, state)
@@ -306,28 +262,22 @@ class SensorGraphs:
                 q = torch.empty(host_in.shape, dtype=dtype,
                                 device=self.device)
                 _stage(host_in, q, coords)
+                static = self._static(tables)
 
                 def run():
-                    return body(bank, q)
+                    return body(bank, q, *static)
 
                 g = self._routed.keep(pose_graph.capture(
-                    key, self.device, run, run, (q, host_in, host_out)))
+                    key, self.device, run, run,
+                    (q, host_in, host_out, *static)))
             else:
                 self._bank(token, fit, state)
                 with span("egp.graph.feed"):
                     _stage(g.inputs[1], g.inputs[0], coords)
-            if prof:
-                _sync(self.device)
-        if prof:
-            t2 = time.perf_counter()
-            profile["h2d"] = t2 - t1
+                    self._feed_tables(g, 3, tables)
+            self._tables[key] = tables
         with span("egp.bank.predict"):
             g.replay()
-            if prof:
-                _sync(self.device)
-        if prof:
-            t3 = time.perf_counter()
-            profile["device"] = t3 - t2
         host_out = g.inputs[2]
         with span("egp.bank.readback"):
             host_out.copy_(g.outputs, non_blocking=True)
@@ -339,8 +289,6 @@ class SensorGraphs:
             valid = out[qd + 1] > 0
         if valid.any():
             count("bank.routed_graphed")
-        if prof:
-            profile["d2h_scatter"] = time.perf_counter() - t3
         return mean, var, valid
 
 

@@ -1350,7 +1350,7 @@ def test_lidar_gp_2d_replay_on_the_card_is_bitwise_per_scan_train(cuda,
                                                                  dtype):
     """The 28 logged scans (392 members of 26) in one bank-fit launch: each
     scan's slice equals its own train bit for bit; the routed test (a
-    replay of its bucket's graph) is one batched gram launch and agrees
+    replay of its routed graph) is one batched gram launch and agrees
     with the CPU model."""
     gp, cpu, rb = _lidar_log_gp(cuda, dtype)
     before = launch_counts()
@@ -1750,10 +1750,12 @@ def _result(gp, q):
 
 
 def _same_test(kind, got, want) -> bool:
-    """A graphed test against the eager chain's: bit for bit for the 2D
-    GPs; the 3D GP's device-routed test groups its queries into rows of
-    another shape than the host's bucket, so its products may round
-    otherwise: valid flags exact, means and variances within 1e-4
+    """A graphed test against the eager chain's. Both GPs' graphed tests
+    group their queries on the device into rows of 32 slots, the host into
+    a bucket: for the 2D GPs' tests here (270 angles, a 16 x 32 bucket)
+    the products still round as the eager chain's, bit for bit; the 3D
+    GP's rows have another shape than its bucket, so its products may
+    round otherwise: valid flags exact, means and variances within 1e-4
     (float32) or 1e-12 (float64) of their magnitude
     (tests/test_torch_routed_chunks.py)."""
     if not kind.startswith("3d"):

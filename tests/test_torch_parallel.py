@@ -1132,9 +1132,14 @@ def test_graphed_sharded_predict_matches_eager_and_jax(worlds, D):
 def test_graphed_mesh_sensor_train_matches_eager_and_jax(worlds, name, D):
     """The 3D range-sensor GP and the 2D lidar GP on D gloo ranks, each
     train one replay of the sharded bank fit (the capture, then a replay
-    on another scan): banks and tests bit for bit the eager mesh model's,
-    and the replay's bank within the bank case's gate (1e-12 of each
-    result's maximum) of JAX's sharded_bank_fit on the same inputs."""
+    on another scan): banks and tests bit for bit the eager mesh model's
+    (but the 2D test's mean: its graph groups the 57 queries on the
+    device into rows of 32 slots, the host into a bucket of 8, so its
+    products may round otherwise; valid flags exact, the mean within
+    1e-12 of its maximum, the float64 tolerance of
+    tests/test_torch_routed_chunks.py), and the replay's bank within the
+    bank case's gate (1e-12 of each result's maximum) of JAX's
+    sharded_bank_fit on the same inputs."""
     import jax.numpy as jnp
 
     from erl_gaussian_process_tpu.parallel import (
@@ -1143,7 +1148,19 @@ def test_graphed_mesh_sensor_train_matches_eager_and_jax(worlds, name, D):
     )
 
     got = _res(worlds, "graph_sensors", D)[name]
-    _assert_same(got["graphed"], got["eager"], f"D={D} {name}")
+    for s, (g, e) in enumerate(zip(got["graphed"], got["eager"])):
+        where = f"D={D} {name} train {s}"
+        _assert_same(g["bank"], e["bank"], where)
+        if name == "gp3d":
+            _assert_same(g["test"], e["test"], where)
+            continue
+        (mean, valid), (e_mean, e_valid) = g["test"], e["test"]
+        np.testing.assert_array_equal(valid, e_valid, err_msg=where)
+        assert valid.any()
+        fin = np.isfinite(e_mean)
+        np.testing.assert_array_equal(np.isfinite(mean), fin, where)
+        _close(mean[fin], e_mean[fin], 0, 1e-12 * np.abs(e_mean[fin]).max())
+    assert len(got["graphed"]) == len(got["eager"]) == 2
     assert got["fits"] == [2]
     make, train, _ = GRAPH_SENSORS[name]
     ref = make(None)

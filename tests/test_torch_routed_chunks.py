@@ -1,4 +1,4 @@
-"""The 3D sensor GP's device-routed test on the CPU: the grouping into
+"""The sensor GPs' device-routed test on the CPU: the grouping into
 fixed-shape rows (``models/batch_gp.group_chunks``), the partition search
 on tensors (``RangeSensorGaussianProcess3D._route_tensor``) and the whole
 graphed ``test`` and ``compute_occ`` (``bank_predict_chunked`` through
@@ -10,13 +10,16 @@ tests/test_torch_sensor_graph.py (float64 1e-12 and float32 1e-4 of each
 result's magnitude). The lidar and depth frames, directions in the
 sensor's frame and the world's, the plain and the reduced-rank kernel;
 query counts off the padding's multiple, no valid query, every query on
-one member, every member active."""
+one member, every member active. The 2D lidar GP's graphed test counts
+as the 3D GP's (tests/test_torch_sensor_graph.py holds its answers)."""
 
 import numpy as np
 import pytest
 import torch
 
 from erl_gaussian_process_tpu_torch.models import (
+    LidarGaussianProcess2D,
+    LidarGP2DSetting,
     RangeSensorGaussianProcess3D,
     RangeSensorGP3DSetting,
 )
@@ -29,9 +32,11 @@ from erl_gaussian_process_tpu_torch.models.batch_gp import (
 )
 from erl_gaussian_process_tpu_torch.models.sensor_graph import SensorGraphs
 from erl_gaussian_process_tpu_torch.utils import timing
+from erl_gaussian_process_tpu_torch.utils.loaders import load_lidar_log
 from test_torch_range_sensor_gp_3d import _POSE, _holed_scan
 from test_torch_range_sensor_gp_3d import _setting as _analytic_setting
-from test_torch_sensor_graph import _scans_3d, _setting_3d
+from test_torch_sensor_graph import DATA as DATA_2D
+from test_torch_sensor_graph import _scans_3d, _setting_2d, _setting_3d
 from torch_graph_standin import eager_graphs  # noqa: F401 (fixture)
 
 TOL = {np.float64: 1e-12, np.float32: 1e-4}
@@ -222,12 +227,31 @@ def test_device_route_edge_cases(kind, eager_graphs):
     assert len(routed) == len(pads) and ROUTE_PAD in pads
 
 
-def test_a_graphed_test_counts_one_routed_replay(eager_graphs):
-    """One ``test`` on a graphed model counts exactly one
-    ``bank.routed_graphed`` and no ``bank.routed_eager``, and replays its
-    graph once; a test that answers no query counts neither."""
-    host, dev = _models("lidar", np.float32)
-    d = _directions("lidar", 3000, 3)
+def _lidar_2d_graphed():
+    """(a graphed 2D lidar GP trained on the log's first scan, 3000 query
+    angles over its frame and past it, 4 angles outside it)."""
+    frames = load_lidar_log(DATA_2D)
+    f = frames[0]
+    setting = LidarGP2DSetting.from_dict(_setting_2d(f.angles, False))
+    gp = LidarGaussianProcess2D(setting, dtype=np.float32, device="cpu")
+    gp._graphs = SensorGraphs("cpu")
+    assert gp.train(np.eye(2), np.zeros(2), f.ranges)
+    a = np.random.default_rng(3).uniform(-np.pi, np.pi, 3000)
+    return gp, a, np.full(4, 3.1)
+
+
+@pytest.mark.parametrize("kind", ["lidar", "2d"])
+def test_a_graphed_test_counts_one_routed_replay(eager_graphs, kind):
+    """One ``test`` on a graphed model (the 3D lidar GP, the 2D lidar GP)
+    counts exactly one ``bank.routed_graphed`` and no
+    ``bank.routed_eager``, and replays its graph once; a test that
+    answers no query counts neither."""
+    if kind == "2d":
+        dev, d, outside = _lidar_2d_graphed()
+    else:
+        dev = _models("lidar", np.float32)[1]
+        d = _directions("lidar", 3000, 3)
+        outside = np.tile([[0.0, 0.0, 1.0]], (4, 1))
     for k in range(3):
         before = timing.counters()
         dev.test(d, True, False)
@@ -239,7 +263,7 @@ def test_a_graphed_test_counts_one_routed_replay(eager_graphs):
     (g,) = [g for g in eager_graphs if g.key[1] == "chunked"]
     assert g.replays == 3
     before = timing.counters()
-    res = dev.test(np.tile([[0.0, 0.0, 1.0]], (4, 1)), True, False)
+    res = dev.test(outside, True, False)
     assert not res._valid.any()
     assert timing.counters() == before
 

@@ -194,14 +194,17 @@ def _same_result(a, b):
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
 
 
-def _routed_result(case, a, b):
-    """A routed test's or ``compute_occ``'s outputs of the graphed model
-    (b) against the eager model's (a): bit for bit, but for a float32 3D
-    model, whose graph groups the queries on the device into rows of
-    another shape than the host's bucket (``batch_gp.group_chunks``), so
-    its products may round otherwise: valid flags and distances exact, the
-    rest within TOL (tests/test_torch_routed_chunks.py)."""
-    if not (case.kind.startswith("3d") and case.dtype == np.float32):
+def _routed_result(case, a, b, occ=False):
+    """A routed test's or ``compute_occ``'s (``occ``) outputs of the
+    graphed model (b) against the eager model's (a): bit for bit, but
+    where the graph's rows (``batch_gp.group_chunks``, 32 slots) have
+    another shape than the host's bucket and their products round
+    otherwise: a float32 3D model's outputs, and a 2D model's
+    ``compute_occ`` of a few points (a bucket a few slots wide): valid
+    flags and distances exact, the rest within TOL of their dtype
+    (tests/test_torch_routed_chunks.py)."""
+    if not ((case.kind.startswith("3d") and case.dtype == np.float32)
+            or (occ and case.kind.startswith("2d"))):
         _same_result(a, b)
         return
     for x, y in zip(a, b):
@@ -211,7 +214,7 @@ def _routed_result(case, a, b):
         else:
             fin = np.isfinite(x)
             np.testing.assert_array_equal(fin, np.isfinite(y))
-            _close(y[fin], x[fin], TOL[np.float32])
+            _close(y[fin], x[fin], TOL[case.dtype])
 
 
 # -- (a) the captured bodies against train / train_scan_batch / test --------
@@ -223,10 +226,10 @@ def test_graphed_steps_equal_the_eager_model(frames, eager_graphs, kind,
     """The graphed routing (static inputs, the bodies run as captured,
     static outputs) against the eager CPU model, bit for bit: the bank of
     each ``train``, ``test``'s mean, variance and valid mask, the
-    ``compute_occ`` result (a float32 3D model's within TOL:
-    ``_routed_result``), and (plain kernels) ``train_scan_batch`` (eager,
-    no graph) and each scan's slice against its own ``train``; the body
-    called directly gives the same bank."""
+    ``compute_occ`` result (a float32 3D model's, and a 2D model's
+    ``compute_occ``, within TOL: ``_routed_result``), and (plain kernels)
+    ``train_scan_batch`` (eager, no graph) and each scan's slice against
+    its own ``train``; the body called directly gives the same bank."""
     case = Case(kind, dtype, frames)
     ref, got = case.new(), case.new(graphed=True)
     for s in range(2):
@@ -244,7 +247,7 @@ def test_graphed_steps_equal_the_eager_model(frames, eager_graphs, kind,
     occ = (case.queries[::7] * 2.0 if kind.startswith("3d") else
            np.stack([np.cos(case.queries[::7]),
                      np.sin(case.queries[::7])], -1) * 2.0)
-    _routed_result(case, ref.compute_occ(occ), got.compute_occ(occ))
+    _routed_result(case, ref.compute_occ(occ), got.compute_occ(occ), True)
     if kind.endswith("_rr"):
         assert len(got._graphs._fits) == 1
         return
@@ -452,7 +455,8 @@ def test_scan_batch_result_survives_the_next_call(frames, eager_graphs,
 def test_scan_batch_leaves_the_trained_bank(frames, eager_graphs, kind):
     """``train`` of scan A, then ``train_scan_batch`` of scan B alone (S =
     1, the train's own shape): the model's bank, and so its ``test`` and
-    ``compute_occ``, stay scan A's, bit for bit the eager model's."""
+    ``compute_occ``, stay scan A's, the eager model's (bit for bit, but a
+    2D ``compute_occ``: ``_routed_result``)."""
     case = Case(kind, np.float64, frames)
     ref, got = case.new(), case.new(graphed=True)
     for m in (ref, got):
@@ -468,8 +472,7 @@ def test_scan_batch_leaves_the_trained_bank(frames, eager_graphs, kind):
     occ = (case.queries[::7] * 2.0 if kind == "3d" else
            np.stack([np.cos(case.queries[::7]),
                      np.sin(case.queries[::7])], -1) * 2.0)
-    for a, b in zip(ref.compute_occ(occ), got.compute_occ(occ)):
-        assert a.tobytes() == b.tobytes()
+    _routed_result(case, ref.compute_occ(occ), got.compute_occ(occ), True)
 
 
 @pytest.mark.parametrize("kind", ["3d", "2d"])
@@ -495,32 +498,32 @@ def test_gps_views_survive_the_next_train(frames, eager_graphs, kind):
         assert a._train_set.x.tobytes() == b._train_set.x.tobytes()
 
 
-def test_a_large_routed_bucket_runs_eagerly(frames, eager_graphs):
-    """The 2D lidar GP's host-grouped buckets (the only ones ``max_slots``
-    limits: the 3D test groups on the device,
-    tests/test_torch_routed_chunks.py): a routed bucket of more than
-    ``max_slots`` query slots (Bp * C) runs the eager chain and is never
-    captured; a smaller one is captured at its first use and replayed
-    after; ``max_slots=None`` graphs every bucket. Every answer is the
-    eager model's, bit for bit."""
+def test_a_large_routed_test_is_one_replay(frames, eager_graphs):
+    """A 2D test of 6000 query angles, whose host bucket (Bp * C) holds
+    more than 4096 query slots, and the device rows too: one replay of one
+    routed graph, captured at the first test and replayed by the second,
+    whose answers (mean, variance, valid flags) are the eager model's bit
+    for bit; the query count keys the graph, the data does not."""
     case = Case("2d", np.float64, frames)
-    ref, got = case.new(), case.new(graphed=True, max_slots=64)
+    ref, got = case.new(), case.new(graphed=True)
     for m in (ref, got):
         assert m.train(*case.pose, case.scans[0])
+    many = np.linspace(-2.5, 2.5, 6000)
+    idx = ref.search_partition(many)
+    slots = group_queries(idx, _np(ref.bank.trained))[1]
+    assert slots.size > 4096 and (idx < 0).any()
     g = got._graphs
-    few = case.queries[100:104]
     for k in range(2):
-        _same_result(case.result(ref), case.result(got))
-        assert len(g._routed) == k
-        a, b = ref.test(few, True, False), got.test(few, True, False)
+        a, b = ref.test(many, True, False), got.test(many, True, False)
         _same_result((a._mean, a._var, a._valid),
                      (b._mean, b._var, b._valid))
-        assert len(g._routed) == 1
-    assert g._routed.get(next(iter(g._routed))).replays == 2
-    assert len(eager_graphs) == 2
-    got._graphs = SensorGraphs("cpu", max_slots=None)
-    _same_result(case.result(ref), case.result(got))
-    assert len(got._graphs._routed) == 1
+        assert b._valid.any()
+        (routed,) = [r for r in eager_graphs if r.key[1] == "chunked"]
+        assert routed.replays == k + 1 and len(g._routed) == 1
+    a, b = ref.test(many[::-1].copy(), True, False), \
+        got.test(many[::-1].copy(), True, False)
+    _same_result((a._mean, a._var, a._valid), (b._mean, b._var, b._valid))
+    assert len(g._routed) == 1 and routed.replays == 3
 
 
 def test_the_least_recently_used_shape_is_dropped(frames, eager_graphs):
@@ -587,6 +590,61 @@ def test_hit_ray_partitions_capture_a_graph_per_shape(frames, eager_graphs):
         _same_bank(ref.bank, got.bank)
         _same_result(case.result(ref), case.result(got))
     assert len(got._graphs._fits) == len(shapes) > 1
+
+
+def test_hit_ray_tables_of_one_length_route_by_their_own_bounds(
+        frames, eager_graphs):
+    """Two hit-ray partition tables of the same length and shape but other
+    bounds (a scan missing its first 9 rays, one missing its last 9): one
+    train graph and one routed graph serve both, and each test routes by
+    its own table, the bounds copied into the graph's input when the model
+    holds the other table: the answers bit for bit the eager model's, the
+    valid flags of the two tables apart."""
+    case = Case("2d", np.float64, frames, partition_on_hit_rays=True)
+    ref, got = case.new(), case.new(graphed=True)
+    head, tail = frames[0].ranges.copy(), frames[0].ranges.copy()
+    head[:9] = np.inf
+    tail[-9:] = np.inf
+    valid, bounds = [], []
+    for r in (head, tail, head):
+        for m in (ref, got):
+            assert m.train(*case.pose, r)
+        want, res = case.result(ref), case.result(got)
+        _same_result(want, res)
+        valid.append(res[2])
+        bounds.append(ref._part_bounds)
+    assert bounds[0].shape == bounds[1].shape
+    assert not np.array_equal(bounds[0], bounds[1])
+    assert not np.array_equal(valid[0], valid[1])
+    np.testing.assert_array_equal(valid[0], valid[2])
+    assert len(got._graphs._fits) == 1 and len(got._graphs._routed) == 1
+    (routed,) = got._graphs._routed.values()
+    assert routed.replays == 3
+    np.testing.assert_array_equal(_np(routed.inputs[3]), bounds[2])
+
+
+def test_a_table_rebuilt_after_the_train_keys_its_own_graph(
+        frames, eager_graphs):
+    """A partition table rebuilt after the train (``partition_on_angles``
+    at another group size) holds another count than the bank's members:
+    the test routes by it through a routed graph of its own, keyed by the
+    table's shape, the bank's graph unchanged, and answers bit for bit as
+    the eager model does."""
+    case = Case("2d", np.float64, frames)
+    ref, got = case.new(), case.new(graphed=True)
+    for m in (ref, got):
+        assert m.train(*case.pose, case.scans[0])
+    _same_result(case.result(ref), case.result(got))
+    members = got.bank.trained.shape[0]
+    for m in (ref, got):
+        m.setting.group_size = 20
+        m.partition_on_angles()
+    assert len(got.partitions) != members
+    _same_result(case.result(ref), case.result(got))
+    assert len(got._graphs._fits) == 1 and len(got._graphs._routed) == 2
+    shapes = sorted(tuple(r.inputs[3].shape)
+                    for r in got._graphs._routed.values())
+    assert shapes == sorted([(members, 2), (len(got.partitions), 2)])
 
 
 def test_rr_jitter_ladder_runs_after_the_replay(frames, eager_graphs):

@@ -6,9 +6,8 @@ emit their spans nested as their layers are, on the host path and on the
 graphed one; the routed test counts the path each call took, the SPGP
 prepare the tier that served it, the jitter retry the fits that escalated
 and the exact GP the whitening of each variance query; and the
-``profile=`` phases of ``bank_predict_assigned`` and
-``SensorGraphs.routed_test`` open and close at the statements their spans
-do."""
+``profile=`` phases of ``bank_predict_assigned`` open and close at the
+statements its spans do."""
 
 import types
 
@@ -17,7 +16,6 @@ import pytest
 import torch
 
 import erl_gaussian_process_tpu_torch.models.batch_gp as batch_gp
-import erl_gaussian_process_tpu_torch.models.sensor_graph as sensor_graph
 from erl_gaussian_process_tpu_torch.geometry import Aabb
 from erl_gaussian_process_tpu_torch.kernels import KernelSetting
 import erl_gaussian_process_tpu_torch.models.gp_core as gp_core
@@ -33,6 +31,7 @@ from erl_gaussian_process_tpu_torch.models import (
 from erl_gaussian_process_tpu_torch.models.exact_graph import ExactGraphs
 from erl_gaussian_process_tpu_torch.models.sensor_graph import SensorGraphs
 from erl_gaussian_process_tpu_torch.utils import timing
+from test_torch_routed_chunks import _lidar_2d_graphed
 from test_torch_spgp import _ill_conditioned_gp
 from torch_graph_standin import eager_graphs  # noqa: F401 (fixture)
 
@@ -158,27 +157,15 @@ def test_routed_counters_count_by_path(eager_graphs):
     gp.test(queries, True, False)
     assert _delta(before, "bank.routed_eager") == 2
     assert _delta(before, "bank.routed_graphed") == 0
-    # with graphs (the CPU stand-in) the 3D test is one replay whatever
-    # max_slots, which limits only host-grouped buckets
-    for max_slots in (None, 1):
-        gp._graphs = SensorGraphs("cpu", max_slots=max_slots)
-        assert gp.train(*pose, ranges)
+    # with graphs (the CPU stand-in) each sensor GP's test is one replay
+    gp._graphs = SensorGraphs("cpu")
+    assert gp.train(*pose, ranges)
+    gp2d, angles, _ = _lidar_2d_graphed()
+    for m, q in ((gp, queries), (gp2d, angles)):
         before = timing.counters()
-        gp.test(queries, True, False)
+        assert m.test(q, True, False)._valid.any()
         assert _delta(before, "bank.routed_graphed") == 1
         assert _delta(before, "bank.routed_eager") == 0
-    # a host-grouped bucket within max_slots replays, a larger one runs
-    # eagerly
-    coords, idx = gp.route_directions(queries)
-    for max_slots, path in ((None, "bank.routed_graphed"),
-                            (1, "bank.routed_eager")):
-        before = timing.counters()
-        batch_gp.bank_predict_assigned(
-            gp.bank, coords, idx, gp._scale, kernel=gp._kernel,
-            graphs=SensorGraphs("cpu", max_slots=max_slots))
-        assert _delta(before, path) == 1
-        assert _delta(before, "bank.routed_graphed") \
-            + _delta(before, "bank.routed_eager") == 1
     # a call that answers no query takes neither path
     before = timing.counters()
     batch_gp.bank_predict_assigned(gp.bank, np.zeros((3, 2), np.float32),
@@ -282,58 +269,6 @@ def test_graphed_test_spans_keep_their_order(eager_graphs):
     assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
     (feed,) = spans["egp.graph.feed"]
     assert _inside(feed, spans["egp.bank.h2d"][0])
-
-
-def test_routed_test_profile_phases_open_and_close_with_the_spans(
-        monkeypatch, eager_graphs):
-    """``SensorGraphs.routed_test(profile=)``: the keys of
-    ``bank_predict_assigned``'s profile, the rows' shape as the bucket, and
-    each clock reading between the phases' spans."""
-    gp, pose, ranges, queries = _lidar()
-    gp._graphs = SensorGraphs("cpu")
-    assert gp.train(*pose, ranges)
-    coords, ok = gp.sensor_frame.compute_frame_coords(queries)
-    coords = np.where(ok[:, None], coords, np.float32(np.nan))
-    log, stack = [], []
-
-    class Span:
-        def __init__(self, name):
-            self.name = name
-
-        def __enter__(self):
-            stack.append(self.name)
-            log.append(self.name)
-
-        def __exit__(self, *exc):
-            stack.pop()
-
-    def clock():
-        assert not stack, f"a profile= clock read inside {stack}"
-        log.append("clock")
-        return float(len(log))
-
-    def body(bank, q):
-        return batch_gp.bank_predict_chunked(
-            bank, q, gp._route_tensor(q), gp._scale, kernel=gp._kernel)
-
-    monkeypatch.setattr(sensor_graph, "span", Span)
-    monkeypatch.setattr(sensor_graph, "time",
-                        types.SimpleNamespace(perf_counter=clock))
-    for k in range(2):
-        log.clear()
-        profile = {}
-        mean, var, valid = gp._graphs.routed_test(gp.bank, coords, body, (),
-                                                  profile=profile)
-        assert valid.any() and mean.shape == (len(queries), 1)
-        assert set(profile) == {"host_group", "h2d", "device",
-                                "d2h_scatter", "bucket"}
-        assert profile["bucket"] == (
-            batch_gp.chunk_rows(batch_gp.ROUTE_PAD, gp.bank.x.shape[0],
-                                batch_gp.ROUTE_CHUNK), batch_gp.ROUTE_CHUNK)
-        h2d = ["egp.bank.h2d"] + (["egp.graph.feed"] if k else [])
-        assert log == ["clock", "egp.bank.group", "clock", *h2d, "clock",
-                       "egp.bank.predict", "clock", "egp.bank.readback",
-                       "egp.bank.scatter", "clock"]
 
 
 @pytest.mark.parametrize("name", ["egp.map.update", "egp.bank.group"])
