@@ -41,12 +41,18 @@
 // elimination with one block barrier a step (44 us a tile, 131 of 132 SMs
 // idle) and ran the three launches of each column in strict sequence. The
 // design now:
-//   1. The float32 update runs on the tensor cores in 3xTF32: each operand
-//      is split into hi + lo TF32 parts (cvt.rna), the product taken as
-//      lo*hi + hi*lo + hi*hi with mma.sync m16n8k8 and FP32 accumulation
-//      (the counterpart of the JAX kernel's bf16x3 _dot3x, csrc/mma_tf32.cuh);
-//      operands stream through a 3-stage cp.async ring. Float64 keeps a SIMT
-//      update.
+//   1. The float32 update runs on Hopper's warpgroup products (wgmma) in
+//      3xTF32: each operand is split into hi + lo TF32 parts, the product
+//      taken as lo*hi + hi*lo + hi*hi with FP32 accumulation (the
+//      counterpart of the JAX kernel's bf16x3 _dot3x, csrc/wgmma_tf32.cuh).
+//      Column j's update is a skinny product, (n - jT) rows x (j - 1) T deep
+//      x T wide, so it is bound by the rows of L it streams: at n = 8192
+//      5.59 GB over the columns (L is 268 MB, past the 50 MB L2), 1.67 ms at
+//      3.35 TB/s, against 1.08 ms for its 5.37e11 TF32 operations at 495
+//      TFLOP/s. A block owns 128 rows and reads each row of its strip once;
+//      the rows are the register operand, split in registers, and the
+//      column's own strip, which every block of the column shares, is split
+//      once a chunk into shared memory. Float64 keeps a SIMT update.
 //   2. The diagonal tile is factored blocked, as the JAX _factor_tile does:
 //      four 16-column sub-blocks, each factored in one warp's registers
 //      with shuffles (csrc/sub_block.cuh; no block barrier a pivot) and
@@ -61,7 +67,12 @@
 //      critical path, folded into the diag and apply launches. The tiles of
 //      A come from the update too, by blocks of their own beside the
 //      product blocks, so the chain never evaluates the source. The
-//      workspace is double-buffered by column parity.
+//      workspace is double-buffered by column parity. A float32 update
+//      block holds most of an SM (128 KB of shared memory, ~150 registers
+//      a thread), so the split plan gives a column's update at most three
+//      quarters of the SMs, one block each: the rest stay free for the diag
+//      and apply blocks of the chain, which otherwise waited for an update
+//      block to end (PERF.md).
 //   4. The apply sums each tile's split partials once, into registers (four
 //      splits' loads in flight), and takes both of its T x T x T products
 //      from shared memory.
@@ -84,11 +95,12 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "async_copy.cuh"
 #include "family.cuh"
-#include "mma_tf32.cuh"
 #include "sub_block.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace egp {
 
@@ -206,21 +218,43 @@ __device__ __forceinline__ void lds4(const double* p, double v[4]) {
 
 // ---- update: split partials of the column's look-ahead prefix ----
 
-// Grid (nb - j, 1 + splits): block (t, s) writes ws[s][t] (T x T) for row
-// tile j + t against row tile j. Split 0 is the tile of A, built off the
-// critical path by blocks of its own (beside the product blocks, not after
-// them), so the diag and apply launches never evaluate the source; for the
-// diagonal tile, t = 0, only its lower part (A is read from its lower
-// triangle). Split s >= 1 sums the panels [(s - 1) pps, min(npan, s pps)),
-// npan = max(0, j - 1).
+// Block (., s) writes ws[s][t] (T x T, t < nt = nb - j) for row tile j + t
+// against row tile j: the float64 grid is (nt, 1 + splits), one tile a
+// block; the float32 grid (ceil(nt / 2), 1 + splits), two. Split 0 is the
+// tile of A, built off the critical path by blocks of its own (beside the
+// product blocks, not after them), so the diag and apply launches never
+// evaluate the source; for the diagonal tile, t = 0, only its lower part (A
+// is read from its lower triangle). Split s >= 1 sums the panels
+// [(s - 1) pps, min(npan, s pps)), npan = max(0, j - 1).
 
-// float32: 3xTF32 on the tensor cores. 4 warps, each 32 x 32 outputs (2 x 4
-// m16n8 tiles); 32-deep k-chunks through a 3-stage cp.async ring.
-constexpr int kTcThreads = 128;
-constexpr int kTcK = 32;
-constexpr int kTcLd = kTcK + 4;  // conflict-free fragment reads
-constexpr int kTcStages = 3;
-constexpr int kTcSmem = kTcStages * 2 * kTile * kTcLd * (int)sizeof(float);
+// float32: 3xTF32 on wgmma (sm_90a). A block of two warpgroups owns 128
+// rows, row tiles j + t and j + t + 1 (t = 2 blockIdx.x), against the
+// column's 64: warpgroup w the 64 x 64 product of row tile j + t + w. Both
+// operands are read from L as they lie, 32-deep chunks at a time, through
+// one cp.async ring of kUpStages chunks (16-byte units swizzled by row, so
+// that the reads below are conflict-free):
+//   - the row strip L[rows, chunk] is the register operand: each thread
+//     splits its fragment into hi and lo TF32 parts in registers;
+//   - the column's own strip L[jT .. jT + T, chunk], the same for every
+//     block, is the shared-memory operand: the block splits it once, a chunk
+//     ahead, into hi and lo tiles in wgmma's core layout, double-buffered.
+// Each chunk is 12 products (lo*hi, hi*lo, hi*hi for each 8-deep step) into
+// a partial that starts from zero with each T-wide panel (two chunks) and is
+// then added into the running sum by FP32 adds. One barrier a chunk: after
+// it the chunk's rows and column tiles are in, and both warpgroups are done
+// with the chunk before (whose ring stage and column tiles are refilled).
+// Both warpgroups run every product, the second on zero rows in the last
+// block of an odd count of row tiles (it writes nothing): a product issued
+// under a branch serializes the warpgroup's products.
+constexpr int kUpRows = 2 * kTile;    // rows a block: two warpgroups of 64
+constexpr int kUpThreads = 256;
+constexpr int kUpK = kCoreK;          // depth of a chunk (32)
+constexpr int kUpStages = 4;          // chunks: 2 in flight, 2 in use
+constexpr int kUpRowStage = kUpRows * kUpK;           // the rows' floats
+constexpr int kUpStage = kUpRowStage + kTile * kUpK;  // and the column's
+constexpr int kUpCore = kTile * kUpK;  // a hi or lo column tile
+constexpr int kUpSmem =
+    (2 * 2 * kUpCore + kUpStages * kUpStage) * (int)sizeof(float);
 
 template <typename T, typename Src, int kThr>
 __device__ __forceinline__ void a_tile(Src src, T* out, int t, int r0,
@@ -232,119 +266,157 @@ __device__ __forceinline__ void a_tile(Src src, T* out, int t, int r0,
   }
 }
 
+// Element (r, k) of a ring stage (rows of kUpK floats): 16-byte unit k / 4
+// of row r at position (k / 4) ^ (r % 8).
+__device__ __forceinline__ int row_stage_index(int r, int k) {
+  return r * kUpK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3);
+}
+
 template <typename Src>
-__global__ void __launch_bounds__(kTcThreads)
-    chol_update_tc_kernel(Src src, const float* __restrict__ L,
-                          float* __restrict__ ws, int n, int j, int pps,
-                          int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ring = reinterpret_cast<float*>(smem_raw);
-  const int t = blockIdx.x;
+__global__ void __launch_bounds__(kUpThreads, 1)
+    chol_update_wgmma_kernel(Src src, const float* __restrict__ L,
+                             float* __restrict__ ws, int n, int j, int nt,
+                             int pps, int vec) {
+  extern __shared__ __align__(128) unsigned char up_smem[];
+  float* core = reinterpret_cast<float*>(up_smem);  // [2][hi, lo]
+  float* ring = core + 2 * 2 * kUpCore;              // [stage] rows, column
+  const int t = 2 * blockIdx.x;
   const int s = blockIdx.y;
-  const int row0 = (j + t) * kTile;
   const int col0 = j * kTile;
-  float* out = ws + ((size_t)s * gridDim.x + t) * kTile * kTile;
   if (s == 0) {
-    a_tile<float, Src, kTcThreads>(src, out, t, row0, col0);
+    for (int h = 0; h < 2 && t + h < nt; ++h)
+      a_tile<float, Src, kUpThreads>(
+          src, ws + (size_t)(t + h) * kTile * kTile, t + h,
+          (j + t + h) * kTile, col0);
     return;
   }
+  const int row0 = (j + t) * kTile;
   const int npan = max(0, j - 1);
   const int kbeg = (s - 1) * pps * kTile;
   const int kend = min(npan, s * pps) * kTile;
-  const int nch = (kend - kbeg) / kTcK;
-  const int warp = threadIdx.x >> 5;
+  const int nch = (kend - kbeg) / kUpK;  // even: whole panels
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const int wr = (warp & 1) * 32;
-  const int wc = (warp >> 1) * 32;
-  auto load = [&](int ch) {
-    float* As = ring + (ch % kTcStages) * 2 * kTile * kTcLd;
-    float* Bs = As + kTile * kTcLd;
-    const int k0 = kbeg + ch * kTcK;
-    cp_tile<float, kTile, kTcK, kTcLd, kTcThreads>(As, L, n, row0, k0, n, n,
-                                                    vec != 0);
-    cp_tile<float, kTile, kTcK, kTcLd, kTcThreads>(Bs, L, n, col0, k0, n, n,
-                                                    vec != 0);
+  // warpgroup 1 of the last block of an odd count of row tiles has no tile
+  const bool live = t + wg < nt;
+  // chunk c of the row strip and of the column's strip into its ring
+  // stage, rows past n zero
+  auto load_chunk = [&](int c) {
+    float* st = ring + (c % kUpStages) * kUpStage;
+    const int k0 = kbeg + c * kUpK;
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < kUpStage / 4 / kUpThreads; ++i) {
+        const int e = threadIdx.x + i * kUpThreads;
+        const int r = e >> 3;  // rows 0 .. 127 the strip's, then the column's
+        const int k = (e & 7) * 4;
+        const int gr = r < kUpRows ? row0 + r : col0 + r - kUpRows;
+        const bool ok = gr < n;
+        cp_async<16>(st + row_stage_index(r, k),
+                     ok ? L + (size_t)gr * n + k0 + k : L, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kUpStage; e += kUpThreads) {
+        const int r = e / kUpK;
+        const int k = e - r * kUpK;
+        const int gr = r < kUpRows ? row0 + r : col0 + r - kUpRows;
+        const bool ok = gr < n;
+        cp_async<4>(st + row_stage_index(r, k),
+                    ok ? L + (size_t)gr * n + k0 + k : L, ok);
+      }
+    }
   };
-  float acc[2][4][4], part[2][4][4];
+  // chunk c's column strip, landed, split into its hi and lo core tiles:
+  // each thread two units of four values; eight consecutive threads the
+  // same unit of eight rows (conflict-free both ways)
+  auto stage_col = [&](int c) {
+    const float* raw = ring + (c % kUpStages) * kUpStage + kUpRowStage;
+    float* hi = core + (c & 1) * 2 * kUpCore;
+    float* lo = hi + kUpCore;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int h = 0; h < 2; ++h) {
+      const int w = (threadIdx.x >> 5) + 8 * h;
+      const int r = (w & 7) * 8 + (lane & 7);
+      const int k = (w / 8 * 4 + (lane >> 3)) * 4;
+      const float4 v =
+          *reinterpret_cast<const float4*>(raw + row_stage_index(r, k));
+      unsigned vh[4], vl[4];
+      split_rna(v.x, vh[0], vl[0]);
+      split_rna(v.y, vh[1], vl[1]);
+      split_rna(v.z, vh[2], vl[2]);
+      split_rna(v.w, vh[3], vl[3]);
+      const int at = core_index(r, k);
+      *reinterpret_cast<uint4*>(hi + at) = make_uint4(vh[0], vh[1], vh[2],
+                                                      vh[3]);
+      *reinterpret_cast<uint4*>(lo + at) = make_uint4(vl[0], vl[1], vl[2],
+                                                      vl[3]);
+    }
+    fence_proxy_async();
+  };
+  float acc[32], part[32];
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+  for (int e = 0; e < 32; ++e) acc[e] = part[e] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = part[mi][ni][e] = 0.f;
-#pragma unroll
-  for (int st = 0; st < kTcStages - 1; ++st) {
-    if (st < nch) load(st);
+  for (int st = 0; st < kUpStages - 1; ++st) {
+    if (st < nch) load_chunk(st);
     cp_commit();
   }
-  for (int ch = 0; ch < nch; ++ch) {
-    cp_wait<kTcStages - 2>();
+  cp_wait<kUpStages - 2>();
+  __syncthreads();
+  stage_col(0);  // nch is even and at least 2: whole panels
+  const int r = wg * 64 + warp * 16 + g;  // the fragments' rows r, r + 8
+  for (int c = 0; c < nch; ++c) {
+    cp_wait<kUpStages - 3>();  // chunks c and c + 1 are in
     __syncthreads();
-    if (ch + kTcStages - 1 < nch) load(ch + kTcStages - 1);
+    if (c + kUpStages - 1 < nch) load_chunk(c + kUpStages - 1);
     cp_commit();
-    const float* As = ring + (ch % kTcStages) * 2 * kTile * kTcLd;
-    const float* Bs = As + kTile * kTcLd;
+    const float* st = ring + (c % kUpStages) * kUpStage;
+    const float* hi = core + (c & 1) * 2 * kUpCore;
+    const float* lo = hi + kUpCore;
+    unsigned ahi[4][4], alo[4][4];
 #pragma unroll
-    for (int kk = 0; kk < kTcK; kk += 8) {
-      unsigned ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* a = As + (wr + mi * 16 + g) * kTcLd + kk + tq;
-        split_tf32(a[0], ahi[mi][0], alo[mi][0]);
-        split_tf32(a[8 * kTcLd], ahi[mi][1], alo[mi][1]);
-        split_tf32(a[4], ahi[mi][2], alo[mi][2]);
-        split_tf32(a[8 * kTcLd + 4], ahi[mi][3], alo[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float* b = Bs + (wc + ni * 8 + g) * kTcLd + kk + tq;
-        split_tf32(b[0], bhi[ni][0], blo[ni][0]);
-        split_tf32(b[4], bhi[ni][1], blo[ni][1]);
-      }
-      // the small terms first, each pass over all eight tiles so that no
-      // product waits on the one before it
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_tf32(part[mi][ni], alo[mi], bhi[ni]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_tf32(part[mi][ni], ahi[mi], blo[ni]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_tf32(part[mi][ni], ahi[mi], bhi[ni]);
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 8 * kk + tq;
+      split_rna(st[row_stage_index(r, k)], ahi[kk][0], alo[kk][0]);
+      split_rna(st[row_stage_index(r + 8, k)], ahi[kk][1], alo[kk][1]);
+      split_rna(st[row_stage_index(r, k + 4)], ahi[kk][2], alo[kk][2]);
+      split_rna(st[row_stage_index(r + 8, k + 4)], ahi[kk][3], alo[kk][3]);
     }
-    if (ch & 1) {  // a T-wide panel ends: fold its fresh partial in
+    wgmma_fence();
+    // the small terms first; a panel's first product starts from zero
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_tf32_n64(part, alo[kk], core_desc(hi, kk),
+                     (c & 1) == 0 && kk == 0);
+      wgmma_tf32_n64(part, ahi[kk], core_desc(lo, kk), 0);
+      wgmma_tf32_n64(part, ahi[kk], core_desc(hi, kk), 0);
+    }
+    wgmma_commit();
+    // the next chunk's column tiles while the products run (their buffer
+    // was read by chunk c - 1's, done before the barrier)
+    if (c + 1 < nch) stage_col(c + 1);
+    wgmma_wait_all();
+    if (c & 1) {  // a T-wide panel ends: fold its fresh partial in
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[mi][ni][e] += part[mi][ni][e];
-            part[mi][ni][e] = 0.f;
-          }
+      for (int e = 0; e < 32; ++e) acc[e] += part[e];
     }
   }
   cp_wait<0>();
+  if (!live) return;
+  // acc[4 i + e]: row warp 16 + g + 8 (e / 2), column 8 i + 2 tq + e % 2
+  float* out = ws + ((size_t)s * nt + t + wg) * kTile * kTile;
+  const int orow = warp * 16 + g;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int r = wr + mi * 16 + g;
-      const int c = wc + ni * 8 + 2 * tq;
-      *reinterpret_cast<float2*>(out + r * kTile + c) =
-          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      *reinterpret_cast<float2*>(out + (r + 8) * kTile + c) =
-          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
-    }
+  for (int i = 0; i < 8; ++i) {
+    const int c = 8 * i + 2 * tq;
+    *reinterpret_cast<float2*>(out + orow * kTile + c) =
+        make_float2(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<float2*>(out + (orow + 8) * kTile + c) =
+        make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
 }
 
 // float64: a SIMT T x T tile, each of 256 threads 4 x 4 neighbouring
@@ -764,12 +836,9 @@ static cudaError_t launch_update(Src src, const float* L, float* ws, int n,
                                  int j, int nt, int ns, int pps,
                                  cudaStream_t s) {
   const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(L) % 16 == 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      chol_update_tc_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kTcSmem);
-  if (err != cudaSuccess) return err;
-  chol_update_tc_kernel<Src><<<dim3(nt, ns), kTcThreads, kTcSmem, s>>>(
-      src, L, ws, n, j, pps, vec);
+  chol_update_wgmma_kernel<Src>
+      <<<dim3((nt + 1) / 2, ns), kUpThreads, kUpSmem, s>>>(src, L, ws, n, j,
+                                                           nt, pps, vec);
   return cudaGetLastError();
 }
 
@@ -802,6 +871,10 @@ static int run_chol(Src src, T* L, T* Dinv, T* ws, long long ws_half,
   }
   LookAhead* la = nullptr;
   EGP_TRY(look_ahead(device, &la));
+  if constexpr (std::is_same<T, float>::value)
+    EGP_TRY(cudaFuncSetAttribute(chol_update_wgmma_kernel<Src>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kUpSmem));
   EGP_TRY(cudaFuncSetAttribute(chol_diag_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                diag_smem<T>()));

@@ -24,6 +24,7 @@ from erl_gaussian_process_tpu_torch.ops.chol import (
     chol_blocked_gram_joint_plain,
     chol_blocked_gram_plain,
     chol_blocked_plain,
+    chol_update_wgmma,
     TILE,
     diag_tile_inverses,
 )
@@ -55,6 +56,7 @@ WRAPPERS = {"gram": cross_gram_cuda, "gram_batched": cross_gram_batched_cuda,
             "bank_chol": bank_cholesky_solve_cuda, "chol": chol_blocked,
             "chol_gram": chol_blocked_gram,
             "chol_gram_joint": chol_blocked_gram_joint,
+            "chol_update_wgmma": chol_update_wgmma,
             "trsv": substitute_cuda, "trsm": solve_lower_many}
 
 
@@ -82,6 +84,7 @@ __all__ = [
     "chol_blocked_gram_joint_plain",
     "chol_blocked_gram_plain",
     "chol_blocked_plain",
+    "chol_update_wgmma",
     "diag_tile_inverses",
     "cross_gram_batched_cuda",
     "cross_gram_cuda",

@@ -3,9 +3,9 @@
 ``csrc/gram.cu`` and ``csrc/gram_f64.cu`` (the gram kernel of
 ``csrc/gram.cuh`` at each dtype), ``csrc/fitc.cu``, ``csrc/bank.cu``,
 ``csrc/chol.cu``, ``csrc/trsv.cu`` and ``csrc/trsm.cu`` (with the shared
-``csrc/family.cuh``, ``csrc/async_copy.cuh``, ``csrc/mma_tf32.cuh`` and
-``csrc/sub_block.cuh``) compile with ``nvcc`` into ONE shared library with a
-plain C interface, loaded with ``ctypes``. Nothing is built when this module is imported: the
+``csrc/family.cuh``, ``csrc/async_copy.cuh``, ``csrc/mma_tf32.cuh``,
+``csrc/wgmma_tf32.cuh`` and ``csrc/sub_block.cuh``) compile with ``nvcc``
+into ONE shared library with a plain C interface, loaded with ``ctypes``. Nothing is built when this module is imported: the
 first call of :func:`load_library` builds, into
 ``erl_gaussian_process_tpu_torch/_build/<hash>/``, where the hash covers the
 sources and the compiler flags, so a changed source rebuilds and an
@@ -36,7 +36,7 @@ BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 _COMPILED = ("gram.cu", "gram_f64.cu", "fitc.cu", "bank.cu", "chol.cu",
              "trsv.cu", "trsm.cu")
 _SOURCES = ("family.cuh", "gram.cuh", "async_copy.cuh", "mma_tf32.cuh",
-            "sub_block.cuh") + _COMPILED
+            "wgmma_tf32.cuh", "sub_block.cuh") + _COMPILED
 # sm_90a: the Hopper target. No --use_fast_math: the kernels need the
 # full-precision exp/sqrt/division (see csrc/family.cuh).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

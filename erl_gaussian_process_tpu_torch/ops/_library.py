@@ -33,6 +33,17 @@ def define(schema: str, cpu, cuda, fake) -> None:
     torch.library.register_fake(f"egp::{name}", fake, lib=LIB)
 
 
+class LaunchCount:
+    """A launch count of its own for a kernel that a wrapper launches among
+    others (``launches`` and ``captured`` as on a wrapper, and a
+    ``__name__``)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+        self.captured = 0
+
+
 def note_launch(wrapper) -> None:
     """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches``
     when it runs now; in ``wrapper.captured`` when the current stream is

@@ -31,7 +31,7 @@ import functools
 import torch
 
 from erl_gaussian_process_tpu_torch.ops._build import load_library
-from erl_gaussian_process_tpu_torch.ops._library import note_launch
+from erl_gaussian_process_tpu_torch.ops._library import LaunchCount, note_launch
 from erl_gaussian_process_tpu_torch.ops.gram import (
     FAMILY_IDS,
     check_cuda_operands,
@@ -100,8 +100,23 @@ def chol_blocked_gram_joint_plain(name: str, x, var_v, var_g, sample_mask,
     return _factor_plain(K, return_dinv)
 
 
-UPDATE_BLOCKS_PER_SM = 3  # the update's blocks per SM a split plan aims at
-MAX_SPLITS = 16           # csrc/chol.cu kMaxSplits: buffers a consumer sums
+UPDATE_ROWS = 128        # csrc/chol.cu kUpRows: rows of a float32 update block
+UPDATE_SM_SHARE = 0.75   # of the card's SMs, the most a column's update takes
+MAX_SPLITS = 16          # csrc/chol.cu kMaxSplits: buffers a consumer sums
+
+
+def update_blocks(nt: int, splits: int) -> int:
+    """Product blocks of a float32 column update over ``nt`` row tiles in
+    ``splits`` splits: :data:`UPDATE_ROWS` rows a block."""
+    return -(-nt * TILE // UPDATE_ROWS) * splits
+
+
+def update_block_cap(sms: int) -> int:
+    """The most product blocks a column's update is split into on a card of
+    ``sms`` SMs: :data:`UPDATE_SM_SHARE` of them, one block an SM. The rest
+    stay free for the diagonal factor and apply launches of the chain,
+    which the update's blocks would otherwise hold off their SMs."""
+    return max(1, int(UPDATE_SM_SHARE * sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,19 +125,21 @@ def chol_plan(n: int, sms: int) -> tuple:
     ``(pps, ws_half)``. Column j's update writes the column's tiles of A
     (buffer 0) and the products of the panels 0 .. j - 2 (the look-ahead
     leaves panel j - 1 to the diag and apply launches) in splits of
-    ``pps[j]`` panels each: as many as keep the product blocks, (nb - j) x
-    splits, within about :data:`UPDATE_BLOCKS_PER_SM` per SM, each at least
-    one panel, at most :data:`MAX_SPLITS` - 1 of them (the first two columns
-    have no such panel; their ``pps`` is 1, unused). ``ws_half`` is the
-    elements of one column's buffers (the largest (1 + splits) x tiles x
-    T^2); the workspace holds two, one per column parity."""
+    ``pps[j]`` panels each: as many as keep the product blocks
+    (:func:`update_blocks` of the column's nb - j row tiles) within
+    :func:`update_block_cap`, each at least one panel, at most
+    :data:`MAX_SPLITS` - 1 of them (the first two columns have no such
+    panel; their ``pps`` is 1, unused). ``ws_half`` is the elements of one
+    column's buffers (the largest (1 + splits) x tiles x T^2); the workspace
+    holds two, one per column parity. The float64 update takes one tile a
+    block under the same plan."""
     nb = -(-n // TILE)
     pps = [1] * nb
     half = nb * TILE * TILE
     for j in range(2, nb):
         npan, nt = j - 1, nb - j
         ns = max(1, min(MAX_SPLITS - 1, npan,
-                        UPDATE_BLOCKS_PER_SM * sms // nt))
+                        update_block_cap(sms) // update_blocks(nt, 1)))
         per = -(-npan // ns)
         pps[j] = per
         half = max(half, (1 + -(-npan // per)) * nt * TILE * TILE)
@@ -153,12 +170,24 @@ def _result(L, dinv, return_dinv):
     return (L, dinv) if return_dinv else L
 
 
+# float32 factorizations (any entry) whose column updates ran on the wgmma
+# kernel (csrc/chol.cu chol_update_wgmma_kernel)
+chol_update_wgmma = LaunchCount("chol_update_wgmma")
+
+
+def _note(wrapper, dtype) -> None:
+    note_launch(wrapper)
+    if dtype == torch.float32:
+        note_launch(chol_update_wgmma)
+
+
 def chol_blocked(A, *, return_dinv: bool = False):
     """L = chol(A) for one SPD (n, n) A, read from its lower triangle.
 
     CPU tensors take :func:`chol_blocked_plain`; CUDA tensors launch
     ``csrc/chol.cu`` (one factorization counted in
-    ``chol_blocked.launches``) or raise."""
+    ``chol_blocked.launches``, and at float32 in
+    ``chol_update_wgmma.launches`` too) or raise."""
     if A.device.type == "cpu":
         return chol_blocked_plain(A, return_dinv=return_dinv)
     check_cuda_operands("chol_blocked", A.dtype, A)
@@ -173,7 +202,7 @@ def chol_blocked(A, *, return_dinv: bool = False):
               *plan, n, A.device.index,
               torch.cuda.current_stream(A.device).cuda_stream)
     kl.check(code, "chol kernel launch")
-    note_launch(chol_blocked)
+    _note(chol_blocked, A.dtype)
     return _result(L, dinv, return_dinv)
 
 
@@ -208,7 +237,7 @@ def chol_blocked_gram(name: str, x, var, mask, scale, *,
               weights, x.device.index,
               torch.cuda.current_stream(x.device).cuda_stream)
     kl.check(code, "chol gram kernel launch")
-    note_launch(chol_blocked_gram)
+    _note(chol_blocked_gram, x.dtype)
     return _result(L, dinv, return_dinv)
 
 
@@ -253,7 +282,7 @@ def chol_blocked_gram_joint(name: str, x, var_v, var_g, sample_mask,
               float(scale), x.device.index,
               torch.cuda.current_stream(x.device).cuda_stream)
     kl.check(code, "chol joint kernel launch")
-    note_launch(chol_blocked_gram_joint)
+    _note(chol_blocked_gram_joint, x.dtype)
     return _result(L, dinv, return_dinv)
 
 

@@ -320,13 +320,17 @@ def test_chol_plan_fits_the_kernels(n, sms):
     the update (column j's covers panels 0 .. j - 2, the look-ahead leaving
     panel j - 1 to the diag and apply); every later column's panels are
     covered exactly by at most MAX_SPLITS - 1 splits of at least one panel,
-    at most about UPDATE_BLOCKS_PER_SM product blocks per SM where a column
-    has fewer tiles than that, and every column's buffers fit one parity's
-    half of the workspace."""
+    at most UPDATE_SM_SHARE of the SMs in product blocks as the float32
+    update's grid counts them (UPDATE_ROWS = two row tiles a block) where a
+    column has fewer blocks than that, and every column's buffers fit one
+    parity's half of the workspace."""
     from erl_gaussian_process_tpu_torch.ops.chol import (
         MAX_SPLITS,
-        UPDATE_BLOCKS_PER_SM,
+        UPDATE_ROWS,
+        UPDATE_SM_SHARE,
         chol_plan,
+        update_block_cap,
+        update_blocks,
     )
 
     pps, half = chol_plan(n, sms)
@@ -338,8 +342,10 @@ def test_chol_plan_fits_the_kernels(n, sms):
         ns = -(-npan // pps[j])
         assert 1 <= pps[j] <= npan and 1 <= ns <= MAX_SPLITS - 1
         assert (ns - 1) * pps[j] < npan <= ns * pps[j]
+        blocks = update_blocks(nt, ns)
+        assert blocks == -(-nt // (UPDATE_ROWS // TILE)) * ns
         if ns > 1:
-            assert ns * nt <= UPDATE_BLOCKS_PER_SM * sms
+            assert blocks <= update_block_cap(sms) <= UPDATE_SM_SHARE * sms
         buffers.append(1 + ns)
     assert half == max(nbuf * (nb - j) * TILE * TILE
                        for j, nbuf in enumerate(buffers))
@@ -348,14 +354,18 @@ def test_chol_plan_fits_the_kernels(n, sms):
 def test_chol_plan_splits_long_columns_on_a_wide_card():
     """At the exact-GP size on the H100's 132 SMs the late columns (few
     tiles, a long prefix) take the most splits and the early ones one; the
-    workspace stays within what the plan's blocks per SM allow."""
+    workspace stays within what the plan's blocks allow (each a block of
+    UPDATE_ROWS rows, so up to that many tiles' buffers a block); a quarter
+    of the SMs stay free of the update's blocks."""
     from erl_gaussian_process_tpu_torch.ops.chol import (
         MAX_SPLITS,
-        UPDATE_BLOCKS_PER_SM,
+        UPDATE_ROWS,
         chol_plan,
+        update_block_cap,
     )
 
     pps, half = chol_plan(8192, 132)
+    assert update_block_cap(132) == 99
     assert pps[2] == 1 and MAX_SPLITS // 2 <= -(-126 // pps[127]) < MAX_SPLITS
-    assert 128 * TILE * TILE <= half \
-        <= (128 + UPDATE_BLOCKS_PER_SM * 132) * TILE * TILE
+    assert 128 * TILE * TILE <= half <= (
+        128 + UPDATE_ROWS // TILE * update_block_cap(132)) * TILE * TILE

@@ -864,8 +864,9 @@ def _berr_ok(be, bp, dtype):
 @pytest.mark.parametrize("i", range(7))
 def test_chol_kernel_matches_plain(cuda, dtype, i):
     """n in {1, 17, T, T + 1, 3T - 5, 1300, 2600}: backward error, an exactly zero
-    strict upper part, Dinv against the plain version's, one launch, and
-    two launches bitwise equal."""
+    strict upper part, Dinv against the plain version's, one launch (at
+    float32 its updates on the wgmma kernel, counted once), and two
+    launches bitwise equal."""
     from erl_gaussian_process_tpu_torch.ops import (
         chol_blocked,
         chol_blocked_plain,
@@ -873,10 +874,13 @@ def test_chol_kernel_matches_plain(cuda, dtype, i):
 
     n = _chol_sizes(dtype)[i]
     A = _spd(cuda, n, dtype, seed=n)
-    before = launch_counts()["chol"]
+    before = launch_counts()
     L, D = chol_blocked(A, return_dinv=True)
     torch.cuda.synchronize()
-    assert launch_counts()["chol"] == before + 1
+    after = launch_counts()
+    assert after["chol"] == before["chol"] + 1
+    assert after["chol_update_wgmma"] - before["chol_update_wgmma"] == \
+        (dtype == torch.float32)
     Lp, Dp = chol_blocked_plain(A, return_dinv=True)
     assert _berr_ok(_berr(L, A), _berr(Lp, A), dtype)
     assert bool((torch.triu(L, 1) == 0).all())
@@ -948,6 +952,66 @@ def test_chol_joint_kernel_matches_plain(cuda, fam, d, n0, dtype):
     off = ~torch.cat([sm] + [gm] * d)
     assert torch.equal(L[off][:, off], torch.eye(int(off.sum()), dtype=dtype,
                                                  device=cuda))
+
+
+# The float32 factorization's backward error against float64 with the
+# mma.sync update that the wgmma one replaced, at the inputs of
+# _update_case (NVIDIA H100 80GB HBM3, 700 W): the new update may be at
+# most 2x these, and never past the exact-GP cell's backward_rel limit.
+MMA_SYNC_BERR = {"cell8192": 1.214627e-06, "joint7680": 1.493217e-06,
+                 "ragged8000": 1.237591e-06}
+BACKWARD_REL_LIMIT = 3e-5
+
+
+def _update_case(cuda, case):
+    """(factorize, K in float64) at the paths' sizes: the exact-GP cell's
+    gram (8192 samples ~ U(-1, 1)^2, rbf 0.1, noise 1e-3), the NIGP's joint
+    gram at 7680 (``workloads.nigp_workload``, every slot kept) and the
+    cell's gram at a ragged 8000 (an odd count of row tiles)."""
+    from erl_gaussian_process_tpu_torch.kernels import (
+        train_gram,
+        train_gram_with_gradient,
+    )
+    from erl_gaussian_process_tpu_torch.ops import (
+        chol_blocked_gram,
+        chol_blocked_gram_joint,
+    )
+    from erl_gaussian_process_tpu_torch.workloads import nigp_workload
+
+    if case == "joint7680":
+        x, _, _, vx, vy, vg, _, scale, kern = nigp_workload()
+        X, Vv, Vg = (torch.as_tensor(a, device=cuda) for a in (x, vx + vy, vg))
+        m = torch.ones(x.shape[0], dtype=torch.bool, device=cuda)
+        return (lambda: chol_blocked_gram_joint(kern, X, Vv, Vg, m, m, scale,
+                                                return_dinv=True),
+                lambda: train_gram_with_gradient(
+                    kern, X.double(), Vv.double(),
+                    torch.zeros_like(Vv).double(), Vg.double(), m, m, scale))
+    n = int(case[-4:])
+    rng = np.random.default_rng(n)
+    X = torch.as_tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32),
+                        device=cuda)
+    V = torch.full((n,), 1e-3, dtype=torch.float32, device=cuda)
+    m = torch.ones(n, dtype=torch.bool, device=cuda)
+    return (lambda: chol_blocked_gram("rbf", X, V, m, 0.1, return_dinv=True),
+            lambda: train_gram("rbf", X.double(), V.double(), 0.1, mask=m))
+
+
+@pytest.mark.parametrize("case", sorted(MMA_SYNC_BERR))
+def test_chol_update_wgmma_against_float64(cuda, case):
+    """At the paths' sizes the float32 factorization, its updates on the
+    wgmma kernel, keeps a backward error against float64 within 2x the
+    mma.sync update's and the cell's limit; two calls are bitwise equal
+    (L and Dinv), and each counts one wgmma update."""
+    factor, gram = _update_case(cuda, case)
+    before = launch_counts()["chol_update_wgmma"]
+    L, D = factor()
+    L2, D2 = factor()
+    torch.cuda.synchronize()
+    assert launch_counts()["chol_update_wgmma"] == before + 2
+    assert torch.equal(L, L2) and torch.equal(D, D2)
+    be = _berr(L, gram())
+    assert be <= min(2 * MMA_SYNC_BERR[case], BACKWARD_REL_LIMIT), be
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -2056,15 +2120,16 @@ def test_exact_graphs_equal_the_eager_chain(cuda, variant, dtype):
 
 def test_exact_graph_replays_launch_the_fit_once(cuda):
     """After the capture, N graphed exact-GP trains launch the gram-fused
-    Cholesky N times and the substitution 2N times (the replays add what
-    the graph captured), and N graphed tests the gram N times."""
+    Cholesky N times (its updates on the wgmma kernel, counted N times too)
+    and the substitution 2N times (the replays add what the graph
+    captured), and N graphed tests the gram N times."""
     gp, trains, tests, outputs = _exact_case(cuda, "vanilla", np.float32)
     assert trains[0]()
     tests[0]().get_mean()
     fit = gp._graphs.captures[0]
     assert fit.key[0] == "fit" and \
         {w.__name__: k for w, k in fit.launches.items()} == \
-        {"chol_blocked_gram": 1, "substitute_cuda": 2}
+        {"chol_blocked_gram": 1, "chol_update_wgmma": 1, "substitute_cuda": 2}
     before = launch_counts()
     for k in range(4):
         assert trains[k % 2]()
@@ -2072,6 +2137,7 @@ def test_exact_graph_replays_launch_the_fit_once(cuda):
     torch.cuda.synchronize()
     after = launch_counts()
     assert after["chol_gram"] - before["chol_gram"] == 4
+    assert after["chol_update_wgmma"] - before["chol_update_wgmma"] == 4
     assert after["trsv"] - before["trsv"] == 8
     assert after["gram"] - before["gram"] == 4
     assert fit.replays == 5

@@ -310,13 +310,13 @@ def test_span_time_less_nested_spans():
 def test_the_cholesky_time_counts_overlapping_kernels_once():
     reader = _reader("chol_roofline")
     t = Trace([_Event(WINDOW_SPAN, "CPU", 0, 1000),
-               _Event("void egp::chol_update_tc_kernel<egp::GramSource>",
+               _Event("void egp::chol_update_wgmma_kernel<egp::GramSource>",
                       "CUDA", 0, 300),
                _Event("void egp::chol_diag_kernel<float>", "CUDA", 100, 200),
                _Event("void egp::chol_apply_kernel<float>", "CUDA", 250,
                       400),
                _Event("void egp::trsv_kernel<float>", "CUDA", 400, 500),
-               _Event("void egp::chol_update_tc_kernel<egp::GramSource>",
+               _Event("void egp::chol_update_wgmma_kernel<egp::GramSource>",
                       "CUDA", 600, 700)])
     assert reader.busy_seconds(t, exact_work.CHOL_KERNELS) \
         == pytest.approx(500e-9)
