@@ -32,6 +32,16 @@ On a CUDA device each fit, each test (ktest, the mean and the gradient,
 :func:`nigp_test_step`) and each variance query is one replay of a CUDA
 graph (``models/exact_graph.py``), as each is one jit in the JAX package;
 the model's state is then the fit graph's buffers.
+
+Spans (``utils.timing.span``): ``egp.nigp.train`` (a fit, either form,
+with ``egp.nigp.inputs``, the reset and the padded host arrays, and the
+jitter retry's ``egp.fit.check``), ``egp.nigp.test`` (a test's feed and
+replay), ``egp.nigp.mean``, ``egp.nigp.gradient`` and
+``egp.nigp.variance`` (the first variance, gradient variance or
+covariance read, which whitens; each with ``egp.nigp.readback``, its
+copy to the host). Counters: ``nigp.var_solve`` and ``nigp.var_product``,
+the whitening that served a first variance read (the factor's
+substitution or the product with L^-1).
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ from erl_gaussian_process_tpu_torch.utils.serialization import (
     load_pytree,
     save_pytree,
 )
+from erl_gaussian_process_tpu_torch.utils.timing import count, span
 
 _LOG = logging.getLogger("erl_gaussian_process_tpu_torch")
 
@@ -366,20 +377,21 @@ class NigpTestResult:
         self._with_grad = will_predict_gradient
         self._varcov = None
         self._held = None
-        if gp._graphs is not None:
-            self._held = gp._graphs.test(
-                gp.state, *gp._test_step(will_predict_gradient), xq,
-                gp._rr_consts())
-        elif gp._basis is not None:
-            # rows = #basis, columns in the same joint layout
-            self._ktest_eager = rr_ktest_joint(
-                gp._tensor(xq), *gp._rr_consts(),
-                with_test_grad=will_predict_gradient)
-        else:
-            self._ktest_eager = nigp_ktest(
-                gp.state, gp._tensor(xq), gp._scale, kernel=gp._kernel,
-                with_test_grad=will_predict_gradient,
-                with_train_grad=not gp.setting.no_gradient_observation)
+        with span("egp.nigp.test"):
+            if gp._graphs is not None:
+                self._held = gp._graphs.test(
+                    gp.state, *gp._test_step(will_predict_gradient), xq,
+                    gp._rr_consts())
+            elif gp._basis is not None:
+                # rows = #basis, columns in the same joint layout
+                self._ktest_eager = rr_ktest_joint(
+                    gp._tensor(xq), *gp._rr_consts(),
+                    with_test_grad=will_predict_gradient)
+            else:
+                self._ktest_eager = nigp_ktest(
+                    gp.state, gp._tensor(xq), gp._scale, kernel=gp._kernel,
+                    with_test_grad=will_predict_gradient,
+                    with_train_grad=not gp.setting.no_gradient_observation)
 
     @property
     def _ktest(self) -> torch.Tensor:
@@ -395,63 +407,75 @@ class NigpTestResult:
 
     def get_mean(self, y_index: int = 0, parallel: bool = True):
         del parallel
-        if ExactGraphs.serves(self._held, self._gp.state):
-            mean = self._held.outputs[1]
-        else:
-            mean = nigp_mean(self._gp.state, self._ktest, self.num_test)
-        return mean[:, y_index].cpu().numpy()
+        with span("egp.nigp.mean"):
+            if ExactGraphs.serves(self._held, self._gp.state):
+                mean = self._held.outputs[1]
+            else:
+                mean = nigp_mean(self._gp.state, self._ktest, self.num_test)
+            with span("egp.nigp.readback"):
+                return mean[:, y_index].cpu().numpy()
 
     def get_gradient(self, y_index: int = 0, parallel: bool = True):
         del parallel
         assert self._with_grad, "TestResult built without gradient support"
-        if ExactGraphs.serves(self._held, self._gp.state):
-            g = self._held.outputs[2]
-        else:
-            g = nigp_gradient(self._gp.state, self._ktest, self.num_test,
-                              self._gp._x_dim)
-        return g[:, :, y_index].mT.cpu().numpy()  # (d, m) as the reference
+        with span("egp.nigp.gradient"):
+            if ExactGraphs.serves(self._held, self._gp.state):
+                g = self._held.outputs[2]
+            else:
+                g = nigp_gradient(self._gp.state, self._ktest, self.num_test,
+                                  self._gp._x_dim)
+            with span("egp.nigp.readback"):
+                # (d, m) as the reference
+                return g[:, :, y_index].mT.cpu().numpy()
 
     def _prepare(self):
+        """(mean_var, grad_var, cov) on the host, whitened at the first
+        read (counted by the whitening that served it)."""
         if self._varcov is None:
-            gp = self._gp
-            d = gp._x_dim if self._with_grad else 0
-            rr = gp.reduced_rank_kernel
-            gp._var_queries += 1
-            # the product whitening only beats the solve while the query
-            # batch is thin
-            fast = gp._var_queries >= 2 and self._ktest.shape[1] <= 512
-            if fast and gp._L_inv is None:
-                gp._L_inv = gp._l_inv()
-            if ExactGraphs.serves(self._held, gp.state):
-                body = nigp_variance_cov_fast if fast else nigp_variance_cov
-                out = gp._graphs.variance(
-                    self._held, "fast" if fast else "variance",
-                    functools.partial(body, scale=gp._scale, d=d,
-                                      reduced_rank=rr),
-                    gp._L_inv if fast else None)
-                self._varcov = tuple(t.cpu() for t in out)
-            elif fast:
-                self._varcov = nigp_variance_cov_fast(
-                    gp._L_inv, self._ktest, gp._scale, d=d, reduced_rank=rr)
-            else:
-                self._varcov = nigp_variance_cov(
-                    gp.state, self._ktest, gp._scale, d=d, reduced_rank=rr)
+            with span("egp.nigp.variance"):
+                out = self._variance_cov()
+                with span("egp.nigp.readback"):
+                    self._varcov = tuple(t.cpu() for t in out)
         return self._varcov
+
+    def _variance_cov(self):
+        gp = self._gp
+        d = gp._x_dim if self._with_grad else 0
+        rr = gp.reduced_rank_kernel
+        gp._var_queries += 1
+        # the product whitening only beats the solve while the query batch
+        # is thin
+        fast = gp._var_queries >= 2 and self._ktest.shape[1] <= 512
+        count("nigp.var_product" if fast else "nigp.var_solve")
+        if fast and gp._L_inv is None:
+            gp._L_inv = gp._l_inv()
+        if ExactGraphs.serves(self._held, gp.state):
+            body = nigp_variance_cov_fast if fast else nigp_variance_cov
+            return gp._graphs.variance(
+                self._held, "fast" if fast else "variance",
+                functools.partial(body, scale=gp._scale, d=d,
+                                  reduced_rank=rr),
+                gp._L_inv if fast else None)
+        if fast:
+            return nigp_variance_cov_fast(gp._L_inv, self._ktest, gp._scale,
+                                          d=d, reduced_rank=rr)
+        return nigp_variance_cov(gp.state, self._ktest, gp._scale, d=d,
+                                 reduced_rank=rr)
 
     def get_mean_variance(self, parallel: bool = True):
         del parallel
-        return self._prepare()[0].cpu().numpy()
+        return self._prepare()[0].numpy()
 
     def get_gradient_variance(self, parallel: bool = True):
         del parallel
         assert self._with_grad
-        return self._prepare()[1].mT.cpu().numpy()   # (d, m)
+        return self._prepare()[1].mT.numpy()   # (d, m)
 
     def get_covariance(self, parallel: bool = True):
         """Lower-triangle covariances, (d(d+1)/2, m)."""
         del parallel
         assert self._with_grad
-        return self._prepare()[2].mT.cpu().numpy()
+        return self._prepare()[2].mT.numpy()
 
 
 class NoisyInputGaussianProcess:
@@ -615,12 +639,21 @@ class NoisyInputGaussianProcess:
         False); ``train(x, y, ...)`` is the binding's (reset + store +
         Train). x (d, n); y (n, q) or (n,); grad (d*q, n), output-major row
         blocks of size d."""
-        if mat_x is None:
-            if self._trained:
-                _LOG.warning("The model has been trained. Please reset the "
-                             "model before training.")
-                return False
+        with span("egp.nigp.train"):
+            if mat_x is None:
+                if self._trained:
+                    _LOG.warning("The model has been trained. Please reset "
+                                 "the model before training.")
+                    return False
+                return self._fit_train_set()
+            with span("egp.nigp.inputs"):
+                self._store_train_set(mat_x, mat_y, mat_grad, var_x, var_y,
+                                      var_grad, grad_flag)
             return self._fit_train_set()
+
+    def _store_train_set(self, mat_x, mat_y, mat_grad, var_x, var_y,
+                         var_grad, grad_flag) -> None:
+        """``train(x, y, ...)``'s reset and padded host arrays."""
         x = np.asarray(mat_x, self.dtype)
         if x.ndim == 1:
             x = x[None, :]
@@ -661,7 +694,6 @@ class NoisyInputGaussianProcess:
                 gradp[:n] = g.T.reshape(n, q, d).transpose(0, 2, 1)
         self._train_set = NigpTrainSet(xp, yp, gradp, padv(var_x),
                                        padv(var_y), padv(var_grad), gmask, n)
-        return self._fit_train_set()
 
     def _rr_consts(self) -> tuple:
         """A reduced-rank basis's constants on the device, else ()."""

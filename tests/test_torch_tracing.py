@@ -1,11 +1,12 @@
 """The port's spans and counters (``erl_gaussian_process_tpu_torch/utils/
 timing.py`` ``span`` and ``count``) on the CPU: with no profiler recording
 a span opens no profiler range; under ``torch.profiler`` the map
-update, the scan train, the routed test and the exact GP's fit and test
-emit their spans nested as their layers are, on the host path and on the
-graphed one; the routed test counts the path each call took, the SPGP
-prepare the tier that served it, the jitter retry the fits that escalated
-and the exact GP the whitening of each variance query; and the
+update, the scan train, the routed test and the exact and noisy-input
+GPs' fits and tests emit their spans nested as their layers are, on the
+host path and on the graphed one; the routed test counts the path each
+call took, the SPGP prepare the tier that served it, the jitter retry the
+fits that escalated and the exact and noisy-input GPs the whitening of
+each first variance read; and the
 ``profile=`` phases of ``bank_predict_assigned`` open and close at the
 statements its spans do."""
 
@@ -20,6 +21,8 @@ from erl_gaussian_process_tpu_torch.geometry import Aabb
 from erl_gaussian_process_tpu_torch.kernels import KernelSetting
 import erl_gaussian_process_tpu_torch.models.gp_core as gp_core
 from erl_gaussian_process_tpu_torch.models import (
+    NoisyInputGaussianProcess,
+    NoisyInputGPSetting,
     RangeSensorGaussianProcess3D,
     RangeSensorGP3DSetting,
     SpGpOccupancyMap,
@@ -377,3 +380,91 @@ def test_variance_counters_name_the_whitening(eager_graphs):
         assert _delta(before, "exact.var_product") == 1
         gp.test(xq).get_mean(0)          # a mean alone counts neither
         assert _delta(before, "exact.var_solve") == 2
+
+
+def _nigp(n=24, dtype=np.float64):
+    """A CPU noisy-input GP on n samples of a 2D surface and its gradient:
+    (model, samples, queries)."""
+    rng = np.random.default_rng(6)
+    x = rng.uniform(-1, 1, (2, n))
+    gp = NoisyInputGaussianProcess(NoisyInputGPSetting(
+        kernel_type="rbf", kernel=KernelSetting(x_dim=2, scale=0.4),
+        max_num_samples=n), dtype=dtype, device="cpu")
+    return gp, x, rng.uniform(-1, 1, (2, 12))
+
+
+def _run_nigp(gp, x, xq):
+    """A fit with gradients, ``train()`` refused after it, a test with
+    gradients read back in its five answers."""
+    y = np.sin(2 * x[0]) * np.cos(x[1])
+    grad = np.stack([2 * np.cos(2 * x[0]) * np.cos(x[1]),
+                     -np.sin(2 * x[0]) * np.sin(x[1])])
+    assert gp.train(x, y, grad, 1e-3, 1e-3, 1e-3)
+    gp.train()
+    res = gp.test(xq, predict_gradient=True)
+    return (res.get_mean(0), res.get_gradient(0), res.get_mean_variance(),
+            res.get_gradient_variance(), res.get_covariance())
+
+
+@pytest.mark.parametrize("graphed", [False, True])
+def test_nigp_spans_nest_under_the_profiler(eager_graphs, graphed):
+    gp, x, xq = _nigp()
+    if graphed:
+        gp._graphs = ExactGraphs("cpu")
+        _run_nigp(gp, x, xq)            # the captures
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _run_nigp(gp, x, xq)
+    spans = _host_spans(prof)
+    trains = spans["egp.nigp.train"]
+    assert len(trains) == 2             # train(x, ...) and train()
+    (inputs,) = spans["egp.nigp.inputs"]
+    (check,) = spans["egp.fit.check"]
+    assert _inside(inputs, trains[0]) and _inside(check, trains[0])
+    assert inputs[1] <= check[0]
+    (test,) = spans["egp.nigp.test"]
+    (mean,) = spans["egp.nigp.mean"]
+    (grad,) = spans["egp.nigp.gradient"]
+    (var,) = spans["egp.nigp.variance"]   # the first of three reads
+    assert trains[1][1] <= test[0] and test[1] <= mean[0] \
+        and mean[1] <= grad[0] and grad[1] <= var[0]
+    reads = sorted(spans["egp.nigp.readback"])
+    assert len(reads) == 3
+    assert _inside(reads[0], mean) and _inside(reads[1], grad) \
+        and _inside(reads[2], var)
+    # the fit, the test and the variance were replays on the graphed path
+    assert sum(g.replays for g in eager_graphs) == (6 if graphed else 0)
+    assert not timing._profiler._is_profiler_enabled
+
+
+def test_nigp_path_opens_no_range_without_a_profiler(monkeypatch):
+    def refuse(name, *a, **k):
+        raise AssertionError(f"a profiler range {name!r} with no profiler")
+
+    monkeypatch.setattr(timing, "_RANGE", refuse)
+    gp, x, xq = _nigp()
+    for a in _run_nigp(gp, x, xq):
+        assert np.isfinite(a).all()
+
+
+def test_nigp_variance_counters_count_first_reads(eager_graphs):
+    for graphed in (False, True):
+        gp, x, xq = _nigp()
+        if graphed:
+            gp._graphs = ExactGraphs("cpu")
+            _run_nigp(gp, x, xq)
+        wide = np.tile(xq, (1, 50))      # 600 queries, 1800 columns
+        before = timing.counters()
+        _run_nigp(gp, x, xq)             # the first query solves
+        res = gp.test(xq, predict_gradient=True)
+        res.get_mean_variance()          # a thin second one multiplies
+        res.get_gradient_variance()      # reads of one result count once
+        res.get_covariance()
+        gp.test(wide, predict_gradient=True).get_covariance()   # solves
+        assert _delta(before, "nigp.var_solve") == 2
+        assert _delta(before, "nigp.var_product") == 1
+        res = gp.test(xq, predict_gradient=True)
+        res.get_mean(0)                  # a mean and a gradient alone
+        res.get_gradient(0)              # count neither
+        assert _delta(before, "nigp.var_solve") == 2
+        assert _delta(before, "nigp.var_product") == 1
