@@ -19,7 +19,7 @@ The SPGP occupancy map's path:
    ``torch.profiler``, the wrapper's host time, the plain version, the
    bound); every other kernel against its plain PyTorch version on the
    card, at the main path's shapes, with kernel and plain times (CUDA
-   events, median of 20);
+   events, median of 20; the FITC rows' over batches of 20 calls);
    at the map's variance (1e-4) the float32 FITC kernel and its plain
    version against the float64 update of the same inputs, the kernel's
    errors no worse than 2x the plain version's; FITC's two products alone
@@ -347,6 +347,18 @@ def cuda_ms(fn, reps=REPS) -> float:
     return statistics.median(event_times(fn, reps))
 
 
+BATCH = 20  # calls between two CUDA events in batch_ms
+
+
+def batch_ms(fn, batch=BATCH, reps=REPS) -> float:
+    """Milliseconds a call of ``fn()`` takes on the card when calls follow
+    one another: :func:`cuda_ms` of ``batch`` calls in a row, divided by
+    ``batch``, so that the host's time to launch a call overlaps the card's
+    work on the calls before it (a single call between two events also
+    times the host's launch of that call)."""
+    return cuda_ms(lambda: [fn() for _ in range(batch)], reps) / batch
+
+
 def host_ms(fn, calls=200) -> float:
     """Milliseconds of the host a call of ``fn()`` takes to enqueue its
     work: ``calls`` calls with no synchronize between them (few enough that
@@ -440,8 +452,8 @@ def check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks):
     fitc_against_truth(fitc_args)
     out["fitc"] = {
         "max_abs_err": fitc_err32,
-        "ms": cuda_ms(lambda: fitc_update_cuda(*fitc_args)),
-        "plain_ms": cuda_ms(lambda: fitc_update_plain(*fitc_args)),
+        "ms": batch_ms(lambda: fitc_update_cuda(*fitc_args)),
+        "plain_ms": batch_ms(lambda: fitc_update_plain(*fitc_args)),
     }
     # no one PyTorch call computes the update; the note times its two
     # products (full FP32 cuBLAS) on a kmn and weights computed beforehand
@@ -457,6 +469,7 @@ def check_kernels(dev, setting, pseudo, lo, hi, sensors, pts, masks):
         f"{out['fitc']['ms']:.4f} ms, plain {out['fitc']['plain_ms']:.4f} ms)")
     log_device_split("fitc M=1152 N=2048 float32",
                      lambda: fitc_update_cuda(*fitc_args))
+    out["fitc"].update(time_fitc_syrk(fitc_args, "1"))
     return out
 
 
@@ -495,6 +508,44 @@ def fitc_against_truth(args):
     check(kq <= POSTERIOR_FACTOR * pq and ka <= POSTERIOR_FACTOR * pa,
           f"fitc float32 at var {v:g}: kernel error {kq}, {ka} > "
           f"{POSTERIOR_FACTOR} x plain {pq}, {pa}")
+
+
+def time_fitc_syrk(args, label) -> dict:
+    """The float32 SYRK and dalpha, the FITC kernel's third launch, alone
+    (``ops/fitc.py::fitc_syrk_alone``) on the kmn and weights of ``args``
+    computed by the plain version: :func:`batch_ms` of its launch, beside
+    its bound, the
+    lower half's M (M + 1) N operations at the 3xTF32 rate. Checks dQ
+    against kmn w kmn^T (float32 SYRK tolerance) and its exact symmetry,
+    and logs rows 1-1d's SYRK line. Returns {"syrk_us", "syrk_bound_us"}."""
+    from erl_gaussian_process_tpu_torch.ops.fitc import fitc_syrk_alone
+    from erl_gaussian_process_tpu_torch.ops.gram import cross_gram_plain
+
+    name, P, linv, x, y, var, mask, scale = args
+    kmn = cross_gram_plain(name, P, x, scale).contiguous()
+    lam = torch.clamp(1.0 - torch.sum((linv @ kmn) ** 2, dim=0), min=0.0)
+    w = torch.where(mask, 1.0 / (lam + var), torch.zeros_like(lam))
+    launch, dq, _ = fitc_syrk_alone(kmn, w.contiguous(), y, mask)
+    launch()
+    ref = (kmn * w[None, :]) @ kmn.T
+    err = float((dq - ref).abs().max() / ref.abs().max())
+    check(err <= FITC_TOL[torch.float32] and bool(torch.equal(dq, dq.T)),
+          f"fitc SYRK alone {label}: rel err {err}, or dQ asymmetric")
+    us = 1e3 * batch_ms(launch)
+    m, n = kmn.shape
+    bound_us = 1e6 * m * (m + 1) * n / TF32X3_FLOPS
+    log(f"fitc SYRK alone, row {label}, M={m} N={n} float32 on "
+        f"{card_line()}: {us:.2f} us (CUDA events, median of {REPS} batches "
+        f"of {BATCH}), bound {bound_us:.2f} us at 3xTF32 "
+        f"({100 * bound_us / us:.1f}% of it); rel err {err:.2e}")
+    return {"syrk_us": us, "syrk_bound_us": bound_us}
+
+
+def syrk_grid(plan) -> str:
+    """The float32 SYRK's grid in words (``ops/fitc.py::fitc_plan``)."""
+    return (f"{plan.super_tiles} super-tiles x {plan.col_blocks} panels "
+            f"over {plan.blocks} blocks, strips by "
+            + ("the copy engine" if plan.copy_engine else "cp.async"))
 
 
 PROFILE_ATTEMPTS = 3
@@ -668,8 +719,8 @@ def run_slice(dev, card, setting, pseudo, lo, hi, sensors, pts, masks, hits,
         lambda: seq.update(sensors[0], pts[0], masks[0]))
     fitc_pose = sum(c for k, (c, _) in pose_kernels.items()
                     if any(f in k for f in FITC_KERNELS))
-    log(f"FITC launches: {plan.launches} per call (plan: {plan.tiles} dQ "
-        f"tiles x {plan.splits} splits of {plan.chunk}), {fitc_pose} per pose "
+    log(f"FITC launches: {plan.launches} per call (plan: {syrk_grid(plan)}"
+        f"), {fitc_pose} per pose "
         f"by torch.profiler, of {sum(c for c, _ in pose_kernels.values())} "
         "kernel launches "
         "per pose")
@@ -2700,13 +2751,15 @@ def check_map2d_kernels(dev, card) -> dict:
     out["fitc_2d"] = {
         "max_abs_err": err32, "library_ms": None, "bound_ms": b_ms,
         "bound_by": b_by,
-        "ms": cuda_ms(lambda: fitc_update_cuda(*fitc_args)),
-        "plain_ms": cuda_ms(lambda: fitc_update_plain(*fitc_args))}
+        "ms": batch_ms(lambda: fitc_update_cuda(*fitc_args)),
+        "plain_ms": batch_ms(lambda: fitc_update_plain(*fitc_args))}
     log(f"fitc_2d M=1024 N=2048 d=2 float32 on {card}: kernel "
         f"{out['fitc_2d']['ms']:.4f} ms, plain {out['fitc_2d']['plain_ms']:.4f}"
-        f" ms (median of {REPS}), bound {b_ms:.4f} ms ({b_by})")
+        f" ms (median of {REPS} batches of {BATCH}), bound {b_ms:.4f} ms "
+        f"({b_by})")
     log_device_split("fitc_2d M=1024 N=2048 float32",
                      lambda: fitc_update_cuda(*fitc_args))
+    out["fitc_2d"].update(time_fitc_syrk(fitc_args, "1b"))
 
     # the predict's gram: the padded pseudo points against 2048 queries
     xq = np.random.default_rng(0).uniform(-3, 3, (2048, 2))
@@ -2827,8 +2880,8 @@ def run_map_2d(dev, card):
     fitc_pose = sum(c for k, (c, _) in pose_kernels.items()
                     if any(f in k for f in FITC_KERNELS))
     log(f"2D map: FITC launches per pose {fitc_pose} by torch.profiler (plan "
-        f"{plan.launches}: {plan.tiles} dQ tiles x {plan.splits} splits of "
-        f"{plan.chunk}), of {sum(c for c, _ in pose_kernels.values())} "
+        f"{plan.launches}: {syrk_grid(plan)}), of "
+        f"{sum(c for c, _ in pose_kernels.values())} "
         "kernel launches per pose")
     check(fitc_pose == plan.launches,
           f"2D map FITC launches per pose {fitc_pose} != {plan.launches}")
@@ -3654,15 +3707,16 @@ def run_poses_per_step(dev, card, setting, pseudo, lo, hi, sensors, pts,
     plan = fitc_plan(m4.state.pseudo.shape[0], n, sms)
     bound_ms, bound_by = fitc_bound(m4.state.pseudo.shape[0], n, 3)
     row = {"max_abs_err": err32,
-           "ms": cuda_ms(lambda: fitc_update_cuda(*args)),
-           "plain_ms": cuda_ms(lambda: fitc_update_plain(*args)),
+           "ms": batch_ms(lambda: fitc_update_cuda(*args)),
+           "plain_ms": batch_ms(lambda: fitc_update_plain(*args)),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     log(f"fitc M=1152 N={n} d=3 float32 on {card}: kernel {row['ms']:.4f} "
-        f"ms, plain {row['plain_ms']:.4f} ms (median of {REPS}), bound "
-        f"{bound_ms:.4f} ms ({bound_by}); plan {plan.tiles} dQ tiles x "
-        f"{plan.splits} splits of {plan.chunk}")
+        f"ms, plain {row['plain_ms']:.4f} ms (median of {REPS} batches of "
+        f"{BATCH}), bound "
+        f"{bound_ms:.4f} ms ({bound_by}); plan {syrk_grid(plan)}")
     log_device_split(f"fitc M=1152 N={n} float32",
                      lambda: fitc_update_cuda(*args))
+    row.update(time_fitc_syrk(args, "1c"))
     chunk_kernels = device_kernels(lambda: m4.update_batch(
         sensors[:PPS], pts[:PPS], masks[:PPS], poses_per_step=PPS))
     fitc_chunk = sum(c for k, (c, _) in chunk_kernels.items()
@@ -4560,9 +4614,10 @@ def mesh_kernel_rows(dev, card, hotel0, lidar) -> dict:
     b_ms, b_by = fitc_bound(st.pseudo.shape[0], n, 3)
     rows["fitc_mesh"] = {
         "max_abs_err": err32,
-        "ms": cuda_ms(lambda: fitc_update_cuda(*args)),
-        "plain_ms": cuda_ms(lambda: fitc_update_plain(*args)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        "ms": batch_ms(lambda: fitc_update_cuda(*args)),
+        "plain_ms": batch_ms(lambda: fitc_update_plain(*args)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **time_fitc_syrk(args, "1d")}
     log(f"fitc one rank's shard: {MESH_SHARD} samples padded to {n} with "
         "masked zeros give dQ and dalpha bit for bit")
 
@@ -4605,8 +4660,9 @@ def mesh_kernel_rows(dev, card, hotel0, lidar) -> dict:
         "bound_by": "bytes" if g_by == "bytes" else "operations",
         "library_ms": None}
     for name, r in rows.items():
+        batches = f" batches of {BATCH}" if name == "fitc_mesh" else ""
         log(f"time on {card}: {name} kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms (median of {REPS}), bound "
+            f"{r['plain_ms']:.4f} ms (median of {REPS}{batches}), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
 

@@ -34,44 +34,55 @@
 //       column's partials in row-block order and writes w_j, lam and the
 //       division in float64: the weight pass of the first design, folded
 //       in.
-//   (3) SYRK: the lower 64 x 64 tiles of dQ, each split over S fixed
-//       N-chunks (ops/fitc.py::fitc_plan: up to 3 blocks per SM, 342 blocks
-//       at the hotel-0 shape where one block per tile gave 171 on 132
-//       SMs);
-//       every block writes its partial tile to a workspace, and the last of
-//       a tile's S blocks to arrive sums the S partials in split order and
-//       stores each result with row >= col at (row, col) and (col, row), the
-//       mirror through shared memory so both stores are coalesced: dQ is
-//       exactly symmetric (chol(Q_M) relies on that) and every entry is
-//       written once. Extra blocks of the same launch compute dalpha, one
-//       warp per (row, output column) with a fixed-order shuffle reduction
-//       over N.
+//   (3) SYRK: the lower tiles of dQ, each summed over fixed N-ranges of
+//       its samples into split partials in a workspace; the last of a
+//       tile's blocks to arrive sums them in sample order and stores each
+//       result with row >= col at (row, col) and (col, row), the mirror
+//       through shared memory so both stores are coalesced: dQ is exactly
+//       symmetric (chol(Q_M) relies on that) and every entry is written
+//       once. Float32: 128 x 128 super-tiles, one block an SM with an equal
+//       share of the (super-tile, 64-sample panel) units, a segment of
+//       panels for each super-tile it meets (ops/fitc.py::fitc_plan: 45
+//       super-tiles x 32 panels over 132 blocks at the hotel-0 shape, so no
+//       SM waits on a wave the tiles fill in part). The diagonal
+//       super-tiles' segments sum dalpha from the same chunks (two threads
+//       a row; q <= kDaQ, else one warp a (row, column) pair before the
+//       stream). Float64: 64 x 64 tiles, S fixed N-chunks
+//       each, and extra blocks for dalpha, one warp per (row, output
+//       column) with a fixed-order shuffle reduction over N.
 //
-// Float32 reads its operands through a 3-stage cp.async ring
-// (csrc/async_copy.cuh). beta takes float64 products and sums of the
-// float32 operands on the FP64 tensor cores (mma.sync m8n8k4): the weight
+// Float32 reads its operands through rings in shared memory that the copy
+// engine (TMA) or cp.async (csrc/async_copy.cuh) fill. beta takes float64
+// products and sums of the float32 operands on the FP64 tensor cores
+// (mma.sync m8n8k4): the weight
 // 1 / (lam + var) amplifies beta's rounding by up to 1/var (1e4 on the
 // map), and with 3xTF32 products (the tensor cores' FP32 accumulation
 // aligns and truncates each step's terms) or SIMT FP32 sums, the map's
 // float32 weights were 2-7x further from the float64 update than the
-// float32 plain version's (PERF.md). The SYRK runs in 3xTF32 (mma.sync
-// m16n8k8, csrc/mma_tf32.cuh), each 64-deep panel summed into a fresh
-// partial and then folded into the running sum (the two-level sum that
-// brought the hotel-0 drift from 0.34 to 0.076 with the first, SIMT
-// kernel); its split partials are a third level. The weights scale the
-// SYRK's left operand as it is read, rounding kmn * w to float32 as the
-// plain version does. Float64 keeps SIMT FMAs in the same three launches,
-// with a fresh partial per 16-deep step. The TPU kernel's bf16x3 split was
-// its MXU's counterpart of 3xTF32. Masked samples are dropped by the
-// explicit mask rather than by var = +inf, so the result does not depend
-// on IEEE inf arithmetic. Any M and N (ragged edges masked here, f64
-// states are not padded).
+// float32 plain version's (PERF.md). The SYRK runs in 3xTF32 on Hopper's
+// warpgroup products (wgmma m64n128k8, csrc/wgmma_tf32.cuh), each 64-deep
+// panel summed into a fresh partial and then folded into the running sum
+// (the two-level sum that brought the hotel-0 drift from 0.34 to 0.076
+// with the first, SIMT kernel); its segment partials are a third level.
+// Each block splits its column strip into hi and lo TF32 tiles once, in
+// shared memory (the mma.sync kernel before it re-split both operands in
+// every warp at every 8-deep step, PERF.md); the weights scale the row
+// strip, the register operand, as it is read, rounding kmn * w to float32
+// as the plain version does. Float64 keeps SIMT FMAs in the same three
+// launches, with a fresh partial per 16-deep step. The TPU kernel's bf16x3
+// split was its MXU's counterpart of 3xTF32. Masked samples are dropped by
+// the explicit mask rather than by var = +inf, so the result does not
+// depend on IEEE inf arithmetic. Any M and N (ragged edges masked here,
+// f64 states are not padded).
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
+
+#include <cuda.h>
 
 #include "async_copy.cuh"
 #include "family.cuh"
-#include "mma_tf32.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace egp {
 
@@ -80,19 +91,47 @@ constexpr int kTileElems = kTile * kTile;
 constexpr int kTrLd = kTile + 1;  // row stride of a tile transposed in smem
 constexpr int kDaPairs = 8;     // dalpha (row, column) pairs per warp
 
-// float32 tensor-core kernels: 4 warps, each 32 x 32 outputs (2 x 4 m16n8
-// tiles), 32-deep k-chunks through a 3-stage cp.async ring
+// float32 beta: 4 warps, each 32 x 32 outputs (4 x 4 m8n8 tiles), 32-deep
+// k-chunks through a 3-stage cp.async ring
 constexpr int kTcThreads = 128;
 constexpr int kTcK = 32;
 constexpr int kTcStages = 3;
 constexpr int kALd = kTcK + 4;   // a row-major staged operand: conflict-free
 constexpr int kBLd = kTile + 8;  // beta's k-major staged kmn: conflict-free
 constexpr int kBetaStage = kTile * kALd + kTcK * kBLd;        // floats
-constexpr int kSyrkStage = 2 * kTile * kALd + kTcK;           // + weights
 constexpr int kBetaSmem = kTcStages * kBetaStage * (int)sizeof(float);
-constexpr int kSyrkSmem = kTcStages * kSyrkStage * (int)sizeof(float);
-static_assert(kSyrkStage * kTcStages >= kTile * kTrLd, "tile fits the ring");
 static_assert(kBetaStage * kTcStages >= 2 * kTile, "sums fit the ring");
+
+// float32 SYRK: two warpgroups a block on a 128 x 128 super-tile of dQ,
+// 32-deep chunks of samples through a 4-stage ring (2 in flight, 2 in use),
+// the column strip's hi and lo core tiles double-buffered; one block an SM
+constexpr int kSyEdge = 2 * kTile;                    // 128
+constexpr int kSyEdgeElems = kSyEdge * kSyEdge;
+constexpr int kSyLd = kSyEdge + 1;  // row stride of the summed super-tile
+constexpr int kSyThreads = 256;
+constexpr int kSyK = kCoreK;                          // samples a chunk (32)
+constexpr int kSyStages = 4;
+constexpr int kSyStrip = kSyEdge * kSyK;              // a strip's floats
+constexpr int kDaQ = 2;  // dalpha's columns the stream carries (more: pairs)
+// a ring stage: the row and the column strip (1024-byte aligned, as the
+// copy engine's 128-byte swizzle wants), and apart from them the weights
+// and y
+constexpr int kSyStage = 2 * kSyStrip;
+constexpr int kSySmall = kSyK + kSyK * kDaQ;
+constexpr int kSyrkSmem =
+    (2 * 2 * kSyStrip + kSyStages * (kSyStage + kSySmall)) *
+        (int)sizeof(float) +
+    1024;  // to align the base
+constexpr int kSyMaxSpan = 64;  // super-tiles a block may meet
+static_assert(kSyStages * kSyStage >= kSyEdge * kSyLd, "tile fits the ring");
+
+// The float32 SYRK's operands as the copy engine (TMA) reads them: kmn (m x
+// n, n % 4 == 0) in 128-row x 32-sample boxes with the 128-byte swizzle
+// (the layout of stage_index below), w and y (n q floats) in 32-sample
+// boxes; whatever lies past m or n reads as zero.
+struct SyrkMaps {
+  CUtensorMap kmn, w, y;
+};
 
 // float64 SIMT kernels: 16 x 16 threads, 4 x 4 outputs each, 16-deep steps
 constexpr int kSimtThreads = 256;
@@ -403,133 +442,515 @@ struct SyrkGrid {
   int da_blocks;
 };
 
-// blocks [0, tiles * splits): tile b / splits, split b % splits; the rest
-// compute dalpha
-__global__ void __launch_bounds__(kTcThreads)
+// The float32 SYRK's grid: the units of work are (super-tile, 64-sample
+// panel) pairs, tile by tile and panel by panel; block b takes the units
+// [b U / blocks, (b + 1) U / blocks), U = tiles x panels, one segment of
+// consecutive panels for each super-tile it meets (at most span of them).
+// The strips come through the copy engine where the wrapper says so (n % 4
+// == 0, and y on 16 bytes where the stream reads it), else by cp.async.
+struct StreamGrid {
+  int tiles;   // lower 128 x 128 super-tiles of dQ
+  int panels;  // 64-sample panels of N
+  int blocks;  // one an SM
+  int span;    // ws slots a block
+  int copy_engine;
+  __device__ __forceinline__ long long units() const {
+    return (long long)tiles * panels;
+  }
+  __device__ __forceinline__ long long first_unit(int b) const {
+    return (long long)b * units() / blocks;
+  }
+  // the block whose units hold unit u
+  __device__ __forceinline__ int block_of(long long u) const {
+    return (int)(((u + 1) * blocks - 1) / units());
+  }
+  // the ws slot of super-tile t's segment in block b
+  __device__ __forceinline__ long long slot(int b, int t) const {
+    return (long long)b * span + t - first_unit(b) / panels;
+  }
+};
+
+// The copy engine's part of the float32 SYRK: a stage's barrier counts the
+// bytes of its boxes; the consumers wait for its phase.
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// the box of map at (x, y) into dst, completing on bar
+__device__ __forceinline__ void tma_box(float* dst, const CUtensorMap* map,
+                                        int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_box(float* dst, const CUtensorMap* map,
+                                        int x, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(x), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Element (r, k) of a strip (rows of kSyK floats): 16-byte unit k / 4 of
+// row r at position (k / 4) ^ (r % 8), the copy engine's 128-byte swizzle,
+// so that the fragment reads and the column split below are conflict-free.
+__device__ __forceinline__ int stage_index(int r, int k) {
+  return r * kSyK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3);
+}
+
+// Super-tile t's segments are all in ws: sum them in panel order (the
+// blocks' order), two segments' sixteen 16-byte loads a thread in flight,
+// and write the entries with row >= col from the registers and their
+// mirror through Tsh (shared, 128 x kSyLd), each store coalesced; on the
+// diagonal, dalpha's rows too.
+__device__ void finish_super_tile(const float* ws, const float* da_ws,
+                                  const StreamGrid& sg, int t,
+                                  float* __restrict__ dq,
+                                  float* __restrict__ da, int m, int q,
+                                  float* Tsh) {
+  int tr, tc;
+  lower_tile(t, tr, tc);
+  const int r0 = tr * kSyEdge;
+  const int q0 = tc * kSyEdge;
+  const int b0 = sg.block_of((long long)t * sg.panels);
+  const int b1 = sg.block_of((long long)(t + 1) * sg.panels - 1);
+  if (da_ws && tr == tc) {  // dalpha's rows r0 .., summed the same way
+    for (int e = threadIdx.x; e < kSyEdge * q; e += kSyThreads) {
+      float v = 0.f;
+      for (int b = b0; b <= b1; ++b)
+        v += __ldcg(da_ws + (size_t)sg.slot(b, t) * kSyEdge * q + e);
+      if (r0 + e / q < m) da[(size_t)r0 * q + e] = v;
+    }
+  }
+  constexpr int kUnits = kSyEdgeElems / 4 / kSyThreads;
+  float4 v[kUnits];
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the segments in order, two at a time in flight
+  for (int b = b0; b <= b1; b += 2) {
+    const float4* p0 = reinterpret_cast<const float4*>(
+        ws + (size_t)sg.slot(b, t) * kSyEdgeElems);
+    const float4* p1 = b < b1 ? reinterpret_cast<const float4*>(
+                                    ws + (size_t)sg.slot(b + 1, t) *
+                                             kSyEdgeElems)
+                              : nullptr;
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      const int at = threadIdx.x + u * kSyThreads;
+      const float4 x = __ldcg(p0 + at);
+      const float4 z = p1 ? __ldcg(p1 + at) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[u].x += x.x;
+      v[u].y += x.y;
+      v[u].z += x.z;
+      v[u].w += x.w;
+      if (p1) {
+        v[u].x += z.x;
+        v[u].y += z.y;
+        v[u].z += z.z;
+        v[u].w += z.w;
+      }
+    }
+  }
+  // entries (r0 + r, q0 + c .. c + 3) with row >= col from the registers,
+  // 16-byte stores where all four are; the mirror (q0 + r, r0 + c .. c +
+  // 3) of the entries (r0 + c .., q0 + r) with row > col through Tsh
+  const bool vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(dq) % 16 == 0;
+  __syncthreads();  // Tsh is free
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) {
+    const int e = 4 * (threadIdx.x + u * kSyThreads);
+    const int r = e / kSyEdge, c = e % kSyEdge;
+    float* d = Tsh + r * kSyLd + c;
+    d[0] = v[u].x;
+    d[1] = v[u].y;
+    d[2] = v[u].z;
+    d[3] = v[u].w;
+    const int gr = r0 + r, gc = q0 + c;
+    if (gr >= m) continue;
+    float* out = dq + (size_t)gr * m + gc;
+    if (vec && gc + 3 < m && gr >= gc + 3) {
+      *reinterpret_cast<float4*>(out) = v[u];
+    } else {
+      const float x[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (gc + i < m && gr >= gc + i) out[i] = x[i];
+    }
+  }
+  __syncthreads();
+  for (int e = 4 * threadIdx.x; e < kSyEdgeElems; e += 4 * kSyThreads) {
+    const int r = e / kSyEdge, c = e % kSyEdge;
+    const int gr = q0 + r, gc = r0 + c;
+    if (gr >= m) continue;
+    const float x[4] = {Tsh[c * kSyLd + r], Tsh[(c + 1) * kSyLd + r],
+                        Tsh[(c + 2) * kSyLd + r], Tsh[(c + 3) * kSyLd + r]};
+    float* out = dq + (size_t)gr * m + gc;
+    if (vec && gc + 3 < m && gc > gr) {
+      *reinterpret_cast<float4*>(out) = make_float4(x[0], x[1], x[2], x[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (gc + i < m && gc + i > gr) out[i] = x[i];
+    }
+  }
+}
+
+// float32: 3xTF32 on wgmma (sm_90a), one block an SM, each with an equal
+// share of the (super-tile, panel) units (StreamGrid). The block's units
+// are one stream of 32-sample chunks, two a panel, through a 4-stage ring
+// (two chunks in flight, two in use); a chunk of super-tile t (rows r0 ..
+// r0 + 127, columns q0 .. q0 + 127) brings kmn's row strip, its column
+// strip, the weights and, on the diagonal, y. kTma (n % 4 == 0, so that
+// kmn's rows start on 16 bytes, and y on 16 bytes): one thread has the
+// copy engine fetch a chunk as three or four boxes (SyrkMaps), counted on
+// the stage's barrier; else every thread copies its part by 4-byte
+// cp.async (112 us against 59 at the hotel-0 shape, PERF.md).
+//   - the row strip is the register operand: warpgroup w takes rows r0 +
+//     64 w .., each thread scales its fragment by the weights (kmn * w
+//     rounded to float32, as the plain version) and splits it into hi and
+//     lo TF32 parts in registers;
+//   - the column strip is the shared-memory operand: the block splits it
+//     once, a chunk ahead, into hi and lo tiles in wgmma's core layout,
+//     double-buffered, for both warpgroups.
+// Each chunk is 12 m64n128k8 products a warpgroup (lo*hi, hi*lo, hi*hi for
+// each 8-deep step) into a partial that starts from zero with each 64-deep
+// panel and is then added into the running sum by FP32 adds; the copies of
+// the chunk three ahead and the split of the next chunk's column strip run
+// while the products do. One barrier a chunk: after it the products of the
+// chunk before are done (their ring stage and column tiles are refilled).
+// At the end of a super-tile's segment the running sum goes to the block's
+// ws slot for it and the block arrives on the tile's counter; the last of a
+// tile's segments to arrive (the counter decides, and is set back to 0 for
+// the next launch) sums the tile after the stream, when the ring is free.
+// On a diagonal super-tile the quadrant above the diagonal is computed with
+// the rest and not stored, as the upper half of each 64 x 64 diagonal
+// tile: wgmma's smallest product is 64 rows deep, and a product under a
+// branch serializes the warpgroup's products.
+// What bounds it (PERF.md, NVIDIA H100 80GB HBM3): a chunk's products alone
+// take ~1.0 us of an SM, and the column split and the A fragments, which
+// overlap them little, ~0.7 us more; at the hotel-0 shape ~59 us in all
+// against 16.5 us for the lower half's 3xTF32 operations.
+template <bool kTma>
+__global__ void __launch_bounds__(kSyThreads, 1)
     syrk_tc_kernel(const float* __restrict__ kmn, const float* __restrict__ w,
                    const float* __restrict__ y,
                    const unsigned char* __restrict__ mask,
                    float* __restrict__ dq, float* __restrict__ da, float* ws,
-                   int* counters, int m, int n, int q, SyrkGrid sg,
-                   int vec_n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ring = reinterpret_cast<float*>(smem_raw);
-  __shared__ int last;
-  const int bid = blockIdx.x;
-  const int nsyrk = sg.tiles * sg.splits;
-  if (bid >= nsyrk) {
-    const long wpb = kTcThreads / 32;
-    dalpha_warps<float>(kmn, w, y, mask, da, m, n, q, (bid - nsyrk) * wpb,
-                        sg.da_blocks * wpb);
-    return;
-  }
-  const int t = bid / sg.splits;
-  const int s = bid % sg.splits;
-  int tr, tc;
-  lower_tile(t, tr, tc);
-  const int r0 = tr * kTile;
-  const int q0 = tc * kTile;
-  const int j0 = s * sg.chunk;
-  const int jend = min(n, j0 + sg.chunk);
-  const int nch = (jend - j0 + kTcK - 1) / kTcK;
-  const int warp = threadIdx.x >> 5;
+                   int* counters, int m, int n, int q, StreamGrid sg,
+                   const __grid_constant__ SyrkMaps maps) {
+  extern __shared__ __align__(1024) unsigned char sy_smem[];
+  float* core = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(sy_smem) + 1023) & ~uintptr_t(1023));
+  float* ring = core + 2 * 2 * kSyStrip;            // [stage] rows, column
+  float* small = ring + kSyStages * kSyStage;       // [stage] w, y
+  __shared__ uint64_t full[kSyStages];
+  __shared__ int finish[kSyMaxSpan];  // tiles this block sums, -1 none
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const int wr = (warp & 1) * 32;
-  const int wc = (warp >> 1) * 32;
-  auto load = [&](int ch) {
-    float* As = ring + (ch % kTcStages) * kSyrkStage;
-    float* Bs = As + kTile * kALd;
-    float* Ws = Bs + kTile * kALd;
-    const int k0 = j0 + ch * kTcK;
-    cp_tile<float, kTile, kTcK, kALd, kTcThreads>(As, kmn, n, r0, k0, m, jend,
-                                                  vec_n != 0);
-    cp_tile<float, kTile, kTcK, kALd, kTcThreads>(Bs, kmn, n, q0, k0, m, jend,
-                                                  vec_n != 0);
-    cp_tile<float, 1, kTcK, kTcK, kTcThreads>(Ws, w, n, 0, k0, 1, jend,
-                                              vec_n != 0);
-  };
-  float acc[2][4][4], part[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = part[mi][ni][e] = 0.f;
-#pragma unroll
-  for (int st = 0; st < kTcStages - 1; ++st) {
-    if (st < nch) load(st);
-    cp_commit();
+  const int r = wg * 64 + warp * 16 + g;  // the fragments' rows r, r + 8
+  // dalpha in the stream (q <= kDaQ): the diagonal super-tiles' segments
+  // sum their rows' dalpha from the chunks too, threads 2 a and 2 a + 1 row
+  // a of the super-tile, the first and the second half of each chunk's
+  // samples, every column, each a fresh partial a panel as the products; at
+  // the segment's end the pair adds its two sums (first + second) beside
+  // the partial tile in ws (da_ws), and the tile's finisher sums the
+  // segments
+  float* da_ws = q <= kDaQ ? ws + (size_t)sg.blocks * sg.span * kSyEdgeElems
+                           : nullptr;
+  const int da_a = threadIdx.x >> 1;
+  const int da_s = threadIdx.x & 1;
+  float da_part[kDaQ] = {}, da_acc[kDaQ] = {};
+  const long long u0 = sg.first_unit(blockIdx.x);
+  const int nch = 2 * (int)(sg.first_unit(blockIdx.x + 1) - u0);
+  const int t0 = (int)(u0 / sg.panels);
+  if (threadIdx.x < kSyMaxSpan) finish[threadIdx.x] = -1;
+  if (kTma && threadIdx.x == 0) {
+    for (int i = 0; i < kSyStages; ++i) bar_init(full + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (const CUtensorMap* map : {&maps.kmn, &maps.w, &maps.y})
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
   }
-  for (int ch = 0; ch < nch; ++ch) {
-    cp_wait<kTcStages - 2>();
-    __syncthreads();
-    if (ch + kTcStages - 1 < nch) load(ch + kTcStages - 1);
-    cp_commit();
-    const float* As = ring + (ch % kTcStages) * kSyrkStage;
-    const float* Bs = As + kTile * kALd;
-    const float* Ws = Bs + kTile * kALd;
-#pragma unroll
-    for (int kk = 0; kk < kTcK; kk += 8) {
-      unsigned ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
-      const float w0 = Ws[kk + tq];
-      const float w1 = Ws[kk + tq + 4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {  // the left operand is kmn * w
-        const float* a = As + (wr + mi * 16 + g) * kALd + kk + tq;
-        split_tf32(a[0] * w0, ahi[mi][0], alo[mi][0]);
-        split_tf32(a[8 * kALd] * w0, ahi[mi][1], alo[mi][1]);
-        split_tf32(a[4] * w1, ahi[mi][2], alo[mi][2]);
-        split_tf32(a[8 * kALd + 4] * w1, ahi[mi][3], alo[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float* b = Bs + (wc + ni * 8 + g) * kALd + kk + tq;
-        split_tf32(b[0], bhi[ni][0], blo[ni][0]);
-        split_tf32(b[4], bhi[ni][1], blo[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_tf32(part[mi][ni], alo[mi], bhi[ni]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_tf32(part[mi][ni], ahi[mi], blo[ni]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_tf32(part[mi][ni], ahi[mi], bhi[ni]);
+  __syncthreads();
+  // Where the stream is: super-tile t = (tr, tc) and its panel p. One
+  // cursor for the copies, one for the products; both step a panel at a
+  // time, in unit order.
+  struct Cursor {
+    int t, p, tr, tc;
+  };
+  Cursor at{t0, (int)(u0 - (long long)t0 * sg.panels), 0, 0};
+  lower_tile(t0, at.tr, at.tc);
+  auto next_panel = [&](Cursor& x) {
+    if (++x.p < sg.panels) return;
+    x.p = 0;
+    ++x.t;
+    if (++x.tc > x.tr) {
+      ++x.tr;
+      x.tc = 0;
     }
-    if ((ch & 1) || ch == nch - 1) {  // a 64-deep panel ends: fold it in
+  };
+  Cursor ld = at;
+  // chunk c (the copies' cursor's panel, half c & 1) into its ring stage:
+  // the row strip, the column strip, the weights and (diagonal, dalpha in
+  // the stream) y; rows past m and samples past n zero
+  auto load_chunk = [&](int c) {
+    float* st = ring + (c % kSyStages) * kSyStage;
+    float* sm = small + (c % kSyStages) * kSySmall;
+    const int k0 = ld.p * kTile + (c & 1) * kSyK;
+    const bool with_y = da_ws && ld.tr == ld.tc;
+    if constexpr (kTma) {
+      if (threadIdx.x == 0) {
+        uint64_t* bar = full + c % kSyStages;
+        bar_expect(bar, (2 * kSyStrip + kSyK + (with_y ? kSyK * q : 0)) *
+                            (unsigned)sizeof(float));
+        tma_box(st, &maps.kmn, k0, ld.tr * kSyEdge, bar);
+        tma_box(st + kSyStrip, &maps.kmn, k0, ld.tc * kSyEdge, bar);
+        tma_box(sm, &maps.w, k0, bar);
+        if (with_y) tma_box(sm + kSyK, &maps.y, k0 * q, bar);
+      }
+    } else {
+      const int r0 = ld.tr * kSyEdge, q0 = ld.tc * kSyEdge;
+      for (int e = threadIdx.x; e < 2 * kSyStrip; e += kSyThreads) {
+        const int rr = e / kSyK;
+        const int k = e - rr * kSyK;
+        const int gr = rr < kSyEdge ? r0 + rr : q0 + rr - kSyEdge;
+        const bool ok = gr < m && k0 + k < n;
+        cp_async<4>(st + stage_index(rr, k),
+                    ok ? kmn + (size_t)gr * n + k0 + k : kmn, ok);
+      }
+      if (threadIdx.x < kSyK) {
+        const bool ok = k0 + (int)threadIdx.x < n;
+        cp_async<4>(sm + threadIdx.x, ok ? w + k0 + threadIdx.x : w, ok);
+      }
+      if (with_y && threadIdx.x < kSyK * q) {
+        const bool ok = k0 + (int)threadIdx.x / q < n;
+        cp_async<4>(sm + kSyK + threadIdx.x,
+                    ok ? y + (size_t)k0 * q + threadIdx.x : y, ok);
+      }
+      cp_commit();
+    }
+    if (c & 1) next_panel(ld);  // the panel is in flight: on to the next
+  };
+  // chunk c is in: its stage's barrier (kTma), else this thread's copies
+  // (cp_wait) and the barrier that follows
+  auto wait_chunk = [&](int c) {
+    if constexpr (kTma) bar_wait(full + c % kSyStages, (c / kSyStages) & 1);
+  };
+  // chunk c's column strip, landed, split into its hi and lo core tiles:
+  // each thread four units of four values; eight consecutive threads the
+  // same unit of eight rows (conflict-free both ways)
+  auto stage_col = [&](int c) {
+    const float* raw = ring + (c % kSyStages) * kSyStage + kSyStrip;
+    float* hi = core + (c & 1) * 2 * kSyStrip;
+    float* lo = hi + kSyStrip;
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+    for (int h = 0; h < 4; ++h) {
+      const int uu = (threadIdx.x >> 5) + 8 * h;
+      const int rr = (uu & 15) * 8 + (lane & 7);
+      const int k = (uu / 16 * 4 + (lane >> 3)) * 4;
+      const float4 v =
+          *reinterpret_cast<const float4*>(raw + stage_index(rr, k));
+      unsigned vh[4], vl[4];
+      split_rna(v.x, vh[0], vl[0]);
+      split_rna(v.y, vh[1], vl[1]);
+      split_rna(v.z, vh[2], vl[2]);
+      split_rna(v.w, vh[3], vl[3]);
+      const int off = core_index(rr, k);
+      *reinterpret_cast<uint4*>(hi + off) =
+          make_uint4(vh[0], vh[1], vh[2], vh[3]);
+      *reinterpret_cast<uint4*>(lo + off) =
+          make_uint4(vl[0], vl[1], vl[2], vl[3]);
+    }
+    fence_proxy_async();
+  };
+  for (int st = 0; st < kSyStages - 1; ++st) {
+    if (st < nch) {
+      load_chunk(st);
+    } else if constexpr (!kTma) {
+      cp_commit();
+    }
+  }
+  if (!da_ws)  // the block's dalpha pairs while the first chunks come in
+    dalpha_warps<float>(kmn, w, y, mask, da, m, n, q,
+                        (long)blockIdx.x * (kSyThreads / 32),
+                        (long)sg.blocks * (kSyThreads / 32));
+  // chunk c's A fragments, kmn * w rounded to float32 and split (the
+  // registers of chunk c + 1 are filled while chunk c's products run)
+  unsigned ahi[2][4][4], alo[2][4][4];
+  auto split_a = [&](int c, unsigned (&hi)[4][4], unsigned (&lo)[4][4]) {
+    const float* st = ring + (c % kSyStages) * kSyStage;
+    const float* wc = small + (c % kSyStages) * kSySmall;
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 8 * kk + tq;
+      const float w0 = wc[k];
+      const float w1 = wc[k + 4];
+      split_rna(__fmul_rn(st[stage_index(r, k)], w0), hi[kk][0], lo[kk][0]);
+      split_rna(__fmul_rn(st[stage_index(r + 8, k)], w0), hi[kk][1],
+                lo[kk][1]);
+      split_rna(__fmul_rn(st[stage_index(r, k + 4)], w1), hi[kk][2],
+                lo[kk][2]);
+      split_rna(__fmul_rn(st[stage_index(r + 8, k + 4)], w1), hi[kk][3],
+                lo[kk][3]);
+    }
+  };
+  float acc[64], part[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  if constexpr (!kTma) cp_wait<kSyStages - 2>();
+  wait_chunk(0);
+  __syncthreads();
+  stage_col(0);
+  split_a(0, ahi[0], alo[0]);
+  // two chunks a panel: h = c & 1 picks the column tiles and the A
+  // registers at compile time
+  for (int c0 = 0; c0 < nch; c0 += 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + h;
+      if constexpr (!kTma) cp_wait<kSyStages - 3>();  // chunks c, c + 1 in
+      __syncthreads();
+      const float* hi = core + h * 2 * kSyStrip;
+      const float* lo = hi + kSyStrip;
+      // the copies of chunk c + 3 (into chunk c - 1's stage, free since the
+      // barrier)
+      if (c + kSyStages - 1 < nch) {
+        load_chunk(c + kSyStages - 1);
+      } else if constexpr (!kTma) {
+        cp_commit();
+      }
+      // the products, the small terms first, a panel's first from zero;
+      // while they run, the next chunk's column tiles (their buffer was
+      // read by chunk c - 1's products) and its A fragments
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_tf32_n128(part, alo[h][kk], core_desc(hi, kk), h == 0 && kk == 0);
+        wgmma_tf32_n128(part, ahi[h][kk], core_desc(lo, kk), 0);
+        wgmma_tf32_n128(part, ahi[h][kk], core_desc(hi, kk), 0);
+      }
+      wgmma_commit();
+      if (da_ws && at.tr == at.tc) {
+        // dalpha's terms (kmn w) y of row da_a, the thread's half of the
+        // chunk's samples in order, four at a time; a sample whose weight
+        // is 0 (masked) adds 0 whatever its y
+        const float* st = ring + (c % kSyStages) * kSyStage;
+        const float* wc = small + (c % kSyStages) * kSySmall;
+        const float* yc = wc + kSyK;
+#pragma unroll
+        for (int i = 0; i < kSyK / 8; ++i) {
+          const int k = 4 * (kSyK / 8 * da_s + i);
+          const float4 kv =
+              *reinterpret_cast<const float4*>(st + stage_index(da_a, k));
+          const float4 wv = *reinterpret_cast<const float4*>(wc + k);
+          const float4 y0 = *reinterpret_cast<const float4*>(yc + k * q);
+          const float4 y1 = *reinterpret_cast<const float4*>(yc + k * q + 4);
+          const float kw[4] = {__fmul_rn(kv.x, wv.x), __fmul_rn(kv.y, wv.y),
+                               __fmul_rn(kv.z, wv.z), __fmul_rn(kv.w, wv.w)};
+          const bool on[4] = {wv.x != 0.f, wv.y != 0.f, wv.z != 0.f,
+                              wv.w != 0.f};
+          // y of sample e, column j: element q e + j of y0, y1
+          const float ys[8] = {y0.x, y0.y, y0.z, y0.w,
+                               y1.x, y1.y, y1.z, y1.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            acc[mi][ni][e] += part[mi][ni][e];
-            part[mi][ni][e] = 0.f;
+            if (q == 1) {
+              da_part[0] = __fmaf_rn(kw[e], on[e] ? ys[e] : 0.f, da_part[0]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < kDaQ; ++j)
+                da_part[j] = __fmaf_rn(kw[e], on[e] ? ys[2 * e + j] : 0.f,
+                                       da_part[j]);
+            }
           }
+        }
+      }
+      if (c + 1 < nch) {
+        wait_chunk(c + 1);
+        stage_col(c + 1);
+        split_a(c + 1, ahi[1 - h], alo[1 - h]);
+      }
+      wgmma_wait_all();
+    }
+    // a 64-deep panel ends: fold it in
+    const int c = c0 + 1;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] += part[e];
+#pragma unroll
+    for (int i = 0; i < kDaQ; ++i) {
+      da_acc[i] += da_part[i];
+      da_part[i] = 0.f;
+    }
+    const int t = at.t;
+    const bool diag = at.tr == at.tc;
+    next_panel(at);
+    if (at.t == t && c + 1 < nch) continue;
+    // the segment of super-tile t ends: acc[4 i + e] is row r + 8 (e / 2),
+    // column 8 i + 2 tq + e % 2 of its partial
+    float* out = ws + (size_t)sg.slot(blockIdx.x, t) * kSyEdgeElems;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = 8 * i + 2 * tq;
+      *reinterpret_cast<float2*>(out + r * kSyEdge + col) =
+          make_float2(acc[4 * i], acc[4 * i + 1]);
+      *reinterpret_cast<float2*>(out + (r + 8) * kSyEdge + col) =
+          make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+    if (da_ws && diag) {
+      float* dout = da_ws + (size_t)sg.slot(blockIdx.x, t) * kSyEdge * q;
+#pragma unroll
+      for (int i = 0; i < kDaQ; ++i) {
+        const float other = __shfl_xor_sync(0xffffffffu, da_acc[i], 1);
+        if (i < q && da_s == 0) dout[da_a * q + i] = da_acc[i] + other;
+        da_acc[i] = 0.f;
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int b0 = sg.block_of((long long)t * sg.panels);
+      const int b1 = sg.block_of((long long)(t + 1) * sg.panels - 1);
+      if (atomicAdd(counters + t, 1) == b1 - b0) {
+        counters[t] = 0;
+        finish[t - t0] = t;
+      }
     }
   }
-  cp_wait<0>();
-  float* out = ws + (size_t)bid * kTileElems;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int r = wr + mi * 16 + g;
-      const int c = wc + ni * 8 + 2 * tq;
-      *reinterpret_cast<float2*>(out + r * kTile + c) =
-          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      *reinterpret_cast<float2*>(out + (r + 8) * kTile + c) =
-          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
-    }
-  __syncthreads();  // the ring is free: the summed tile goes there
-  finish_tile<float>(ws, t, sg.splits, counters + t, dq, m, r0, q0, ring,
-                     &last);
+  if constexpr (!kTma) cp_wait<0>();
+  __syncthreads();
+  __threadfence();
+  for (int i = 0; i < sg.span; ++i)
+    if (finish[i] >= 0)
+      finish_super_tile(ws, da_ws, sg, finish[i], dq, da, m, q, ring);
 }
 
 // float64 SYRK and dalpha: the same grid and epilogue, SIMT
@@ -606,7 +1027,10 @@ static cudaError_t opt_in(int device) {
   if ((err = cudaFuncSetAttribute(beta_tc_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   kBetaSmem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(syrk_tc_kernel,
+      (err = cudaFuncSetAttribute(syrk_tc_kernel<true>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kSyrkSmem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(syrk_tc_kernel<false>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   kSyrkSmem)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(syrk_f64_kernel,
@@ -639,17 +1063,71 @@ static cudaError_t launch_beta(const double* linv, const double* kmn,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a float32 map of rank 1 (dims[0] elements) or 2 (dims[1] rows of dims[0],
+// row stride dims[0]), boxes of box[] with zeros past the ends
+static bool encode(CUtensorMap* map, const float* base, int rank,
+                   const cuuint64_t* dims, const cuuint32_t* box,
+                   CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint64_t stride[1] = {dims[0] * sizeof(float)};
+  const cuuint32_t one[2] = {1, 1};
+  return fn && fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                  const_cast<float*>(base), dims, stride, box, one,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the copy engine feeds the stream where the wrapper says so
+// (sg.copy_engine: n % 4 == 0, and kmn, w and the y it reads start on 16
+// bytes), else the threads copy
 static cudaError_t launch_syrk(const float* kmn, const float* w,
                                const float* y, const unsigned char* mask,
                                float* dq, float* da, float* ws, int* counters,
-                               int m, int n, int q, SyrkGrid sg,
+                               int m, int n, int q, StreamGrid sg,
                                cudaStream_t stream) {
-  sg.da_blocks = (int)(((long)m * q + (kTcThreads / 32) * kDaPairs - 1) /
-                       ((kTcThreads / 32) * kDaPairs));
-  const int vec_n = n % 4 == 0 && aligned16(kmn) && aligned16(w);
-  syrk_tc_kernel<<<sg.tiles * sg.splits + sg.da_blocks, kTcThreads, kSyrkSmem,
-                   stream>>>(kmn, w, y, mask, dq, da, ws, counters, m, n, q,
-                             sg, vec_n);
+  SyrkMaps maps{};
+  if (sg.copy_engine) {
+    if (!aligned16(kmn) || !aligned16(w) || (q <= kDaQ && !aligned16(y)))
+      return cudaErrorInvalidValue;
+    const cuuint64_t dk[2] = {(cuuint64_t)n, (cuuint64_t)m};
+    const cuuint32_t bk[2] = {kSyK, kSyEdge};
+    const cuuint64_t dw[1] = {(cuuint64_t)n};
+    const cuuint32_t bw[1] = {kSyK};
+    const cuuint64_t dy[1] = {(cuuint64_t)n * q};
+    const cuuint32_t by[1] = {(cuuint32_t)(kSyK * q)};
+    if (!encode(&maps.kmn, kmn, 2, dk, bk, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !encode(&maps.w, w, 1, dw, bw, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        (q <= kDaQ &&
+         !encode(&maps.y, y, 1, dy, by, CU_TENSOR_MAP_SWIZZLE_NONE)))
+      return cudaErrorInvalidValue;
+    syrk_tc_kernel<true><<<sg.blocks, kSyThreads, kSyrkSmem, stream>>>(
+        kmn, w, y, mask, dq, da, ws, counters, m, n, q, sg, maps);
+  } else {
+    syrk_tc_kernel<false><<<sg.blocks, kSyThreads, kSyrkSmem, stream>>>(
+        kmn, w, y, mask, dq, da, ws, counters, m, n, q, sg, maps);
+  }
   return cudaGetLastError();
 }
 
@@ -666,58 +1144,129 @@ static cudaError_t launch_syrk(const double* kmn, const double* w,
   return cudaGetLastError();
 }
 
+static long lower_tiles(int m, int edge) {
+  const long rows = (m + edge - 1) / edge;
+  return rows * (rows + 1) / 2;
+}
+
+// The SYRK's grid from the plan (ops/fitc.py::fitc_plan), checked. Float32:
+// blocks (at most one a unit), span, ws slots a block (at least the
+// super-tiles that ceil(units / blocks) consecutive units can meet), and
+// whether the copy engine feeds the stream (only where n % 4 == 0).
+static bool make_grid(int m, int n, int blocks, int span, int copy_engine,
+                      StreamGrid* g) {
+  const long tiles = lower_tiles(m, kSyEdge);
+  const long panels = (n + kTile - 1) / kTile;
+  if (tiles > (1L << 30) || blocks < 1 || blocks > tiles * panels ||
+      blocks > (1 << 20) || (copy_engine && n % 4 != 0))
+    return false;
+  const long per = (tiles * panels + blocks - 1) / blocks;
+  if (span < (per + panels - 2) / panels + 1 || span > kSyMaxSpan)
+    return false;
+  *g = StreamGrid{(int)tiles, (int)panels, blocks, span, copy_engine != 0};
+  return true;
+}
+
+// Float64: splits of chunk samples over the 64 x 64 tiles, every split
+// non-empty, (splits - 1) * chunk < n <= splits * chunk (no third int).
+static bool make_grid(int m, int n, int splits, int chunk, int none,
+                      SyrkGrid* g) {
+  const long tiles = lower_tiles(m, kTile);
+  if (none != 0 || splits < 1 || chunk < kTile || chunk % kTile != 0 ||
+      (long)(splits - 1) * chunk >= n || (long)splits * chunk < n ||
+      tiles * splits > (1L << 30))
+    return false;
+  *g = SyrkGrid{(int)tiles, splits, chunk, 0};
+  return true;
+}
+
+template <typename T>
+using SyrkGridOf =
+    std::conditional_t<std::is_same_v<T, float>, StreamGrid, SyrkGrid>;
+
 // Scratch from the caller (ops/fitc.py): kmn (m, n); partial (ceil(m/64),
-// n, float64 at both dtypes); w (n); ws (tiles * splits * 64^2); counters (ceil(n/64) + tiles
-// ints). splits and chunk: the plan's N-split of the SYRK
-// (ops/fitc.py::fitc_plan), (splits - 1) * chunk < n <= splits * chunk.
+// n, float64 at both dtypes); w (n); ws (blocks * span super-tiles and,
+// for q <= kDaQ, blocks * span * 128 * q dalpha partials at float32, tiles
+// * splits 64 x 64 tiles at float64); counters (ceil(n/64) +
+// the SYRK's tiles ints). g0, g1, g2: the SYRK's grid, blocks, span and
+// the copy engine at float32, splits, chunk and 0 at float64 (make_grid).
 template <typename T>
 static int launch_fitc(const T* pseudo, const T* linv, const T* x, const T* y,
                        const T* var, const unsigned char* mask, T* kmn,
                        double* partial, T* w, T* dq, T* da, T* ws, int* counters,
-                       int m, int n, int d, int q, int splits, int chunk,
+                       int m, int n, int d, int q, int g0, int g1, int g2,
                        int family, int ncomp, const double* coefs,
                        const double* weights, int device,
                        cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   FamilyConsts<T> fc;
+  SyrkGridOf<T> sg;
   if (m <= 0 || n <= 0 || d <= 0 || q <= 0 ||
       !make_family<T>(family, ncomp, coefs, weights, &fc))
     return (int)cudaErrorInvalidValue;
   const int row_blocks = (m + kTile - 1) / kTile;
   const int col_blocks = (n + kTile - 1) / kTile;
-  const int tiles = row_blocks * (row_blocks + 1) / 2;
-  if ((m + 7) / 8 > 65535 || row_blocks > 65535 || splits < 1 ||
-      chunk < kTile || chunk % kTile != 0 || (long)(splits - 1) * chunk >= n ||
-      (long)splits * chunk < n || (long)tiles * splits > (1L << 30))
+  if ((m + 7) / 8 > 65535 || row_blocks > 65535 ||
+      !make_grid(m, n, g0, g1, g2, &sg))
     return (int)cudaErrorInvalidValue;
   if ((err = opt_in(device)) != cudaSuccess) return (int)err;
 
   kmn_kernel<T><<<dim3((n + 31) / 32, (m + 7) / 8), dim3(32, 8), 0, stream>>>(
-      pseudo, x, kmn, counters, col_blocks + tiles, m, n, d, fc);
+      pseudo, x, kmn, counters, col_blocks + sg.tiles, m, n, d, fc);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = launch_beta(linv, kmn, partial, var, mask, w, counters, m, n,
                          dim3(col_blocks, row_blocks), stream)) != cudaSuccess)
     return (int)err;
-  SyrkGrid sg{tiles, splits, chunk, 0};
   return (int)launch_syrk(kmn, w, y, mask, dq, da, ws, counters + col_blocks,
                           m, n, q, sg, stream);
 }
 
+// The float32 SYRK and dalpha launch alone, on kmn and w computed
+// beforehand, for timing it by itself (ops/fitc.py::fitc_syrk_alone): the
+// caller zeroes its super-tiles' arrival counters once (the kernel sets
+// each back to 0 when its tile is done).
+static int launch_syrk_alone(const float* kmn, const float* w, const float* y,
+                             const unsigned char* mask, float* dq, float* da,
+                             float* ws, int* counters, int m, int n, int q,
+                             int blocks, int span, int copy_engine,
+                             int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  StreamGrid sg;
+  if (m <= 0 || n <= 0 || q <= 0 ||
+      !make_grid(m, n, blocks, span, copy_engine, &sg))
+    return (int)cudaErrorInvalidValue;
+  if ((err = opt_in(device)) != cudaSuccess) return (int)err;
+  return (int)launch_syrk(kmn, w, y, mask, dq, da, ws, counters, m, n, q, sg,
+                          stream);
+}
+
 }  // namespace egp
+
+extern "C" int egp_fitc_syrk_f32(const float* kmn, const float* w,
+                                 const float* y, const unsigned char* mask,
+                                 float* dq, float* da, float* ws,
+                                 int* counters, int m, int n, int q,
+                                 int blocks, int span, int copy_engine,
+                                 int device, void* stream) {
+  return egp::launch_syrk_alone(kmn, w, y, mask, dq, da, ws, counters, m, n,
+                                q, blocks, span, copy_engine, device,
+                                (cudaStream_t)stream);
+}
 
 extern "C" int egp_fitc_f32(const float* pseudo, const float* linv,
                             const float* x, const float* y, const float* var,
                             const unsigned char* mask, float* kmn,
                             double* partial, float* w, float* dq, float* da,
                             float* ws, int* counters, int m, int n, int d,
-                            int q, int splits, int chunk, int family,
-                            int ncomp, const double* coefs,
+                            int q, int blocks, int span, int copy_engine,
+                            int family, int ncomp, const double* coefs,
                             const double* weights, int device, void* stream) {
   return egp::launch_fitc<float>(pseudo, linv, x, y, var, mask, kmn, partial,
-                                 w, dq, da, ws, counters, m, n, d, q, splits,
-                                 chunk, family, ncomp, coefs, weights, device,
-                                 (cudaStream_t)stream);
+                                 w, dq, da, ws, counters, m, n, d, q, blocks,
+                                 span, copy_engine, family, ncomp, coefs,
+                                 weights, device, (cudaStream_t)stream);
 }
 
 extern "C" int egp_fitc_f64(const double* pseudo, const double* linv,
@@ -726,10 +1275,11 @@ extern "C" int egp_fitc_f64(const double* pseudo, const double* linv,
                             double* kmn, double* partial, double* w,
                             double* dq, double* da, double* ws, int* counters,
                             int m, int n, int d, int q, int splits, int chunk,
-                            int family, int ncomp, const double* coefs,
-                            const double* weights, int device, void* stream) {
+                            int none, int family, int ncomp,
+                            const double* coefs, const double* weights,
+                            int device, void* stream) {
   return egp::launch_fitc<double>(pseudo, linv, x, y, var, mask, kmn, partial,
                                   w, dq, da, ws, counters, m, n, d, q, splits,
-                                  chunk, family, ncomp, coefs, weights, device,
-                                  (cudaStream_t)stream);
+                                  chunk, none, family, ncomp, coefs, weights,
+                                  device, (cudaStream_t)stream);
 }

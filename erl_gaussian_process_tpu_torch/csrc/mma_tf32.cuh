@@ -1,5 +1,5 @@
-// 3xTF32 on the tensor cores (mma.sync m16n8k8, FP32 accumulation), shared
-// by csrc/bank.cu and csrc/fitc.cu: each float32 operand is
+// 3xTF32 on the tensor cores (mma.sync m16n8k8, FP32 accumulation), used
+// by csrc/bank.cu: each float32 operand is
 // split into hi + lo TF32 parts (cvt.rna) and a product taken as lo*hi +
 // hi*lo + hi*hi, the counterpart of the JAX kernels' bf16x3 _dot3x. Keeps
 // about FP32 accuracy at the tensor cores' rate; plain TF32 (one product)

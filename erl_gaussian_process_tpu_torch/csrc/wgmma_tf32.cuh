@@ -1,5 +1,5 @@
 // 3xTF32 on Hopper's warpgroup products (wgmma, sm_90a), shared by
-// csrc/trsm.cu and csrc/chol.cu: the split of a float32 value into hi + lo
+// csrc/trsm.cu, csrc/chol.cu and csrc/fitc.cu: the split of a float32 value into hi + lo
 // TF32 parts, the core-matrix layout of a K-major shared-memory operand and
 // its descriptor, and the m64nNk8 TF32 products with the A operand in
 // registers. A product is taken as lo*hi + hi*lo + hi*hi with FP32

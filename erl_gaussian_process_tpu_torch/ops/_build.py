@@ -103,10 +103,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("egp_fitc_f32", "egp_fitc_f64"):
         fn = getattr(lib, name)
         # pseudo, linv, x, y, var, mask, kmn, partial, w, dq, da, ws,
-        # counters, m, n, d, q, splits, chunk, family, ncomp, coefs,
+        # counters, m, n, d, q, the SYRK's grid (blocks, span, copy engine
+        # at float32; splits, chunk, 0 at float64), family, ncomp, coefs,
         # weights, device, stream
-        fn.argtypes = [_P] * 13 + [_I] * 8 + [_PD, _PD, _I, _P]
+        fn.argtypes = [_P] * 13 + [_I] * 9 + [_PD, _PD, _I, _P]
         fn.restype = _I
+    # kmn, w, y, mask, dq, da, ws, counters, m, n, q, blocks, span, copy
+    # engine, device, stream
+    lib.egp_fitc_syrk_f32.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+    lib.egp_fitc_syrk_f32.restype = _I
     for name in ("egp_bank_fit_f32", "egp_bank_fit_f64"):
         fn = getattr(lib, name)
         # x, var, mask, y, L, L_inv, alpha, batch, n, d, q, family, ncomp,

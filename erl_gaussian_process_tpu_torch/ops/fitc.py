@@ -28,9 +28,16 @@ from erl_gaussian_process_tpu_torch.ops.gram import (
     family_spec,
     packed_spec,
 )
+from erl_gaussian_process_tpu_torch.utils.timing import count
 
-TILE = 64  # csrc/fitc.cu kTile: the tile edge of beta and of dQ
-SYRK_BLOCKS_PER_SM = 3  # the SYRK's blocks per SM a split plan aims at
+TILE = 64  # csrc/fitc.cu kTile: the tile edge of beta and the float64 SYRK
+SYRK_EDGE = 128  # csrc/fitc.cu kSyEdge: the float32 SYRK's super-tile edge
+# the float32 SYRK's blocks an SM holds (two warpgroups and 194.5 KB of
+# shared memory each): its grid is one wave of SYRK_BLOCKS_PER_SM x SMs
+SYRK_BLOCKS_PER_SM = 1
+F64_BLOCKS_PER_SM = 3  # the float64 SYRK's blocks per SM its split aims at
+SYRK_MAX_SPAN = 64  # csrc/fitc.cu kSyMaxSpan: super-tiles a block may meet
+SYRK_DA_Q = 2  # csrc/fitc.cu kDaQ: dalpha columns the float32 SYRK streams
 LAUNCHES = 3  # kmn, beta (+ weights), SYRK (+ dalpha)
 
 
@@ -48,42 +55,107 @@ def lower_tile(b: int) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class FitcPlan:
     """The kernel's grid at (m, n): ``row_blocks`` x ``col_blocks`` tiles of
-    beta, ``tiles`` lower tiles of dQ, each summed over ``splits`` chunks of
-    ``chunk`` samples (a multiple of :data:`TILE`; the last one may be
-    short), in ``launches`` kernel launches."""
+    beta (64 x 64; ``col_blocks`` is also the count of 64-sample panels),
+    and the SYRK's.
+
+    Float32: ``super_tiles`` lower 128 x 128 super-tiles of dQ; the units
+    of work are (super-tile, panel) pairs in that order, and block b of
+    ``blocks`` takes the units [b U / blocks, (b + 1) U / blocks), U =
+    super-tiles x panels, one segment of panels for each super-tile it
+    meets, at most ``span`` of them (``csrc/fitc.cu`` ``StreamGrid``);
+    ``copy_engine``: its strips may come through the copy engine (TMA),
+    which wants kmn's rows to start on 16 bytes (n % 4 == 0); else, and
+    where y does not start on 16 bytes (:func:`_copy_engine`), through
+    4-byte ``cp.async`` copies (at the hotel-0 shape 112 against 59 us,
+    PERF.md). Float64: ``tiles`` lower 64 x 64 tiles, each summed over
+    ``splits`` chunks of ``chunk`` samples (a multiple of :data:`TILE`;
+    the last one may be short). ``launches`` kernel launches either way."""
 
     row_blocks: int
     col_blocks: int
+    super_tiles: int
+    blocks: int
+    span: int
+    copy_engine: bool
     tiles: int
     splits: int
     chunk: int
     launches: int = LAUNCHES
 
     def split_range(self, s: int, n: int) -> range:
-        """The samples split s sums."""
+        """The samples float64 split s sums."""
         return range(s * self.chunk, min(n, (s + 1) * self.chunk))
+
+
+def _lower_tiles(m: int, edge: int) -> int:
+    rows = -(-m // edge)
+    return rows * (rows + 1) // 2
 
 
 @functools.lru_cache(maxsize=None)
 def fitc_plan(m: int, n: int, sms: int) -> FitcPlan:
     """The FITC kernel's plan for M = m pseudo points and n samples on a
-    card with ``sms`` SMs: as many N-splits as keep the SYRK's tiles x
-    splits blocks within :data:`SYRK_BLOCKS_PER_SM` per SM (4 fit one SM's
-    shared memory), each split at least one 64-sample panel and every split
-    non-empty: 171 tiles x 2 splits of 1024 at the hotel-0 shape on an
-    H100, the fastest of 1 to 8 splits there (PERF.md)."""
+    card with ``sms`` SMs.
+
+    The float32 SYRK computes dQ's lower 128 x 128 super-tiles (two
+    warpgroups a block, each 64 rows against the super-tile's 128 columns;
+    a diagonal super-tile's quadrant above the diagonal is computed and not
+    stored). Its grid is one wave: a block an SM, each with an equal share
+    (to one unit) of the super-tiles x 64-sample panels, so that no SM
+    waits for a wave the tiles fill in part (45 super-tiles x 32 panels
+    over 132 blocks at the hotel-0 shape, 10 or 11 panels a block); a
+    super-tile's segments are its split partials, summed in panel order.
+    The float64 SYRK keeps its split of the 64 x 64 tiles: as many N-splits
+    as keep its tiles x splits blocks within :data:`F64_BLOCKS_PER_SM` per
+    SM, each split at least one panel and none empty."""
     row_blocks = -(-m // TILE)
-    tiles = row_blocks * (row_blocks + 1) // 2
     panels = -(-n // TILE)
-    splits = max(1, min(panels, SYRK_BLOCKS_PER_SM * sms // tiles))
+    super_tiles = _lower_tiles(m, SYRK_EDGE)
+    units = super_tiles * panels
+    blocks = min(units, max(SYRK_BLOCKS_PER_SM * sms,
+                            -(-units // ((SYRK_MAX_SPAN - 1) * panels))))
+    per = -(-units // blocks)
+    tiles = _lower_tiles(m, TILE)
+    splits = max(1, min(panels, F64_BLOCKS_PER_SM * sms // tiles))
     chunk = -(-panels // splits) * TILE
-    return FitcPlan(row_blocks=row_blocks, col_blocks=panels, tiles=tiles,
+    return FitcPlan(row_blocks=row_blocks, col_blocks=panels,
+                    super_tiles=super_tiles, blocks=blocks,
+                    span=(per + panels - 2) // panels + 1,
+                    copy_engine=n % 4 == 0, tiles=tiles,
                     splits=-(-n // chunk), chunk=chunk)
 
 
 @functools.lru_cache(maxsize=None)
 def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _syrk_workspace(plan: FitcPlan, q: int, dtype, device) -> torch.Tensor:
+    """The SYRK's split partials: ``span`` super-tiles a float32 block
+    (then, for q <= :data:`SYRK_DA_Q`, ``span`` partials of 128 dalpha
+    rows), a 64 x 64 tile a float64 block."""
+    if dtype != torch.float32:
+        return torch.empty((plan.tiles * plan.splits * TILE * TILE,),
+                           dtype=dtype, device=device)
+    tile = SYRK_EDGE * SYRK_EDGE + (SYRK_EDGE * q if q <= SYRK_DA_Q else 0)
+    return torch.empty((plan.blocks * plan.span * tile,), dtype=dtype,
+                       device=device)
+
+
+def _copy_engine(plan: FitcPlan, y) -> bool:
+    """Whether the copy engine feeds the float32 SYRK: the plan's choice
+    by shape, and y starting on 16 bytes where the SYRK's stream reads it
+    (q <= :data:`SYRK_DA_Q`); kmn and w are the wrappers' scratch."""
+    return plan.copy_engine and (y.shape[1] > SYRK_DA_Q
+                                 or y.data_ptr() % 16 == 0)
+
+
+def _syrk_grid(plan: FitcPlan, dtype, y) -> tuple:
+    """The three ints of the SYRK's grid the C entries take: blocks, span
+    and the copy engine (:func:`_copy_engine`) at float32, splits, chunk
+    and 0 at float64."""
+    return ((plan.blocks, plan.span, int(_copy_engine(plan, y)))
+            if dtype == torch.float32 else (plan.splits, plan.chunk, 0))
 
 
 def fitc_update_plain(name: str, pseudo, linv, x, y, var, mask, scale,
@@ -175,8 +247,7 @@ def _fitc_cuda(pseudo, linv, x, y, var, mask, base, ratios, weights, scale):
     partial = torch.empty((plan.row_blocks, n), dtype=torch.float64,
                           device=dev)
     w = torch.empty((n,), dtype=dt, device=dev)
-    ws = torch.empty((plan.tiles * plan.splits, TILE, TILE), dtype=dt,
-                     device=dev)
+    ws = _syrk_workspace(plan, q, dt, dev)
     counters = torch.empty((plan.col_blocks + plan.tiles,), dtype=torch.int32,
                            device=dev)
     kl = load_library()
@@ -186,11 +257,50 @@ def _fitc_cuda(pseudo, linv, x, y, var, mask, base, ratios, weights, scale):
               var.data_ptr(), mask.data_ptr(), kmn.data_ptr(),
               partial.data_ptr(), w.data_ptr(), dq.data_ptr(),
               da.data_ptr(), ws.data_ptr(), counters.data_ptr(), m, n, d, q,
-              plan.splits, plan.chunk, fam, ncomp, coefs, weights, dev.index,
+              *_syrk_grid(plan, dt, y), fam, ncomp, coefs, weights, dev.index,
               stream)
     kl.check(code, "FITC kernel launch")
     note_launch(fitc_update_cuda)
+    if dt == torch.float32:
+        count("fitc.syrk_tma" if _copy_engine(plan, y)
+              else "fitc.syrk_cp_async")
     return dq, da
+
+
+def fitc_syrk_alone(kmn, w, y, mask):
+    """The float32 SYRK and dalpha, the last of the FITC kernel's launches,
+    by itself on a kmn (M, n) and weights w (n,) computed beforehand
+    (``mask ? 1 / (lam + var) : 0``), on :func:`fitc_plan`'s grid: returns
+    ``(launch, dq, da)``, ``launch()`` writing dQ (M, M) and dalpha (M, q)
+    into ``dq`` and ``da`` with one launch on the current stream, so that
+    ``chip_smoke.py`` times the SYRK alone by CUDA events (kmn and w must
+    start on 16 bytes where the copy engine reads them). The map never
+    calls it, and its launches are not counted."""
+    check_cuda_operands("fitc_syrk_alone", torch.float32, kmn, w, y)
+    m, n = kmn.shape
+    q = y.shape[1]
+    if w.shape != (n,) or y.shape != (n, q) or mask.shape != (n,) \
+            or mask.dtype != torch.bool or mask.device != kmn.device:
+        raise ValueError("fitc_syrk_alone: shapes, or a mask that is not "
+                         "bool on the operands' device")
+    dev = kmn.device
+    plan = fitc_plan(m, n, _sms(dev.index))
+    dq = torch.empty((m, m), dtype=kmn.dtype, device=dev)
+    da = torch.empty((m, q), dtype=kmn.dtype, device=dev)
+    ws = _syrk_workspace(plan, q, kmn.dtype, dev)
+    # the kernel sets each super-tile's counter back to 0 when it is done
+    counters = torch.zeros((plan.super_tiles,), dtype=torch.int32, device=dev)
+    kl = load_library()
+
+    def launch():
+        code = kl.lib.egp_fitc_syrk_f32(
+            kmn.data_ptr(), w.data_ptr(), y.data_ptr(), mask.data_ptr(),
+            dq.data_ptr(), da.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+            m, n, q, *_syrk_grid(plan, kmn.dtype, y), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        kl.check(code, "FITC SYRK launch")
+
+    return launch, dq, da
 
 
 define("fitc_update(Tensor pseudo, Tensor linv, Tensor x, Tensor y, "

@@ -1649,6 +1649,120 @@ def test_fitc_kernel_at_four_poses(cuda, dtype):
     assert all(k <= 2 * p for k, p in zip(kernel, plain)), (kernel, plain)
 
 
+def _fitc_args_at(cuda, m, n, d, var):
+    if d == 2:
+        return _fitc_args_2d(cuda, torch.float32, m, n, d, var)
+    if m == 1152:
+        return _fitc_args_3d(cuda, torch.float32, n, var)
+    return _fitc_args(cuda, torch.float32, m, n, var)
+
+
+@pytest.mark.parametrize("m,n,d", [(1024, 2048, 2), (1152, 8192, 3),
+                                   (1152, 4096, 3), (1089, 1500, 3),
+                                   (1089, 1501, 3)])
+def test_fitc_syrk_at_the_path_shapes(cuda, m, n, d):
+    """The float32 SYRK's grid (fitc_plan: 128 x 128 super-tiles, a block
+    an SM) at the 2D map's shape, four poses, a gloo rank's two and a ragged
+    M and N (1501 samples: the plan's cp.async path): against the plain version at var 0.1 (to 1e-4 of the result's
+    magnitude), dQ exactly symmetric, two calls bit for bit (the kernel
+    sets its super-tiles' counters back), one launch counted."""
+    args = _fitc_args_at(cuda, m, n, d, 0.1)
+    assert args[1].shape == (m, d) and args[3].shape == (n, d)
+    before = launch_counts()["fitc"]
+    dq, da = fitc_update_cuda(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["fitc"] == before + 1
+    dq_ref, da_ref = fitc_update_plain(*args)
+    assert float((dq - dq_ref).abs().max() / dq_ref.abs().max()) <= 1e-4
+    assert float((da - da_ref).abs().max() / da_ref.abs().max()) <= 1e-4
+    assert torch.equal(dq, dq.T)
+    again = fitc_update_cuda(*args)
+    assert torch.equal(dq, again[0]) and torch.equal(da, again[1])
+
+
+def test_fitc_copy_paths_agree_bitwise(cuda):
+    """The plan's two copy paths of the float32 SYRK (fitc_plan's
+    copy_engine): 1501 samples come through cp.async, the same samples
+    with three masked ones appended (1504, the same 24 panels) through the
+    copy engine, and the two updates agree bit for bit; the counters
+    fitc.syrk_cp_async and fitc.syrk_tma say which path served each
+    call."""
+    from erl_gaussian_process_tpu_torch.utils.timing import counters
+
+    args = list(_fitc_args(cuda, torch.float32, 1089, 1501, 0.1))
+    before = counters()
+    dq, da = fitc_update_cuda(*args)
+    padded = list(args)
+    padded[3] = torch.cat([args[3], torch.full_like(args[3][:3], 0.5)])
+    padded[4] = torch.cat([args[4], torch.ones_like(args[4][:3])])
+    padded[5] = torch.cat([args[5], torch.full_like(args[5][:3], 0.1)])
+    padded[6] = torch.cat([args[6], torch.zeros_like(args[6][:3])])
+    got = fitc_update_cuda(*padded)
+    after = counters()
+    assert torch.equal(dq, got[0]) and torch.equal(da, got[1])
+    for name in ("fitc.syrk_cp_async", "fitc.syrk_tma"):
+        assert after.get(name, 0) - before.get(name, 0) == 1, name
+
+
+@pytest.mark.parametrize("n", [1501, 2048])
+def test_fitc_unaligned_targets_are_bitwise_neutral(cuda, n):
+    """A y that starts 4 bytes into its buffer (which the copy engine does
+    not read: such a call takes the cp.async path, ops/fitc.py
+    _copy_engine) gives the update of the same y aligned, bit for bit."""
+    args = list(_fitc_args(cuda, torch.float32, 1089, n, 0.1))
+    dq, da = fitc_update_cuda(*args)
+    buf = torch.empty(args[4].numel() + 1, dtype=torch.float32, device=cuda)
+    shifted = buf[1:].view(args[4].shape)
+    shifted.copy_(args[4])
+    assert shifted.data_ptr() % 16 != 0
+    args[4] = shifted
+    got = fitc_update_cuda(*args)
+    assert torch.equal(dq, got[0]) and torch.equal(da, got[1])
+
+
+def test_fitc_kernel_with_three_target_columns(cuda):
+    """dalpha with q = 3 columns, more than the SYRK's stream carries
+    (csrc/fitc.cu kDaQ): one warp a (row, column) pair before the stream,
+    against the plain version at var 0.1 (to 1e-4), dQ exactly symmetric,
+    two calls bit for bit."""
+    args = list(_fitc_args(cuda, torch.float32, 1152, 2048, 0.1))
+    args[4] = torch.cat([args[4], args[4][:, :1] * -0.5], dim=1)
+    assert args[4].shape == (2048, 3)
+    dq, da = fitc_update_cuda(*args)
+    dq_ref, da_ref = fitc_update_plain(*args)
+    assert float((dq - dq_ref).abs().max() / dq_ref.abs().max()) <= 1e-4
+    assert float((da - da_ref).abs().max() / da_ref.abs().max()) <= 1e-4
+    assert torch.equal(dq, dq.T)
+    again = fitc_update_cuda(*args)
+    assert torch.equal(dq, again[0]) and torch.equal(da, again[1])
+
+
+def test_fitc_syrk_alone_repeats_bitwise(cuda):
+    """The SYRK launched alone (the timing entry of chip_smoke.py) on kmn
+    and weights computed by the plain version: kmn w kmn^T to 1e-4, dQ
+    exactly symmetric, and a second launch on the same buffers bit for bit
+    (its arrival counters are zeroed once, then set back by the kernel)."""
+    from erl_gaussian_process_tpu_torch.ops.fitc import fitc_syrk_alone
+    from erl_gaussian_process_tpu_torch.ops.gram import cross_gram_plain
+
+    name, P, linv, x, y, var, mask, scale = _fitc_args_3d(
+        cuda, torch.float32, 2048, 1e-4)
+    kmn = cross_gram_plain(name, P, x, scale).contiguous()
+    lam = torch.clamp(1.0 - torch.sum((linv @ kmn) ** 2, dim=0), min=0.0)
+    w = torch.where(mask, 1.0 / (lam + var), torch.zeros_like(lam))
+    launch, dq, da = fitc_syrk_alone(kmn, w, y, mask)
+    launch()
+    first = (dq.clone(), da.clone())
+    launch()
+    assert torch.equal(dq, first[0]) and torch.equal(da, first[1])
+    ref = (kmn * w[None, :]) @ kmn.T
+    assert float((dq - ref).abs().max() / ref.abs().max()) <= 1e-4
+    assert torch.equal(dq, dq.T)
+    yv = torch.where(mask[:, None], y, torch.zeros_like(y))
+    ref_a = (kmn * w[None, :]) @ yv
+    assert float((da - ref_a).abs().max() / ref_a.abs().max()) <= 1e-4
+
+
 def test_artifact_round_trip_on_the_card(cuda):
     """The map's update and predict artifacts exported on the card,
     through bytes, equal the eager step bit for bit (a call after the one
